@@ -22,9 +22,32 @@ started together), then:
    last-sample f32 sigma lies within the sigma tolerance of 0 (a sign flip
    there moves the ray's weight onto the 1e10 last interval), of which at
    most 0.1% may differ;
-3. Phase B: writes a 2-view 756x1008 synthetic LLFF scene, loads it and
-   runs dump_geometry; every artifact must exist and coor_map be finite;
-4. prints the kernels line (JSON), then the result line.
+3. K3: the backward kernel on the same He weights at P = 262,144 + 300
+   with random cotangents (numpy seed 2) against its plain twin, per packed
+   layer max|err| / max|twin| <= 2e-2 and cosine >= 0.999, and a second
+   launch bitwise equal; timed at the training step's two shapes (P =
+   2048 x 64 and 2048 x 128) beside its bound, its twin and, for
+   orientation only, the same backward as bf16 autograd through the
+   torch.addmm chain;
+4. train (Phase A): writes a 4-view 756x1008 synthetic LLFF scene and runs
+   train_nerf at fern width (D8/W256, L 10/4, viewdirs, batch 2048, 64+64
+   samples, perturb, sigma noise 1.0): 20 warm-up steps, then 300 counted
+   steps resumed from the warm-up's checkpoint, with exactly 2 K1 and 2 K3
+   launches per step and no K2; the loss must stay finite and the mean of
+   its last 20 steps fall below that of its first 20; prints the counted
+   steps over the loop's time (the log windows' times summed). Then one
+   fused step on the card with one batch and one set of draws: from the
+   initial state against the eager f32 step (TF32 off; losses within 2e-2,
+   every parameter's gradient cosine >= 0.99); from the trained state K3
+   against its twin on the step's own weights and cotangents (the bounds
+   of phase 3) and the step against the same step on the CPU (losses within
+   2e-2, every gradient cosine >= 0.99), with each leaf's error against
+   the eager f32 step beside the eager bf16 step's printed (compare_steps);
+   and a checkpoint round trip (save, restore, render bitwise equal);
+5. Phase B from the trained weights: writes a 2-view 756x1008 synthetic
+   LLFF scene, loads it and runs dump_geometry; every artifact must exist
+   and coor_map be finite;
+6. prints the kernels line (JSON), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -32,6 +55,7 @@ It needs CUDA and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -51,8 +75,16 @@ P_K1, P_K2 = BLOCK * (NC + NF), BLOCK * NC
 RAGGED = 300
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
-FLOP_PER_POINT = {"K1": 1_186_816, "K2": 982_528}
+# K3: recompute (K1's 593,408 MACs) + weight gradients (593,408) + input
+# gradients of every layer but the first (7 x 65,536 trunk, 65,536
+# base_remap, 256 sigma, 256 x 128 rgb_0, 3 x 128 rgb_1 = 557,696), x 2
+FLOP_PER_POINT = {"K1": 1_186_816, "K2": 982_528, "K3": 3_489_024}
 TOL_RGB, TOL_SIGMA, TOL_RENDER = 3e-2, 2e-1, 5e-2
+TOL_K3_REL, TOL_K3_COS = 2e-2, 0.999
+BATCH = 2048
+P_K3 = {"coarse": BATCH * NC, "fine": BATCH * (NC + NF)}
+WARM_STEPS, TRAIN_STEPS, I_PRINT = 20, 300, 50
+TOL_STEP_LOSS, TOL_STEP_COS = 2e-2, 0.99
 
 
 def check(ok: bool, what: str) -> None:
@@ -275,6 +307,315 @@ def write_scene(root: str, n: int = 2) -> str:
     return root
 
 
+def addmm_backward(packed, e_c, e_d, g_rgb, g_sigma):
+    """The same backward as bf16 autograd through matmul_chain's torch.addmm
+    calls (weights and biases as leaves; encoding precomputed). Returns a
+    closure that runs the backward only. Orientation only."""
+    bf = torch.bfloat16
+    n = len(packed.layers())
+    wt = [packed.weight(i).t().detach().clone().requires_grad_() for i in range(n)]
+    bs = [packed.bias(i).to(bf).detach().clone().requires_grad_() for i in range(n)]
+    d = packed.depth
+    h = torch.addmm(bs[0], e_c, wt[0]).relu()
+    for i in range(1, d):
+        inp = torch.cat([e_c, h], 1) if i == packed.skip + 1 else h
+        h = torch.addmm(bs[i], inp, wt[i]).relu()
+    sigma = torch.addmm(bs[d + 1], h, wt[d + 1])
+    br = torch.addmm(bs[d], h, wt[d]).relu()
+    rf = torch.addmm(bs[d + 2], torch.cat([br, e_d], 1), wt[d + 2]).relu()
+    rgb = torch.addmm(bs[d + 3], rf, wt[d + 3]).sigmoid()
+    outs, cots = (rgb, sigma), (g_rgb.T.to(bf).contiguous(), g_sigma.T.to(bf).contiguous())
+
+    def run():
+        return torch.autograd.grad(outs, wt + bs, cots, retain_graph=True)
+
+    return run
+
+
+def layer_errors(packed, dw, db, tw, tb):
+    """Per packed layer: max|err| / max|twin| and cosine, and the max abs
+    error over every gradient value."""
+    out = []
+    for i, (n, k) in enumerate(packed.layers()):
+        a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        b = tw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        out.append((float((a - b).abs().max() / b.abs().max()),
+                    float((a * b).sum() / (a.norm() * b.norm()))))
+    out.append((float((db - tb).abs().max() / tb.abs().max()),
+                float((db.double() * tb.double()).sum() / (db.double().norm() * tb.double().norm()))))
+    max_abs = max(float((dw - tw).abs().max()), float((db - tb).abs().max()))
+    return out, max_abs
+
+
+def phase_k3(ks, kg, sd_c):
+    """K3 against its twin at P = 262,144 + 300, a repeat launch bitwise
+    equal, and timings at the training step's two shapes."""
+    packed = ks.pack_nerf_params(sd_c, device="cuda")
+    rng = np.random.default_rng(2)
+    p = P_K3["fine"] + RAGGED
+    arrs = (rng.uniform(-1, 1, (3, p)), rng.standard_normal((3, p)),
+            rng.standard_normal((3, p)), rng.standard_normal((1, p)))
+    pts, dirs, g_rgb, g_sig = (torch.from_numpy(a.astype(np.float32)).cuda() for a in arrs)
+    dw, db = kg.fused_nerf_bwd(packed, pts, dirs, g_rgb, g_sig)
+    dw2, db2 = kg.fused_nerf_bwd(packed, pts, dirs, g_rgb, g_sig)
+    torch.cuda.synchronize()
+    tw, tb = kg.fused_nerf_bwd_plain(packed, pts, dirs, g_rgb, g_sig)
+    errs, max_abs = layer_errors(packed, dw, db, tw, tb)
+    worst_rel, worst_cos = max(e[0] for e in errs), min(e[1] for e in errs)
+    repeat = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
+    print(f"[k3] P={p}: per packed layer (then biases) max|err|/max|twin| "
+          f"{', '.join(f'{e[0]:.2e}' for e in errs)}; cosine >= {worst_cos:.7f}; "
+          f"max|err| {max_abs:.3e}; second launch bitwise equal: {repeat}", flush=True)
+    check(bool(torch.isfinite(dw).all() and torch.isfinite(db).all()), "K3 output not finite")
+    check(worst_rel <= TOL_K3_REL and worst_cos >= TOL_K3_COS, "K3 disagrees with its twin")
+    check(repeat, "K3 is not bitwise repeatable")
+    del dw, db, dw2, db2, tw, tb
+
+    times = {}
+    for shape, n in P_K3.items():
+        args = (packed,) + tuple(t[:, :n].contiguous() for t in (pts, dirs, g_rgb, g_sig))
+        times[shape] = cuda_ms(lambda: kg.fused_nerf_bwd(*args), 10)
+    n = P_K3["fine"]
+    plain_ms = cuda_ms(lambda: kg.fused_nerf_bwd_plain(*args), 3)
+    e_c = ks._encode_plain(args[1].T, 10, packed.k_coor).to(torch.bfloat16)
+    e_d = ks._encode_plain(args[2].T, 4, packed.k_dir).to(torch.bfloat16)
+    chain_ms = cuda_ms(addmm_backward(packed, e_c, e_d, args[3], args[4]), 10)
+    del e_c, e_d
+    nwb = packed.w.numel() + packed.b.numel()
+    flops = FLOP_PER_POINT["K3"] * n
+    fn_bytes = 40 * n + packed.w.numel() * 2 + packed.b.numel() * 4 + nwb * 4
+    # this design's workspace: saved activations and gradients written and
+    # read (9,984 bytes per point), per-4096-point partials written and read
+    ws_bytes = 2 * 9_984 * n + 2 * math.ceil(n / 4096) * nwb * 4
+    b = 1e3 * max(flops / PEAK_BF16_FLOPS, fn_bytes / PEAK_BYTES)
+    b_ws = 1e3 * max(flops / PEAK_BF16_FLOPS, (fn_bytes + ws_bytes) / PEAK_BYTES)
+    print(f"[k3] kernel {times['coarse']:.3f} ms at P={P_K3['coarse']}, {times['fine']:.3f} ms "
+          f"at P={n}; bound {b:.3f} ms (operations; {b_ws:.3f} ms counting this design's "
+          f"workspace traffic); plain twin {plain_ms:.3f} ms; orientation only: bf16 "
+          f"autograd through the torch.addmm chain {chain_ms:.3f} ms", flush=True)
+    return {
+        "name": "K3", "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp_grad.cu",
+        "replaces": "tgtc/ops/pallas/nerf_mlp_grad.py:268",
+        "wrapper": "tgtc_torch.ops.kernels.nerf_mlp_grad.fused_nerf_bwd",
+        "P": n, "max_abs_err": max_abs, "max_err": max_abs, "max_rel_err": worst_rel,
+        "min_cos": worst_cos,
+        "ms": times["fine"], "ms_coarse": times["coarse"], "P_coarse": P_K3["coarse"],
+        "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
+        "bound_ms_with_workspace": b_ws, "library_ms": None, "matmul_chain_ms": chain_ms,
+    }
+
+
+def grad_cos(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def grad_rel(a, b) -> float:
+    """max|a - b| / max|b|, b the reference."""
+    return float((a.double() - b.double()).abs().max() / (b.double().abs().max() + 1e-12))
+
+
+def trunks(cfg, state, device, dtype=None):
+    """``state``'s two trunks as new NerfMLPs on ``device`` (in ``dtype``
+    if given), the weights copied."""
+    from tgtc_torch.models.nerf import NerfMLP
+
+    cfg = cfg if dtype is None else dataclasses.replace(cfg, compute_dtype=dtype)
+    out = []
+    for m in (state.coarse, state.fine):
+        copy = NerfMLP(cfg)
+        copy.load_state_dict(m.state_dict())
+        out.append(copy.to(device))
+    return out
+
+
+def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
+    """The fused step on the card, with one batch and one set of draws:
+
+    * from the initial state, against the eager f32 step: losses within
+      2e-2, every parameter's gradient cosine >= 0.99;
+    * from the trained state, two held witnesses that the kernels compute
+      the fused step's gradient: K3 against its twin on the card with the
+      step's own packed weights and cotangents (per packed layer, the bounds
+      of phase 3), and the step against the same step on the CPU, where the
+      wrappers run the twins (losses within 2e-2, every gradient cosine >=
+      0.99); then, read and not held, each leaf's error against the eager
+      f32 step beside the eager bf16 step's (the yardstick of
+      tests/test_fused_grad.py:54-106, error <= 1.3x the bf16 step's +
+      5e-3)."""
+    fused = tt.make_fused_train_step(cfg, tc, device="cuda")
+    eager = tt.make_train_step(tc, device="cuda")
+    draws = fused.draw(ro.shape[0], torch.Generator(device="cuda").manual_seed(7))
+    names = ([f"coarse.{n}" for n, _ in fresh.coarse.named_parameters()]
+             + [f"fine.{n}" for n, _ in fresh.fine.named_parameters()])
+
+    m_f, g_f = fused.loss_and_grad(fresh.coarse, fresh.fine, ro, rd, rgb, draws)
+    m_e, g_e = eager.loss_and_grad(*trunks(cfg, fresh, "cuda", torch.float32), ro, rd, rgb,
+                                   draws)
+    cos = {n: grad_cos(a, b) for n, a, b in zip(names, g_f, g_e)}
+    worst, dl = min(cos, key=cos.get), abs(float(m_f["loss"]) - float(m_e["loss"]))
+    print(f"[train] initial state, fused step vs eager f32 step: loss {float(m_f['loss']):.6f} "
+          f"vs {float(m_e['loss']):.6f} (|diff| {dl:.3e}); gradient cosine >= {cos[worst]:.6f} "
+          f"({worst})", flush=True)
+    check(dl <= TOL_STEP_LOSS, "initial state: fused step loss disagrees with the eager f32 step")
+    check(cos[worst] >= TOL_STEP_COS, "initial state: fused step gradient disagrees with the "
+          "eager f32 step")
+
+    # the trained state's step, with the inputs of each K3 launch recorded
+    backward, calls = kg.FusedNerfApply.backward, []
+
+    def recording(ctx, g_rgb, g_sigma):
+        w, b, pts, dirs = ctx.saved_tensors
+        calls.append((dataclasses.replace(ctx.layout, w=w.detach(), b=b.detach()), pts, dirs,
+                      g_rgb.float().contiguous().clone(), g_sigma.float().contiguous().clone()))
+        return backward(ctx, g_rgb, g_sigma)
+
+    kg.FusedNerfApply.backward = staticmethod(recording)
+    try:
+        m_f, g_f = fused.loss_and_grad(trained.coarse, trained.fine, ro, rd, rgb, draws)
+    finally:
+        kg.FusedNerfApply.backward = staticmethod(backward)
+    check(len(calls) == 2, f"the fused step ran {len(calls)} backward passes, not 2")
+    for packed, *args in calls:
+        which = "coarse" if args[0].shape[1] == P_K3["coarse"] else "fine"
+        dw, db = kg.fused_nerf_bwd(packed, *args)
+        torch.cuda.synchronize()
+        tw, tb = kg.fused_nerf_bwd_plain(packed, *args)
+        errs, _ = layer_errors(packed, dw, db, tw, tb)
+        rel, c = max(e[0] for e in errs), min(e[1] for e in errs)
+        print(f"[train] trained state, K3 vs its twin on the step's own {which} pass (P = "
+              f"{args[0].shape[1]}): per packed layer (then biases) max|err|/max|twin| "
+              f"{', '.join(f'{e[0]:.2e}' for e in errs)}; cosine >= {c:.7f}", flush=True)
+        check(rel <= TOL_K3_REL and c >= TOL_K3_COS,
+              f"trained state: K3 disagrees with its twin on the {which} pass")
+    del calls
+
+    t0 = time.perf_counter()
+    cpu = tt.make_fused_train_step(cfg, tc, device="cpu")
+    d_cpu = tt.StepDraws(*(None if t is None else t.cpu() for t in (
+        draws.idx, draws.perturb_u, draws.noise_coarse, draws.noise_fine)))
+    m_c, g_c = cpu.loss_and_grad(*trunks(cfg, trained, "cpu"), ro.cpu(), rd.cpu(), rgb.cpu(),
+                                 d_cpu)
+    cpu_s = time.perf_counter() - t0
+    cos = {n: grad_cos(a.cpu(), b) for n, a, b in zip(names, g_f, g_c)}
+    rel = {n: grad_rel(a.cpu(), b) for n, a, b in zip(names, g_f, g_c)}
+    worst, dl = min(cos, key=cos.get), abs(float(m_f["loss"]) - float(m_c["loss"]))
+    print(f"[train] trained state, fused step on the card vs on the CPU (twins, {cpu_s:.1f} s): "
+          f"loss {float(m_f['loss']):.6f} vs {float(m_c['loss']):.6f} (|diff| {dl:.3e}); "
+          f"gradient cosine >= {cos[worst]:.6f} ({worst}); max|err|/max|CPU| <= "
+          f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})", flush=True)
+    check(dl <= TOL_STEP_LOSS, "trained state: fused step loss on the card disagrees with the CPU")
+    check(cos[worst] >= TOL_STEP_COS, "trained state: fused step gradient on the card "
+          "disagrees with the CPU")
+    del g_c
+
+    m_e, g_e = eager.loss_and_grad(*trunks(cfg, trained, "cuda", torch.float32), ro, rd, rgb,
+                                   draws)
+    _, g_b = eager.loss_and_grad(trained.coarse, trained.fine, ro, rd, rgb, draws)  # bf16
+    e_f = [grad_rel(a, t) for a, t in zip(g_f, g_e)]
+    e_b = [grad_rel(b, t) for b, t in zip(g_b, g_e)]
+    c_f = [grad_cos(a, t) for a, t in zip(g_f, g_e)]
+    c_b = [grad_cos(b, t) for b, t in zip(g_b, g_e)]
+    over = sum(f > 1.3 * b + 5e-3 for f, b in zip(e_f, e_b))
+    print(f"[train] trained state vs the eager f32 step (read, not held): loss fused "
+          f"{float(m_f['loss']):.6f}, f32 {float(m_e['loss']):.6f}; gradient cosine >= "
+          f"{min(c_f):.6f} fused, {min(c_b):.6f} eager bf16; {over} of {len(names)} leaves "
+          f"with a fused error above 1.3x the eager bf16 step's + 5e-3", flush=True)
+    for which in ("coarse", "fine"):
+        print(f"[train] trained state, {which} leaves, max|err|/max|f32| fused / eager bf16: "
+              + ", ".join(f"{n.split('.', 1)[1]} {f:.3f}/{b:.3f}"
+                          for n, f, b in zip(names, e_f, e_b) if n.startswith(which)),
+              flush=True)
+
+
+def phase_train(ks, kg):
+    """Phase A at fern width through train_nerf, then compare_steps and a
+    checkpoint round trip. Returns the trained renderer, the counted
+    window's launches and its steps/s."""
+    from tgtc_torch.data.llff import load_llff_data
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.nerf import NerfConfig
+    from tgtc_torch.render.fast import FusedNerfRenderer
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train import nerf_trainer as tt
+    from tgtc_torch.train.checkpoint import CheckpointManager
+
+    cfg = NerfConfig()
+    tc = tt.NerfTrainConfig(batch_size=BATCH, n_samples=NC, n_samples_fine=NF,
+                            sigma_noise_std=1.0)
+    check(tt.fused_train_supported(cfg), "the fern config must take the fused step")
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = load_llff_data(write_scene(os.path.join(tmp, "scene"), n=4), factor=1)
+        run = os.path.join(tmp, "run")
+        kw = dict(i_print=I_PRINT, device="cuda", print_fn=lambda m: print(m, flush=True))
+        t0 = time.perf_counter()
+        state, warm = tt.train_nerf(scene, cfg, tc, WARM_STEPS, run, **kw)
+        warm_s = time.perf_counter() - t0
+        for k in (ks.fused_nerf_apply_t, ks.fused_nerf_sigma_apply_t, kg.fused_nerf_bwd):
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, hist = tt.train_nerf(scene, cfg, tc, WARM_STEPS + TRAIN_STEPS, run, **kw)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"K1": ks.fused_nerf_apply_t.launches, "K2": ks.fused_nerf_sigma_apply_t.launches,
+                    "K3": kg.fused_nerf_bwd.launches}
+        losses = warm["loss"] + hist["loss"]
+        # every counted step over the loop's time: the log windows' steps
+        # over the sum of their times (set-up and restore excluded)
+        ends = [WARM_STEPS] + [r["step"] for r in hist["records"]]
+        sizes = np.diff(ends)
+        loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, hist["records"])))
+        steps_per_s = float(sizes.sum()) / loop_s
+        first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+        print(f"[train] {len(scene.images)} views {H}x{W}, D8/W256, batch {BATCH}, {NC}+{NF} "
+              f"samples: {WARM_STEPS} warm-up steps in {warm_s:.2f} s, then {TRAIN_STEPS} steps "
+              f"in {train_s:.2f} s (call, set-up and final save included), of which the loop "
+              f"{loop_s:.3f} s: {steps_per_s:.2f} steps/s; per log window (steps: steps/s) "
+              + ", ".join(f"{n}: {r['steps_per_s']:.2f}" for n, r in zip(sizes, hist["records"]))
+              + f"; launches K1 {launches['K1']} K2 {launches['K2']} K3 "
+              f"{launches['K3']} (expect {2 * TRAIN_STEPS}, 0, {2 * TRAIN_STEPS}); mean loss "
+              f"of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; psnr_fine "
+              f"{warm['records'][-1]['psnr_fine']:.2f} -> {hist['records'][-1]['psnr_fine']:.2f}",
+              flush=True)
+        check(launches == {"K1": 2 * TRAIN_STEPS, "K2": 0, "K3": 2 * TRAIN_STEPS},
+              f"training launch counts {launches}")
+        check(int(sizes.sum()) == TRAIN_STEPS, f"the log windows cover {sizes.sum()} steps")
+        check(len(losses) == WARM_STEPS + TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+              "training loss not finite")
+        check(last < first, "training loss did not fall")
+
+        # the fused step against the eager f32 step and its witnesses
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        h, w, _ = scene.hwf
+        ro, rd = rays_for_poses(h, w, scene.intrinsics, scene.poses, device="cuda")
+        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        rgb = torch.as_tensor(scene.images, dtype=torch.float32).reshape(-1, 3).cuda()
+        fresh = tt.init_state(torch.Generator().manual_seed(0), cfg, tc, device="cuda")
+        compare_steps(kg, tt, cfg, tc, fresh, state, ro, rd, rgb)
+        del fresh
+
+        # checkpoint round trip: save, restore into a fresh state, render
+        mgr = CheckpointManager(os.path.join(tmp, "roundtrip"))
+        mgr.save(state.step, state.state_dict())
+        restored = tt.init_state(torch.Generator().manual_seed(5), cfg, tc, device="cuda")
+        restored.load_state_dict(mgr.restore(map_location="cuda"))
+        renders = []
+        for st in (state, restored):
+            r = FusedNerfRenderer.from_params(st.coarse.state_dict(), st.fine.state_dict(),
+                                              settings, coarse_rgb=False, device="cuda")
+            renders.append(r.render(ro[:BLOCK], rd[:BLOCK]))
+        same = restored.step == state.step and all(
+            torch.equal(renders[0][k], renders[1][k]) for k in renders[0])
+        print(f"[train] checkpoint round trip at step {restored.step}: render of {BLOCK} rays "
+              f"bitwise equal: {same}", flush=True)
+        check(same, "checkpoint round trip changed the render")
+    renderer = FusedNerfRenderer.from_params(state.coarse.state_dict(), state.fine.state_dict(),
+                                             settings, coarse_rgb=False, device="cuda")
+    return renderer, launches, steps_per_s
+
+
 def phase_b(ks, renderer):
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.train.geometry import dump_geometry
@@ -311,6 +652,7 @@ def main() -> int:
     from tgtc_torch.convert import nerf_state_dict_from_flax
     from tgtc_torch.ops.kernels import _build
     from tgtc_torch.ops.kernels import nerf_mlp as ks
+    from tgtc_torch.ops.kernels import nerf_mlp_grad as kg
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -334,9 +676,16 @@ def main() -> int:
     renderer, launches, rays_per_s = phase_main_path(ks, sd_c, sd_f)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    phase_b(ks, renderer)
+    rows.append(phase_k3(ks, kg, sd_c))
+    trained, train_launches, steps_per_s = phase_train(ks, kg)
+    for row in rows:
+        row["launches_train"] = train_launches[row["name"]]
+        row["launches_per_step"] = train_launches[row["name"]] // TRAIN_STEPS
+    rows[-1]["launches"] = train_launches["K3"]
+    phase_b(ks, trained)
 
-    print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s", flush=True)
+    print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
+          f"{steps_per_s:.2f} steps/s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,9 @@ def test_submodule_list_covers_the_slice():
     for name in ("device", "convert", "ops.encoding", "ops.composite", "ops.losses",
                  "ops.sampling", "ops.kernels.nerf_mlp", "ops.kernels._build",
                  "models.nerf", "render.volume", "render.fast", "data.rays",
-                 "data.llff", "utils.native", "train.geometry"):
+                 "data.llff", "utils.native", "train.geometry", "ops.kernels.nerf_mlp_grad",
+                 "train.nerf_trainer", "train.checkpoint", "utils.logging",
+                 "tools.profile_step"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -87,3 +89,12 @@ def test_entry_points_default_to_the_card():
         rays_for_poses(32, 40, intr, np.eye(4, dtype=np.float32)[None])
     with pytest.raises(RuntimeError):
         tgtc_torch.device.resolve_device("cuda")
+    from tgtc_torch.train import nerf_trainer as tt
+
+    tc = tt.NerfTrainConfig()
+    for build in (lambda: tt.init_state(torch.Generator(), cfg, tc),
+                  lambda: tt.make_train_step(tc),
+                  lambda: tt.make_fused_train_step(NerfConfig(), tc),
+                  lambda: tt.train_nerf(None, cfg, tc, 1, "unused", print_fn=None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -52,3 +52,39 @@ def nerf_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             entry["bias"] = arr.copy()
     return {"params": p}
+
+
+def nerf_train_state_from_jax(step: int, params_coarse: Dict[str, Any],
+                              params_fine: Dict[str, Any], adam_count: int,
+                              mu: Dict[str, Any], nu: Dict[str, Any], nerf_cfg,
+                              train_cfg, fine_cfg=None, device=None):
+    """A JAX ``NerfTrainState`` (as numpy: the step, both flax param trees,
+    and the optax Adam state's ``count``, ``mu`` and ``nu``, each a
+    ``{"coarse": params, "fine": params}`` tree) → the port's
+    ``NerfTrainState`` on ``device``, so that a JAX-trained state resumes in
+    the port. Only the plain Adam state (``steps_per_opt == 1``)."""
+    from tgtc_torch.train.nerf_trainer import init_state
+
+    state = init_state(torch.Generator().manual_seed(0), nerf_cfg, train_cfg, fine_cfg,
+                       device=device)
+    trees = {"coarse": (params_coarse, state.coarse), "fine": (params_fine, state.fine)}
+    opt_state = state.optimizer.state_dict()
+    index = {}  # parameter name -> its index in the optimizer's single group
+    for which, (params, model) in trees.items():
+        model.load_state_dict(nerf_state_dict_from_flax(params))
+        for name, _ in model.named_parameters():
+            index[(which, name)] = len(index)
+    for which in trees:
+        m1 = nerf_state_dict_from_flax(mu[which])
+        m2 = nerf_state_dict_from_flax(nu[which])
+        dev = trees[which][1].base_layers[0].weight.device
+        for name in m1:
+            opt_state["state"][index[(which, name)]] = {
+                "step": torch.tensor(float(adam_count)),
+                "exp_avg": m1[name].to(dev), "exp_avg_sq": m2[name].to(dev)}
+    state.optimizer.load_state_dict(opt_state)
+    state.scheduler.last_epoch = int(adam_count)  # the schedule's update count
+    for group, base in zip(state.optimizer.param_groups, state.scheduler.base_lrs):
+        group["lr"] = base * state.scheduler.lr_lambdas[0](int(adam_count))
+    state.step = int(step)
+    return state

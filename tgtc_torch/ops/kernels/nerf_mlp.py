@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -83,45 +83,35 @@ class PackedNerf:
         return dataclasses.replace(self, w=self.w.to(device), b=self.b.to(device))
 
 
-def pack_nerf_params(
-    state_dict: Dict[str, torch.Tensor],
-    depth: int = 8,
-    num_freq_coor: int = 10,
-    num_freq_dir: int = 4,
-    skip: int = 4,
-    width: int = 256,
-    device=None,
+def pack_layers(
+    get: Callable[[str], Tuple[torch.Tensor, torch.Tensor]],
+    depth: int,
+    num_freq_coor: int,
+    num_freq_dir: int,
+    skip: int,
+    width: int,
 ) -> PackedNerf:
-    """Pack a ``NerfMLP`` state dict (relu trunk with one skip, viewdir
-    head) into a :class:`PackedNerf`. Input columns are zero-padded to a
-    multiple of 16; the skip layer keeps the reference's input order
-    ``[enc(pts) | h]`` and rgb_0 ``[base_remap | enc(dirs)]``."""
+    """Build a :class:`PackedNerf` from ``get(name) -> (weight, bias)`` of a
+    ``NerfMLP`` (relu trunk with one skip, viewdir head) with ``cat``/``pad``
+    only, so autograd carries the packed buffers' gradients back to the
+    tensors ``get`` returns. Input columns are zero-padded to a multiple of
+    16; the skip layer keeps the reference's input order ``[enc(pts) | h]``
+    and rgb_0 ``[base_remap | enc(dirs)]``."""
+    pad = torch.nn.functional.pad
     in_c, in_d = 3 + 6 * num_freq_coor, 3 + 6 * num_freq_dir
     proto = PackedNerf(torch.empty(0), torch.empty(0), (), depth, skip, width,
                        num_freq_coor, num_freq_dir)
     kc, kd = proto.k_coor, proto.k_dir
 
-    def get(name):
-        return (state_dict[f"{name}.weight"].detach().float().cpu(),
-                state_dict[f"{name}.bias"].detach().float().cpu())
-
-    def place(cols: List[Tuple[torch.Tensor, int]], n: int, k: int):
-        """``cols``: (source block, first padded column) pairs."""
-        m = torch.zeros(n, k)
-        for blk, c in cols:
-            m[:, c: c + blk.shape[1]] = blk
-        return m
-
     mats, biases = [], []
     w0, b0 = get("base_layers.0")
-    mats.append(place([(w0, 0)], width, kc))
+    mats.append(pad(w0, (0, kc - in_c)))
     biases.append(b0)
     for i in range(1, depth):
         wi, bi = get(f"base_layers.{i}")
         if i == skip + 1:
-            mats.append(place([(wi[:, :in_c], 0), (wi[:, in_c:], kc)], width, kc + width))
-        else:
-            mats.append(wi)
+            wi = torch.cat([pad(wi[:, :in_c], (0, kc - in_c)), wi[:, in_c:]], dim=1)
+        mats.append(wi)
         biases.append(bi)
     for name in ("base_remap_layer", "sigma_layer"):
         wi, bi = get(name)
@@ -131,12 +121,11 @@ def pack_nerf_params(
     if wr0.shape[1] != TRUNK_W + in_d:
         raise ValueError("pack_nerf_params needs the viewdir rgb head "
                          f"(rgb_layers.0 input {TRUNK_W + in_d}, got {wr0.shape[1]})")
-    mats.append(place([(wr0[:, :TRUNK_W], 0), (wr0[:, TRUNK_W:], TRUNK_W)],
-                      width // 2, TRUNK_W + kd))
+    mats.append(torch.cat([wr0[:, :TRUNK_W], pad(wr0[:, TRUNK_W:], (0, kd - in_d))], dim=1))
     biases.append(br0)
     wr1, br1 = get("rgb_layers.1")
-    mats += [wr1]
-    biases += [br1]
+    mats.append(wr1)
+    biases.append(br1)
 
     for m, (n, k) in zip(mats, proto.layers()):
         if tuple(m.shape) != (n, k):
@@ -144,18 +133,35 @@ def pack_nerf_params(
     w_offs, b_offs, w_flat, pos = [], [], [], 0
     for m in mats:
         w_offs.append(pos)
-        w_flat.append(m.reshape(-1))
-        pad = _round16(m.numel()) - m.numel()  # keep every layer 32-byte aligned
-        if pad:
-            w_flat.append(torch.zeros(pad))
-        pos += m.numel() + pad
+        extra = _round16(m.numel()) - m.numel()  # keep every layer 32-byte aligned
+        w_flat.append(pad(m.reshape(-1), (0, extra)))
+        pos += m.numel() + extra
     pos = 0
     for bvec in biases:
         b_offs.append(pos)
         pos += bvec.numel()
     w = torch.cat(w_flat).to(torch.bfloat16)
     b = torch.cat(biases).to(torch.bfloat16).float()
-    packed = dataclasses.replace(proto, w=w, b=b, offsets=tuple(w_offs + b_offs))
+    return dataclasses.replace(proto, w=w, b=b, offsets=tuple(w_offs + b_offs))
+
+
+def pack_nerf_params(
+    state_dict: Dict[str, torch.Tensor],
+    depth: int = 8,
+    num_freq_coor: int = 10,
+    num_freq_dir: int = 4,
+    skip: int = 4,
+    width: int = 256,
+    device=None,
+) -> PackedNerf:
+    """Pack a ``NerfMLP`` state dict into a :class:`PackedNerf` for
+    rendering (detached, packed on the host, then moved to ``device``)."""
+
+    def get(name):
+        return (state_dict[f"{name}.weight"].detach().float().cpu(),
+                state_dict[f"{name}.bias"].detach().float().cpu())
+
+    packed = pack_layers(get, depth, num_freq_coor, num_freq_dir, skip, width)
     return packed.to(device) if device is not None else packed
 
 

@@ -1,0 +1,81 @@
+"""JSONL metrics and wall-clock segment timers — port of tgtc/utils/logging.py.
+
+One line ``{"step": step, **scalars}`` per log step in ``<log_dir>/<name>.jsonl``
+(the schema ``tgtc/tools/jsonl2tb.py`` reads) and a console line. Scalars
+that are device tensors are fetched in one ``torch.stack(...).cpu()``: one
+device→host copy (and one sync) per log line, not one per metric.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+
+def fetch_scalars(metrics: Mapping[str, Any]) -> Dict[str, float]:
+    """``metrics`` with every one-element tensor fetched as a float (all in
+    one stack, so one device→host copy) and plain numbers kept; other
+    values are dropped."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor) and v.numel() == 1]
+    fetched: Dict[str, float] = {}
+    if keys:
+        vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys]).cpu()
+        fetched = dict(zip(keys, vals.tolist()))
+    return {k: fetched[k] if k in fetched else float(v) for k, v in metrics.items()
+            if k in fetched or isinstance(v, (int, float))}
+
+
+class MetricsLogger:
+    def __init__(self, log_dir: Optional[str] = None, name: str = "train", print_fn=print):
+        self._fh = None
+        self._print = print_fn
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._fh = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
+
+    def log(self, step: int, metrics: Mapping[str, Any], prefix: str = "") -> Dict[str, float]:
+        """Write one line; returns the scalars written."""
+        scalars = fetch_scalars(metrics)
+        if self._fh:
+            self._fh.write(json.dumps({"step": step, **scalars}) + "\n")
+            self._fh.flush()
+        if self._print is not None:
+            parts = " ".join(f"{k}: {v:.5g}" for k, v in scalars.items())
+            self._print(f"[{prefix}] step {step} {parts}")
+        return scalars
+
+    def close(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+
+class SegmentTimer:
+    """Accumulate wall-clock per named segment; report + reset on demand."""
+
+    def __init__(self):
+        self._acc = defaultdict(float)
+        self._t0 = None
+        self._current = None
+
+    def start(self, name: str) -> None:
+        now = time.perf_counter()
+        if self._current is not None:
+            self._acc[self._current] += now - self._t0
+        self._current, self._t0 = name, now
+
+    def stop(self) -> None:
+        if self._current is not None:
+            self._acc[self._current] += time.perf_counter() - self._t0
+            self._current = None
+
+    def report_and_reset(self) -> Dict[str, float]:
+        self.stop()
+        out = dict(self._acc)
+        self._acc.clear()
+        return out
