@@ -47,7 +47,25 @@ started together), then:
 5. Phase B from the trained weights: writes a 2-view 756x1008 synthetic
    LLFF scene, loads it and runs dump_geometry; every artifact must exist
    and coor_map be finite;
-6. prints the kernels line (JSON), then the result line.
+6. style kernels: K4/K5 on random fern-width weights (the K1/K2 trunk, He
+   style MLPs, numpy seed 0) at P = 2,097,152 + 300 with per-point latents
+   against their twins (rgb <= 3e-2, sigma <= 2e-1), with three sigmas
+   bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4
+   launches); then each held against its twin again (same bounds) on the
+   stylized frame's arguments (K4 P = 16384 rays x 128 samples with
+   per-ray latents, distinct random rows, K5 P = 16384 x 64) and timed
+   there beside its bound, its twin and, for orientation only, the same
+   chain as bf16 torch.addmm calls;
+7. Phase F from the trained trunks, with seeded style MLPs and a 1-style
+   latent table: stylized 756x1008 NDC frames at the scene's spiral poses
+   through FusedStyleRenderer(coarse_rgb=False), 64+64 samples, 16384-ray
+   blocks, three timed after a warm-up frame, each with exactly 47 K5 and
+   47 K4 launches and no K1/K2; the first 16,384 rays held against the
+   eager f32 make_stylized_render_fn with the same jitter (phase 2's bounds
+   and exemption); then render_stylized_frames_fused over three views with
+   full-size depth PNGs: every PNG at 756x1008, and a second call renders
+   nothing;
+8. prints the kernels line (JSON, K1-K5), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -78,13 +96,17 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # K3: recompute (K1's 593,408 MACs) + weight gradients (593,408) + input
 # gradients of every layer but the first (7 x 65,536 trunk, 65,536
 # base_remap, 256 sigma, 256 x 128 rgb_0, 3 x 128 rgb_1 = 557,696), x 2
-FLOP_PER_POINT = {"K1": 1_186_816, "K2": 982_528, "K3": 3_489_024}
+# K4: K2's trunk and sigma (982,528) + base_remap 131,072 + concat MLP
+# 670,720 + style MLP 1,113,088 + rgb_out 1,536; K5 is K2
+FLOP_PER_POINT = {"K1": 1_186_816, "K2": 982_528, "K3": 3_489_024, "K4": 2_898_944,
+                  "K5": 982_528}
 TOL_RGB, TOL_SIGMA, TOL_RENDER = 3e-2, 2e-1, 5e-2
 TOL_K3_REL, TOL_K3_COS = 2e-2, 0.999
 BATCH = 2048
 P_K3 = {"coarse": BATCH * NC, "fine": BATCH * (NC + NF)}
 WARM_STEPS, TRAIN_STEPS, I_PRINT = 20, 300, 50
 TOL_STEP_LOSS, TOL_STEP_COS = 2e-2, 0.99
+LATENT, LATENT_FRAMES, F_VIEWS, F_SEED = 32, 20, 3, 10  # Phase F: fern's 20 training views
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,14 +114,19 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def he_dense(rng: np.random.Generator, nin: int, nout: int):
+    """A flax Dense layer with a He-normal kernel and a zero bias."""
+    return {"kernel": rng.standard_normal((nin, nout), np.float32)
+            * np.float32((2.0 / nin) ** 0.5),
+            "bias": np.zeros((nout,), np.float32)}
+
+
 def he_params(rng: np.random.Generator, depth=8, width=256, fc=10, fd=4, skip=4):
     """Random D8/W256 flax-layout params, He-normal kernels, zero biases."""
     in_pts, in_dir = 3 * (1 + 2 * fc), 3 * (1 + 2 * fd)
 
     def dense(nin, nout):
-        return {"kernel": rng.standard_normal((nin, nout), np.float32)
-                * np.float32((2.0 / nin) ** 0.5),
-                "bias": np.zeros((nout,), np.float32)}
+        return he_dense(rng, nin, nout)
 
     layers = {"base_0": dense(in_pts, width)}
     for i in range(depth - 1):
@@ -109,6 +136,21 @@ def he_params(rng: np.random.Generator, depth=8, width=256, fc=10, fd=4, skip=4)
     layers["rgb_0"] = dense(256 + in_dir, width // 2)
     layers["rgb_1"] = dense(width // 2, 3)
     return {"params": layers}
+
+
+def he_style_params(rng: np.random.Generator, style_d=8, width=256, latent=LATENT,
+                    embed=63, skip=4):
+    """Random flax-layout style MLPs at fern width (``concat``: 5 layers,
+    ``style``: 7 + rgb_out), He-normal kernels, zero biases."""
+    concat, style = {}, {}
+    for i in range(min(style_d - 1, skip + 1)):
+        nin = (embed if i == 0 else width) + latent + (embed if i == skip else 0)
+        concat[f"layer_{i}"] = he_dense(rng, nin, width)
+    for i in range(style_d - 1):
+        nin = (256 + width + embed if i == 0 else width) + latent + (embed if i == skip else 0)
+        style[f"layer_{i}"] = he_dense(rng, nin, width)
+    style["rgb_out"] = he_dense(rng, width + latent, 3)
+    return {"concat": {"params": concat}, "style": {"params": style}}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -123,9 +165,11 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(name: str, p: int, packed) -> float:
+def bound_ms(name: str, p: int, packed, io=None) -> float:
+    """max(operations / bf16 peak, bytes / HBM rate); ``io`` defaults to
+    pts(+dirs) in and sigma(+rgb) out, f32."""
     flops = FLOP_PER_POINT[name] * p
-    io = (10 if name == "K1" else 4) * 4 * p  # pts(+dirs) in, sigma(+rgb) out
+    io = (10 if name == "K1" else 4) * 4 * p if io is None else io
     weights = packed.w.numel() * 2 + packed.b.numel() * 4
     return 1e3 * max(flops / PEAK_BF16_FLOPS, (io + weights) / PEAK_BYTES)
 
@@ -149,6 +193,40 @@ def matmul_chain(packed, e_c, e_d, rgb_head: bool):
             rf = torch.addmm(bs[d + 2], torch.cat([br, e_d], 1), wt[d + 2]).relu_()
             return torch.addmm(bs[d + 3], rf, wt[d + 3]).sigmoid_(), sigma
         return sigma
+
+    return run
+
+
+def style_matmul_chain(packed, e_c, lat):
+    """K4's layer chain as bf16 torch.addmm calls, the rank-1 latent term
+    as addcmul_ (encoding and per-point bf16 latents precomputed).
+    Orientation only."""
+    bf = torch.bfloat16
+    n, d, skip = len(packed.layers()), packed.depth, packed.skip
+    wt = [packed.weight(i).t() for i in range(n)]
+    bs = [packed.bias(i).to(bf) for i in range(n)]
+    ls = [packed.lsum(i).to(bf)[None] for i in range(packed.style_d)]
+    lmean = lat.float().mean(-1, keepdim=True).to(bf)
+
+    def run():
+        h = torch.addmm(bs[0], e_c, wt[0]).relu_()
+        for i in range(1, d):
+            inp = torch.cat([e_c, h], 1) if i == skip + 1 else h
+            h = torch.addmm(bs[i], inp, wt[i]).relu_()
+        sigma = torch.addmm(bs[d + 1], h, wt[d + 1])
+        br = torch.addmm(bs[d], h, wt[d]).relu_()
+        cf = e_c
+        for i in range(packed.n_concat):
+            j = packed.concat_index(i)
+            cf = torch.addmm(bs[j], torch.cat([cf, lat] + ([e_c] if i == skip else []), 1),
+                             wt[j]).relu_()
+        s = torch.cat([br, cf, e_c], 1)
+        for i in range(packed.style_d):
+            j = packed.style_index(i)
+            s = torch.addmm(bs[j], torch.cat([s, e_c], 1) if i == skip else s,
+                            wt[j]).addcmul_(lmean, ls[i])
+            s = s.relu_() if i < packed.style_d - 1 else s.sigmoid_()
+        return s, sigma
 
     return run
 
@@ -531,7 +609,8 @@ def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
 def phase_train(ks, kg):
     """Phase A at fern width through train_nerf, then compare_steps and a
     checkpoint round trip. Returns the trained renderer, the counted
-    window's launches and its steps/s."""
+    window's launches, its steps/s and the trained trunks' state dicts with
+    the scene's intrinsics and spiral poses."""
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.data.rays import rays_for_poses
     from tgtc_torch.models.nerf import NerfConfig
@@ -611,9 +690,11 @@ def phase_train(ks, kg):
         print(f"[train] checkpoint round trip at step {restored.step}: render of {BLOCK} rays "
               f"bitwise equal: {same}", flush=True)
         check(same, "checkpoint round trip changed the render")
-    renderer = FusedNerfRenderer.from_params(state.coarse.state_dict(), state.fine.state_dict(),
-                                             settings, coarse_rgb=False, device="cuda")
-    return renderer, launches, steps_per_s
+    trained = {"coarse": state.coarse.state_dict(), "fine": state.fine.state_dict(),
+               "intrinsics": scene.intrinsics, "render_poses": scene.render_poses}
+    renderer = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
+                                             coarse_rgb=False, device="cuda")
+    return renderer, launches, steps_per_s, trained
 
 
 def phase_b(ks, renderer):
@@ -644,15 +725,214 @@ def phase_b(ks, renderer):
               "Phase B did not go through the kernels")
 
 
+def phase_style_kernels(ks, kst, sd_c, style_sds):
+    """K4/K5 against their twins at P = 2^21 + 300 (three sigmas bitwise
+    equal: K5 and K4, K5 and K2 on the same trunk, two K4 launches) and
+    timings at the stylized frame's shapes."""
+    packed = kst.pack_style_params(sd_c, *style_sds, device="cuda")
+    rng = np.random.default_rng(3)
+    p = P_K1 + RAGGED
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).cuda()
+    lat = torch.from_numpy(rng.standard_normal((p, LATENT)).astype(np.float32)).cuda()
+    rgb, sigma = kst.fused_style_apply_t(packed, pts, lat)
+    rgb2, sigma2 = kst.fused_style_apply_t(packed, pts, lat)
+    sigma5 = kst.fused_sigma_apply_t(packed, pts)
+    sigma_k2 = ks.fused_nerf_sigma_apply_t(ks.pack_nerf_params(sd_c, device="cuda"), pts)
+    torch.cuda.synchronize()
+    rgb_p, sigma_p = kst.fused_style_apply_t_plain(packed, pts, lat)
+    sigma5_p = kst.fused_sigma_apply_t_plain(packed, pts)
+    err = {"K4": (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max())),
+           "K5": (0.0, float((sigma5 - sigma5_p).abs().max()))}
+    same = {"K5 = K4": torch.equal(sigma5, sigma), "K5 = K2": torch.equal(sigma5, sigma_k2),
+            "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)}
+    print(f"[style_kernels] P={p}: K4 max|rgb err| {err['K4'][0]:.3e} max|sigma err| "
+          f"{err['K4'][1]:.3e}; K5 max|sigma err| {err['K5'][1]:.3e}; |rgb| mean "
+          f"{float(rgb_p.mean()):.3f}, |sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
+          + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()), "K4 output not finite")
+    check(err["K4"][0] <= TOL_RGB and err["K4"][1] <= TOL_SIGMA, "K4 disagrees with its twin")
+    check(err["K5"][1] <= TOL_SIGMA, "K5 disagrees with its twin")
+    check(all(same.values()), f"sigma not bitwise equal where it must be: {same}")
+    del rgb, sigma, rgb2, sigma2, sigma5, sigma_k2, rgb_p, sigma_p, sigma5_p
+
+    rows = []
+    lat_r = lat[:BLOCK].contiguous()  # one fine block's per-ray latents, distinct random rows
+    for name, n in (("K4", P_K1), ("K5", P_K2)):
+        pt = pts[:, :n].contiguous()
+        e_c = ks._encode_plain(pt.T, 10, packed.k_coor).to(torch.bfloat16)
+        if name == "K4":
+            spr = n // BLOCK
+            args = (packed, pt, lat_r, spr)
+            fn, twin = kst.fused_style_apply_t, kst.fused_style_apply_t_plain
+            chain = style_matmul_chain(packed, e_c,
+                                       lat_r.to(torch.bfloat16).repeat_interleave(spr, 0))
+            io = 32 * n + lat_r.numel() * 4  # pts in, rgb and sigma out, latent rows in
+        else:
+            args = (packed, pt)
+            fn, twin = kst.fused_sigma_apply_t, kst.fused_sigma_apply_t_plain
+            chain = matmul_chain(packed, e_c, None, False)
+            io = 16 * n
+        # the kernel against its twin on the main path's arguments (K4: a fine
+        # block's per-ray latents, row p // samples_per_ray)
+        got, want = fn(*args), twin(*args)
+        torch.cuda.synchronize()
+        if name == "K4":
+            err_main = (float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max()))
+        else:
+            err_main = (0.0, float((got - want).abs().max()))
+        del got, want
+        print(f"[style_kernels] {name} P={n} on the frame's arguments: max|rgb err| "
+              f"{err_main[0]:.3e} max|sigma err| {err_main[1]:.3e}", flush=True)
+        check(err_main[0] <= TOL_RGB and err_main[1] <= TOL_SIGMA,
+              f"{name} disagrees with its twin on the frame's arguments")
+        err[name] = tuple(max(a, b) for a, b in zip(err[name], err_main))
+        ms = cuda_ms(lambda: fn(*args), 10)
+        plain_ms = cuda_ms(lambda: twin(*args), 3)
+        chain_ms = cuda_ms(chain, 10)
+        del e_c, chain
+        b = bound_ms(name, n, packed, io)
+        print(f"[style_kernels] {name} P={n}: kernel {ms:.3f} ms, bound {b:.3f} ms "
+              f"(operations), plain twin {plain_ms:.3f} ms, orientation only: bf16 "
+              f"torch.addmm chain {chain_ms:.3f} ms", flush=True)
+        rows.append({
+            "name": name, "route": "cuda", "source": "tgtc_torch/csrc/style_kernel.cu",
+            "replaces": ("tgtc/ops/pallas/style_kernel.py:432" if name == "K4"
+                         else "tgtc/ops/pallas/style_kernel.py:387"),
+            "wrapper": ("tgtc_torch.ops.kernels.style_kernel." +
+                        ("fused_style_apply_t" if name == "K4" else "fused_sigma_apply_t")),
+            "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
+            "max_abs_err_rgb": err[name][0] if name == "K4" else None,
+            "max_abs_err_sigma": err[name][1],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
+            "library_ms": None, "matmul_chain_ms": chain_ms,
+        })
+    return rows
+
+
+def phase_f(ks, kst, trained):
+    """Phase F from the trained trunks: seeded style MLPs and a 1-style
+    latent table; stylized 756x1008 frames at spiral poses through
+    FusedStyleRenderer(coarse_rgb=False) (47 K5 and 47 K4 launches a frame,
+    no K1/K2); the first 16,384 rays against the eager f32 render; then the
+    frame loop over three views. Returns the launches of one frame, the
+    median frame's rays/s and the loop's frames/min."""
+    from PIL import Image
+
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
+    from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
+    from tgtc_torch.render.fast_style import FusedStyleRenderer, block_generator
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train.render_style import (
+        make_stylized_render_fn,
+        render_stylized_frames_fused,
+    )
+
+    concat, style = make_style_mlps(StyleFieldConfig(), torch.Generator().manual_seed(11),
+                                    device="cuda")
+    lat = init_latents(torch.Generator().manual_seed(12), 1, LATENT_FRAMES, LATENT,
+                       device="cuda")
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    renderer = FusedStyleRenderer.from_params(trained["coarse"], trained["fine"],
+                                              concat.state_dict(), style.state_dict(), lat,
+                                              settings, coarse_rgb=False, device="cuda")
+    ro, rd = rays_for_poses(H, W, trained["intrinsics"], trained["render_poses"][:F_VIEWS],
+                            use_ndc=True, device="cuda")
+    fo, fd = ro[0].reshape(-1, 3), rd[0].reshape(-1, 3)
+    n, blocks = fo.shape[0], math.ceil(fo.shape[0] / BLOCK)
+    counters = {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
+                "K4": kst.fused_style_apply_t, "K5": kst.fused_sigma_apply_t}
+
+    renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)  # warm-up frame
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(FRAMES):
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {name: k.launches for name, k in counters.items()}
+        check(launches == {"K1": 0, "K2": 0, "K4": blocks, "K5": blocks},
+              f"stylized frame launch counts {launches}, expected {blocks} K4 and K5")
+    dt = float(np.median(times))
+    print(f"[phase_f] stylized frame {H}x{W} ({n} rays, {NC}+{NF} samples, block {BLOCK}), "
+          f"{FRAMES} frames after a warm-up: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
+          f"median {dt * 1e3:.1f} ms, {n / dt:.1f} rays/s; launches per frame "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    check(out["rgb"].shape == (n, 3) and out["t_exp"].shape == (n,), "stylized frame shape")
+    check(bool(torch.isfinite(out["rgb"]).all() and torch.isfinite(out["t_exp"]).all()),
+          "stylized frame not finite")
+
+    # the first block against the eager f32 chain with the same jitter
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = []
+    for sd in (trained["coarse"], trained["fine"]):
+        m = NerfMLP(NerfConfig(compute_dtype=torch.float32))
+        m.load_state_dict(sd)
+        models.append(m.cuda())
+    eager = make_stylized_render_fn(*models, concat, style, NC, NF, settings.near,
+                                    settings.far)
+    bo, bd = fo[:BLOCK], fd[:BLOCK]
+    ids = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
+    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
+    ref = eager(renderer.latent_state, bo, bd, ids, ids, u=u)
+    with torch.no_grad():
+        last = nerf_apply(models[1], bo + ref["ts_fine"][:, -1:] * bd, bd)["sigma"]
+    err = torch.maximum((out["rgb"][:BLOCK] - ref["rgb"]).abs().amax(-1),
+                        (out["t_exp"][:BLOCK] - ref["t_exp"]).abs())
+    bad, flip = err > TOL_RENDER, last.abs() <= TOL_SIGMA  # phase 2's exemption
+    worst = float(err[~flip].max()) if bool((~flip).any()) else 0.0
+    print(f"[phase_f] first {BLOCK} rays vs the eager f32 stylized render: max|err| over rgb "
+          f"and t_exp {float(err.max()):.3e}; {int(bad.sum())} rays above {TOL_RENDER}, all "
+          f"with |last-sample sigma| <= {TOL_SIGMA}: {bool((flip | ~bad).all())}; max|err| "
+          f"over the other {int((~flip).sum())} rays {worst:.3e}", flush=True)
+    check(bool((flip | ~bad).all()), "stylized frame disagrees with the eager render")
+    check(int(bad.sum()) <= BLOCK // 1000, "too many rays differ from the eager render")
+    del models, eager, ref, out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rendered = render_stylized_frames_fused(renderer, ro, rd, [0], tmp, seed=F_SEED,
+                                                block=BLOCK, depth_png="full")
+        loop_s = time.perf_counter() - t0
+        names = [f"style_00000_fine{kind}_{f:05d}.png" for f in range(F_VIEWS)
+                 for kind in ("", "_depth")]
+        sizes = {f: Image.open(os.path.join(tmp, f)).size
+                 for f in names if os.path.exists(os.path.join(tmp, f))}
+        again = render_stylized_frames_fused(renderer, ro, rd, [0], tmp, seed=F_SEED,
+                                             block=BLOCK)
+        print(f"[phase_f] frame loop: {rendered} frames in {loop_s:.2f} s with the PNG writes "
+              f"({60 * rendered / loop_s:.2f} frames/min), {len(sizes)} of {len(names)} PNGs "
+              f"at {W}x{H}: {all(s == (W, H) for s in sizes.values())}; launches K4 "
+              f"{counters['K4'].launches} K5 {counters['K5'].launches}; a second call "
+              f"rendered {again}", flush=True)
+        check(rendered == F_VIEWS, f"the frame loop rendered {rendered} frames")
+        loop_launches = {name: k.launches for name, k in counters.items()}
+        check(loop_launches == {"K1": 0, "K2": 0, "K4": F_VIEWS * blocks,
+                                "K5": F_VIEWS * blocks},
+              f"frame loop launch counts {loop_launches}")
+        check(len(sizes) == len(names) and all(s == (W, H) for s in sizes.values()),
+              "the frame loop's PNGs are missing or of the wrong size")
+        check(again == 0, "skip_existing rendered frames again")
+    return launches, n / dt, 60 * rendered / loop_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tgtc_torch.convert import nerf_state_dict_from_flax
+    from tgtc_torch.convert import nerf_state_dict_from_flax, style_state_dicts_from_flax
     from tgtc_torch.ops.kernels import _build
     from tgtc_torch.ops.kernels import nerf_mlp as ks
     from tgtc_torch.ops.kernels import nerf_mlp_grad as kg
+    from tgtc_torch.ops.kernels import style_kernel as kst
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -671,21 +951,28 @@ def main() -> int:
     rng = np.random.default_rng(0)
     sd_c = nerf_state_dict_from_flax(he_params(rng))
     sd_f = nerf_state_dict_from_flax(he_params(rng))
+    style_sds = style_state_dicts_from_flax(he_style_params(rng))
 
     rows = phase_kernels(ks, sd_c)
     renderer, launches, rays_per_s = phase_main_path(ks, sd_c, sd_f)
     for row in rows:
         row["launches"] = launches[row["name"]]
     rows.append(phase_k3(ks, kg, sd_c))
-    trained, train_launches, steps_per_s = phase_train(ks, kg)
+    trained_renderer, train_launches, steps_per_s, trained = phase_train(ks, kg)
     for row in rows:
         row["launches_train"] = train_launches[row["name"]]
         row["launches_per_step"] = train_launches[row["name"]] // TRAIN_STEPS
     rows[-1]["launches"] = train_launches["K3"]
-    phase_b(ks, trained)
+    phase_b(ks, trained_renderer)
+    style_rows = phase_style_kernels(ks, kst, sd_c, style_sds)
+    f_launches, f_rays_per_s, f_frames_per_min = phase_f(ks, kst, trained)
+    for row in style_rows:
+        row["launches"] = f_launches[row["name"]]
+    rows += style_rows
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
-          f"{steps_per_s:.2f} steps/s", flush=True)
+          f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
+          f"{f_frames_per_min:.2f} frames/min", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

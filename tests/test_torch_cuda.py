@@ -1,6 +1,7 @@
-"""The CUDA kernels on a card: K1/K2/K3 against their plain twins, their
-launch counters, the fused render and one fused training step on the card
-against the same on the CPU (where the wrappers run the twins).
+"""The CUDA kernels on a card: K1-K5 against their plain twins, their
+launch counters, the fused render, the fused stylized render and one fused
+training step on the card against the same on the CPU (where the wrappers
+run the twins).
 
 Every test here needs a card and skips without one. The file imports
 neither JAX nor tgtc, so it also runs where JAX is not installed:
@@ -15,10 +16,13 @@ import pytest
 import torch
 
 from tgtc_torch.models.nerf import NerfConfig, make_nerf
+from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
 from tgtc_torch.ops.kernels import nerf_mlp as tk
 from tgtc_torch.ops.kernels import nerf_mlp_grad as tg
+from tgtc_torch.ops.kernels import style_kernel as ts
 from tgtc_torch.train import nerf_trainer as tt
 from tgtc_torch.render.fast import FusedNerfRenderer
+from tgtc_torch.render.fast_style import FusedStyleRenderer
 from tgtc_torch.render.volume import RenderSettings
 
 torch.set_num_threads(1)
@@ -157,3 +161,63 @@ def test_fused_train_step_on_card_matches_cpu(cuda_device):
     for a, b in zip(g_cpu, g_gpu):
         a, b = a.double(), b.double().cpu()
         assert float((a * b).sum()) >= 0.99 * float(a.norm() * b.norm())
+
+
+def _style_sds(seed=1):
+    return tuple(m.state_dict() for m in make_style_mlps(
+        StyleFieldConfig(), torch.Generator().manual_seed(seed), device="cpu"))
+
+
+@pytest.mark.parametrize("p,spr", [(300, 1), (64 * 1000 + 17, 1), (512 * 128, 128)])
+def test_cuda_style_kernels_match_twins_and_repeat(cuda_device, p, spr):
+    packed = ts.pack_style_params(_state_dict(0), *_style_sds(), device=cuda_device)
+    pts, _ = _points(p, cuda_device)
+    lat = torch.from_numpy(np.random.default_rng(4).normal(size=(p // spr, 32))
+                           .astype(np.float32)).to(cuda_device)
+    rgb, sigma = ts.fused_style_apply_t(packed, pts, lat, spr)
+    rgb2, sigma2 = ts.fused_style_apply_t(packed, pts, lat, spr)
+    sigma5 = ts.fused_sigma_apply_t(packed, pts)
+    torch.cuda.synchronize()
+    rgb_p, sigma_p = ts.fused_style_apply_t_plain(packed, pts, lat, spr)
+    assert rgb.shape == (3, p) and sigma.shape == (1, p)
+    assert (rgb - rgb_p).abs().max() <= TOL_RGB
+    assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
+    assert (sigma5 - ts.fused_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
+    assert torch.equal(sigma5, sigma)
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+
+
+def test_style_launch_counters_count_launches(cuda_device):
+    packed = ts.pack_style_params(_state_dict(0), *_style_sds(), device=cuda_device)
+    pts, _ = _points(128, cuda_device)
+    lat = torch.zeros(128, 32, device=cuda_device)
+    before = (ts.fused_style_apply_t.launches, ts.fused_sigma_apply_t.launches)
+    ts.fused_style_apply_t(packed, pts, lat)
+    ts.fused_sigma_apply_t(packed, pts)
+    ts.fused_sigma_apply_t(packed, pts)
+    ts.fused_style_apply_t_plain(packed, pts, lat)  # the twin is no launch
+    torch.cuda.synchronize()
+    assert (ts.fused_style_apply_t.launches - before[0],
+            ts.fused_sigma_apply_t.launches - before[1]) == (1, 2)
+
+
+@pytest.mark.parametrize("coarse_rgb", [True, False])
+def test_fused_style_render_on_card_matches_cpu(cuda_device, coarse_rgb):
+    settings = RenderSettings(n_samples=16, n_samples_fine=16, sigma_noise_std=0.0)
+    sds = (_state_dict(0), _state_dict(1)) + _style_sds()
+    lat = init_latents(torch.Generator().manual_seed(2), 1, 4, 32, device="cpu")
+    rng = np.random.default_rng(3)
+    ro = torch.from_numpy(rng.uniform(-0.5, 0.5, (256, 3)).astype(np.float32))
+    rd = torch.from_numpy(rng.normal(size=(256, 3)).astype(np.float32))
+    ids = torch.zeros(256, dtype=torch.long)
+    u = torch.rand((256, 16), generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        r = FusedStyleRenderer.from_params(*sds, lat, settings, coarse_rgb=coarse_rgb,
+                                           device=dev)
+        o = r.render(ro.to(dev), rd.to(dev), ids.to(dev), ids.to(dev) + 1, u=u.to(dev))
+        out[str(dev)] = {k: v.cpu() for k, v in o.items()}
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert set(cpu) == set(card)
+    for key in cpu:
+        assert (card[key] - cpu[key]).abs().max() <= TOL_RENDER, key

@@ -31,7 +31,9 @@ def test_submodule_list_covers_the_slice():
                  "models.nerf", "render.volume", "render.fast", "data.rays",
                  "data.llff", "utils.native", "train.geometry", "ops.kernels.nerf_mlp_grad",
                  "train.nerf_trainer", "train.checkpoint", "utils.logging",
-                 "tools.profile_step"):
+                 "tools.profile_step", "models.style_field", "render.style",
+                 "render.fast_style", "ops.kernels.style_kernel", "train.render_style",
+                 "utils.img", "tools.profile_frame"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -84,6 +86,17 @@ def test_entry_points_default_to_the_card():
     sd = make_nerf(NerfConfig(), device="cpu").state_dict()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedNerfRenderer.from_params(sd, sd, RenderSettings(), coarse_rgb=False)
+    from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
+    from tgtc_torch.render.fast_style import FusedStyleRenderer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_style_mlps(StyleFieldConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_latents(torch.Generator(), 1, 2, 32)
+    styles = [m.state_dict() for m in make_style_mlps(StyleFieldConfig(), device="cpu")]
+    lat = init_latents(torch.Generator(), 1, 2, 32, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FusedStyleRenderer.from_params(sd, sd, *styles, lat, RenderSettings(), coarse_rgb=False)
     intr = np.array([[50.0, 0, 20], [0, 50.0, 16], [0, 0, 1]], np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         rays_for_poses(32, 40, intr, np.eye(4, dtype=np.float32)[None])

@@ -21,6 +21,11 @@
   16+16 samples (tile 128 must divide batch x samples), one step from the
   same state and draws: loss within 2e-2, gradient cosine >= 0.99 per leaf
   (JAX's gradient read off its first Adam moment, mu = 0.1 g).
+* The same from a trained state (80 JAX eager steps on
+  tests/synthetic_scene.py): the same bounds, and printed beside it, for
+  each fused step and JAX's eager bf16 step, the distance from JAX's eager
+  f32 step (whether a gap the fused step shows there is the port's or
+  the algorithm's).
 * A JAX state after 2 steps, converted, takes the same third step: loss to
   1e-5, parameters and moments to 1e-4 relative (measured 3.3e-5, on fine
   biases still within a few learning rates of 0, which the Adam noise
@@ -204,6 +209,94 @@ def test_fused_step_matches_jax_fused_step():
         assert cos >= 0.99, (which, name, cos)
     print(f"[parity] fused step vs JAX fused step: loss {float(m['loss']):.6f} vs "
           f"{float(jm['loss']):.6f}, min grad cos {worst:.6f}")
+
+
+def _step_grads(step_fn, j_state, ro, rd, rgb, key):
+    """Loss and gradient of one JAX step from ``j_state``, whose Adam moments
+    are fresh: the first moment after the step is 0.1 g. The step donates
+    its state, so it takes a copy."""
+    j_state, jm = step_fn(jax.tree.map(jnp.copy, j_state), ro, rd, rgb, key)
+    adam = j_state.opt_state[0]
+    grads = {w: nerf_state_dict_from_flax(jax.tree.map(lambda m: np.asarray(m) / 0.1, adam.mu[w]))
+             for w in ("coarse", "fine")}
+    return float(jm["loss"]), grads
+
+
+def test_fused_step_matches_jax_fused_step_from_a_trained_state(tmp_path):
+    """The fused step (twins) against JAX's fused step (Pallas interpret)
+    from a trained state: full-width trunks trained by JAX's eager step on
+    tests/synthetic_scene.py (lrate 5e-3, which reaches the fine PSNR of
+    chip_smoke.py's 320 fern-width steps, ~28 dB, in 80 steps), then one
+    step of each from the same state, batch and draws: loss within 2e-2,
+    every gradient cosine >= 0.99. Printed beside it: how far each fused
+    step and JAX's eager bf16 step lie from JAX's eager f32 step."""
+    import tgtc.ops.pallas.nerf_mlp_grad as g
+    from synthetic_scene import make_synthetic_llff_scene
+    from tgtc.data.llff import load_llff_data
+    from tgtc.data.rays import rays_for_poses
+
+    scene = load_llff_data(make_synthetic_llff_scene(tmp_path), factor=1)
+    h, w, _ = scene.hwf
+    ro, rd = rays_for_poses(h, w, jnp.asarray(scene.intrinsics), jnp.asarray(scene.poses))
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    rgb = jnp.asarray(scene.images, jnp.float32).reshape(-1, 3)
+    j_cfg, f32_cfg = JNerfConfig(), JNerfConfig(compute_dtype=jnp.float32)
+    train_tc = jt.NerfTrainConfig(batch_size=64, n_samples=16, n_samples_fine=16,
+                                  sigma_noise_std=1.0, lrate=5e-3)
+    cm, fm, j_state = jt.init_state(jax.random.PRNGKey(0), j_cfg, train_tc)
+    train = jax.jit(jt.make_train_step(cm, fm, train_tc))
+    for _ in range(80):
+        j_state, jm = train(j_state, ro, rd, rgb, jax.random.PRNGKey(1))
+    psnr = float(jm["psnr_fine"])
+
+    kw = dict(batch_size=8, n_samples=16, n_samples_fine=16, sigma_noise_std=1.0)
+    j_tc, t_tc = jt.NerfTrainConfig(**kw), tt.NerfTrainConfig(**kw)
+    cm32, fm32, fresh = jt.init_state(jax.random.PRNGKey(0), f32_cfg, j_tc)
+    trained = fresh.replace(step=j_state.step, params_coarse=j_state.params_coarse,
+                            params_fine=j_state.params_fine)
+    orig = g.make_diff_apply
+    try:
+        g.make_diff_apply = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+        j_fused = jt.make_fused_train_step(j_cfg, j_tc, tile=128)
+    finally:
+        g.make_diff_apply = orig
+    key = jax.random.PRNGKey(3)
+    runs = {"jax_fused": j_fused, "jax_bf16": jt.make_train_step(cm, fm, j_tc),
+            "jax_f32": jt.make_train_step(cm32, fm32, j_tc)}
+    runs = {k: _step_grads(fn, trained, ro, rd, rgb, key) for k, fn in runs.items()}
+
+    state = _port_state(trained, NerfConfig(), t_tc)
+    step = tt.make_fused_train_step(NerfConfig(), t_tc, device="cpu")
+    to_t = lambda a: torch.from_numpy(np.array(a))
+    m, grads = step.loss_and_grad(state.coarse, state.fine, to_t(ro), to_t(rd), to_t(rgb),
+                                  _jax_draws(key, int(trained.step), ro.shape[0], t_tc))
+    names = ([("coarse", n) for n, _ in state.coarse.named_parameters()]
+             + [("fine", n) for n, _ in state.fine.named_parameters()])
+    port = {(wh, n): gr.detach().double() for (wh, n), gr in zip(names, grads)}
+    close(m["loss"], runs["jax_fused"][0], atol=2e-2)
+    cos = lambda a, b: float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+    worst = 1.0
+    for (wh, n), got in port.items():
+        c = cos(got, runs["jax_fused"][1][wh][n].double())
+        worst = min(worst, c)
+        assert c >= 0.99, (wh, n, c)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+    def above(errs):  # leaves whose error exceeds 1.3x the eager bf16 step's + 5e-3
+        return sum(e > 1.3 * errs_bf16[k] + 5e-3 for k, e in errs.items())
+
+    f32 = {(wh, n): runs["jax_f32"][1][wh][n].double() for wh, n in names}
+    errs_bf16 = {k: rel(runs["jax_bf16"][1][k[0]][k[1]].double(), f32[k]) for k in names}
+    errs_jax = {k: rel(runs["jax_fused"][1][k[0]][k[1]].double(), f32[k]) for k in names}
+    errs_port = {k: rel(port[k], f32[k]) for k in names}
+    print(f"[parity] trained state (JAX eager, 80 steps, psnr_fine {psnr:.2f}), fused step "
+          f"(twins) vs JAX fused step: loss {float(m['loss']):.6f} vs {runs['jax_fused'][0]:.6f}, "
+          f"min grad cos {worst:.6f}; vs JAX eager f32, leaves above 1.3x the eager bf16 "
+          f"step's error + 5e-3: port fused {above(errs_port)}, JAX fused {above(errs_jax)} "
+          f"of {len(names)}; max rel error port fused {max(errs_port.values()):.3f}, JAX fused "
+          f"{max(errs_jax.values()):.3f}, JAX eager bf16 {max(errs_bf16.values()):.3f}")
 
 
 def test_fused_step_supported_and_builders_refuse():

@@ -1,14 +1,16 @@
-"""Weight bridge between flax ``NerfMLP`` params and the torch ``NerfMLP``.
+"""Weight bridge between the flax modules and their torch ports.
 
 The flax modules use the reference's layer order under flax names
-(``base_{i}``, ``sigma``, ``base_remap``, ``rgb_{0,1}``); the torch module
-uses the reference's torch names. A Dense ``kernel [in, out]`` is a Linear
-``weight [out, in]`` transposed; biases carry over as they are.
+(``base_{i}``, ``sigma``, ``base_remap``, ``rgb_{0,1}``; the style MLPs'
+``layer_{i}`` and ``rgb_out``); the torch modules use the reference's torch
+names (the style MLPs' ``layers.{i}``). A Dense ``kernel [in, out]`` is a
+Linear ``weight [out, in]`` transposed; biases carry over as they are. A
+JAX latent table and a JAX Phase-A train state convert to tensors too.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +54,55 @@ def nerf_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         else:
             entry["bias"] = arr.copy()
     return {"params": p}
+
+
+def _style_flax_names(which: str, n_layers: int):
+    """Flax names of a style MLP's torch ``layers.{i}``: ``layer_{i}``, and
+    ``rgb_out`` for the style MLP's last layer."""
+    if which == "concat":
+        return [f"layer_{i}" for i in range(n_layers)]
+    return [f"layer_{i}" for i in range(n_layers - 1)] + ["rgb_out"]
+
+
+def style_state_dicts_from_flax(params: Dict[str, Any]
+                                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """flax ``{"concat": {"params": ...}, "style": {"params": ...}}`` →
+    ``(StyleMLPBeforeConcat, StyleMLPWildMultilayers)`` state dicts of f32
+    tensors."""
+    sds = []
+    for which in ("concat", "style"):
+        p = params[which]["params"]
+        sd: Dict[str, torch.Tensor] = {}
+        for i, name in enumerate(_style_flax_names(which, len(p))):
+            kernel = np.asarray(p[name]["kernel"], np.float32)
+            sd[f"layers.{i}.weight"] = torch.from_numpy(np.array(kernel.T, order="C"))
+            sd[f"layers.{i}.bias"] = torch.from_numpy(np.array(p[name]["bias"], np.float32))
+        sds.append(sd)
+    return sds[0], sds[1]
+
+
+def style_flax_from_state_dicts(concat_sd: Dict[str, torch.Tensor],
+                                style_sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`style_state_dicts_from_flax`: numpy flax params."""
+    out: Dict[str, Any] = {}
+    for which, sd in (("concat", concat_sd), ("style", style_sd)):
+        n = len([k for k in sd if k.endswith(".weight")])
+        arr = lambda key: sd[key].detach().cpu().float().numpy()
+        out[which] = {"params": {
+            name: {"kernel": np.ascontiguousarray(arr(f"layers.{i}.weight").T),
+                   "bias": arr(f"layers.{i}.bias").copy()}
+            for i, name in enumerate(_style_flax_names(which, n))}}
+    return out
+
+
+def latent_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A JAX latent state (``latents``, ``mu``, ``logvar``, as numpy or any
+    array ``np.asarray`` takes) → f32 tensors on ``device``."""
+    from tgtc_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(state[k], np.float32)).to(dev)
+            for k in ("latents", "mu", "logvar")}
 
 
 def nerf_train_state_from_jax(step: int, params_coarse: Dict[str, Any],

@@ -1,7 +1,8 @@
-// Device code shared by the fused NeRF trunk kernels: K1/K2 (nerf_mlp.cu)
-// and the backward K3 (nerf_mlp_grad.cu). K3 recomputes the forward with
-// these same functions, so its ReLU masks and rgb are bit for bit those of
-// the K1 launch that produced the loss.
+// Device code shared by the fused NeRF trunk kernels: K1/K2 (nerf_mlp.cu),
+// the backward K3 (nerf_mlp_grad.cu) and the stylized K4/K5
+// (style_kernel.cu). K3 recomputes the forward with these same functions,
+// so its ReLU masks and rgb are bit for bit those of the K1 launch that
+// produced the loss; K4/K5 run the same trunk_sigma, so their sigma is K2's.
 //
 // Per point: positional encoding of pts (L=10) and dirs (L=4) with accurate
 // sinf/cosf in f32 (arguments reach 2^9 |x|; build without fast math), an
@@ -81,11 +82,15 @@ struct Seg {  // one K-segment of a layer's input
 
 // out[T, 16*NT*NWARPS] = relu(sum_seg A_seg @ W[:, seg]^T + bias), as bf16.
 // `out` may alias an input: every warp finishes reading before any writes.
-template <int NT>
+// RANK1 (the style layers of style_kernel.cu) adds lsum[n] * lmean[row]
+// to the f32 sum before the bias; the default compiles to the plain form.
+template <int NT, bool RANK1 = false>
 __device__ void gemm_bias_relu(const Seg* segs, int nseg,
                                const bf16* __restrict__ w, int ldw,
                                const float* __restrict__ bias, bf16* out,
-                               int ldo, float* scratch) {
+                               int ldo, float* scratch,
+                               const float* __restrict__ lsum = nullptr,
+                               const float* lmean = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T / 16][NT];
 #pragma unroll
@@ -124,7 +129,9 @@ __device__ void gemm_bias_relu(const Seg* segs, int nseg,
       __syncwarp();
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const float v = sc[r * 16 + c0 + c] + bias[n0 + c0 + c];
+        float v = sc[r * 16 + c0 + c];
+        if constexpr (RANK1) v += lsum[n0 + c0 + c] * lmean[i * 16 + r];
+        v += bias[n0 + c0 + c];
         out[(i * 16 + r) * ldo + n0 + c0 + c] = __float2bfloat16(fmaxf(v, 0.0f));
       }
       __syncwarp();

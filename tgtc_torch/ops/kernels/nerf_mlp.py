@@ -127,22 +127,32 @@ def pack_layers(
     mats.append(wr1)
     biases.append(br1)
 
-    for m, (n, k) in zip(mats, proto.layers()):
+    w, b, offsets = flatten_layers(mats, biases, proto.layers())
+    return dataclasses.replace(proto, w=w, b=b, offsets=offsets)
+
+
+def flatten_layers(mats: List[torch.Tensor], vectors: List[torch.Tensor],
+                   shapes: List[Tuple[int, int]]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, ...]]:
+    """One bf16 buffer of the row-major matrices (each starting 32-byte
+    aligned), one f32 buffer of the bf16-rounded vectors (biases, then any
+    others), and their element offsets (matrices', then vectors')."""
+    for m, (n, k) in zip(mats, shapes):
         if tuple(m.shape) != (n, k):
             raise ValueError(f"layer shape {tuple(m.shape)} != expected {(n, k)}")
     w_offs, b_offs, w_flat, pos = [], [], [], 0
     for m in mats:
         w_offs.append(pos)
-        extra = _round16(m.numel()) - m.numel()  # keep every layer 32-byte aligned
-        w_flat.append(pad(m.reshape(-1), (0, extra)))
+        extra = _round16(m.numel()) - m.numel()
+        w_flat.append(torch.nn.functional.pad(m.reshape(-1), (0, extra)))
         pos += m.numel() + extra
     pos = 0
-    for bvec in biases:
+    for vec in vectors:
         b_offs.append(pos)
-        pos += bvec.numel()
+        pos += vec.numel()
     w = torch.cat(w_flat).to(torch.bfloat16)
-    b = torch.cat(biases).to(torch.bfloat16).float()
-    return dataclasses.replace(proto, w=w, b=b, offsets=tuple(w_offs + b_offs))
+    b = torch.cat(vectors).to(torch.bfloat16).float()
+    return w, b, tuple(w_offs + b_offs)
 
 
 def pack_nerf_params(
@@ -232,6 +242,13 @@ def _check_cuda(packed: PackedNerf, *points: torch.Tensor) -> int:
             "the CUDA NeRF kernels take width 256 with 10/4 frequencies; got "
             f"width {packed.width}, frequencies {packed.num_freq_coor}/"
             f"{packed.num_freq_dir} (width 128 is a ROADMAP item)")
+    return check_points(packed, *points)
+
+
+def check_points(packed, *points: torch.Tensor) -> int:
+    """Checks what every CUDA kernel of the port takes: contiguous f32
+    ``[3, P]`` point tensors on a card, packed weights (bf16 matrices, f32
+    vectors) contiguous on the same device. Returns P."""
     p = points[0].shape[-1]
     for t in points:
         if t.device.type != "cuda" or t.dtype != torch.float32:

@@ -161,17 +161,27 @@ class FusedNerfRenderer:
 
     def render_image(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                      block: int = 16384) -> Dict[str, torch.Tensor]:
-        """Any ray count by fixed blocks; the tail block is padded with zero
-        origins and unit directions."""
-        n = rays_o.shape[0]
-        outs = []
-        for start in range(0, n, block):
-            end = min(start + block, n)
-            bo, bd = rays_o[start:end], rays_d[start:end]
-            if end - start < block:
-                pad = block - (end - start)
-                bo = torch.cat([bo, bo.new_zeros((pad, 3))], 0)
-                bd = torch.cat([bd, bd.new_ones((pad, 3))], 0)
-            out = self.render(bo, bd)
-            outs.append({k: v[: end - start] for k, v in out.items()})
-        return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+        """Any ray count by :func:`render_in_blocks`."""
+        return render_in_blocks(lambda bo, bd, start: self.render(bo, bd), rays_o, rays_d,
+                                block)
+
+
+def render_in_blocks(render_block: Callable[[torch.Tensor, torch.Tensor, int],
+                                            Dict[str, torch.Tensor]],
+                     rays_o: torch.Tensor, rays_d: torch.Tensor,
+                     block: int = 16384) -> Dict[str, torch.Tensor]:
+    """Rays ``[N, 3]`` through ``render_block(bo, bd, start)`` in fixed
+    blocks of ``block`` rays, ``start`` being the block's first ray; the
+    tail block is padded with zero origins and unit directions."""
+    n = rays_o.shape[0]
+    outs = []
+    for start in range(0, n, block):
+        end = min(start + block, n)
+        bo, bd = rays_o[start:end], rays_d[start:end]
+        if end - start < block:
+            pad = block - (end - start)
+            bo = torch.cat([bo, bo.new_zeros((pad, 3))], 0)
+            bd = torch.cat([bd, bd.new_ones((pad, 3))], 0)
+        out = render_block(bo, bd, start)
+        outs.append({k: v[: end - start] for k, v in out.items()})
+    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}

@@ -1,19 +1,22 @@
 """Device-time breakdown of one fused-render frame on the card.
 
-    python3 -m tgtc_torch.tools.profile_frame
+    python3 -m tgtc_torch.tools.profile_frame [--stylized]
 
 Renders the frame that chip_smoke.py's main path renders (fern-shaped
 756x1008 NDC camera, D8/W256 trunks with random weights, 64+64 samples,
-σ-only coarse pass, 16,384-ray blocks): one warm-up frame, one frame timed
-without the profiler, then one frame under ``torch.profiler``. Prints the
-card, the two wall times, the device's busy time (the union of its
-kernels' and copies' intervals) and idle share over the profiled frame,
-and device time by kernel name, then one JSON line with the same numbers.
-Needs CUDA.
+σ-only coarse pass, 16,384-ray blocks) — with ``--stylized`` the Phase-F
+frame instead: the same trunks with fern-width style MLPs and a 1-style
+latent table through FusedStyleRenderer (K5 coarse, K4 fine). One warm-up
+frame, one frame timed without the profiler, then one frame under
+``torch.profiler``. Prints the card, the two wall times, the device's busy
+time (the union of its kernels' and copies' intervals) and idle share over
+the profiled frame, and device time by kernel name, then one JSON line
+with the same numbers. Needs CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -25,7 +28,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from tgtc_torch.data.rays import rays_for_poses
 from tgtc_torch.models.nerf import NerfConfig, make_nerf
+from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
 from tgtc_torch.render.fast import FusedNerfRenderer
+from tgtc_torch.render.fast_style import FusedStyleRenderer
 from tgtc_torch.render.volume import RenderSettings
 
 H, W, FOCAL = 756, 1008, 815.0  # fern at factor 4 (configs/fern.txt)
@@ -48,6 +53,10 @@ def busy_us(intervals) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--stylized", action="store_true",
+                        help="profile the Phase-F stylized frame (K5 + K4)")
+    stylized = parser.parse_args().stylized
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,15 +67,26 @@ def main() -> None:
     sds = [make_nerf(NerfConfig(), torch.Generator().manual_seed(s), device="cpu").state_dict()
            for s in (0, 1)]
     settings = RenderSettings(n_samples=64, n_samples_fine=64, sigma_noise_std=0.0)
-    renderer = FusedNerfRenderer.from_params(*sds, settings, coarse_rgb=False, device="cuda")
     intr = np.array([[FOCAL, 0, 0.5 * W], [0, FOCAL, 0.5 * H], [0, 0, 1]], np.float32)
     ro, rd = rays_for_poses(H, W, intr, np.eye(4, dtype=np.float32)[None, :3, :4],
                             use_ndc=True, device="cuda")
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    if stylized:
+        concat, style = make_style_mlps(StyleFieldConfig(), torch.Generator().manual_seed(2),
+                                        device="cpu")
+        lat = init_latents(torch.Generator().manual_seed(3), 1, 20, 32, device="cpu")
+        renderer = FusedStyleRenderer.from_params(
+            *sds, concat.state_dict(), style.state_dict(), lat, settings, coarse_rgb=False,
+            device="cuda")
+        render = lambda: renderer.render_image(ro, rd, 0, 0, block=BLOCK)
+    else:
+        renderer = FusedNerfRenderer.from_params(*sds, settings, coarse_rgb=False,
+                                                 device="cuda")
+        render = lambda: renderer.render_image(ro, rd, block=BLOCK)
 
     def frame() -> float:
         t0 = time.perf_counter()
-        renderer.render_image(ro, rd, block=BLOCK)
+        render()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -84,13 +104,15 @@ def main() -> None:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() * 1e-3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    print(f"frame {H}x{W}, {ro.shape[0]} rays: {plain_s * 1e3:.1f} ms without the "
-          f"profiler, {profiled_s * 1e3:.1f} ms under it; device busy "
-          f"{busy_s * 1e3:.1f} ms, idle share {1 - busy_s / profiled_s:.4f}", flush=True)
+    print(f"{'stylized ' if stylized else ''}frame {H}x{W}, {ro.shape[0]} rays: "
+          f"{plain_s * 1e3:.1f} ms without the profiler, {profiled_s * 1e3:.1f} ms under it; "
+          f"device busy {busy_s * 1e3:.1f} ms, idle share {1 - busy_s / profiled_s:.4f}",
+          flush=True)
     for name, (count, ms) in top[:12]:
         print(f"  {ms:10.3f} ms  {count:5d}x  {ms / (busy_s * 1e3):7.2%}  {name[:90]}")
     print(json.dumps({
-        "card": card, "frame_ms": plain_s * 1e3, "profiled_frame_ms": profiled_s * 1e3,
+        "card": card, "stylized": stylized, "frame_ms": plain_s * 1e3,
+        "profiled_frame_ms": profiled_s * 1e3,
         "device_busy_ms": busy_s * 1e3, "idle_share": 1 - busy_s / profiled_s,
         "kernels": [{"name": n, "count": c, "ms": ms} for n, (c, ms) in top[:12]],
     }))
