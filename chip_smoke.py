@@ -65,7 +65,29 @@ started together), then:
    and exemption); then render_stylized_frames_fused over three views with
    full-size depth PNGs: every PNG at 756x1008, and a second call renders
    nothing;
-8. prints the kernels line (JSON, K1-K5), then the result line.
+8. K6 (flash-attention forward): bf16 q/k/v (numpy seed 4) against its
+   plain twin at the C3 shape (8 heads, Sq = Sk = 11,970, D 64, scale
+   0.125), at 11,970 x 4,096 and at a ragged 300 x 180 with 16 heads
+   (max|o - twin| <= 1e-2 max|twin| and <= 3e-2, lse <= 1e-3), two
+   launches bitwise equal; a mask probe with
+   dropout 0.1, seed 7 (q = 0, Sk = 256, row j of v = 2^(j // 64)
+   e_(j mod 64), so that each output element encodes four keep bits) whose
+   decoded mask equals the twin's hash mask bit for bit over 16 heads and
+   1,000 rows; K6 timed at both large shapes beside its bound, its twin and
+   the library call (scaled_dot_product_attention with scale 1 on the
+   prescaled q; the backend it took is printed);
+9. Phase C3: a full-width StyTrans (d_model 512, 8 heads, 3+3 layers, FFN
+   2048, bf16, attn_impl="flash", torch seed 21) stylizes phase 5's
+   rgb_00000.png (756x1008, padded to 760x1008: 11,970 tokens) with a seeded
+   512x512 style resized to the content size: three frames timed after a
+   warm-up, each with exactly 12 K6 launches; the same frame with the
+   attention through the twin on the card (only K6 differs) within 5e-2 of
+   its max, on the image and hs; the f32 eager path (TF32 off) read against
+   it, not held; then stylize_all with one style over 20 views (fern's
+   count: phase 5's views repeated under new names), timed per view:
+   every NNN.jpg at 756x1008, stylized_data.npz complete with finite
+   style_features [1, 1024], 12 K6 launches a view;
+10. prints the kernels line (JSON, K1-K6), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -107,6 +129,11 @@ P_K3 = {"coarse": BATCH * NC, "fine": BATCH * (NC + NF)}
 WARM_STEPS, TRAIN_STEPS, I_PRINT = 20, 300, 50
 TOL_STEP_LOSS, TOL_STEP_COS = 2e-2, 0.99
 LATENT, LATENT_FRAMES, F_VIEWS, F_SEED = 32, 20, 3, 10  # Phase F: fern's 20 training views
+C3_TOKENS, C3_HEADS, D_HEAD = 95 * 126, 8, 64  # 756x1008 padded to 760x1008, 8x8 patches
+K6_SCALE, TOL_K6_O, TOL_K6_LSE, TOL_C3 = 0.125, 3e-2, 1e-3, 5e-2
+TOL_K6_O_REL = 1e-2  # of max|twin|: a typical |o| at C3 is ~0.012, under TOL_K6_O
+C3_VIEWS = 20  # fern's view count, for the bulk stylize_all timing
+C3_SITES = 12  # attention sites of one StyleTransformer call: 3 + 3 encoder, 2 x 3 decoder
 
 
 def check(ok: bool, what: str) -> None:
@@ -697,32 +724,33 @@ def phase_train(ks, kg):
     return renderer, launches, steps_per_s, trained
 
 
-def phase_b(ks, renderer):
+def phase_b(ks, renderer, root: str) -> str:
+    """Phase B into ``root``; returns the geometry directory (phase 9
+    stylizes its views)."""
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.train.geometry import dump_geometry
 
-    with tempfile.TemporaryDirectory() as tmp:
-        scene = load_llff_data(write_scene(os.path.join(tmp, "scene")), factor=1)
-        out_dir = os.path.join(tmp, "geometry")
-        ks.fused_nerf_apply_t.launches = 0
-        ks.fused_nerf_sigma_apply_t.launches = 0
-        t0 = time.perf_counter()
-        dump_geometry(renderer, scene, out_dir)
-        dt = time.perf_counter() - t0
-        n = scene.poses.shape[0]
-        names = [f"{kind}_{i:05d}.{ext}" for i in range(n)
-                 for kind, ext in (("rgb", "png"), ("depth", "png"), ("geometry", "npz"))]
-        missing = [f for f in names + ["geometry.npz"]
-                   if not os.path.exists(os.path.join(out_dir, f))]
-        check(not missing, f"Phase B artifacts missing: {missing}")
-        geo = np.load(os.path.join(out_dir, "geometry.npz"))
-        check(geo["coor_maps"].shape == (n, H, W, 3), "coor_maps shape")
-        check(bool(np.isfinite(geo["coor_maps"]).all()), "coor_map not finite")
-        print(f"[phase_b] {n} views at {H}x{W}: dump_geometry {dt:.2f} s, "
-              f"{len(names) + 1} files, launches K1 {ks.fused_nerf_apply_t.launches} "
-              f"K2 {ks.fused_nerf_sigma_apply_t.launches}", flush=True)
-        check(ks.fused_nerf_apply_t.launches > 0 and ks.fused_nerf_sigma_apply_t.launches > 0,
-              "Phase B did not go through the kernels")
+    scene = load_llff_data(write_scene(os.path.join(root, "scene")), factor=1)
+    out_dir = os.path.join(root, "geometry")
+    ks.fused_nerf_apply_t.launches = 0
+    ks.fused_nerf_sigma_apply_t.launches = 0
+    t0 = time.perf_counter()
+    dump_geometry(renderer, scene, out_dir)
+    dt = time.perf_counter() - t0
+    n = scene.poses.shape[0]
+    names = [f"{kind}_{i:05d}.{ext}" for i in range(n)
+             for kind, ext in (("rgb", "png"), ("depth", "png"), ("geometry", "npz"))]
+    missing = [f for f in names + ["geometry.npz"] if not os.path.exists(os.path.join(out_dir, f))]
+    check(not missing, f"Phase B artifacts missing: {missing}")
+    geo = np.load(os.path.join(out_dir, "geometry.npz"))
+    check(geo["coor_maps"].shape == (n, H, W, 3), "coor_maps shape")
+    check(bool(np.isfinite(geo["coor_maps"]).all()), "coor_map not finite")
+    print(f"[phase_b] {n} views at {H}x{W}: dump_geometry {dt:.2f} s, "
+          f"{len(names) + 1} files, launches K1 {ks.fused_nerf_apply_t.launches} "
+          f"K2 {ks.fused_nerf_sigma_apply_t.launches}", flush=True)
+    check(ks.fused_nerf_apply_t.launches > 0 and ks.fused_nerf_sigma_apply_t.launches > 0,
+          "Phase B did not go through the kernels")
+    return out_dir
 
 
 def phase_style_kernels(ks, kst, sd_c, style_sds):
@@ -923,6 +951,231 @@ def phase_f(ks, kst, trained):
     return launches, n / dt, 60 * rendered / loop_s
 
 
+def k6_inputs(rng: np.random.Generator, heads: int, sq: int, sk: int):
+    """bf16 q [1, heads, sq, 64], k and v [1, heads, sk, 64] on the card."""
+    return tuple(torch.from_numpy(rng.standard_normal((1, heads, n, D_HEAD)).astype(np.float32))
+                 .to("cuda", torch.bfloat16) for n in (sq, sk, sk))
+
+
+def k6_bound_ms(heads: int, sq: int, sk: int) -> float:
+    """max(4 Sq Sk D FLOP per head / bf16 peak, q, k, v and o in bf16 and
+    lse in f32 / HBM rate)."""
+    flops = 4 * heads * sq * sk * D_HEAD
+    io = heads * (2 * (2 * sq + 2 * sk) * D_HEAD + 4 * sq)
+    return 1e3 * max(flops / PEAK_BF16_FLOPS, io / PEAK_BYTES)
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The device kernels of one scaled_dot_product_attention call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    return "; ".join(sorted(n[:80] for n in names)) or "no device kernel recorded"
+
+
+def phase_k6(fa):
+    """K6 against its twin at the C3, rectangular and ragged shapes (a
+    second launch bitwise equal), the dropout mask probe, and timings at
+    both large shapes beside the bound, the twin and SDPA."""
+    rng = np.random.default_rng(4)
+    shapes = {"c3": (C3_HEADS, C3_TOKENS, C3_TOKENS), "rect": (C3_HEADS, C3_TOKENS, 4096),
+              "ragged": (16, 300, 180)}
+    err_o, err_lse, inputs = 0.0, 0.0, {}
+    for name, (heads, sq, sk) in shapes.items():
+        q, k, v = inputs[name] = k6_inputs(rng, heads, sq, sk)
+        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE)
+        e_o = float((o.float() - o_p.float()).abs().max())
+        e_l = float((lse - lse_p).abs().max())
+        lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: max|o - twin| {e_o:.3e} (limit "
+              f"{lim_o:.3e} = min({TOL_K6_O}, {TOL_K6_O_REL} max|twin|)), max|lse - twin| "
+              f"{e_l:.3e} (limit {TOL_K6_LSE}), |o| max {float(o_p.float().abs().max()):.3f}, "
+              f"mean {float(o_p.float().abs().mean()):.4f}; second launch bitwise equal: {same}",
+              flush=True)
+        check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()),
+              f"K6 output not finite at {name}")
+        check(e_o <= lim_o and e_l <= TOL_K6_LSE, f"K6 disagrees with its twin at {name}")
+        check(same, f"K6 is not bitwise repeatable at {name}")
+        err_o, err_lse = max(err_o, e_o), max(err_lse, e_l)
+        del o, lse, o2, lse2, o_p, lse_p
+
+    # mask probe: q = 0 gives p = 1 everywhere (l = Sk), and row j of v is
+    # 2^(j // 64) e_(j mod 64), so o[r, d] * Sk / bf16(1 / keep) is the sum
+    # of 2^b over the kept keys 64 b + d of row r: four keep bits each
+    heads, rows, sk, rate, seed = 16, 1000, 256, 0.1, 7
+    q = torch.zeros((1, heads, rows, D_HEAD), dtype=torch.bfloat16, device="cuda")
+    k = k6_inputs(rng, heads, 1, sk)[1]
+    j = torch.arange(sk, device="cuda")
+    v1 = torch.zeros((sk, D_HEAD), device="cuda")
+    v1[j, j % D_HEAD] = 2.0 ** (j // D_HEAD).float()
+    v = v1.to(torch.bfloat16).expand(1, heads, sk, D_HEAD).contiguous()
+    thr, keep = fa.quantized_keep(rate)
+    o = fa.flash_attention(q, k, v, 1.0, rate, seed)
+    torch.cuda.synchronize()
+    c = float(torch.tensor(1.0 / keep, dtype=torch.bfloat16))
+    n = torch.round(o.float() * sk / c).long()  # [1, heads, rows, 64]
+    decoded = torch.stack([(n >> b) & 1 for b in range(sk // D_HEAD)], dim=-2)
+    decoded = decoded.reshape(heads, rows, sk).bool()
+    want = torch.stack([fa.dropout_keep_mask(seed, bh, torch.arange(rows, device="cuda"), j, thr)
+                        for bh in range(heads)])
+    mismatched = int((decoded != want).sum())
+    print(f"[k6] mask probe (dropout {rate}, seed {seed}, {heads} heads x {rows} rows x {sk} "
+          f"keys): {mismatched} of {decoded.numel()} keep bits differ from the twin's hash; "
+          f"kept share {float(decoded.float().mean()):.4f} (keep {keep:.4f})", flush=True)
+    check(mismatched == 0, "K6's dropout mask differs from the twin's hash mask")
+
+    timing = {}
+    for name in ("c3", "rect"):
+        q, k, v = inputs[name]
+        heads, sq, sk = shapes[name]
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE), 20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE), 2)
+        qs = q * torch.tensor(K6_SCALE, dtype=torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, k, v, scale=1.0), 20)
+        backend = sdpa_backend(qs, k, v)
+        b = k6_bound_ms(heads, sq, sk)
+        flops = 4 * heads * sq * sk * D_HEAD
+        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: kernel {ms:.3f} ms "
+              f"({flops / ms * 1e-9:.1f} TFLOP/s, {b / ms:.2%} of the bound), bound {b:.3f} ms "
+              f"(operations), plain twin {plain_ms:.3f} ms, library "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms [{backend}]", flush=True)
+        timing[name] = (ms, plain_ms, lib_ms, b, backend)
+    c3, rect = timing["c3"], timing["rect"]
+    return {
+        "name": "K6", "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
+        "replaces": "tgtc/ops/pallas/flash_attention.py:231",
+        "wrapper": "tgtc_torch.ops.kernels.flash_attention.flash_attention_fwd",
+        "shape": [C3_HEADS, C3_TOKENS, C3_TOKENS, D_HEAD],
+        "max_abs_err": err_o, "max_err": err_o, "max_abs_err_lse": err_lse,
+        "mask_probe_mismatches": mismatched,
+        "ms": c3[0], "plain_ms": c3[1], "bound_ms": c3[3], "bound_by": "operations",
+        "library_ms": c3[2], "library": "torch.nn.functional.scaled_dot_product_attention",
+        "library_backend": c3[4],
+        "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[0],
+        "plain_ms_rect": rect[1], "bound_ms_rect": rect[3], "library_ms_rect": rect[2],
+    }
+
+
+def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|a - ref| / max|ref|."""
+    return float((a.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def phase_c3(fa, geo_dir: str, root: str):
+    """Phase C3 at full width on phase 5's views: timed frames (12 K6
+    launches each), the frame against the same frame with the twin's
+    attention, the f32 eager path read beside it, then stylize_all over
+    C3_VIEWS views. Returns the launches of one frame, frames/s and seconds
+    per view."""
+    import shutil
+
+    from PIL import Image
+
+    import tgtc_torch.models.transformer as tr
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.train import stylize as st
+
+    cfg = tr.TransformerConfig(dtype=torch.bfloat16, attn_impl="flash")
+    model = make_stytrans(cfg, torch.Generator().manual_seed(21), device="cuda")
+    img = st._load_rgb(os.path.join(geo_dir, "rgb_00000.png"))
+    h, w = img.shape[:2]
+    style_img = np.random.default_rng(22).uniform(0, 1, (512, 512, 3)).astype(np.float32)
+    content = torch.from_numpy(st.pad_to_multiple(img))[None].cuda()
+    style = torch.from_numpy(st.pad_to_multiple(st._resize(style_img, w, h)))[None].cuda()
+    hp, wp = content.shape[1:3]  # 760 x 1008
+    check((h, w) == (H, W) and (hp, wp) == (-(-H // 8) * 8, -(-W // 8) * 8),
+          f"C3 content {tuple(content.shape)}")
+
+    model.stylize(content, style)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(FRAMES):
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        im, hs = model.stylize(content, style)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = fa.flash_attention_fwd.launches
+        check(launches == C3_SITES, f"C3 frame launched K6 {launches} times, not {C3_SITES}")
+    peak = torch.cuda.max_memory_allocated()
+    dt = float(np.median(times))
+    print(f"[c3] StyTrans d_model 512, 8 heads, 3+3 layers, bf16, flash: frame {h}x{w} (padded "
+          f"{hp}x{wp}, {hp * wp // 64} tokens), {FRAMES} frames after a "
+          f"warm-up: {', '.join(f'{t * 1e3:.2f}' for t in times)} ms; median {dt * 1e3:.2f} ms, "
+          f"{1 / dt:.3f} frames/s; K6 launches per frame {launches}; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    check(im.shape == (1, hp, wp, 3) and hs.shape == (1, hp // 8, wp // 8, 512),
+          "C3 output shapes")
+    check(bool(torch.isfinite(im).all() and torch.isfinite(hs).all()), "C3 output not finite")
+
+    # the same frame with the attention through the twin on the card
+    kernel = tr.flash_attention
+    tr.flash_attention = fa.flash_attention_plain
+    try:
+        im_t, hs_t = model.stylize(content, style)
+    finally:
+        tr.flash_attention = kernel
+    torch.cuda.synchronize()
+    e_im, e_hs = rel_err(im, im_t), rel_err(hs, hs_t)
+    print(f"[c3] vs the same frame with the twin's attention: max|d|/max|ref| image {e_im:.3e}, "
+          f"hs {e_hs:.3e} (bound {TOL_C3})", flush=True)
+    check(e_im <= TOL_C3 and e_hs <= TOL_C3, "C3 frame disagrees with the twin-attention frame")
+    del im_t, hs_t
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eager = make_stytrans(tr.TransformerConfig(), device="cuda")
+    eager.load_state_dict(model.state_dict())
+    im_f, hs_f = eager.stylize(content, style)
+    torch.cuda.synchronize()
+    print(f"[c3] read, not held: bf16 flash frame vs the f32 eager frame (TF32 off): "
+          f"max|d|/max|f32| image {rel_err(im, im_f):.3e}, hs {rel_err(hs, hs_f):.3e}",
+          flush=True)
+    del eager, im_f, hs_f
+
+    # a bulk pass of fern's size: phase 5's views repeated under new names,
+    # so that the first and last views weigh as little as in a real scene
+    dumped = sorted(f for f in os.listdir(geo_dir) if f.startswith("rgb_"))
+    content_dir, out = os.path.join(root, "c3_views"), os.path.join(root, "stylized")
+    os.makedirs(content_dir)
+    views = [f"rgb_{i:05d}.png" for i in range(C3_VIEWS)]
+    for i, name in enumerate(views):
+        shutil.copyfile(os.path.join(geo_dir, dumped[i % len(dumped)]),
+                        os.path.join(content_dir, name))
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = st.stylize_all(model, content_dir, [style_img], ["style_00.png"], out, device="cuda")
+    loop_s = time.perf_counter() - t0
+    loop_launches = fa.flash_attention_fwd.launches
+    jpgs = [os.path.join(out, f"{i + 1:03d}.jpg") for i in range(len(views))]
+    sizes = [Image.open(p).size for p in jpgs if os.path.exists(p)]
+    z = np.load(os.path.join(out, "stylized_data.npz"), allow_pickle=True)
+    feats = z["style_features"]
+    print(f"[c3] stylize_all over {len(views)} views ({len(dumped)} dumped views repeated): "
+          f"{loop_s:.3f} s, {loop_s / len(views):.3f} s "
+          f"per view with the JPEG writes; {len(sizes)} of {len(jpgs)} JPEGs at {W}x{H}: "
+          f"{all(s == (W, H) for s in sizes)}; npz {sorted(z.files)}, style_features "
+          f"{feats.shape} finite {bool(np.isfinite(feats).all())}; K6 launches {loop_launches}",
+          flush=True)
+    check(len(sizes) == len(jpgs) and all(s == (W, H) for s in sizes), "C3 JPEGs missing or "
+          "of the wrong size")
+    check(sorted(z.files) == ["style_features", "style_images", "style_names", "style_paths"],
+          f"stylized_data.npz keys {z.files}")
+    check(feats.shape == (1, 1024) and bool(np.isfinite(feats).all())
+          and np.array_equal(feats, res["style_features"]), "style_features")
+    check(loop_launches == C3_SITES * len(views), f"stylize_all launched K6 {loop_launches} times")
+    return launches, 1 / dt, loop_s / len(views)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -930,6 +1183,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tgtc_torch.convert import nerf_state_dict_from_flax, style_state_dicts_from_flax
     from tgtc_torch.ops.kernels import _build
+    from tgtc_torch.ops.kernels import flash_attention as fa
     from tgtc_torch.ops.kernels import nerf_mlp as ks
     from tgtc_torch.ops.kernels import nerf_mlp_grad as kg
     from tgtc_torch.ops.kernels import style_kernel as kst
@@ -963,16 +1217,22 @@ def main() -> int:
         row["launches_train"] = train_launches[row["name"]]
         row["launches_per_step"] = train_launches[row["name"]] // TRAIN_STEPS
     rows[-1]["launches"] = train_launches["K3"]
-    phase_b(ks, trained_renderer)
-    style_rows = phase_style_kernels(ks, kst, sd_c, style_sds)
-    f_launches, f_rays_per_s, f_frames_per_min = phase_f(ks, kst, trained)
-    for row in style_rows:
-        row["launches"] = f_launches[row["name"]]
-    rows += style_rows
+    with tempfile.TemporaryDirectory() as tmp:
+        geo_dir = phase_b(ks, trained_renderer, tmp)
+        style_rows = phase_style_kernels(ks, kst, sd_c, style_sds)
+        f_launches, f_rays_per_s, f_frames_per_min = phase_f(ks, kst, trained)
+        for row in style_rows:
+            row["launches"] = f_launches[row["name"]]
+        rows += style_rows
+        k6_row = phase_k6(fa)
+        c3_launches, c3_frames_per_s, c3_s_per_view = phase_c3(fa, geo_dir, tmp)
+    k6_row["launches"] = c3_launches
+    rows.append(k6_row)
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
-          f"{f_frames_per_min:.2f} frames/min", flush=True)
+          f"{f_frames_per_min:.2f} frames/min; C3 {c3_frames_per_s:.3f} frames/s, "
+          f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

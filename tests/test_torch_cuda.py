@@ -1,7 +1,7 @@
-"""The CUDA kernels on a card: K1-K5 against their plain twins, their
-launch counters, the fused render, the fused stylized render and one fused
-training step on the card against the same on the CPU (where the wrappers
-run the twins).
+"""The CUDA kernels on a card: K1-K6 against their plain twins, their
+launch counters, the fused render, the fused stylized render, one fused
+training step and a narrow C3 stylization on the card against the same on
+the CPU (where the wrappers run the twins).
 
 Every test here needs a card and skips without one. The file imports
 neither JAX nor tgtc, so it also runs where JAX is not installed:
@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from tgtc_torch.models.nerf import NerfConfig, make_nerf
+from tgtc_torch.models.stytrans import make_stytrans
+from tgtc_torch.models.transformer import TransformerConfig
 from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
+from tgtc_torch.ops.kernels import flash_attention as fa
 from tgtc_torch.ops.kernels import nerf_mlp as tk
 from tgtc_torch.ops.kernels import nerf_mlp_grad as tg
 from tgtc_torch.ops.kernels import style_kernel as ts
@@ -221,3 +224,99 @@ def test_fused_style_render_on_card_matches_cpu(cuda_device, coarse_rgb):
     assert set(cpu) == set(card)
     for key in cpu:
         assert (card[key] - cpu[key]).abs().max() <= TOL_RENDER, key
+
+
+TOL_K6_O, TOL_K6_LSE, TOL_C3 = 3e-2, 1e-3, 5e-2
+TOL_K6_O_REL = 1e-2  # of max|twin|, which sits far below TOL_K6_O at long key rows
+
+
+def _qkv(heads, sq, sk, device, seed=7):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(1, heads, n, 64)).astype(np.float32))
+                 .to(device, torch.bfloat16) for n in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("heads,sq,sk,rate", [(16, 300, 180, 0.0), (2, 2000, 700, 0.0),
+                                              (2, 64, 4096, 0.0), (4, 257, 129, 0.25)])
+def test_cuda_k6_matches_twin_and_repeats(cuda_device, heads, sq, sk, rate):
+    q, k, v = _qkv(heads, sq, sk, cuda_device)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 11)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, 0.125, rate, 11)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, 0.125, rate, 11)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16 and lse.shape == (1, heads, sq)
+    e_o = float((o.float() - o_p.float()).abs().max())
+    e_l = float((lse - lse_p).abs().max())
+    lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
+    print(f"parity K6 vs twin, {heads} heads, Sq {sq}, Sk {sk}, dropout {rate}: o {e_o:.3e} "
+          f"(limit {lim_o:.3e}), lse {e_l:.3e} (limit {TOL_K6_LSE})")
+    assert e_o <= lim_o
+    assert e_l <= TOL_K6_LSE
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_cuda_k6_reads_head_transposed_views(cuda_device):
+    """q/k/v as [B, H, S, D] views of [B, S, H, D] (the projections' layout)."""
+    q, k, v = _qkv(4, 300, 200, cuda_device)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    o_v, lse_v = fa.flash_attention_fwd(*views, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_v) and torch.equal(lse, lse_v)
+
+
+def test_k6_launch_counter_counts_launches(cuda_device):
+    q, k, v = _qkv(2, 64, 64, cuda_device)
+    before = fa.flash_attention_fwd.launches
+    fa.flash_attention(q, k, v, 0.125)
+    fa.flash_attention_fwd(q, k, v, 0.125)
+    fa.flash_attention_fwd_plain(q, k, v, 0.125)  # the twin is no launch
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches - before == 2
+
+
+def test_k6_dropout_mask_probe(cuda_device):
+    """q = 0 and row j of v = 2^(j // 64) e_(j mod 64): each output element
+    encodes four keep bits, which must be the twin's hash mask."""
+    heads, rows, sk, rate, seed = 4, 200, 256, 0.1, 7
+    q = torch.zeros((1, heads, rows, 64), dtype=torch.bfloat16, device=cuda_device)
+    k = _qkv(heads, 1, sk, cuda_device)[1]
+    j = torch.arange(sk, device=cuda_device)
+    v = torch.zeros((sk, 64), device=cuda_device)
+    v[j, j % 64] = 2.0 ** (j // 64).float()
+    v = v.to(torch.bfloat16).expand(1, heads, sk, 64).contiguous()
+    thr, keep = fa.quantized_keep(rate)
+    o = fa.flash_attention(q, k, v, 1.0, rate, seed)
+    n = torch.round(o.float() * sk / float(torch.tensor(1.0 / keep, dtype=torch.bfloat16))).long()
+    decoded = torch.stack([(n >> b) & 1 for b in range(4)], dim=-2).reshape(heads, rows, sk)
+    want = torch.stack([fa.dropout_keep_mask(seed, bh, torch.arange(rows, device=cuda_device),
+                                             j, thr) for bh in range(heads)])
+    assert torch.equal(decoded.bool(), want)
+
+
+def test_k6_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _qkv(2, 64, 64, cuda_device)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+
+
+def test_narrow_stylize_on_card_matches_cpu(cuda_device):
+    """StyTrans (d_model 128, 2 heads of 64, 1+1 layers, bf16, flash): K6 and
+    cuDNN/cuBLAS on the card against the twins on the CPU, same weights."""
+    cfg = TransformerConfig(d_model=128, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                            dim_feedforward=256, dtype=torch.bfloat16, attn_impl="flash")
+    rng = np.random.default_rng(8)
+    content = torch.from_numpy(rng.uniform(0, 1, (1, 40, 48, 3)).astype(np.float32))
+    style = torch.from_numpy(rng.uniform(0, 1, (1, 24, 32, 3)).astype(np.float32))
+    out = {}
+    before = fa.flash_attention_fwd.launches
+    for dev in ("cpu", cuda_device):
+        model = make_stytrans(cfg, torch.Generator().manual_seed(3), device=dev)
+        out[str(dev)] = [t.cpu() for t in model.stylize(content.to(dev), style.to(dev))]
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches - before == 4  # 1 + 1 encoder, 2 decoder sites
+    for cpu, card in zip(out["cpu"], out[str(cuda_device)]):
+        assert card.shape == cpu.shape
+        assert (card - cpu).abs().max() <= TOL_C3 * cpu.abs().max()

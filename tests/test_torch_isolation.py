@@ -33,7 +33,9 @@ def test_submodule_list_covers_the_slice():
                  "train.nerf_trainer", "train.checkpoint", "utils.logging",
                  "tools.profile_step", "models.style_field", "render.style",
                  "render.fast_style", "ops.kernels.style_kernel", "train.render_style",
-                 "utils.img", "tools.profile_frame"):
+                 "utils.img", "tools.profile_frame", "ops.kernels.flash_attention",
+                 "models.transformer", "models.vgg", "models.decoder", "models.stytrans",
+                 "train.pretrained", "train.stylize"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -105,6 +107,17 @@ def test_entry_points_default_to_the_card():
     from tgtc_torch.train import nerf_trainer as tt
 
     tc = tt.NerfTrainConfig()
+    from tgtc_torch.models.stytrans import StyTrans, make_stytrans
+    from tgtc_torch.models.transformer import TransformerConfig
+    from tgtc_torch.train.stylize import stylize_all
+
+    narrow = TransformerConfig(d_model=16, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                               dim_feedforward=16)
+    model = make_stytrans(narrow, device="cpu")
+    for build in (lambda: make_stytrans(narrow), lambda: StyTrans(narrow),
+                  lambda: stylize_all(model, "unused", [], [], "unused")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     for build in (lambda: tt.init_state(torch.Generator(), cfg, tc),
                   lambda: tt.make_train_step(tc),
                   lambda: tt.make_fused_train_step(NerfConfig(), tc),

@@ -2,10 +2,12 @@
 
 Mirrors the layout of the JAX package ``tgtc`` so each module has a
 counterpart here: ``ops`` (encoding, compositing, sampling, losses and the
-hand-written CUDA kernels), ``models`` (the NeRF trunk and the style
-field), ``render`` (eager and fused coarse→fine rendering, plain and
-stylized), ``data`` (LLFF scenes and rays), ``train`` (Phase-A training,
-the Phase-B geometry dump and the Phase-F stylized frames), ``utils``
+hand-written CUDA kernels), ``models`` (the NeRF trunk, the style field
+and the 2D StyTr² network), ``render`` (eager and fused coarse→fine
+rendering, plain and stylized), ``data`` (LLFF scenes and rays),
+``train`` (Phase-A training, the Phase-B geometry dump, the Phase-C3 bulk
+stylization with its pretrained-asset loader, and the Phase-F stylized
+frames), ``utils``
 (native PNG/resize shim, logging, uint8 images) and ``tools`` (measurement
 scripts run on the card).
 

@@ -15,6 +15,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from tgtc_torch.models.decoder import TORCH_INDEX
+
 _TORCH_NAME = {"sigma": "sigma_layer", "base_remap": "base_remap_layer",
                "rgb_0": "rgb_layers.0", "rgb_1": "rgb_layers.1"}
 
@@ -93,6 +95,128 @@ def style_flax_from_state_dicts(concat_sd: Dict[str, torch.Tensor],
                    "bias": arr(f"layers.{i}.bias").copy()}
             for i, name in enumerate(_style_flax_names(which, n))}}
     return out
+
+
+def _t(x, perm=None) -> torch.Tensor:
+    """A numpy-convertible array as a contiguous f32 tensor, transposed by
+    ``perm`` (reversed axes if None)."""
+    a = np.asarray(x, np.float32)
+    return torch.from_numpy(np.array(np.transpose(a, perm), order="C"))
+
+
+def _f(t: torch.Tensor, perm=None) -> np.ndarray:
+    """The inverse of :func:`_t`: a contiguous f32 numpy array."""
+    return np.ascontiguousarray(np.transpose(t.detach().cpu().float().numpy(), perm))
+
+
+_HWIO_TO_OIHW, _OIHW_TO_HWIO = (3, 2, 0, 1), (2, 3, 1, 0)
+_ENC_PARTS = ("qkv", "qk", "self_attn", "linear1", "linear2", "norm1", "norm2")
+_DEC_PARTS = (("self_attn", "self_attn"), ("cross_attn", "multihead_attn"),
+              ("linear1", "linear1"), ("linear2", "linear2"), ("norm1", "norm1"),
+              ("norm2", "norm2"), ("norm3", "norm3"))
+
+
+def _flax_leaf_to_torch(name: str, leaf: Dict[str, Any], prefix: str,
+                        sd: Dict[str, torch.Tensor]) -> None:
+    """One flax submodule (Dense, LayerNorm or MultiHeadAttention) → torch
+    keys under ``prefix``."""
+    if name.startswith("norm"):
+        sd[f"{prefix}.weight"] = _t(leaf["scale"])
+        sd[f"{prefix}.bias"] = _t(leaf["bias"])
+    elif "q_proj" in leaf:  # MultiHeadAttention: packed in_proj, out_proj
+        parts = [leaf[p] for p in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{prefix}.in_proj_weight"] = torch.cat([_t(p["kernel"]) for p in parts])
+        sd[f"{prefix}.in_proj_bias"] = torch.cat([_t(p["bias"]) for p in parts])
+        sd[f"{prefix}.out_proj.weight"] = _t(leaf["out_proj"]["kernel"])
+        sd[f"{prefix}.out_proj.bias"] = _t(leaf["out_proj"]["bias"])
+    else:
+        sd[f"{prefix}.weight"] = _t(leaf["kernel"])
+        if "bias" in leaf:
+            sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+
+def _torch_leaf_to_flax(name: str, prefix: str, sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`_flax_leaf_to_torch`."""
+    if name.startswith("norm"):
+        return {"scale": _f(sd[f"{prefix}.weight"]), "bias": _f(sd[f"{prefix}.bias"])}
+    if name.endswith("attn"):
+        w, b = _f(sd[f"{prefix}.in_proj_weight"]), _f(sd[f"{prefix}.in_proj_bias"])
+        d = w.shape[0]
+        out = {p: {"kernel": np.ascontiguousarray(w[:, i * d: (i + 1) * d]),
+                   "bias": b[i * d: (i + 1) * d].copy()}
+               for i, p in enumerate(("q_proj", "k_proj", "v_proj"))}
+        out["out_proj"] = {"kernel": _f(sd[f"{prefix}.out_proj.weight"]),
+                           "bias": _f(sd[f"{prefix}.out_proj.bias"])}
+        return out
+    leaf = {"kernel": _f(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        leaf["bias"] = _f(sd[f"{prefix}.bias"])
+    return leaf
+
+
+def _count(names, prefix: str) -> int:
+    return len([n for n in names if n.startswith(prefix) and n[len(prefix):].isdigit()])
+
+
+def stytrans_state_dicts_from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A flax StyTrans param tree (``{"params": {"embedding", "transformer",
+    "decode", "vgg"}}``, numpy or any array ``np.asarray`` takes) →
+    ``{"embedding", "transformer", "decoder"}`` state dicts of f32 tensors
+    under the reference's torch names: the inverse of JAX's
+    ``convert_torch_patch_embed``, ``convert_torch_transformer`` and
+    ``convert_torch_decoder``. Dense kernels are transposed, conv kernels
+    go HWIO → OIHW, LayerNorm ``scale`` becomes ``weight`` and the three
+    attention projections are packed into ``in_proj_*``. The ``vgg``
+    subtree is ignored: the port's VGG comes with the C1 trainer."""
+    p = params["params"]
+    emb = p["embedding"]["proj"]
+    embedding = {"proj.weight": _t(emb["kernel"], _HWIO_TO_OIHW),
+                 "proj.bias": _t(emb["bias"])}
+    tp = p["transformer"]
+    transformer: Dict[str, torch.Tensor] = {}
+    for i in range(_count(tp, "enc_s_")):
+        for ours, theirs in ((f"enc_s_{i}", f"encoder_s.layers.{i}"),
+                             (f"enc_c_{i}", f"encoder_c.layers.{i}")):
+            for part in _ENC_PARTS:
+                _flax_leaf_to_torch(part, tp[ours][part], f"{theirs}.{part}", transformer)
+    for i in range(_count(tp, "dec_")):
+        for ours, theirs in _DEC_PARTS:
+            _flax_leaf_to_torch(ours, tp[f"dec_{i}"][ours], f"decoder.layers.{i}.{theirs}",
+                                transformer)
+    _flax_leaf_to_torch("norm", tp["dec_norm"], "decoder.norm", transformer)
+    decoder: Dict[str, torch.Tensor] = {}
+    for j, idx in enumerate(TORCH_INDEX):
+        leaf = p["decode"][f"dconv{j}"]
+        decoder[f"{idx}.weight"] = _t(leaf["kernel"], _HWIO_TO_OIHW)
+        decoder[f"{idx}.bias"] = _t(leaf["bias"])
+    return {"embedding": embedding, "transformer": transformer, "decoder": decoder}
+
+
+def stytrans_flax_from_state_dicts(sds: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The inverse of :func:`stytrans_state_dicts_from_flax`: numpy flax
+    params ``{"params": {"embedding", "transformer", "decode"}}`` (no
+    ``vgg``)."""
+    e, t, d = sds["embedding"], sds["transformer"], sds["decoder"]
+    layers = {k.split(".")[2] for k in t if k.startswith("encoder_s.layers.")}
+    dec_layers = {k.split(".")[2] for k in t if k.startswith("decoder.layers.")}
+    tp: Dict[str, Any] = {}
+    for i in range(len(layers)):
+        for ours, theirs in ((f"enc_s_{i}", f"encoder_s.layers.{i}"),
+                             (f"enc_c_{i}", f"encoder_c.layers.{i}")):
+            tp[ours] = {part: _torch_leaf_to_flax(part, f"{theirs}.{part}", t)
+                        for part in _ENC_PARTS}
+    for i in range(len(dec_layers)):
+        tp[f"dec_{i}"] = {ours: _torch_leaf_to_flax(ours, f"decoder.layers.{i}.{theirs}", t)
+                          for ours, theirs in _DEC_PARTS}
+    tp["dec_norm"] = _torch_leaf_to_flax("norm", "decoder.norm", t)
+    return {"params": {
+        "embedding": {"proj": {"kernel": _f(e["proj.weight"], _OIHW_TO_HWIO),
+                               "bias": _f(e["proj.bias"])}},
+        "transformer": tp,
+        "decode": {f"dconv{j}": {"kernel": _f(d[f"{idx}.weight"], _OIHW_TO_HWIO),
+                                 "bias": _f(d[f"{idx}.bias"])}
+                   for j, idx in enumerate(TORCH_INDEX)},
+    }}
 
 
 def latent_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:

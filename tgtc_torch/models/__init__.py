@@ -1,1 +1,2 @@
-"""Model definitions — port of tgtc/models (the NeRF trunk so far)."""
+"""Model definitions — port of tgtc/models (the NeRF trunk, the style field and the
+2D StyTr² network so far)."""
