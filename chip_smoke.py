@@ -87,7 +87,36 @@ started together), then:
    count: phase 5's views repeated under new names), timed per view:
    every NNN.jpg at 756x1008, stylized_data.npz complete with finite
    style_features [1, 1024], 12 K6 launches a view;
-10. prints the kernels line (JSON, K1-K6), then the result line.
+10. K7/K8 (flash-attention backward): bf16 q/k/v/dO (numpy seed 5), lse
+   from K6 on the same inputs, against their plain twins at the C1 shape
+   (8 x 8 heads, Sq = Sk = 1,024, D 64, scale 0.125) at dropout 0 and 0.1,
+   at 11,970 x 4,096 and at a ragged 300 x 180 with 16 heads: each of dq,
+   dk, dv within 1e-2 max|twin|, two launches bitwise equal; K6 at the C1
+   shape with dropout 0.1 against its twin (phase 8's bounds); K6, K7 and
+   K8 timed at the C1 shape (dropout 0.1, the C1 path's, and 0) and K7/K8
+   at 11,970 x 4,096 beside their bounds, their twins and the library call:
+   the backward of scaled_dot_product_attention at dropout 0 on the same
+   tensors (torch.autograd.grad of one saved forward, the device time of
+   its kernels and memsets from the profiler; the kernels are printed);
+11. Phase C1 at full width (d_model 512, 8 heads, 3+3 layers, FFN 2048,
+   dropout 0.1, bf16, flash attention, torch seed 21, random VGG and
+   decoder): tools/train2d.main(["--task", "transformer", ...]) on phase
+   5's renders as content and 8 seeded 512x512 style PNGs, batch 8, 256x256
+   crops: 10 warm-up steps, then 100 counted steps resumed from the warm-
+   up's checkpoint, logged every 10 steps: 36 K7 and 36 K8 launches a step
+   and 36 K6 (plus 12 for each collage), finite losses, the collage PNGs
+   and the checkpoint written, C1 steps/s over the counted loop's log
+   windows; on one fixed batch and generator seed, the step's losses and
+   gradients against the same step with the attention through the twins on
+   the card (36 K6, K7 and K8 launches in the step; loss within 1e-2
+   relative, the cosine of all trained leaves' gradients together >= 0.999,
+   each leaf's error within 0.1 of its gradient norm or of the median
+   leaf's, whichever is larger, and each row block of the attention
+   projections that only dq, dk or dv feeds within 0.5 of its own
+   gradient norm); at dropout 0 the same against the eager f32 "xla" step
+   (TF32 off; cosine 0.99, the worst leaf's error within 1.3x the eager
+   bf16 "xla" step's + 5e-3); 30 steps on one fixed batch lower the loss;
+12. prints the kernels line (JSON, K1-K8), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -134,6 +163,26 @@ K6_SCALE, TOL_K6_O, TOL_K6_LSE, TOL_C3 = 0.125, 3e-2, 1e-3, 5e-2
 TOL_K6_O_REL = 1e-2  # of max|twin|: a typical |o| at C3 is ~0.012, under TOL_K6_O
 C3_VIEWS = 20  # fern's view count, for the bulk stylize_all timing
 C3_SITES = 12  # attention sites of one StyleTransformer call: 3 + 3 encoder, 2 x 3 decoder
+C1_BATCH, C1_TOKENS, C1_RATE = 8, 32 * 32, 0.1  # 256x256 crops, 8x8 patches; dropout
+C1_SITES = 3 * C3_SITES  # a C1 step's transformer calls: Ics, Icc, Iss
+C1_WARM, C1_STEPS, C1_PRINT, C1_OVERFIT = 10, 100, 10, 30
+TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
+# The C1 step's gradient witnesses: the loss, the cosine of all trained
+# leaves' gradients together, and each leaf's error relative to its own
+# gradient norm or the median leaf's, whichever is larger. A per-leaf cosine
+# is no bound: the content encoder's qk weights see only logit gradients,
+# far below the median leaf's, at the bf16 noise floor (cosine 0.963
+# between the kernel and the twin-attention step at step 110, on an H100).
+# Against the eager f32 step, the eager bf16 step is the yardstick (the form
+# of tests/test_fused_grad.py): both bf16 steps are ~0.2 of a leaf's norm off
+# f32 on the style encoder's qkv weights (H100 80GB HBM3, 700 W).
+# The row blocks of the attention projections that only K7's dq or K8's dk
+# or dv feeds are also held each to its own norm: the lowest leaf cosine
+# read so far, 0.963, is a relative error of ~0.27, while a block whose dq,
+# dk or dv is zeroed reads 1, and one scaled by 8 reads 7.
+TOL_C1_LOSS, TOL_C1_COS, TOL_C1_LEAF = 1e-2, 0.999, 0.1      # vs the twin-attention step
+TOL_C1_ATTN_LEAF = 0.5
+TOL_C1_F32_COS, TOL_C1_F32_RATIO, TOL_C1_F32_ADD = 0.99, 1.3, 5e-3  # vs the eager f32 step
 
 
 def check(ok: bool, what: str) -> None:
@@ -1176,6 +1225,387 @@ def phase_c3(fa, geo_dir: str, root: str):
     return launches, 1 / dt, loop_s / len(views)
 
 
+def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: int):
+    """bf16 q, dO [batch, heads, sq, 64] and k, v [batch, heads, sk, 64] on the card."""
+    return tuple(torch.from_numpy(rng.standard_normal((batch, heads, n, D_HEAD))
+                                  .astype(np.float32)).to("cuda", torch.bfloat16)
+                 for n in (sq, sk, sk, sq))
+
+
+def k78_bound_ms(products: int, outputs: int, bh: int, sq: int, sk: int) -> float:
+    """max(2 Sq Sk D FLOP per product / bf16 peak, q, k, v and dO in bf16,
+    lse and delta in f32 and the outputs in bf16 / HBM rate)."""
+    flops = products * 2 * bh * sq * sk * D_HEAD
+    rows_out = sq if outputs == 1 else 2 * sk
+    io = bh * (2 * (2 * sq + 2 * sk + rows_out) * D_HEAD + 8 * sq)
+    return 1e3 * max(flops / PEAK_BF16_FLOPS, io / PEAK_BYTES)
+
+
+def device_ms(fn, iters: int):
+    """``fn``'s device time per call, the sum of the kernels (and memsets)
+    the profiler records over ``iters`` calls after one warm-up, and their
+    names. Host time between kernels is not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(events), "the profiler recorded no device kernel")
+    names = "; ".join(sorted({e.name[:80] for e in events}))
+    return sum(e.time_range.elapsed_us() for e in events) * 1e-3 / iters, names
+
+
+def sdpa_bwd(q, k, v, do, iters: int):
+    """The library's attention on the same tensors (scale 1 on the
+    prescaled q, dropout 0), with autograd on: the forward's and the
+    backward's (dq, dk and dv from one saved forward) device times per call
+    from the profiler, and the backward's kernels."""
+    qs = (q * torch.tensor(K6_SCALE, dtype=torch.bfloat16)).detach().requires_grad_()
+    kk, vv = k.detach().requires_grad_(), v.detach().requires_grad_()
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(qs, kk, vv, scale=1.0)
+
+    out = fwd()
+    fwd_ms, _ = device_ms(fwd, iters)
+    bwd_ms, backend = device_ms(
+        lambda: torch.autograd.grad(out, (qs, kk, vv), do, retain_graph=True), iters)
+    return fwd_ms, bwd_ms, backend
+
+
+def phase_k78(fa):
+    """K7/K8 against their twins at the C1 shape (dropout 0 and 0.1), the
+    rectangular C3 shape and a ragged one, a second launch bitwise equal;
+    K6 at the C1 shape with dropout; timings beside the bounds, the twins
+    and SDPA's backward. Returns the K7 and K8 rows and K6's C1 readings."""
+    rng = np.random.default_rng(5)
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")  # drawn on the card in C1
+    cases = (("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), 0.0),
+             ("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), C1_RATE),
+             ("rect", (1, C3_HEADS, C3_TOKENS, 4096), 0.0),
+             ("ragged", (1, 16, 300, 180), 0.0))
+    err = {"K7": 0.0, "K8": 0.0}
+    inputs = {}
+    for name, (b, heads, sq, sk), rate in cases:
+        if name not in inputs:
+            inputs[name] = k78_inputs(rng, b, heads, sq, sk)
+        q, k, v, do = inputs[name]
+        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, K6_SCALE, rate, seed)
+        dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+        dq2, (dk2, dv2) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        tq = fa.flash_attention_bwd_dq_plain(*args)
+        tk, tv = fa.flash_attention_bwd_dkv_plain(*args)
+        same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        parts = []
+        for what, got, want in (("dq", dq, tq), ("dk", dk, tk), ("dv", dv, tv)):
+            e = float((got.float() - want.float()).abs().max())
+            lim = TOL_K78_REL * float(want.float().abs().max())
+            parts.append(f"{what} {e:.3e} (limit {lim:.3e})")
+            check(bool(torch.isfinite(got.float()).all()), f"K7/K8 {what} not finite at {name}")
+            check(e <= lim, f"K7/K8 {what} disagrees with its twin at {name}, dropout {rate}")
+            kname = "K7" if what == "dq" else "K8"
+            err[kname] = max(err[kname], e)
+        print(f"[k78] {name} batch {b} heads {heads} Sq {sq} Sk {sk} dropout {rate}: max|kernel - "
+              f"twin| {', '.join(parts)} (limits {TOL_K78_REL} max|twin|); second launches "
+              f"bitwise equal: {same}", flush=True)
+        check(same, f"K7/K8 are not bitwise repeatable at {name}")
+        del o, lse, delta, dq, dk, dv, dq2, dk2, dv2, tq, tk, tv
+
+    # K6 at the C1 shape with dropout: no path launched it with dropout before C1
+    q, k, v, do = inputs["c1"]
+    o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, C1_RATE, seed)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE, C1_RATE, seed)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, C1_RATE, seed)
+    e_o, e_l = float((o.float() - o_p.float()).abs().max()), float((lse - lse_p).abs().max())
+    lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    print(f"[k78] K6 at the C1 shape, dropout {C1_RATE}: max|o - twin| {e_o:.3e} (limit "
+          f"{lim_o:.3e}), max|lse - twin| {e_l:.3e} (limit {TOL_K6_LSE}); second launch bitwise "
+          f"equal: {same}", flush=True)
+    check(e_o <= lim_o and e_l <= TOL_K6_LSE and same, "K6 with dropout disagrees with its twin")
+    del o2, lse2, o_p, lse_p
+
+    bh = C1_BATCH * C3_HEADS
+    times = {}
+    for rate in (C1_RATE, 0.0):
+        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed)
+        delta = fa.attention_delta(o, do)
+        args = (q, k, v, do, lse, delta, K6_SCALE, rate, seed)
+        times[rate] = {
+            "K6": (cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed), 20),
+                   cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, seed), 2)),
+            "K7": (cuda_ms(lambda: fa.flash_attention_bwd_dq(*args), 20),
+                   cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 2)),
+            "K8": (cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args), 20),
+                   cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 2)),
+        }
+    lib_fwd, lib_bwd, backend = sdpa_bwd(q, k, v, do, 20)
+    bounds = {"K6": k6_bound_ms(bh, C1_TOKENS, C1_TOKENS),
+              "K7": k78_bound_ms(3, 1, bh, C1_TOKENS, C1_TOKENS),
+              "K8": k78_bound_ms(4, 2, bh, C1_TOKENS, C1_TOKENS)}
+    for name in ("K6", "K7", "K8"):
+        (ms, plain), (ms0, _) = times[C1_RATE][name], times[0.0][name]
+        print(f"[k78] {name} at the C1 shape: kernel {ms:.4f} ms with dropout {C1_RATE}, "
+              f"{ms0:.4f} ms without ({bounds[name] / ms:.2%} of the bound), bound "
+              f"{bounds[name]:.4f} ms (operations), plain twin {plain:.3f} ms", flush=True)
+    print(f"[k78] library at the C1 shape, dropout 0, autograd on, device time of its kernels "
+          f"(profiler): scaled_dot_product_attention forward {lib_fwd:.4f} ms, backward "
+          f"{lib_bwd:.4f} ms (dq, dk and dv; K7 + K8 "
+          f"{times[0.0]['K7'][0] + times[0.0]['K8'][0]:.4f} ms) [backward: {backend}]", flush=True)
+
+    q, k, v, do = inputs["rect"]
+    o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, K6_SCALE)
+    rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
+            "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10)}
+    plain_rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 1),
+                  "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 1)}
+    _, lib_rect, _ = sdpa_bwd(q, k, v, do, 10)
+    b_rect = {"K7": k78_bound_ms(3, 1, C3_HEADS, C3_TOKENS, 4096),
+              "K8": k78_bound_ms(4, 2, C3_HEADS, C3_TOKENS, 4096)}
+    print(f"[k78] at {C3_HEADS} heads x {C3_TOKENS} x 4096: K7 {rect['K7']:.3f} ms (bound "
+          f"{b_rect['K7']:.3f}, twin {plain_rect['K7']:.3f}), K8 {rect['K8']:.3f} ms (bound "
+          f"{b_rect['K8']:.3f}, twin {plain_rect['K8']:.3f}); SDPA backward {lib_rect:.3f} ms",
+          flush=True)
+    rows = []
+    for name, call_line in (("K7", 261), ("K8", 281)):
+        ms, plain = times[C1_RATE][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
+            "replaces": f"tgtc/ops/pallas/flash_attention.py:{call_line}",
+            "wrapper": ("tgtc_torch.ops.kernels.flash_attention." +
+                        ("flash_attention_bwd_dq" if name == "K7" else "flash_attention_bwd_dkv")),
+            "shape": [C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS, D_HEAD], "dropout": C1_RATE,
+            "max_abs_err": err[name], "max_err": err[name],
+            "ms": ms, "ms_no_dropout": times[0.0][name][0], "plain_ms": plain,
+            "bound_ms": bounds[name], "bound_by": "operations",
+            "library_ms": lib_bwd,
+            "library": "scaled_dot_product_attention backward (dq, dk, dv), device time "
+                       "from the profiler",
+            "library_backend": backend,
+            "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[name],
+            "plain_ms_rect": plain_rect[name], "bound_ms_rect": b_rect[name],
+            "library_ms_rect": lib_rect,
+        })
+    k6_c1 = {"ms_c1": times[C1_RATE]["K6"][0], "ms_c1_no_dropout": times[0.0]["K6"][0],
+             "plain_ms_c1": times[C1_RATE]["K6"][1], "bound_ms_c1": bounds["K6"],
+             "max_abs_err_c1_dropout": e_o, "library_ms_c1": lib_fwd}
+    return rows, k6_c1
+
+
+def write_styles(root: str, n: int = 8) -> str:
+    """``n`` seeded 512x512 style PNGs of smoothed noise (numpy seed 23)."""
+    from PIL import Image
+
+    os.makedirs(root)
+    rng = np.random.default_rng(23)
+    for i in range(n):
+        x = rng.uniform(0, 255, (16, 16, 3)).astype(np.uint8)
+        Image.fromarray(x).resize((512, 512), Image.BILINEAR).save(
+            os.path.join(root, f"style_{i:02d}.png"))
+    return root
+
+
+def c1_grad_agreement(names, got, ref):
+    """``(cosine of all leaves together, the worst leaf's |got - ref| /
+    max(|ref|, median leaf |ref|) as (value, name), the three lowest leaf
+    cosines as text)``."""
+    a = torch.cat([g.double().flatten() for g in got])
+    b = torch.cat([g.double().flatten() for g in ref])
+    norms = [float(g.double().norm()) for g in ref]
+    median = float(np.median(norms))
+    leaf = max((float((x.double() - y.double()).norm()) / max(nrm, median), n)
+               for n, x, y, nrm in zip(names, got, ref, norms))
+    cos = sorted((grad_cos(x, y), n, nrm / median) for n, x, y, nrm in zip(names, got, ref, norms))
+    lows = ", ".join(f"{n} {c:.5f} ({r:.2e})" for c, n, r in cos[:3])
+    return grad_cos(a, b), leaf, lows
+
+
+def attn_leaf_errors(names, got, ref):
+    """``|got - ref| / |ref|`` of each row block of the attention
+    projections that only K7's dq or K8's dk or dv feeds: the q and k rows
+    of ``qk``, ``qkv`` and ``in_proj_weight``, the v rows of
+    ``in_proj_weight``, the q and v rows of ``in_proj_bias`` (its k rows have
+    no gradient in exact arithmetic). The largest first, as (value, name)."""
+    blocks = {".qk.": "qk", ".qkv.": "qk", ".in_proj_weight": "qkv", ".in_proj_bias": "qv"}
+    out = []
+    for n, x, y in zip(names, got, ref):
+        parts = next((p for key, p in blocks.items() if key in n), "")
+        d = x.shape[0] // (2 if ".qk." in n else 3)
+        for part in parts:
+            i = "qkv".index(part)
+            a, b = x[i * d: (i + 1) * d].double(), y[i * d: (i + 1) * d].double()
+            err, nrm = float((a - b).norm()), float(b.norm())
+            out.append((err / nrm if nrm else (0.0 if err == 0 else math.inf), f"{n}[{part}]"))
+    return sorted(out, reverse=True)
+
+
+def phase_c1(fa, geo_dir: str, root: str):
+    """Phase C1 at full width through tools/train2d's transformer task,
+    then the fixed-batch witnesses. Returns the counted run's launches, its
+    steps/s and the collages it wrote."""
+    import shutil
+
+    import tgtc_torch.models.transformer as tr
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.tools import train2d
+    from tgtc_torch.train import transformer2d as t2
+
+    content = os.path.join(root, "c1_content")
+    os.makedirs(content)
+    for f in sorted(os.listdir(geo_dir)):
+        if f.startswith("rgb_"):
+            shutil.copyfile(os.path.join(geo_dir, f), os.path.join(content, f))
+    styles = write_styles(os.path.join(root, "c1_styles"))
+    save, log = os.path.join(root, "c1_save"), os.path.join(root, "c1_log")
+    argv = ["--task", "transformer", "--nerf_content_dir", content, "--style_dir", styles,
+            "--save_dir", save, "--log_dir", log, "--print_interval", str(C1_PRINT),
+            "--save_model_interval", "1000", "--vgg", "", "--decoder", "", "--seed", "21",
+            "--n_threads", "8"]
+    counters = {"K6": fa.flash_attention_fwd, "K7": fa.flash_attention_bwd_dq,
+                "K8": fa.flash_attention_bwd_dkv}
+    t0 = time.perf_counter()
+    check(train2d.main(argv + ["--max_iter", str(C1_WARM)], device="cuda") == 0, "C1 warm-up")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    total = C1_WARM + C1_STEPS
+    check(train2d.main(argv + ["--max_iter", str(total)], device="cuda") == 0, "C1 counted run")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    collages = len([s for s in range(C1_WARM + 1, total + 1) if s % 100 == 0 or s == total])
+    with open(os.path.join(log, "transformer.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    counted = [r for r in records if r["step"] > C1_WARM]
+    ends = [C1_WARM] + [r["step"] for r in counted]
+    sizes = np.diff(ends)
+    loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, counted)))
+    steps_per_s = float(sizes.sum()) / loop_s
+    ckpt = os.path.join(save, "transformer", f"ckpt_{total:08d}.pt")
+    pngs = [os.path.join(log, f"{s}.png") for s in (C1_WARM, 100, total)]
+    print(f"[c1] StyTrans d_model 512, 8 heads, 3+3 layers, FFN 2048, dropout {C1_RATE}, bf16, "
+          f"flash, random VGG and decoder; batch {C1_BATCH} of 256x256 crops from "
+          f"{len(os.listdir(content))} renders and 8 styles: {C1_WARM} warm-up steps in "
+          f"{warm_s:.2f} s (call, build and set-up included), then {C1_STEPS} steps in "
+          f"{run_s:.2f} s (call, restore and the final save included), of which the loop "
+          f"{loop_s:.3f} s: {steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.2f} ms a step); per "
+          f"log window (steps: steps/s) "
+          + ", ".join(f"{n}: {r['steps_per_s']:.3f}" for n, r in zip(sizes, counted))
+          + f"; launches K6 {launches['K6']} K7 {launches['K7']} K8 {launches['K8']} (expect "
+          f"{C1_SITES * C1_STEPS} + {C3_SITES} x {collages} collages, {C1_SITES * C1_STEPS}, "
+          f"{C1_SITES * C1_STEPS}); loss {records[0]['loss']:.4f} at step {records[0]['step']} "
+          f"-> {records[-1]['loss']:.4f} at step {records[-1]['step']}", flush=True)
+    check(launches == {"K6": C1_SITES * C1_STEPS + C3_SITES * collages,
+                       "K7": C1_SITES * C1_STEPS, "K8": C1_SITES * C1_STEPS},
+          f"C1 launch counts {launches}")
+    check(int(sizes.sum()) == C1_STEPS, f"the log windows cover {sizes.sum()} steps")
+    check(all(math.isfinite(r[k]) for r in records
+              for k in ("loss", "loss_c", "loss_s", "l_id1", "l_id2")), "C1 losses not finite")
+    check(os.path.exists(ckpt) and all(os.path.exists(p) for p in pngs),
+          "C1 checkpoint or collage PNGs missing")
+
+    # the fixed-batch witnesses, from the counted run's trained state
+    cfg = tr.TransformerConfig(dtype=torch.bfloat16, attn_impl="flash")
+    tcfg = t2.TransformerTrainConfig()
+    model = make_stytrans(cfg, torch.Generator().manual_seed(21), device="cuda")
+    state = t2.init_transformer_train(model, tcfg)
+    state.load_state_dict(torch.load(ckpt, map_location="cuda", weights_only=True))
+    rng = np.random.default_rng(24)
+    batch = [torch.from_numpy(rng.integers(0, 256, (C1_BATCH, 256, 256, 3), dtype=np.uint8))
+             .cuda() for _ in range(2)]
+    step = t2.make_transformer_train_step(model, tcfg)
+    names = [n for n, _ in t2.trained_parameters(model)]
+    for c in counters.values():
+        c.launches = 0
+    m_k, g_k = step.loss_and_grad(model, *batch, step.generator(5, 0))
+    torch.cuda.synchronize()
+    step_launches = {n: c.launches for n, c in counters.items()}
+    kernel = tr.flash_attention
+    tr.flash_attention = fa.flash_attention_plain
+    try:
+        t0 = time.perf_counter()
+        m_t, g_t = step.loss_and_grad(model, *batch, step.generator(5, 0))
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+    finally:
+        tr.flash_attention = kernel
+    dl = abs(float(m_k["loss"]) - float(m_t["loss"])) / abs(float(m_t["loss"]))
+    cos_all, leaf, lows = c1_grad_agreement(names, g_k, g_t)
+    attn = attn_leaf_errors(names, g_k, g_t)
+    print(f"[c1] step {state.step}, one fixed batch and generator: launches in the step K6 "
+          f"{step_launches['K6']} K7 {step_launches['K7']} K8 {step_launches['K8']}; vs the same "
+          f"step with the twins' attention on the card ({twin_s:.2f} s): loss "
+          f"{float(m_k['loss']):.6f} vs {float(m_t['loss']):.6f} (relative {dl:.3e}, limit "
+          f"{TOL_C1_LOSS}); over {len(names)} trained leaves: cosine of the whole gradient "
+          f"{cos_all:.7f} (limit {TOL_C1_COS}), worst leaf |err| / max(|g|, median leaf |g|) "
+          f"{leaf[0]:.3e} ({leaf[1]}, limit {TOL_C1_LEAF}); lowest leaf cosines (|g| / median "
+          f"|g|): {lows}; {len(attn)} attention projection leaves, |err| / |g| (limit "
+          f"{TOL_C1_ATTN_LEAF}), the largest: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in attn[:4]), flush=True)
+    check(step_launches == {"K6": C1_SITES, "K7": C1_SITES, "K8": C1_SITES},
+          f"one C1 step launched {step_launches}")
+    check(dl <= TOL_C1_LOSS, "C1 step loss disagrees with the twin-attention step")
+    check(cos_all >= TOL_C1_COS and leaf[0] <= TOL_C1_LEAF,
+          "C1 step gradient disagrees with the twin-attention step")
+    check(bool(attn) and attn[0][0] <= TOL_C1_ATTN_LEAF,
+          f"C1 attention leaf gradient disagrees with the twin-attention step: {attn[:1]}")
+    del g_k, g_t
+
+    # at dropout 0 against the eager f32 "xla" step, the same weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads = {}
+    for key, mcfg in (("bf16 flash", dataclasses.replace(cfg, dropout=0.0)),
+                      ("bf16 xla", tr.TransformerConfig(dtype=torch.bfloat16, dropout=0.0)),
+                      ("f32 xla", tr.TransformerConfig(dropout=0.0))):
+        m = make_stytrans(mcfg, device="cuda")
+        m.load_state_dict(model.state_dict())
+        t2.init_transformer_train(m, tcfg)
+        grads[key] = t2.make_transformer_train_step(m, tcfg).loss_and_grad(m, *batch, None)
+        del m
+    (m_b, g_b), (m_x, g_x), (m_f, g_f) = grads["bf16 flash"], grads["bf16 xla"], grads["f32 xla"]
+    cos_all, leaf, lows = c1_grad_agreement(names, g_b, g_f)
+    cos_x, leaf_x, lows_x = c1_grad_agreement(names, g_x, g_f)
+    print(f"[c1] dropout 0, vs the eager f32 xla step (TF32 off), loss {float(m_f['loss']):.6f}: "
+          f"the bf16 flash step loss {float(m_b['loss']):.6f}, cosine of the whole gradient "
+          f"{cos_all:.7f} (limit {TOL_C1_F32_COS}), worst leaf |err| / max(|g|, median leaf |g|) "
+          f"{leaf[0]:.3e} ({leaf[1]}; limit {TOL_C1_F32_RATIO} x the eager bf16 xla step's + "
+          f"{TOL_C1_F32_ADD}), lowest leaf cosines {lows}; the eager bf16 xla step: loss "
+          f"{float(m_x['loss']):.6f}, {cos_x:.7f}, {leaf_x[0]:.3e} ({leaf_x[1]}), {lows_x}",
+          flush=True)
+    check(cos_all >= TOL_C1_F32_COS
+          and leaf[0] <= TOL_C1_F32_RATIO * leaf_x[0] + TOL_C1_F32_ADD,
+          "C1 bf16 flash step gradient disagrees with the f32 step")
+    del grads, g_b, g_x, g_f
+
+    # overfit one fixed batch
+    fresh = t2.init_transformer_train(
+        make_stytrans(cfg, torch.Generator().manual_seed(21), device="cuda"), tcfg)
+    step = t2.make_transformer_train_step(fresh.model, tcfg)
+    losses = []
+    for _ in range(C1_OVERFIT):
+        fresh, m = step(fresh, *batch, seed=6)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).tolist()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[c1] {C1_OVERFIT} steps on one fixed batch: mean loss of the first 5 {first:.5f}, of "
+          f"the last 5 {last:.5f}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and last < first, "C1 overfit loss did not fall")
+    return launches, steps_per_s, collages
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1221,18 +1651,27 @@ def main() -> int:
         geo_dir = phase_b(ks, trained_renderer, tmp)
         style_rows = phase_style_kernels(ks, kst, sd_c, style_sds)
         f_launches, f_rays_per_s, f_frames_per_min = phase_f(ks, kst, trained)
-        for row in style_rows:
+        for row in style_rows:  # on no training step: no launches_per_step
             row["launches"] = f_launches[row["name"]]
         rows += style_rows
         k6_row = phase_k6(fa)
         c3_launches, c3_frames_per_s, c3_s_per_view = phase_c3(fa, geo_dir, tmp)
-    k6_row["launches"] = c3_launches
+        k78_rows, k6_c1 = phase_k78(fa)
+        c1_launches, c1_steps_per_s, collages = phase_c1(fa, geo_dir, tmp)
+    # per C1 step of the counted run; K6 also ran once per site for each collage
+    k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
+                  launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS)
     rows.append(k6_row)
+    for row in k78_rows:
+        row["launches"] = c1_launches[row["name"]]
+        row["launches_per_step"] = c1_launches[row["name"]] // C1_STEPS
+    rows += k78_rows
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
           f"{f_frames_per_min:.2f} frames/min; C3 {c3_frames_per_s:.3f} frames/s, "
-          f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views)", flush=True)
+          f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views); C1 "
+          f"{c1_steps_per_s:.3f} steps/s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

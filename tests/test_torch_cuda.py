@@ -1,7 +1,7 @@
-"""The CUDA kernels on a card: K1-K6 against their plain twins, their
+"""The CUDA kernels on a card: K1-K8 against their plain twins, their
 launch counters, the fused render, the fused stylized render, one fused
-training step and a narrow C3 stylization on the card against the same on
-the CPU (where the wrappers run the twins).
+training step, a narrow C3 stylization and a narrow C1 step on the card
+against the same on the CPU (where the wrappers run the twins).
 
 Every test here needs a card and skips without one. The file imports
 neither JAX nor tgtc, so it also runs where JAX is not installed:
@@ -320,3 +320,103 @@ def test_narrow_stylize_on_card_matches_cpu(cuda_device):
     for cpu, card in zip(out["cpu"], out[str(cuda_device)]):
         assert card.shape == cpu.shape
         assert (card - cpu).abs().max() <= TOL_C3 * cpu.abs().max()
+
+
+TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv (chip_smoke.py phase 10)
+
+
+def _qkvdo(batch, heads, sq, sk, device, seed=9):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(batch, heads, n, 64)).astype(np.float32))
+                 .to(device, torch.bfloat16) for n in (sq, sk, sk, sq))
+
+
+@pytest.mark.parametrize("batch,heads,sq,sk,rate", [(1, 16, 300, 180, 0.0), (1, 16, 300, 180, 0.25),
+                                                    (8, 8, 1024, 1024, 0.0),
+                                                    (8, 8, 1024, 1024, 0.25)])
+def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate):
+    q, k, v, do = _qkvdo(batch, heads, sq, sk, cuda_device)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 13)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, 0.125, rate, 13)
+    dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+    dq2, (dk2, dv2) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    want = (fa.flash_attention_bwd_dq_plain(*args),) + fa.flash_attention_bwd_dkv_plain(*args)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        e = float((got.float() - ref.float()).abs().max())
+        lim = TOL_K78_REL * float(ref.float().abs().max())
+        print(f"parity {name} vs twin, {batch}x{heads} heads, Sq {sq}, Sk {sk}, dropout {rate}: "
+              f"{e:.3e} (limit {lim:.3e})")
+        assert e <= lim, name
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_k78_launch_counters_count_launches(cuda_device):
+    q, k, v, do = (x.requires_grad_() if i < 3 else x
+                   for i, x in enumerate(_qkvdo(1, 2, 64, 64, cuda_device)))
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v, 0.125)
+    torch.autograd.grad(o, (q, k, v), do)
+    fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(), do,
+                                 fa.flash_attention_fwd_plain(q.detach(), k.detach(),
+                                                              v.detach(), 0.125)[1], 0.125)
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd_dq.launches,
+             fa.flash_attention_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)  # the twins are no launch
+
+
+def test_k78_refuse_what_they_do_not_take(cuda_device):
+    q, k, v, do = _qkvdo(1, 2, 64, 64, cuda_device)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125)
+    delta = fa.attention_delta(o, do)
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(TypeError):
+            fn(q.float(), k.float(), v.float(), do.float(), lse, delta)
+        with pytest.raises(NotImplementedError):
+            fn(q[..., :32], k[..., :32], v[..., :32], do[..., :32], lse, delta)
+
+
+def test_narrow_c1_step_on_card_matches_cpu(cuda_device):
+    """One C1 step (d_model 128, 2 heads of 64, 1+1 layers, bf16, flash,
+    dropout 0, batch 2 of 32x32 crops) on the card, K6/K7/K8 and
+    cuDNN/cuBLAS, against the same step on the CPU (the twins), same
+    weights: losses within 2e-2, the gradient of all trained leaves together
+    at cosine >= 0.99 and each leaf's error within 0.1 of its own gradient
+    norm or of the median leaf's, whichever is larger (a leaf whose gradient
+    sits at the bf16 noise floor has no meaningful cosine of its own)."""
+    from tgtc_torch.train import transformer2d as t2
+
+    cfg = TransformerConfig(d_model=128, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                            dim_feedforward=256, dropout=0.0, dtype=torch.bfloat16,
+                            attn_impl="flash")
+    rng = np.random.default_rng(10)
+    batch = [torch.from_numpy(rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8))
+             for _ in range(2)]
+    out = {}
+    before = [c.launches for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                   fa.flash_attention_bwd_dkv)]
+    for dev in ("cpu", cuda_device):
+        model = make_stytrans(cfg, torch.Generator().manual_seed(3), device=dev)
+        t2.init_transformer_train(model, t2.TransformerTrainConfig())
+        step = t2.make_transformer_train_step(model, t2.TransformerTrainConfig())
+        m, g = step.loss_and_grad(model, *(b.to(dev) for b in batch), None)
+        out[str(dev)] = ({k: float(v) for k, v in m.items()}, [x.double().cpu() for x in g])
+    torch.cuda.synchronize()
+    after = [c.launches for c in (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                                  fa.flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [12, 12, 12]  # 3 calls x 4 sites
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 2e-2 * max(1.0, abs(m_cpu[k])), k
+    a, b = torch.cat([x.flatten() for x in g_gpu]), torch.cat([x.flatten() for x in g_cpu])
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    median = float(np.median([float(x.norm()) for x in g_cpu]))
+    leaf = max(float((x - y).norm()) / max(float(y.norm()), median) for x, y in zip(g_gpu, g_cpu))
+    print(f"parity narrow C1 step, card vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, "
+          f"gradient cosine {cos:.6f} (limit 0.99), worst leaf error {leaf:.3e} (limit 0.1)")
+    assert cos >= 0.99
+    assert leaf <= 0.1

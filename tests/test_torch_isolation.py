@@ -35,7 +35,8 @@ def test_submodule_list_covers_the_slice():
                  "render.fast_style", "ops.kernels.style_kernel", "train.render_style",
                  "utils.img", "tools.profile_frame", "ops.kernels.flash_attention",
                  "models.transformer", "models.vgg", "models.decoder", "models.stytrans",
-                 "train.pretrained", "train.stylize"):
+                 "train.pretrained", "train.stylize", "ops.style", "data.prefetch",
+                 "train.transformer2d", "tools.train2d"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -118,7 +119,12 @@ def test_entry_points_default_to_the_card():
                   lambda: stylize_all(model, "unused", [], [], "unused")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
-    for build in (lambda: tt.init_state(torch.Generator(), cfg, tc),
+    from tgtc_torch.models.vgg import make_vgg
+    from tgtc_torch.tools import train2d
+
+    for build in (lambda: make_vgg(),
+                  lambda: train2d.main(["--task", "transformer", "--save_dir", "unused"]),
+                  lambda: tt.init_state(torch.Generator(), cfg, tc),
                   lambda: tt.make_train_step(tc),
                   lambda: tt.make_fused_train_step(NerfConfig(), tc),
                   lambda: tt.train_nerf(None, cfg, tc, 1, "unused", print_fn=None)):

@@ -11,7 +11,8 @@ weights carried across by ``convert.stytrans_state_dicts_from_flax``.
 * The converter round trip flax → torch → flax, and JAX's own torch
   converters applied to the port's state dicts, bit for bit.
 * ``train.pretrained`` loads reference-named ``.pth`` files (newest first,
-  ``new_ps.*`` dropped) and refuses a wrong-shape one loudly.
+  ``new_ps.*`` dropped) and refuses a wrong-shape one loudly; without a
+  ``vgg_normalised.pth`` the VGG stays random.
 """
 
 import jax
@@ -188,9 +189,16 @@ def test_converter_round_trip_is_bitwise(params):
 
 
 def test_vgg_subtree_is_ignored(params):
-    with_vgg = {"params": {**params["params"], "vgg": {"conv1_1": {"kernel": np.zeros(3)}}}}
+    """The embedding, transformer and decoder state dicts ignore a ``vgg``
+    subtree, which converts into a state dict of its own."""
+    kernel = np.random.default_rng(3).standard_normal((3, 3, 3, 64)).astype(np.float32)
+    with_vgg = {"params": {**params["params"],
+                           "vgg": {"conv1_1": {"kernel": kernel, "bias": np.ones(64, np.float32)}}}}
     a, b = stytrans_state_dicts_from_flax(with_vgg), stytrans_state_dicts_from_flax(params)
-    assert all(torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
+    assert set(a) == set(b) | {"vgg"}
+    assert all(torch.equal(a[n][k], b[n][k]) for n in b for k in b[n])
+    assert torch.equal(a["vgg"]["2.weight"], torch.from_numpy(kernel.transpose(3, 2, 0, 1)))
+    assert set(a["vgg"]) == {"2.weight", "2.bias"}
 
 
 def test_pretrained_overlay_loads_newest_and_refuses_wrong_shapes(params, tmp_path, capsys):
@@ -206,7 +214,7 @@ def test_pretrained_overlay_loads_newest_and_refuses_wrong_shapes(params, tmp_pa
     model = make_stytrans(TransformerConfig(**NARROW), torch.Generator().manual_seed(5),
                           device="cpu")
     loaded = overlay_stytrans(model, str(tmp_path / "decoder.pth"), str(pre))
-    assert loaded == {"decoder": True, "transformer": True, "embedding": True}
+    assert loaded == {"vgg": False, "decoder": True, "transformer": True, "embedding": True}
     for name, module in (("embedding", model.embedding), ("transformer", model.transformer),
                          ("decoder", model.decode)):
         own = module.state_dict()
@@ -218,18 +226,23 @@ def test_pretrained_overlay_loads_newest_and_refuses_wrong_shapes(params, tmp_pa
     before = {k: v.clone() for k, v in model.decode.state_dict().items()}
     capsys.readouterr()
     loaded = overlay_stytrans(model, str(tmp_path / "decoder_512.pth"), str(tmp_path / "none"))
-    assert loaded == {"decoder": False, "transformer": False, "embedding": False}
+    assert loaded == {"vgg": False, "decoder": False, "transformer": False, "embedding": False}
     assert "do NOT fit" in capsys.readouterr().out
     assert all(torch.equal(v, before[k]) for k, v in model.decode.state_dict().items())
 
 
 def test_training_path_is_not_ported_yet(params):
+    """C1's losses and the VGG pyramid are ported; the other 2D trainers
+    (the VAE, AdaIN's decoder finetune and C2) raise, naming ROADMAP."""
+    from tgtc_torch.tools import train2d
+
     model = port_model(params)
     x = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.compute_losses(x, x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.encode_pyramid(x)
+    assert set(model.compute_losses(x, x)) == {"ics", "loss_c", "loss_s", "l_id1", "l_id2"}
+    assert [tuple(f.shape) for f in model.encode_pyramid(x)][-1] == (1, 2, 2, 512)
+    for task in ("vae", "finetune_decoder", "temporal_decoder"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train2d.main(["--task", task], device="cpu")
 
 
 def test_make_stytrans_is_seeded():

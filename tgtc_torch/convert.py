@@ -5,7 +5,7 @@ The flax modules use the reference's layer order under flax names
 ``layer_{i}`` and ``rgb_out``); the torch modules use the reference's torch
 names (the style MLPs' ``layers.{i}``). A Dense ``kernel [in, out]`` is a
 Linear ``weight [out, in]`` transposed; biases carry over as they are. A
-JAX latent table and a JAX Phase-A train state convert to tensors too.
+JAX latent table and JAX Phase-A and C1 train states convert to tensors too.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from tgtc_torch.models.decoder import TORCH_INDEX
+from tgtc_torch.models.vgg import _TORCH_IDX_TO_NAME as VGG_INDEX
 
 _TORCH_NAME = {"sigma": "sigma_layer", "base_remap": "base_remap_layer",
                "rgb_0": "rgb_layers.0", "rgb_1": "rgb_layers.1"}
@@ -158,21 +159,53 @@ def _count(names, prefix: str) -> int:
     return len([n for n in names if n.startswith(prefix) and n[len(prefix):].isdigit()])
 
 
+def _conv_sd(tree: Dict[str, Any], index: Dict[int, str]) -> Dict[str, torch.Tensor]:
+    """flax convs ``{name: {"kernel" HWIO, "bias"}}`` → a sequential's
+    ``{"<idx>.weight" OIHW, "<idx>.bias"}`` for the names present."""
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, name in index.items():
+        if name in tree:
+            sd[f"{idx}.weight"] = _t(tree[name]["kernel"], _HWIO_TO_OIHW)
+            sd[f"{idx}.bias"] = _t(tree[name]["bias"])
+    return sd
+
+
+def _conv_flax(sd: Dict[str, torch.Tensor], index: Dict[int, str]) -> Dict[str, Any]:
+    """The inverse of :func:`_conv_sd`."""
+    return {name: {"kernel": _f(sd[f"{idx}.weight"], _OIHW_TO_HWIO), "bias": _f(sd[f"{idx}.bias"])}
+            for idx, name in index.items() if f"{idx}.weight" in sd}
+
+
+_DECODER_INDEX = {idx: f"dconv{j}" for j, idx in enumerate(TORCH_INDEX)}
+
+
 def stytrans_state_dicts_from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
     """A flax StyTrans param tree (``{"params": {"embedding", "transformer",
-    "decode", "vgg"}}``, numpy or any array ``np.asarray`` takes) →
-    ``{"embedding", "transformer", "decoder"}`` state dicts of f32 tensors
-    under the reference's torch names: the inverse of JAX's
-    ``convert_torch_patch_embed``, ``convert_torch_transformer`` and
-    ``convert_torch_decoder``. Dense kernels are transposed, conv kernels
-    go HWIO → OIHW, LayerNorm ``scale`` becomes ``weight`` and the three
-    attention projections are packed into ``in_proj_*``. The ``vgg``
-    subtree is ignored: the port's VGG comes with the C1 trainer."""
+    "decode", "vgg"}}``, numpy or any array ``np.asarray`` takes) → state
+    dicts of f32 tensors under the reference's torch names, one for each
+    subtree present: ``{"embedding", "transformer", "decoder", "vgg"}``, the
+    inverse of JAX's ``convert_torch_patch_embed``,
+    ``convert_torch_transformer``, ``convert_torch_decoder`` and
+    ``convert_torch_vgg``. Dense kernels are transposed, conv kernels go
+    HWIO → OIHW, LayerNorm ``scale`` becomes ``weight`` and the three
+    attention projections are packed into ``in_proj_*``. A partial tree
+    (the Adam moments of the trained subtrees) converts too."""
     p = params["params"]
-    emb = p["embedding"]["proj"]
-    embedding = {"proj.weight": _t(emb["kernel"], _HWIO_TO_OIHW),
-                 "proj.bias": _t(emb["bias"])}
-    tp = p["transformer"]
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    if "embedding" in p:
+        emb = p["embedding"]["proj"]
+        out["embedding"] = {"proj.weight": _t(emb["kernel"], _HWIO_TO_OIHW),
+                            "proj.bias": _t(emb["bias"])}
+    if "transformer" in p:
+        out["transformer"] = _transformer_sd(p["transformer"])
+    if "decode" in p:
+        out["decoder"] = _conv_sd(p["decode"], _DECODER_INDEX)
+    if "vgg" in p:
+        out["vgg"] = _conv_sd(p["vgg"], VGG_INDEX)
+    return out
+
+
+def _transformer_sd(tp: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     transformer: Dict[str, torch.Tensor] = {}
     for i in range(_count(tp, "enc_s_")):
         for ours, theirs in ((f"enc_s_{i}", f"encoder_s.layers.{i}"),
@@ -184,19 +217,27 @@ def stytrans_state_dicts_from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str
             _flax_leaf_to_torch(ours, tp[f"dec_{i}"][ours], f"decoder.layers.{i}.{theirs}",
                                 transformer)
     _flax_leaf_to_torch("norm", tp["dec_norm"], "decoder.norm", transformer)
-    decoder: Dict[str, torch.Tensor] = {}
-    for j, idx in enumerate(TORCH_INDEX):
-        leaf = p["decode"][f"dconv{j}"]
-        decoder[f"{idx}.weight"] = _t(leaf["kernel"], _HWIO_TO_OIHW)
-        decoder[f"{idx}.bias"] = _t(leaf["bias"])
-    return {"embedding": embedding, "transformer": transformer, "decoder": decoder}
+    return transformer
 
 
 def stytrans_flax_from_state_dicts(sds: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
     """The inverse of :func:`stytrans_state_dicts_from_flax`: numpy flax
-    params ``{"params": {"embedding", "transformer", "decode"}}`` (no
-    ``vgg``)."""
-    e, t, d = sds["embedding"], sds["transformer"], sds["decoder"]
+    params ``{"params": {...}}`` with a subtree for each state dict given."""
+    p: Dict[str, Any] = {}
+    if "embedding" in sds:
+        e = sds["embedding"]
+        p["embedding"] = {"proj": {"kernel": _f(e["proj.weight"], _OIHW_TO_HWIO),
+                                   "bias": _f(e["proj.bias"])}}
+    if "transformer" in sds:
+        p["transformer"] = _transformer_flax(sds["transformer"])
+    if "decoder" in sds:
+        p["decode"] = _conv_flax(sds["decoder"], _DECODER_INDEX)
+    if "vgg" in sds:
+        p["vgg"] = _conv_flax(sds["vgg"], VGG_INDEX)
+    return {"params": p}
+
+
+def _transformer_flax(t: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     layers = {k.split(".")[2] for k in t if k.startswith("encoder_s.layers.")}
     dec_layers = {k.split(".")[2] for k in t if k.startswith("decoder.layers.")}
     tp: Dict[str, Any] = {}
@@ -209,14 +250,7 @@ def stytrans_flax_from_state_dicts(sds: Dict[str, Dict[str, torch.Tensor]]) -> D
         tp[f"dec_{i}"] = {ours: _torch_leaf_to_flax(ours, f"decoder.layers.{i}.{theirs}", t)
                           for ours, theirs in _DEC_PARTS}
     tp["dec_norm"] = _torch_leaf_to_flax("norm", "decoder.norm", t)
-    return {"params": {
-        "embedding": {"proj": {"kernel": _f(e["proj.weight"], _OIHW_TO_HWIO),
-                               "bias": _f(e["proj.bias"])}},
-        "transformer": tp,
-        "decode": {f"dconv{j}": {"kernel": _f(d[f"{idx}.weight"], _OIHW_TO_HWIO),
-                                 "bias": _f(d[f"{idx}.bias"])}
-                   for j, idx in enumerate(TORCH_INDEX)},
-    }}
+    return tp
 
 
 def latent_state_from_jax(state: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]:
@@ -257,6 +291,49 @@ def nerf_train_state_from_jax(step: int, params_coarse: Dict[str, Any],
             opt_state["state"][index[(which, name)]] = {
                 "step": torch.tensor(float(adam_count)),
                 "exp_avg": m1[name].to(dev), "exp_avg_sq": m2[name].to(dev)}
+    state.optimizer.load_state_dict(opt_state)
+    state.scheduler.last_epoch = int(adam_count)  # the schedule's update count
+    for group, base in zip(state.optimizer.param_groups, state.scheduler.base_lrs):
+        group["lr"] = base * state.scheduler.lr_lambdas[0](int(adam_count))
+    state.step = int(step)
+    return state
+
+
+_MODULE_OF = {"embedding": "embedding", "transformer": "transformer", "decoder": "decode",
+              "vgg": "vgg"}
+
+
+def stytrans_model_state_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax StyTrans tree → one ``StyTrans.state_dict()``-keyed dict
+    (``embedding.*``, ``transformer.*``, ``decode.*``, ``vgg.*``) of the
+    subtrees present."""
+    return {f"{_MODULE_OF[part]}.{k}": v
+            for part, sd in stytrans_state_dicts_from_flax(params).items() for k, v in sd.items()}
+
+
+def transformer_train_state_from_jax(step: int, params: Dict[str, Any], adam_count: int,
+                                     mu: Dict[str, Any], nu: Dict[str, Any], model_cfg,
+                                     train_cfg, train_keys=("transformer", "embedding"),
+                                     device=None):
+    """A JAX ``TransformerTrainState`` (as numpy: the step, the full flax
+    StyTrans tree, and the Adam state of the ``optax.multi_transform``
+    ``train`` partition: its ``count`` and the moments ``mu`` and ``nu``,
+    each a ``{"params": {...}}`` tree of the ``train_keys`` subtrees) → the
+    port's ``TransformerTrainState`` on ``device``, so that a JAX-trained
+    C1 state resumes in the port."""
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.train.transformer2d import init_transformer_train, trained_parameters
+
+    model = make_stytrans(model_cfg, torch.Generator().manual_seed(0), device=device)
+    model.load_state_dict(stytrans_model_state_from_flax(params))
+    state = init_transformer_train(model, train_cfg, train_keys)
+    m1, m2 = stytrans_model_state_from_flax(mu), stytrans_model_state_from_flax(nu)
+    names = [n for n, _ in trained_parameters(model, train_keys)]
+    opt_state = state.optimizer.state_dict()
+    dev = next(model.parameters()).device
+    for i, name in enumerate(names):
+        opt_state["state"][i] = {"step": torch.tensor(float(adam_count)),
+                                 "exp_avg": m1[name].to(dev), "exp_avg_sq": m2[name].to(dev)}
     state.optimizer.load_state_dict(opt_state)
     state.scheduler.last_epoch = int(adam_count)  # the schedule's update count
     for group, base in zip(state.optimizer.param_groups, state.scheduler.base_lrs):

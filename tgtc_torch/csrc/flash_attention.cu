@@ -1,11 +1,15 @@
-// Flash-attention forward for Hopper (sm_90a): K6.
+// Flash attention for Hopper (sm_90a): the forward K6 and the backward K7
+// (dQ) and K8 (dK, dV).
 //
-// Replaces the TPU kernel of tgtc/ops/pallas/flash_attention.py:
-//   K6  tgtc_flash_fwd  <- _fwd_call (body _fwd_kernel)
-// The plain PyTorch twin of the same arithmetic lives beside the wrapper in
-// tgtc_torch/ops/kernels/flash_attention.py (flash_attention_fwd_plain).
+// Replaces the TPU kernels of tgtc/ops/pallas/flash_attention.py:
+//   K6  tgtc_flash_fwd      <- _fwd_call (body _fwd_kernel)
+//   K7  tgtc_flash_bwd_dq   <- _bwd_call's dq call (body _dq_kernel)
+//   K8  tgtc_flash_bwd_dkv  <- _bwd_call's dkv call (body _dkv_kernel)
+// The plain PyTorch twins of the same arithmetic live beside the wrappers in
+// tgtc_torch/ops/kernels/flash_attention.py (flash_attention_fwd_plain,
+// flash_attention_bwd_dq_plain, flash_attention_bwd_dkv_plain).
 //
-// Computes, per batch*head and query row, with q already scaled:
+// K6 computes, per batch*head and query row, with q already scaled:
 //   s = q k^T (f32 from bf16 operands); keys >= Sk get -1e30;
 //   online softmax over key tiles: m_new = max(m, rowmax s),
 //   p = exp(s - m_new), alpha = exp(m - m_new), l = l alpha + rowsum p
@@ -35,6 +39,18 @@
 // are addressed through (batch, head, row) strides with D contiguous, so
 // the [B, S, H, D] layout of the projections needs no transposes. wgmma,
 // TMA and pipelining are for a later version.
+//
+// K7 and K8 (the comments at each kernel give the arithmetic) follow the
+// same design: one block of four warps per (bh, 64 rows) of the output,
+// each warp's 16 rows of the fixed operands and its f32 accumulators in
+// registers, the walked operand's 64-row tiles through shared memory, row-
+// major for the A B^T products and transposed for the (C-fragment) B
+// products. Neither needs atomics, so a launch repeats bit for bit. Both
+// regenerate the dropout mask from the hash of the absolute (query row, key
+// col), as K6 drew it. Bound: operations. K7 makes 3 products (6 Sq Sk D
+// FLOP), K8 4 (8 Sq Sk D); at the C1 shape (64 batch*heads, 1,024^2, D 64)
+// 2.58e10 and 3.44e10 FLOP, 0.026 and 0.035 ms at the bf16 peak, against
+// about 42 MB of I/O each (0.0125 ms at the HBM rate).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,6 +101,117 @@ __device__ __forceinline__ bool keep_elem(uint32_t row, uint32_t col, uint32_t s
   return x >= thr;
 }
 
+// The hash's per-(seed, batch*head) term. The seed is one int32 in device
+// memory, so a caller can draw it on the device without a host sync.
+__device__ __forceinline__ uint32_t dropout_salt(const int* seed, int bh) {
+  return (uint32_t)seed[0] + (uint32_t)bh * 0xC2B2AE35u;
+}
+
+// One 64-row tile of a [rows, 64] bf16 operand into shared memory: rows
+// >= n are zero-filled (NaN x 0 is NaN, so the tail must be real zeros);
+// row-major in `rm` ([row][d]) if given, transposed in `tr` ([d][row]) if
+// given, and multiplied by `scale` with one bf16 rounding if SCALE.
+template <bool SCALE>
+__device__ __forceinline__ void load_tile(const bf16* __restrict__ base, long long stride,
+                                          int r0, int n, float scale, bf16* rm, bf16* tr) {
+  for (int c = threadIdx.x; c < 64 * D / 8; c += NTHREADS) {
+    const int r = c / (D / 8), d0 = (c % (D / 8)) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n) x = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * stride + d0);
+    bf16* e = reinterpret_cast<bf16*>(&x);
+    if (SCALE) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+    }
+    if (rm) *reinterpret_cast<uint4*>(&rm[r * LDS + d0]) = x;
+    if (tr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) tr[(d0 + j) * LDS + r] = e[j];
+    }
+  }
+}
+
+// Sixteen rows of a [rows, 64] bf16 operand as the A fragments of one warp
+// (rows >= n read as zeros), multiplied by `scale` with one bf16 rounding.
+__device__ __forceinline__ void load_a(const bf16* __restrict__ base, long long stride, int r0,
+                                       int n, float scale, uint32_t a[D / 16][4]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + g + (i & 1) * 8, col = kk * 16 + 2 * t + (i >> 1) * 8;
+      float x0 = 0.0f, x1 = 0.0f;
+      if (row < n) {
+        const bf16* p = base + row * stride + col;
+        x0 = __bfloat162float(p[0]) * scale;
+        x1 = __bfloat162float(p[1]) * scale;
+      }
+      a[kk][i] = pack_bf16(x0, x1);
+    }
+  }
+}
+
+// C (16 x 64) += A (16 x 64, fragments) B^T, B's 64 rows in shared memory
+// as [n][k] with pitch LDS: eight 16x8 tiles of four k16 steps.
+__device__ __forceinline__ void mma_abt(float c[8][4], const uint32_t a[D / 16][4],
+                                        const bf16* bsm) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const bf16* br = &bsm[(n * 8 + g) * LDS + kk * 16 + 2 * t];
+      mma_bf16(c[n], a[kk], *reinterpret_cast<const uint32_t*>(br),
+               *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
+}
+
+// C (16 x 64) += bf16(X) B, X a 16 x 64 f32 tile in C-fragment layout
+// (reused as A fragments without a trip through shared memory) and B
+// given transposed in shared memory as [n][k] with pitch LDS.
+__device__ __forceinline__ void mma_cb(float c[8][4], const float x[8][4], const bf16* btr) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const bf16* br = &btr[(n * 8 + g) * LDS + kk * 16 + 2 * t];
+      mma_bf16(c[n], a, *reinterpret_cast<const uint32_t*>(br),
+               *reinterpret_cast<const uint32_t*>(br + 8));
+    }
+  }
+}
+
+// Sixteen rows of a 16 x 64 f32 accumulator (C fragments) to bf16 rows
+// r0.. of `base` (rows >= n are not written), each value times `scale`
+// after a first bf16 rounding when RESCALE.
+template <bool RESCALE>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ base, long long stride, int r0,
+                                           int n, const float acc[8][4], float scale) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + r * 8;
+    if (row >= n) continue;
+    bf16* out = base + (long long)row * stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float x0 = acc[j][2 * r], x1 = acc[j][2 * r + 1];
+      if (RESCALE) {
+        x0 = __bfloat162float(__float2bfloat16(x0)) * scale;
+        x1 = __bfloat162float(__float2bfloat16(x1)) * scale;
+      }
+      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) = pack_bf16(x0, x1);
+    }
+  }
+}
+
 // Register fragments of one warp, lane = 4 g + t:
 //   A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
 //   B (16x8):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
@@ -94,7 +221,7 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  int H, int Sq, int Sk, Strides qs, Strides ks_, Strides vs, Strides os,
-                 float scale, uint32_t seed, uint32_t thr, float inv_keep) {
+                 float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
   __shared__ __align__(16) bf16 ks[BK * LDS];  // K tile, ks[key][d]
   __shared__ __align__(16) bf16 vt[D * LDS];   // V tile transposed, vt[d][key]
 
@@ -105,7 +232,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks_.b + h * ks_.h;
   const bf16* vb = v + b * vs.b + h * vs.h;
-  const uint32_t salt = seed + (uint32_t)bh * 0xC2B2AE35u;
+  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
 
   // this warp's 16 query rows as A fragments, bf16(q * scale)
   uint32_t qa[D / 16][4];
@@ -244,17 +371,175 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+
+// K7: dQ of one block of four warps per (bh, 64 query rows), each warp 16
+// rows with its Q (scaled) and dO fragments, its lse and delta, and a
+// 16 x 64 f32 dQ accumulator in registers; K/V tiles of 64 keys pass
+// through shared memory (K also transposed, the B operand of dS K). Per
+// tile, as _dq_kernel: s = q k^T, p = exp(s - lse) (0 past Sk),
+// dp = dO v^T masked and scaled by 1/keep under dropout, ds = p (dp - delta)
+// with the undropped p, dq += bf16(ds) k. dq = bf16(bf16(dq) scale): the
+// sm_scale of _flash_bwd applied in q's type.
+template <bool DROPOUT>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int Sq, int Sk, Strides qs, Strides ks_,
+                    Strides vs, Strides dos, Strides dqs, float scale,
+                    const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+  __shared__ __align__(16) bf16 ksm[BK * LDS];  // K tile, [key][d]
+  __shared__ __align__(16) bf16 ktr[D * LDS];   // K tile transposed, [d][key]
+  __shared__ __align__(16) bf16 vsm[BK * LDS];  // V tile, [key][d]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ + warp * 16;
+  const bf16* kb = k + b * ks_.b + h * ks_.h;
+  const bf16* vb = v + b * vs.b + h * vs.h;
+  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+
+  uint32_t qa[D / 16][4], da[D / 16][4];
+  load_a(q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale, qa);
+  load_a(dout + b * dos.b + h * dos.h, dos.s, q0, Sq, 1.0f, da);
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + g + r * 8;
+    lr[r] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
+    dr[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  const int ntiles = (Sk + BK - 1) / BK;
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<false>(kb, ks_.s, k0, Sk, 1.0f, ksm, ktr);
+    load_tile<false>(vb, vs.s, k0, Sk, 1.0f, vsm, nullptr);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
+    mma_abt(s, qa, ksm);   // S = Q K^T
+    mma_abt(dp, da, vsm);  // dP = dO V^T
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float p = col < Sk ? exp2f((s[n][e] - lr[r]) * LOG2E) : 0.0f;
+        float d = dp[n][e];
+        if (DROPOUT)
+          d = keep_elem((uint32_t)(q0 + g + r * 8), (uint32_t)col, salt, thr) ? d * inv_keep
+                                                                             : 0.0f;
+        s[n][e] = p * (d - dr[r]);  // dS, from the undropped p
+      }
+    }
+    mma_cb(acc, s, ktr);  // dQ += bf16(dS) K
+  }
+  store_rows<true>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, Sq, acc, scale);
+}
+
+// K8: dK and dV of one block of four warps per (bh, 64 key rows), each
+// warp 16 keys with its K and V fragments and two 16 x 64 f32 accumulators
+// in registers, walking every query tile of 64 rows (Q scaled, and dO, both
+// also transposed, with their lse and delta, through shared memory). The
+// products are taken transposed, keys as rows: s^T = k q^T,
+// p^T = exp(s^T - lse) (0 for query rows >= Sq), dp^T = v dO^T; under
+// dropout the mask of (query row, key col) -- the same bits K6 drew -- gives
+// pd = mask p / keep and masks and scales dp; dv += bf16(pd)^T dO,
+// ds = p (dp - delta), dk += bf16(ds)^T q, as _dkv_kernel.
+template <bool DROPOUT>
+__global__ void __launch_bounds__(NTHREADS)
+flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
+                     Strides qs, Strides ks_, Strides vs, Strides dos, Strides dks, Strides dvs,
+                     float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+  __shared__ __align__(16) bf16 qsm[BQ * LDS];  // Q tile (scaled), [query][d]
+  __shared__ __align__(16) bf16 qtr[D * LDS];   // the same transposed, [d][query]
+  __shared__ __align__(16) bf16 dsm[BQ * LDS];  // dO tile, [query][d]
+  __shared__ __align__(16) bf16 dtr[D * LDS];   // the same transposed, [d][query]
+  __shared__ float lse_s[BQ], delta_s[BQ];
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BK + warp * 16;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* db = dout + b * dos.b + h * dos.h;
+  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  load_a(k + b * ks_.b + h * ks_.h, ks_.s, k0, Sk, 1.0f, ka);
+  load_a(v + b * vs.b + h * vs.h, vs.s, k0, Sk, 1.0f, va);
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = dva[n][0] = dva[n][1] = dva[n][2] =
+        dva[n][3] = 0.0f;
+
+  const int ntiles = (Sq + BQ - 1) / BQ;
+  for (int qt = 0; qt < ntiles; ++qt) {
+    const int r0 = qt * BQ;
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<true>(qb, qs.s, r0, Sq, scale, qsm, qtr);
+    load_tile<false>(db, dos.s, r0, Sq, 1.0f, dsm, dtr);
+    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
+      const bool in = r0 + i < Sq;
+      lse_s[i] = in ? lse[(long long)bh * Sq + r0 + i] : 0.0f;
+      delta_s[i] = in ? delta[(long long)bh * Sq + r0 + i] : 0.0f;
+    }
+    __syncthreads();
+
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
+    mma_abt(s, ka, qsm);   // S^T = K Q^T
+    mma_abt(dp, va, dsm);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1), row = r0 + c;
+        const float p = row < Sq ? exp2f((s[n][e] - lse_s[c]) * LOG2E) : 0.0f;
+        float pd = p, d = dp[n][e];
+        if (DROPOUT) {
+          const bool keep = keep_elem((uint32_t)row, (uint32_t)(k0 + g + (e >> 1) * 8), salt, thr);
+          pd = keep ? p * inv_keep : 0.0f;
+          d = keep ? d * inv_keep : 0.0f;
+        }
+        s[n][e] = pd;
+        dp[n][e] = p * (d - delta_s[c]);  // dS^T, from the undropped p
+      }
+    }
+    mma_cb(dva, s, dtr);   // dV += bf16(pd)^T dO
+    mma_cb(dka, dp, qtr);  // dK += bf16(dS)^T Q
+  }
+  store_rows<false>(dk + b * dks.b + h * dks.h, dks.s, k0, Sk, dka, 1.0f);
+  store_rows<false>(dv + b * dvs.b + h * dvs.h, dvs.s, k0, Sk, dva, 1.0f);
+}
+
 }  // namespace
 
 // q [B, H, Sq, 64], k/v [B, H, Sk, 64], o [B, H, Sq, 64] bf16, each given by
 // element strides (batch, head, row; 12 values in that order for q, k, v,
 // o) with the head dimension contiguous; rows 16-byte aligned for k and v.
 // lse [B * H, Sq] f32. scale: sm_scale rounded to bf16. dropout != 0 drops
-// where the hash draw is < thr and scales the rest by inv_keep. Returns
-// cudaGetLastError() after the launch.
+// where the hash draw is < thr and scales the rest by inv_keep; seed points
+// to the hash's int32 seed in device memory (read only under dropout).
+// Returns cudaGetLastError() after the launch.
 extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Sq, int Sk, const long long* strides,
-                              float scale, int dropout, unsigned int seed, unsigned int thr,
+                              float scale, int dropout, const int* seed, unsigned int thr,
                               float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
@@ -271,5 +556,52 @@ extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void*
   else
     flash_fwd_kernel<false><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
         qp, kp, vp, op, lse, H, Sq, Sk, qs, ks, vs, os, scale, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
+
+}  // namespace
+
+// K7. q, k, v, dO [B, H, S, 64] and dq [B, H, Sq, 64] bf16 with (batch,
+// head, row) element strides, 15 values for q, k, v, dO, dq in that order,
+// the head dimension contiguous, rows 16-byte aligned for k and v; lse and
+// delta = rowsum(dO o) [B * H, Sq] f32; the rest as tgtc_flash_fwd.
+extern "C" int tgtc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                                 const float* lse, const float* delta, void* dq, int B, int H,
+                                 int Sq, int Sk, const long long* strides, float scale,
+                                 int dropout, const int* seed, unsigned int thr, float inv_keep,
+                                 void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0) return 0;
+  if (Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
+  auto kernel = dropout ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
+  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk,
+      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+      strides_at(strides, 3), strides_at(strides, 4), scale, seed, thr, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// K8. As K7, with dk, dv [B, H, Sk, 64] bf16: 18 strides for q, k, v, dO,
+// dk, dv in that order; q and dO rows 16-byte aligned.
+extern "C" int tgtc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* delta, void* dk, void* dv,
+                                  int B, int H, int Sq, int Sk, const long long* strides,
+                                  float scale, int dropout, const int* seed, unsigned int thr,
+                                  float inv_keep, void* stream) {
+  if (B <= 0 || H <= 0 || Sk <= 0) return 0;
+  if (Sq <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((Sk + BK - 1) / BK), (unsigned)(B * H));
+  auto kernel = dropout ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>;
+  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Sk, strides_at(strides, 0), strides_at(strides, 1),
+      strides_at(strides, 2), strides_at(strides, 3), strides_at(strides, 4),
+      strides_at(strides, 5), scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }

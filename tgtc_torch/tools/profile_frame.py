@@ -125,6 +125,10 @@ def kind_of(name: str) -> str:
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "K6"
+    if "flash_bwd_dq_kernel" in n:
+        return "K7"
+    if "flash_bwd_dkv_kernel" in n:
+        return "K8"
     if "conv" in n or "cudnn" in n or "implicit" in n or "xmma_fprop" in n:
         return "convolution"
     if "gemm" in n or "cutlass" in n or "sm90_xmma" in n or "nvjet" in n:

@@ -1,19 +1,25 @@
-"""Device-time breakdown of the Phase-A training step on the card.
+"""Device-time breakdown of a training step on the card.
 
-    python3 -m tgtc_torch.tools.profile_step
+    python3 -m tgtc_torch.tools.profile_step [--c1]
 
-Runs the fused step that chip_smoke.py's train phase runs (D8/W256 trunks,
-L 10/4, viewdirs, batch 2048, 64+64 samples, perturb on, σ noise 1.0) on the
-rays of a fern-shaped 756x1008 NDC camera with random target colours: 10
-warm-up steps, 50 steps timed without the profiler (one sync at the end),
-then 10 steps under ``torch.profiler``. Prints the card, the step times, the
-device's busy time (the union of its kernels' and copies' intervals) and
-idle share over the profiled steps, and device time by kernel name, then one
-JSON line with the same numbers. Needs CUDA.
+Without a flag, the fused Phase-A step that chip_smoke.py's train phase runs
+(D8/W256 trunks, L 10/4, viewdirs, batch 2048, 64+64 samples, perturb on, σ
+noise 1.0) on the rays of a fern-shaped 756x1008 NDC camera with random
+target colours. With ``--c1``, the Phase-C1 step that chip_smoke.py's C1
+phase runs: a full-width StyTrans (d_model 512, 8 heads, 3+3 layers, FFN
+2048, dropout 0.1, bf16, flash attention on K6/K7/K8, torch seed 21, random
+VGG and decoder) on seeded uint8 batches of 8 256x256 crops, with device
+time also summed by kind (K6, K7, K8, convolution, GEMM, LayerNorm, other).
+10 warm-up steps, 50 steps timed without the profiler (one sync at the
+end), then 10 steps under ``torch.profiler``. Prints the card, the step
+times, the device's busy time (the union of its kernels' and copies'
+intervals) and idle share over the profiled steps, and device time by
+kernel name, then one JSON line with the same numbers. Needs CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -25,20 +31,34 @@ from torch.profiler import ProfilerActivity, profile
 
 from tgtc_torch.data.rays import rays_for_poses
 from tgtc_torch.models.nerf import NerfConfig
-from tgtc_torch.tools.profile_frame import FOCAL, H, W, busy_us
+from tgtc_torch.tools.profile_frame import FOCAL, H, W, busy_us, kind_of
 from tgtc_torch.train import nerf_trainer as tt
 
 WARMUP, TIMED, PROFILED = 10, 50, 10
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(card, flush=True)
+def c1_step():
+    """One Phase-C1 step at full width on fixed seeded uint8 batches, and
+    its description."""
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.models.transformer import TransformerConfig
+    from tgtc_torch.train import transformer2d as t2
 
+    tc = t2.TransformerTrainConfig()
+    model = make_stytrans(TransformerConfig(dtype=torch.bfloat16, attn_impl="flash"),
+                          torch.Generator().manual_seed(21), device="cuda")
+    state = t2.init_transformer_train(model, tc)
+    step = t2.make_transformer_train_step(model, tc)
+    rng = np.random.default_rng(0)
+    content, style = (torch.from_numpy(rng.integers(0, 256, (tc.batch_size, tc.patch, tc.patch, 3),
+                                                    dtype=np.uint8)).cuda() for _ in range(2))
+    return (lambda: step(state, content, style, seed=3),
+            f"Phase-C1 step (batch {tc.batch_size} of {tc.patch}x{tc.patch}, d_model 512, "
+            f"bf16, flash, dropout 0.1)")
+
+
+def phase_a_step():
+    """One fused Phase-A step at fern width, and its description."""
     cfg, tc = NerfConfig(), tt.NerfTrainConfig()
     state = tt.init_state(torch.Generator().manual_seed(0), cfg, tc, device="cuda")
     step = tt.make_fused_train_step(cfg, tc, device="cuda")
@@ -49,11 +69,28 @@ def main() -> None:
     rgb = torch.rand(ro.shape, generator=torch.Generator(device="cuda").manual_seed(1),
                      device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
+    return (lambda: step(state, ro, rd, rgb, generator=gen),
+            f"Phase-A step (batch {tc.batch_size}, {tc.n_samples}+{tc.n_samples_fine} samples, "
+            f"D{cfg.depth}/W{cfg.width})")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--c1", action="store_true",
+                        help="profile the Phase-C1 step (K6 + K7 + K8) instead of Phase A's")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    one_step, what = c1_step() if args.c1 else phase_a_step()
 
     def run(n: int) -> float:
         t0 = time.perf_counter()
         for _ in range(n):
-            step(state, ro, rd, rgb, generator=gen)
+            one_step()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -72,20 +109,29 @@ def main() -> None:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us() * 1e-3 / PROFILED
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    print(f"Phase-A step (batch {tc.batch_size}, {tc.n_samples}+{tc.n_samples_fine} "
-          f"samples, D{cfg.depth}/W{cfg.width}): {plain_s * 1e3:.3f} ms without the "
+    print(f"{what}: {plain_s * 1e3:.3f} ms without the "
           f"profiler ({1 / plain_s:.2f} steps/s), {profiled_s * 1e3:.3f} ms under it; "
           f"device busy {busy_step_s * 1e3:.3f} ms per step, idle share "
           f"{1 - busy_step_s / profiled_s:.4f}", flush=True)
     for name, (count, ms) in top[:16]:
         print(f"  {ms:10.3f} ms/step  {count // PROFILED:5d}x  "
               f"{ms / (busy_step_s * 1e3):7.2%}  {name[:90]}")
+    kinds = defaultdict(lambda: [0, 0.0])
+    for name, (count, ms) in by_name.items():
+        kinds[kind_of(name)][0] += count
+        kinds[kind_of(name)][1] += ms
+    if args.c1:
+        for kind, (count, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
+            print(f"  by kind: {kind:12s} {ms:10.3f} ms/step  {count // PROFILED:5d}x  "
+                  f"{ms / (busy_step_s * 1e3):7.2%}")
     print(json.dumps({
-        "card": card, "step_ms": plain_s * 1e3, "steps_per_s": 1 / plain_s,
+        "card": card, "c1": args.c1, "step_ms": plain_s * 1e3, "steps_per_s": 1 / plain_s,
         "profiled_step_ms": profiled_s * 1e3, "device_busy_ms_per_step": busy_step_s * 1e3,
         "idle_share": 1 - busy_step_s / profiled_s,
         "kernels": [{"name": n, "count_per_step": c / PROFILED, "ms_per_step": ms}
                     for n, (c, ms) in top[:16]],
+        "kinds": {k: {"count_per_step": c / PROFILED, "ms_per_step": ms}
+                  for k, (c, ms) in kinds.items()},
     }))
 
 

@@ -1,15 +1,18 @@
 """Load the reference's pretrained 2D assets into a StyTrans — port of the
-decoder, transformer and embedding overlays of tgtc/train/pretrained.py.
+VGG, decoder, transformer and embedding overlays of tgtc/train/pretrained.py.
 
 The reference's assets are torch state dicts under its own names
-(``decoder.pth``, and ``transformer_iter_*.pth`` / ``embedding_iter_*.pth``
-scanned from a ``pretrained`` directory, newest ``sorted(os.listdir)``
-entry first), and the port's modules use the same names, so each overlay is
-a ``load_state_dict``. An asset whose shapes do not fit the configured model
+(``vgg_normalised.pth``, ``decoder.pth``, and ``transformer_iter_*.pth`` /
+``embedding_iter_*.pth`` scanned from a ``pretrained`` directory, newest
+``sorted(os.listdir)`` entry first), and the port's modules use the same
+names, so each overlay is a ``load_state_dict``. The full
+``vgg_normalised.pth`` holds layers past the truncated VGG's 31, whose keys
+are dropped first. An asset whose shapes do not fit the configured model
 (e.g. the 512-channel decoder into a narrow test model) is refused loudly
-and the model keeps its random weights, as a missing asset does. The
-transformer's dead ``new_ps.*`` keys are dropped. The VGG and VAE loaders
-come with their slices (ROADMAP.md queue 1, items 13 and 10).
+and the model keeps its random weights, as a missing asset does — a
+transformer trained against a random VGG minimizes a meaningless objective,
+so that case says so. The transformer's dead ``new_ps.*`` keys are dropped.
+The VAE loader comes with its slice (ROADMAP.md queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -62,13 +65,18 @@ def _fits(module: nn.Module, sd: Dict[str, torch.Tensor], what: str) -> bool:
     return True
 
 
-def _overlay(module: nn.Module, path: Optional[str], what: str, drop_prefix: str = "") -> bool:
+def _overlay(module: nn.Module, path: Optional[str], what: str, drop_prefix: str = "",
+             only_own: bool = False, missing_note: str = "") -> bool:
     if not path or not os.path.exists(path):
-        _say(f"{what} weights NOT found at {path!r} — falling back to RANDOM {what}")
+        _say(f"{what} weights NOT found at {path!r} — falling back to RANDOM {what}"
+             + missing_note)
         return False
     sd = load_state_dict_file(path)
     if drop_prefix:
         sd = {k: v for k, v in sd.items() if not k.startswith(drop_prefix)}
+    if only_own:  # layers the module does not build
+        own = module.state_dict()
+        sd = {k: v for k, v in sd.items() if k in own}
     if not _fits(module, sd, what):
         return False
     _say(f"loading pretrained {what} from {path}")
@@ -76,13 +84,24 @@ def _overlay(module: nn.Module, path: Optional[str], what: str, drop_prefix: str
     return True
 
 
-def overlay_stytrans(model, decoder_pth_path: str = "", pretrained_dir: str = ""
-                     ) -> Dict[str, bool]:
-    """Overlay ``decoder.pth`` and, if ``pretrained_dir`` holds them, the
-    newest reference ``transformer*`` / ``embedding*`` pths onto ``model``
-    (a :class:`~tgtc_torch.models.stytrans.StyTrans`) in place. Returns
-    ``{asset: loaded?}``."""
-    loaded = {"decoder": _overlay(model.decode, decoder_pth_path, "decoder")}
+def load_vgg_overlay(vgg, vgg_pth_path: str) -> bool:
+    """Overlay ``vgg_normalised.pth`` onto ``vgg`` (a
+    :class:`~tgtc_torch.models.vgg.VggEncoder`) in place, dropping the keys
+    of layers it does not build; False (and a loud message) if the file is
+    missing or does not fit."""
+    return _overlay(vgg, vgg_pth_path, "VGG", only_own=True,
+                    missing_note=" (style losses will be meaningless)")
+
+
+def overlay_stytrans(model, decoder_pth_path: str = "", pretrained_dir: str = "",
+                     vgg_pth_path: str = "") -> Dict[str, bool]:
+    """Overlay ``vgg_normalised.pth``, ``decoder.pth`` and, if
+    ``pretrained_dir`` holds them, the newest reference ``transformer*`` /
+    ``embedding*`` pths onto ``model`` (a
+    :class:`~tgtc_torch.models.stytrans.StyTrans`) in place, in the
+    reference's order. Returns ``{asset: loaded?}``."""
+    loaded = {"vgg": load_vgg_overlay(model.vgg, vgg_pth_path),
+              "decoder": _overlay(model.decode, decoder_pth_path, "decoder")}
     tpth = latest_with("transformer", pretrained_dir)
     loaded["transformer"] = bool(tpth) and _overlay(model.transformer, tpth, "transformer",
                                                    drop_prefix="new_ps.")
