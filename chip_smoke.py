@@ -90,14 +90,20 @@ started together), then:
 10. K7/K8 (flash-attention backward): bf16 q/k/v/dO (numpy seed 5), lse
    from K6 on the same inputs, against their plain twins at the C1 shape
    (8 x 8 heads, Sq = Sk = 1,024, D 64, scale 0.125) at dropout 0 and 0.1,
-   at 11,970 x 4,096 and at a ragged 300 x 180 with 16 heads: each of dq,
-   dk, dv within 1e-2 max|twin|, two launches bitwise equal; K6 at the C1
-   shape with dropout 0.1 against its twin (phase 8's bounds); K6, K7 and
-   K8 timed at the C1 shape (dropout 0.1, the C1 path's, and 0) and K7/K8
-   at 11,970 x 4,096 beside their bounds, their twins and the library call:
-   the backward of scaled_dot_product_attention at dropout 0 on the same
-   tensors (torch.autograd.grad of one saved forward, the device time of
-   its kernels and memsets from the profiler; the kernels are printed);
+   at 11,970 x 4,096, at a ragged 300 x 180 with 16 heads and at 200 x 130
+   and 1,000 x 1,030 (cutting the kernels' 128-row blocks) at dropout 0 and
+   0.25: each of dq, dk, dv within 1e-2 max|twin|, two launches bitwise
+   equal, and at 200 x 130 the [B, S, H, D] inputs seen through a
+   transpose bitwise equal to the contiguous case; K6 at the C1 shape with
+   dropout 0.1 against its twin (phase 8's bounds); K6, K7 and K8 timed at
+   the C1 shape (dropout 0.1, the C1 path's, and 0) and K7/K8 at 11,970 x
+   4,096, by CUDA events and by the profiler's device time, beside their
+   bounds (the largest of the tensor-core, HBM, SFU and, under dropout,
+   INT32 floors at the card's maximum SM clock), their twins and the
+   library calls: scaled_dot_product_attention's forward and its backward
+   at dropout 0 on the same tensors (torch.autograd.grad of one saved
+   forward, the device time of its kernels and memsets from the profiler;
+   the kernels are printed), with the ratios;
 11. Phase C1 at full width (d_model 512, 8 heads, 3+3 layers, FFN 2048,
    dropout 0.1, bf16, flash attention, torch seed 21, random VGG and
    decoder): tools/train2d.main(["--task", "transformer", ...]) on phase
@@ -144,6 +150,14 @@ P_K1, P_K2 = BLOCK * (NC + NF), BLOCK * NC
 RAGGED = 300
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# Per SM and clock on sm_90 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput): ex2 on the SFUs 16, 32-bit integer multiply,
+# shift, logic and compare 64.
+SMS, SFU_PER_CLK, INT32_PER_CLK = 132, 16, 64
+# keep_hash per element of S (csrc/flash_attention.cu): one 3-input xor of
+# the hoisted row and column terms and the salt, three shift-xor pairs, two
+# multiplies, one compare.
+HASH_INT_OPS = 1 + 3 * 2 + 2 + 1
 # K3: recompute (K1's 593,408 MACs) + weight gradients (593,408) + input
 # gradients of every layer but the first (7 x 65,536 trunk, 65,536
 # base_remap, 256 sigma, 256 x 128 rgb_0, 3 x 128 rgb_1 = 557,696), x 2
@@ -1232,28 +1246,53 @@ def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: in
                  for n in (sq, sk, sk, sq))
 
 
-def k78_bound_ms(products: int, outputs: int, bh: int, sq: int, sk: int) -> float:
-    """max(2 Sq Sk D FLOP per product / bf16 peak, q, k, v and dO in bf16,
-    lse and delta in f32 and the outputs in bf16 / HBM rate)."""
-    flops = products * 2 * bh * sq * sk * D_HEAD
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def k78_bound_ms(products: int, outputs: int, bh: int, sq: int, sk: int, dropout: bool,
+                 clock_hz: float):
+    """(ms, floor): the largest of four floors and its name. Tensor cores:
+    2 Sq Sk D FLOP per product / bf16 peak. HBM: q, k, v and dO in bf16, lse
+    and delta in f32 and the outputs in bf16 / HBM rate. SFU: one ex2 per
+    element of S. INT32, under dropout only: the hash's integer operations
+    per element of S (HASH_INT_OPS)."""
+    elems = bh * sq * sk
     rows_out = sq if outputs == 1 else 2 * sk
-    io = bh * (2 * (2 * sq + 2 * sk + rows_out) * D_HEAD + 8 * sq)
-    return 1e3 * max(flops / PEAK_BF16_FLOPS, io / PEAK_BYTES)
+    floors = {
+        "tensor": products * 2 * elems * D_HEAD / PEAK_BF16_FLOPS,
+        "hbm": bh * (2 * (2 * sq + 2 * sk + rows_out) * D_HEAD + 8 * sq) / PEAK_BYTES,
+        "sfu": elems / (SMS * SFU_PER_CLK * clock_hz),
+        "int32": elems * HASH_INT_OPS / (SMS * INT32_PER_CLK * clock_hz) if dropout else 0.0,
+    }
+    floor = max(floors, key=floors.get)
+    return 1e3 * floors[floor], floor
 
 
 def device_ms(fn, iters: int):
     """``fn``'s device time per call, the sum of the kernels (and memsets)
     the profiler records over ``iters`` calls after one warm-up, and their
-    names. Host time between kernels is not counted."""
+    names. Host time between kernels is not counted. A window in which the
+    profiler recorded no device activity at all (seen on the card once in
+    ten-odd back-to-back sessions, cause unknown) is profiled again, at most
+    three windows in all, each empty one printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        print(f"[profiler] window {attempt + 1} recorded no device kernel; profiling again",
+              flush=True)
     check(bool(events), "the profiler recorded no device kernel")
     names = "; ".join(sorted({e.name[:80] for e in events}))
     return sum(e.time_range.elapsed_us() for e in events) * 1e-3 / iters, names
@@ -1279,15 +1318,20 @@ def sdpa_bwd(q, k, v, do, iters: int):
 
 def phase_k78(fa):
     """K7/K8 against their twins at the C1 shape (dropout 0 and 0.1), the
-    rectangular C3 shape and a ragged one, a second launch bitwise equal;
-    K6 at the C1 shape with dropout; timings beside the bounds, the twins
-    and SDPA's backward. Returns the K7 and K8 rows and K6's C1 readings."""
+    rectangular C3 shape, a ragged one and two that cut the 128-row blocks
+    (dropout 0 and 0.25), a second launch bitwise equal, and the
+    projections' [B, S, H, D] layout seen through a transpose bitwise equal
+    to the contiguous case; K6 at the C1 shape with dropout; timings (CUDA
+    events and the profiler's device time) beside the four-floor bounds, the
+    twins and SDPA. Returns the K7 and K8 rows and K6's C1 readings."""
     rng = np.random.default_rng(5)
     seed = torch.tensor([7], dtype=torch.int32, device="cuda")  # drawn on the card in C1
     cases = (("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), 0.0),
              ("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), C1_RATE),
              ("rect", (1, C3_HEADS, C3_TOKENS, 4096), 0.0),
-             ("ragged", (1, 16, 300, 180), 0.0))
+             ("ragged", (1, 16, 300, 180), 0.0),
+             ("cut", (1, 4, 200, 130), 0.0), ("cut", (1, 4, 200, 130), 0.25),
+             ("cut2", (1, 2, 1000, 1030), 0.0), ("cut2", (1, 2, 1000, 1030), 0.25))
     err = {"K7": 0.0, "K8": 0.0}
     inputs = {}
     for name, (b, heads, sq, sk), rate in cases:
@@ -1316,6 +1360,15 @@ def phase_k78(fa):
               f"twin| {', '.join(parts)} (limits {TOL_K78_REL} max|twin|); second launches "
               f"bitwise equal: {same}", flush=True)
         check(same, f"K7/K8 are not bitwise repeatable at {name}")
+        if name == "cut":  # the projections' layout, as the transformer feeds it
+            views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do)]
+            vargs = (*views, lse, delta, K6_SCALE, rate, seed)
+            dq_v, (dk_v, dv_v) = fa.flash_attention_bwd_dq(*vargs), fa.flash_attention_bwd_dkv(*vargs)
+            torch.cuda.synchronize()
+            same_v = torch.equal(dq, dq_v) and torch.equal(dk, dk_v) and torch.equal(dv, dv_v)
+            print(f"[k78] {name} dropout {rate}: [B, S, H, D] inputs seen through a transpose "
+                  f"bitwise equal to the contiguous case: {same_v}", flush=True)
+            check(same_v, f"K7/K8 differ on transposed views at {name}, dropout {rate}")
         del o, lse, delta, dq, dk, dv, dq2, dk2, dv2, tq, tk, tv
 
     # K6 at the C1 shape with dropout: no path launched it with dropout before C1
@@ -1333,52 +1386,65 @@ def phase_k78(fa):
     check(e_o <= lim_o and e_l <= TOL_K6_LSE and same, "K6 with dropout disagrees with its twin")
     del o2, lse2, o_p, lse_p
 
+    clock = sm_clock_hz()
     bh = C1_BATCH * C3_HEADS
-    times = {}
+    times = {}  # rate -> kernel -> (event ms, device ms, twin ms)
     for rate in (C1_RATE, 0.0):
         o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed)
         delta = fa.attention_delta(o, do)
         args = (q, k, v, do, lse, delta, K6_SCALE, rate, seed)
-        times[rate] = {
-            "K6": (cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed), 20),
-                   cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, seed), 2)),
-            "K7": (cuda_ms(lambda: fa.flash_attention_bwd_dq(*args), 20),
-                   cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 2)),
-            "K8": (cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args), 20),
-                   cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 2)),
-        }
+        calls = {"K6": (lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed),
+                        lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, seed)),
+                 "K7": (lambda: fa.flash_attention_bwd_dq(*args),
+                        lambda: fa.flash_attention_bwd_dq_plain(*args)),
+                 "K8": (lambda: fa.flash_attention_bwd_dkv(*args),
+                        lambda: fa.flash_attention_bwd_dkv_plain(*args))}
+        times[rate] = {name: (cuda_ms(fn, 20), device_ms(fn, 20)[0], cuda_ms(plain, 2))
+                       for name, (fn, plain) in calls.items()}
     lib_fwd, lib_bwd, backend = sdpa_bwd(q, k, v, do, 20)
-    bounds = {"K6": k6_bound_ms(bh, C1_TOKENS, C1_TOKENS),
-              "K7": k78_bound_ms(3, 1, bh, C1_TOKENS, C1_TOKENS),
-              "K8": k78_bound_ms(4, 2, bh, C1_TOKENS, C1_TOKENS)}
+    bounds = {rate: {"K6": (k6_bound_ms(bh, C1_TOKENS, C1_TOKENS), "tensor"),
+                     "K7": k78_bound_ms(3, 1, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock),
+                     "K8": k78_bound_ms(4, 2, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock)}
+              for rate in (C1_RATE, 0.0)}
     for name in ("K6", "K7", "K8"):
-        (ms, plain), (ms0, _) = times[C1_RATE][name], times[0.0][name]
-        print(f"[k78] {name} at the C1 shape: kernel {ms:.4f} ms with dropout {C1_RATE}, "
-              f"{ms0:.4f} ms without ({bounds[name] / ms:.2%} of the bound), bound "
-              f"{bounds[name]:.4f} ms (operations), plain twin {plain:.3f} ms", flush=True)
+        for rate in (C1_RATE, 0.0):
+            ms, dev, plain = times[rate][name]
+            bnd, floor = bounds[rate][name]
+            print(f"[k78] {name} at the C1 shape, dropout {rate}: kernel {ms:.4f} ms by events, "
+                  f"{dev:.4f} ms device time ({bnd / dev:.2%} of the bound), bound {bnd:.4f} ms "
+                  f"({floor}; SM clock {clock * 1e-6:.0f} MHz), plain twin {plain:.3f} ms",
+                  flush=True)
+    k78_dev = times[0.0]["K7"][1] + times[0.0]["K8"][1]
     print(f"[k78] library at the C1 shape, dropout 0, autograd on, device time of its kernels "
-          f"(profiler): scaled_dot_product_attention forward {lib_fwd:.4f} ms, backward "
-          f"{lib_bwd:.4f} ms (dq, dk and dv; K7 + K8 "
-          f"{times[0.0]['K7'][0] + times[0.0]['K8'][0]:.4f} ms) [backward: {backend}]", flush=True)
+          f"(profiler): scaled_dot_product_attention forward {lib_fwd:.4f} ms (K6 / SDPA "
+          f"{times[0.0]['K6'][1] / lib_fwd:.2f}), backward {lib_bwd:.4f} ms (dq, dk and dv; K7 + K8 "
+          f"{k78_dev:.4f} ms device time, (K7 + K8) / SDPA backward {k78_dev / lib_bwd:.2f}) "
+          f"[backward: {backend}]", flush=True)
 
     q, k, v, do = inputs["rect"]
     o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE)
     delta = fa.attention_delta(o, do)
     args = (q, k, v, do, lse, delta, K6_SCALE)
-    rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
-            "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10)}
+    rect = {"K7": fa.flash_attention_bwd_dq, "K8": fa.flash_attention_bwd_dkv}
+    rect = {name: (cuda_ms(lambda: fn(*args), 10), device_ms(lambda: fn(*args), 10)[0])
+            for name, fn in rect.items()}
     plain_rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 1),
                   "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 1)}
     _, lib_rect, _ = sdpa_bwd(q, k, v, do, 10)
-    b_rect = {"K7": k78_bound_ms(3, 1, C3_HEADS, C3_TOKENS, 4096),
-              "K8": k78_bound_ms(4, 2, C3_HEADS, C3_TOKENS, 4096)}
-    print(f"[k78] at {C3_HEADS} heads x {C3_TOKENS} x 4096: K7 {rect['K7']:.3f} ms (bound "
-          f"{b_rect['K7']:.3f}, twin {plain_rect['K7']:.3f}), K8 {rect['K8']:.3f} ms (bound "
-          f"{b_rect['K8']:.3f}, twin {plain_rect['K8']:.3f}); SDPA backward {lib_rect:.3f} ms",
+    b_rect = {"K7": k78_bound_ms(3, 1, C3_HEADS, C3_TOKENS, 4096, False, clock),
+              "K8": k78_bound_ms(4, 2, C3_HEADS, C3_TOKENS, 4096, False, clock)}
+    rect_dev = rect["K7"][1] + rect["K8"][1]
+    print(f"[k78] at {C3_HEADS} heads x {C3_TOKENS} x 4096: K7 {rect['K7'][0]:.3f} ms by events, "
+          f"{rect['K7'][1]:.3f} ms device time (bound {b_rect['K7'][0]:.3f}, {b_rect['K7'][1]}; "
+          f"twin {plain_rect['K7']:.3f}), K8 {rect['K8'][0]:.3f} ms, {rect['K8'][1]:.3f} ms "
+          f"(bound {b_rect['K8'][0]:.3f}, {b_rect['K8'][1]}; twin {plain_rect['K8']:.3f}); SDPA "
+          f"backward {lib_rect:.3f} ms device time, (K7 + K8) / SDPA {rect_dev / lib_rect:.2f}",
           flush=True)
     rows = []
     for name, call_line in (("K7", 261), ("K8", 281)):
-        ms, plain = times[C1_RATE][name]
+        ms, dev, plain = times[C1_RATE][name]
+        bnd, floor = bounds[C1_RATE][name]
+        bnd0, floor0 = bounds[0.0][name]
         rows.append({
             "name": name, "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
             "replaces": f"tgtc/ops/pallas/flash_attention.py:{call_line}",
@@ -1386,18 +1452,25 @@ def phase_k78(fa):
                         ("flash_attention_bwd_dq" if name == "K7" else "flash_attention_bwd_dkv")),
             "shape": [C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS, D_HEAD], "dropout": C1_RATE,
             "max_abs_err": err[name], "max_err": err[name],
-            "ms": ms, "ms_no_dropout": times[0.0][name][0], "plain_ms": plain,
-            "bound_ms": bounds[name], "bound_by": "operations",
+            "ms": ms, "device_ms": dev, "ms_no_dropout": times[0.0][name][0],
+            "device_ms_no_dropout": times[0.0][name][1], "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": "bytes" if floor == "hbm" else "operations",
+            "bound_floor": floor,
+            "bound_ms_no_dropout": bnd0, "bound_floor_no_dropout": floor0,
+            "sm_clock_mhz": clock * 1e-6,
             "library_ms": lib_bwd,
             "library": "scaled_dot_product_attention backward (dq, dk, dv), device time "
                        "from the profiler",
-            "library_backend": backend,
-            "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[name],
-            "plain_ms_rect": plain_rect[name], "bound_ms_rect": b_rect[name],
-            "library_ms_rect": lib_rect,
+            "library_backend": backend, "k7_k8_over_library_no_dropout": k78_dev / lib_bwd,
+            "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[name][0],
+            "device_ms_rect": rect[name][1], "plain_ms_rect": plain_rect[name],
+            "bound_ms_rect": b_rect[name][0], "bound_floor_rect": b_rect[name][1],
+            "library_ms_rect": lib_rect, "k7_k8_over_library_rect": rect_dev / lib_rect,
         })
-    k6_c1 = {"ms_c1": times[C1_RATE]["K6"][0], "ms_c1_no_dropout": times[0.0]["K6"][0],
-             "plain_ms_c1": times[C1_RATE]["K6"][1], "bound_ms_c1": bounds["K6"],
+    k6_c1 = {"ms_c1": times[C1_RATE]["K6"][0], "device_ms_c1": times[C1_RATE]["K6"][1],
+             "ms_c1_no_dropout": times[0.0]["K6"][0],
+             "device_ms_c1_no_dropout": times[0.0]["K6"][1],
+             "plain_ms_c1": times[C1_RATE]["K6"][2], "bound_ms_c1": bounds[C1_RATE]["K6"][0],
              "max_abs_err_c1_dropout": e_o, "library_ms_c1": lib_fwd}
     return rows, k6_c1
 
@@ -1629,7 +1702,7 @@ def main() -> int:
           f"{', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:  # ptxas: registers, shared memory and spills per kernel
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
+            if any(w in line.lower() for w in ("registers", "spill", "entry function", "warning")):
                 print(f"[build] {line.strip()}", flush=True)
 
     rng = np.random.default_rng(0)

@@ -333,8 +333,12 @@ def _qkvdo(batch, heads, sq, sk, device, seed=9):
 
 @pytest.mark.parametrize("batch,heads,sq,sk,rate", [(1, 16, 300, 180, 0.0), (1, 16, 300, 180, 0.25),
                                                     (8, 8, 1024, 1024, 0.0),
-                                                    (8, 8, 1024, 1024, 0.25)])
+                                                    (8, 8, 1024, 1024, 0.25),
+                                                    (1, 4, 200, 130, 0.0), (1, 4, 200, 130, 0.25),
+                                                    (1, 2, 1000, 1030, 0.0),
+                                                    (1, 2, 1000, 1030, 0.25)])
 def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate):
+    """Shapes that fill and cut the kernels' 128-row blocks and 64-row tiles."""
     q, k, v, do = _qkvdo(batch, heads, sq, sk, cuda_device)
     o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 13)
     delta = fa.attention_delta(o, do)
@@ -351,6 +355,22 @@ def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate
               f"{e:.3e} (limit {lim:.3e})")
         assert e <= lim, name
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_cuda_k78_read_head_transposed_views(cuda_device, rate):
+    """q, k, v and dO as [B, H, S, D] views of [B, S, H, D] (the projections'
+    layout, as the transformer feeds them): bitwise the contiguous case."""
+    q, k, v, do = _qkvdo(2, 4, 200, 130, cuda_device)
+    o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 13)
+    delta = fa.attention_delta(o, do)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do)]
+    want = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, 0.125, rate, 13),
+            *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.125, rate, 13))
+    got = (fa.flash_attention_bwd_dq(*views, lse, delta, 0.125, rate, 13),
+           *fa.flash_attention_bwd_dkv(*views, lse, delta, 0.125, rate, 13))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_k78_launch_counters_count_launches(cuda_device):
@@ -378,6 +398,15 @@ def test_k78_refuse_what_they_do_not_take(cuda_device):
             fn(q.float(), k.float(), v.float(), do.float(), lse, delta)
         with pytest.raises(NotImplementedError):
             fn(q[..., :32], k[..., :32], v[..., :32], do[..., :32], lse, delta)
+        with pytest.raises(NotImplementedError):  # the scale must be a power of two
+            fn(q, k, v, do, lse, delta, 0.1)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(NotImplementedError):  # before the forward runs
+        fa.flash_attention(q.requires_grad_(), k, v, 0.1)
+    assert fa.flash_attention_fwd.launches == before
+    with torch.no_grad():  # no backward, so K6 takes any scale
+        fa.flash_attention(q, k, v, 0.1)
+    assert fa.flash_attention_fwd.launches == before + 1
 
 
 def test_narrow_c1_step_on_card_matches_cpu(cuda_device):

@@ -139,3 +139,24 @@ def test_render_image_pads_the_tail_block():
     for k in whole:
         assert blocked[k].shape == whole[k].shape
         torch.testing.assert_close(blocked[k], whole[k], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("step", [0, 5, 1000])
+def test_step_seed_gives_each_seed_its_own_draws(step):
+    """Two seeds draw different batches, jitter and noise at one step on a
+    CPU generator, which keeps only a seed's low 32 bits."""
+    pairs = [(s, n) for s in (0, 1, 7, 2 ** 31) for n in (0, 1, 5, 1000)]
+    low = {tt.step_seed(s, n) & 0xFFFFFFFF for s, n in pairs}
+    assert len(low) == len(pairs)
+    step_fn = tt.TrainStep(None, tt.NerfTrainConfig(batch_size=64, n_samples=8,
+                                                    n_samples_fine=8, sigma_noise_std=1.0),
+                           device="cpu")
+    draws = [step_fn.draw(4096, torch.Generator().manual_seed(tt.step_seed(s, step)))
+             for s in (0, 1, 7)]
+    for i, a in enumerate(draws):
+        for b in draws[i + 1:]:
+            for field in ("idx", "perturb_u", "noise_coarse", "noise_fine"):
+                assert not torch.equal(getattr(a, field), getattr(b, field)), field
+    again = step_fn.draw(4096, torch.Generator().manual_seed(tt.step_seed(1, step)))
+    assert torch.equal(again.idx, draws[1].idx) and torch.equal(again.perturb_u,
+                                                                draws[1].perturb_u)

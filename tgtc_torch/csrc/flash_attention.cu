@@ -40,20 +40,56 @@
 // the [B, S, H, D] layout of the projections needs no transposes. wgmma,
 // TMA and pipelining are for a later version.
 //
-// K7 and K8 (the comments at each kernel give the arithmetic) follow the
-// same design: one block of four warps per (bh, 64 rows) of the output,
-// each warp's 16 rows of the fixed operands and its f32 accumulators in
-// registers, the walked operand's 64-row tiles through shared memory, row-
-// major for the A B^T products and transposed for the (C-fragment) B
-// products. Neither needs atomics, so a launch repeats bit for bit. Both
-// regenerate the dropout mask from the hash of the absolute (query row, key
-// col), as K6 drew it. Bound: operations. K7 makes 3 products (6 Sq Sk D
-// FLOP), K8 4 (8 Sq Sk D); at the C1 shape (64 batch*heads, 1,024^2, D 64)
-// 2.58e10 and 3.44e10 FLOP, 0.026 and 0.035 ms at the bf16 peak, against
-// about 42 MB of I/O each (0.0125 ms at the HBM rate).
+// K7 and K8 (the comments at each kernel give the arithmetic) recompute
+// S = q k^T and dP = dO v^T tile by tile and accumulate dq = dS k (K7, 3
+// products: 6 Sq Sk D FLOP) or dv = P^T dO and dk = dS^T q (K8, 4
+// products: 8 Sq Sk D FLOP). Neither needs atomics, so a launch repeats bit
+// for bit. Both regenerate the dropout mask from the hash of the absolute
+// (query row, key col), as K6 drew it.
+//
+// What bounds them, four floors (chip_smoke.k78_bound_ms), at the C1 shape
+// (64 batch*heads, Sq = Sk = 1,024, D 64; 6.7e7 elements of S):
+//   tensor cores: 2.58e10 (K7) and 3.44e10 (K8) FLOP, 0.026 and 0.035 ms
+//     at the bf16 dense peak;
+//   HBM: 42 and 51 MB (q, k, v, dO, lse, delta in; dq or dk, dv out),
+//     0.013 and 0.015 ms;
+//   SFU: one ex2 per element of S at 16 a clock per SM, 0.016 ms at
+//     1,980 MHz;
+//   INT32, under dropout only: keep_hash's 10 integer operations per
+//     element (one 3-input xor, three shift-xor pairs, two multiplies, one
+//     compare; the row and column products are hoisted) at 64 a clock per
+//     SM, 0.04 ms at 1,980 MHz -- the binding floor with dropout.
+//
+// Design: warp-specialized blocks of three warpgroups per (bh, 128 rows of
+// the output): warpgroups 0 and 1 consume, 64 output rows each; the first
+// warp of warpgroup 2 produces. setmaxnreg gives the consumers 232
+// registers and the producer 40 (the 168 at launch, 384 threads, one block
+// per SM, rebalanced). The producer brings the block's fixed operands (K7: q
+// and dO; K8: k and v; 128 x 64 bf16 each) once by TMA, then streams the
+// walked operands (K7: k and v tiles; K8: q and dO tiles with their lse and
+// delta slices) through a ring of STAGES slots of 64 rows on full/empty
+// mbarriers. TMA descriptors are 4-D (d, row, head, batch) maps over the
+// (batch, head, row) strides the entry points receive, with the 128-byte
+// swizzle (a 64-wide bf16 row is 128 B), so the [B, S, H, D] projections
+// seen through a transpose load as they lie; rows past S arrive as zeros
+// (TMA's out-of-bounds fill) and are never written. Every product is a
+// wgmma m64n64k16 with f32 accumulators (32 registers a thread per 64 x 64
+// tile): S (or S^T = k q^T, keys as rows in K8) and dP from shared memory,
+// both operands K-major; then dq += bf16(dS) k, dv += bf16(pd)^T dO and
+// dk += bf16(dS)^T q with A taken from registers -- the f32 accumulator
+// repacked as bf16 A fragments, since wgmma's accumulator repeats the
+// mma.sync C pattern for each warp's 16 rows -- and B the same k, dO or q
+// tile read MN-major through the descriptor's transpose bit. No operand is
+// transposed or rescaled in shared memory: the scale must be a power of two
+// (0.125 = 1/sqrt(64) on every path), so S is scaled in f32 and dk's
+// accumulator once at the end, which equals the products of bf16(q scale)
+// exactly. A slot is released when both consumers' last product on it has
+// completed.
 
+#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -61,13 +97,20 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;
-constexpr int BQ = 64;  // query rows per block, 16 per warp
-constexpr int BK = 64;  // keys per tile
+constexpr int BQ = 64;  // K6: query rows per block, 16 per warp
+constexpr int BK = 64;  // K6: keys per tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = 32 * NWARPS;
-constexpr int LDS = D + 8;  // shared row pitch in bf16 values (144 B)
+constexpr int LDS = D + 8;  // K6: shared row pitch in bf16 values (144 B)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int BT = 64;                    // K7/K8: rows of a TMA box and of a streamed tile
+constexpr int BROWS = 128;                // K7/K8: output rows per block, 64 per consumer
+constexpr int STAGES = 4;                 // K7/K8: slots of the ring
+constexpr int TILE_BYTES = BT * D * 2;    // one 64 x 64 bf16 box, 8 KB
+constexpr int BWD_THREADS = 384;          // consumers: warpgroups 0, 1; producer: warpgroup 2
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 384 x 168
 
 struct Strides {
   long long b, h, s;  // element strides; the head dimension is contiguous
@@ -89,10 +132,10 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
 }
 
 // _dropout_mask of the TPU kernel, bit for bit: uint32 arithmetic that wraps
-// mod 2^32, murmur3 fmix32, keep when the draw is >= thr.
-__device__ __forceinline__ bool keep_elem(uint32_t row, uint32_t col, uint32_t salt,
-                                          uint32_t thr) {
-  uint32_t x = (row * 0x9E3779B9u) ^ (col * 0x85EBCA6Bu) ^ salt;
+// mod 2^32, murmur3 fmix32, keep when the draw is >= thr. keep_hash takes
+// (row * 0x9E3779B9) ^ (col * 0x85EBCA6B) ^ salt, so that a caller can hoist
+// the row and column products.
+__device__ __forceinline__ bool keep_hash(uint32_t x, uint32_t thr) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
@@ -101,116 +144,162 @@ __device__ __forceinline__ bool keep_elem(uint32_t row, uint32_t col, uint32_t s
   return x >= thr;
 }
 
+__device__ __forceinline__ uint32_t row_term(int row) { return (uint32_t)row * 0x9E3779B9u; }
+__device__ __forceinline__ uint32_t col_term(int col) { return (uint32_t)col * 0x85EBCA6Bu; }
+
+__device__ __forceinline__ bool keep_elem(uint32_t row, uint32_t col, uint32_t salt,
+                                          uint32_t thr) {
+  return keep_hash(row_term(row) ^ col_term(col) ^ salt, thr);
+}
+
 // The hash's per-(seed, batch*head) term. The seed is one int32 in device
 // memory, so a caller can draw it on the device without a host sync.
 __device__ __forceinline__ uint32_t dropout_salt(const int* seed, int bh) {
   return (uint32_t)seed[0] + (uint32_t)bh * 0xC2B2AE35u;
 }
 
-// One 64-row tile of a [rows, 64] bf16 operand into shared memory: rows
-// >= n are zero-filled (NaN x 0 is NaN, so the tail must be real zeros);
-// row-major in `rm` ([row][d]) if given, transposed in `tr` ([d][row]) if
-// given, and multiplied by `scale` with one bf16 rounding if SCALE.
-template <bool SCALE>
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ base, long long stride,
-                                          int r0, int n, float scale, bf16* rm, bf16* tr) {
-  for (int c = threadIdx.x; c < 64 * D / 8; c += NTHREADS) {
-    const int r = c / (D / 8), d0 = (c % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) x = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * stride + d0);
-    bf16* e = reinterpret_cast<bf16*>(&x);
-    if (SCALE) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-    }
-    if (rm) *reinterpret_cast<uint4*>(&rm[r * LDS + d0]) = x;
-    if (tr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(d0 + j) * LDS + r] = e[j];
-    }
+// ------------------------------------------------ Hopper primitives (K7/K8)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`. A
+// phase that never completes is a fault: trap after 2^24 polls (seconds)
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (n == (1u << 24)) __trap();
   }
 }
 
-// Sixteen rows of a [rows, 64] bf16 operand as the A fragments of one warp
-// (rows >= n read as zeros), multiplied by `scale` with one bf16 rounding.
-__device__ __forceinline__ void load_a(const bf16* __restrict__ base, long long stride, int r0,
-                                       int n, float scale, uint32_t a[D / 16][4]) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + (i & 1) * 8, col = kk * 16 + 2 * t + (i >> 1) * 8;
-      float x0 = 0.0f, x1 = 0.0f;
-      if (row < n) {
-        const bf16* p = base + row * stride + col;
-        x0 = __bfloat162float(p[0]) * scale;
-        x1 = __bfloat162float(p[1]) * scale;
-      }
-      a[kk][i] = pack_bf16(x0, x1);
-    }
-  }
+// One 64-row box of a (d, row, head, batch) tensor map into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
 }
 
-// C (16 x 64) += A (16 x 64, fragments) B^T, B's 64 rows in shared memory
-// as [n][k] with pitch LDS: eight 16x8 tiles of four k16 steps.
-__device__ __forceinline__ void mma_abt(float c[8][4], const uint32_t a[D / 16][4],
-                                        const bf16* bsm) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const bf16* br = &bsm[(n * 8 + g) * LDS + kk * 16 + 2 * t];
-      mma_bf16(c[n], a[kk], *reinterpret_cast<const uint32_t*>(br),
-               *reinterpret_cast<const uint32_t*>(br + 8));
-    }
-  }
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory (rows of
+// 64 bf16 = 128 B, swizzle atoms of 8 rows = 1 KB, atoms 1 KB aligned): start
+// address, leading byte offset `lbo` and stride byte offset 1 KB (the next 8
+// rows), both in 16-byte units, layout type 1 (128B swizzle). K-major: k
+// steps of 16 advance the start by 32 B within the row. MN-major (the
+// transpose bit): k steps of 16 rows advance it by 2 KB; the leading offset
+// (the next 64 columns) is never stepped at N = 64.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int kk) {
+  return sw128_desc(tile + kk * 16, 1);
+}
+__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk) {
+  return sw128_desc(tile + kk * 16 * D, 1024 >> 4);
 }
 
-// C (16 x 64) += bf16(X) B, X a 16 x 64 f32 tile in C-fragment layout
-// (reused as A fragments without a trip through shared memory) and B
-// given transposed in shared memory as [n][k] with pitch LDS.
-__device__ __forceinline__ void mma_cb(float c[8][4], const float x[8][4], const bf16* btr) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// an asynchronous wgmma (it sees the asm as done when issued).
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B, a 64 x 64 f32 tile per warpgroup, A (64 x 16) and B (16 x 64)
+// bf16 in shared memory, both K-major; d is overwritten when !accumulate.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B with A (64 x 16 bf16) in registers, four 32-bit fragments a
+// thread in the mma.sync A layout of its warp's 16 rows, and B (16 x 64) in
+// shared memory, MN-major (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The four k16 A fragments of bf16(x), x a 64 x 64 f32 accumulator: the
+// accumulator's C layout (register 4 j + e at row 16 warp + g + 8 (e >> 1),
+// col 8 j + 2 t + (e & 1)) is the A layout of k step j / 2.
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const bf16* br = &btr[(n * 8 + g) * LDS + kk * 16 + 2 * t];
-      mma_bf16(c[n], a, *reinterpret_cast<const uint32_t*>(br),
-               *reinterpret_cast<const uint32_t*>(br + 8));
-    }
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
   }
 }
 
-// Sixteen rows of a 16 x 64 f32 accumulator (C fragments) to bf16 rows
-// r0.. of `base` (rows >= n are not written), each value times `scale`
-// after a first bf16 rounding when RESCALE.
-template <bool RESCALE>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ base, long long stride, int r0,
-                                           int n, const float acc[8][4], float scale) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + r * 8;
-    if (row >= n) continue;
-    bf16* out = base + (long long)row * stride;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      float x0 = acc[j][2 * r], x1 = acc[j][2 * r + 1];
-      if (RESCALE) {
-        x0 = __bfloat162float(__float2bfloat16(x0)) * scale;
-        x1 = __bfloat162float(__float2bfloat16(x1)) * scale;
-      }
-      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) = pack_bf16(x0, x1);
-    }
-  }
+__device__ __forceinline__ uint8_t* align_1k(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
+
+__device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
 // Register fragments of one warp, lane = 4 g + t:
 //   A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
@@ -372,160 +461,373 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 
-// K7: dQ of one block of four warps per (bh, 64 query rows), each warp 16
-// rows with its Q (scaled) and dO fragments, its lse and delta, and a
-// 16 x 64 f32 dQ accumulator in registers; K/V tiles of 64 keys pass
-// through shared memory (K also transposed, the B operand of dS K). Per
-// tile, as _dq_kernel: s = q k^T, p = exp(s - lse) (0 past Sk),
-// dp = dO v^T masked and scaled by 1/keep under dropout, ds = p (dp - delta)
-// with the undropped p, dq += bf16(ds) k. dq = bf16(bf16(dq) scale): the
-// sm_scale of _flash_bwd applied in q's type.
-template <bool DROPOUT>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int Sq, int Sk, Strides qs, Strides ks_,
-                    Strides vs, Strides dos, Strides dqs, float scale,
-                    const int* __restrict__ seed, uint32_t thr, float inv_keep) {
-  __shared__ __align__(16) bf16 ksm[BK * LDS];  // K tile, [key][d]
-  __shared__ __align__(16) bf16 ktr[D * LDS];   // K tile transposed, [d][key]
-  __shared__ __align__(16) bf16 vsm[BK * LDS];  // V tile, [key][d]
 
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ + warp * 16;
-  const bf16* kb = k + b * ks_.b + h * ks_.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+// ---------------------------------------------------------------- K7, K8
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a(q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale, qa);
-  load_a(dout + b * dos.b + h * dos.h, dos.s, q0, Sq, 1.0f, da);
-  float lr[2], dr[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + r * 8;
-    lr[r] = row < Sq ? lse[(long long)bh * Sq + row] : 0.0f;
-    dr[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+// Shared memory of K7: q and dO of the block's 128 query rows, a ring of k
+// and v tiles. Every tile starts on a 1 KB boundary (the swizzle atom).
+struct DqSmem {
+  bf16 q[BROWS * D];
+  bf16 dout[BROWS * D];
+  bf16 k[STAGES][BT * D];
+  bf16 v[STAGES][BT * D];
+  uint64_t full[STAGES], empty[STAGES], fixed;
+};
 
-  const int ntiles = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<false>(kb, ks_.s, k0, Sk, 1.0f, ksm, ktr);
-    load_tile<false>(vb, vs.s, k0, Sk, 1.0f, vsm, nullptr);
-    __syncthreads();
+// Shared memory of K8: k and v of the block's 128 keys, a ring of q and dO
+// tiles with the lse and delta of their 64 query rows.
+struct DkvSmem {
+  bf16 k[BROWS * D];
+  bf16 v[BROWS * D];
+  bf16 q[STAGES][BT * D];
+  bf16 dout[STAGES][BT * D];
+  float lse[STAGES][BT];
+  float delta[STAGES][BT];
+  uint64_t full[STAGES], empty[STAGES], fixed;
+};
 
-    float s[BK / 8][4], dp[BK / 8][4];
+// The barriers: `fixed` completes once the fixed operands have landed;
+// full[s] when slot s holds its tile (TMA bytes, and in K8 the producer
+// warp's 32 lse/delta stores); empty[s] when all 8 consumer warps are done
+// with it.
+template <typename Smem>
+__device__ __forceinline__ void init_barriers(Smem& sm, uint32_t full_count) {
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
-    mma_abt(s, qa, ksm);   // S = Q K^T
-    mma_abt(dp, da, vsm);  // dP = dO V^T
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
-        const float p = col < Sk ? exp2f((s[n][e] - lr[r]) * LOG2E) : 0.0f;
-        float d = dp[n][e];
-        if (DROPOUT)
-          d = keep_elem((uint32_t)(q0 + g + r * 8), (uint32_t)col, salt, thr) ? d * inv_keep
-                                                                             : 0.0f;
-        s[n][e] = p * (d - dr[r]);  // dS, from the undropped p
-      }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], full_count);
+      mbar_init(&sm.empty[s], 8);
     }
-    mma_cb(acc, s, ktr);  // dQ += bf16(dS) K
+    mbar_init(&sm.fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  store_rows<true>(dq + b * dqs.b + h * dqs.h, dqs.s, q0, Sq, acc, scale);
+  __syncthreads();
 }
 
-// K8: dK and dV of one block of four warps per (bh, 64 key rows), each
-// warp 16 keys with its K and V fragments and two 16 x 64 f32 accumulators
-// in registers, walking every query tile of 64 rows (Q scaled, and dO, both
-// also transposed, with their lse and delta, through shared memory). The
-// products are taken transposed, keys as rows: s^T = k q^T,
-// p^T = exp(s^T - lse) (0 for query rows >= Sq), dp^T = v dO^T; under
-// dropout the mask of (query row, key col) -- the same bits K6 drew -- gives
-// pd = mask p / keep and masks and scales dp; dv += bf16(pd)^T dO,
-// ds = p (dp - delta), dk += bf16(ds)^T q, as _dkv_kernel.
+// The 128 rows starting at `row` of a tensor map, as two 64-row boxes.
+__device__ __forceinline__ void tma_rows128(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int row, int h, int b) {
+  tma_load(dst, map, bar, row, h, b);
+  tma_load(dst + BT * D, map, bar, row + BT, h, b);
+}
+
+// After the last product on slot s: one arrival per consumer warp.
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
+}
+
+// K7: dQ of one block per (bh, 128 query rows). Each consumer warpgroup owns
+// 64 rows: S = q k^T and dP = dO v^T (wgmma from shared memory) for each
+// streamed tile of 64 keys; as _dq_kernel, p = exp(s scale - lse) (0 past
+// Sk), dp masked and scaled by 1/keep under dropout, ds = p (dp - delta)
+// with the undropped p, dq += bf16(ds) k (A from registers, k read
+// MN-major). dq = bf16(bf16(dq) scale): the sm_scale of _flash_bwd applied
+// in q's type.
 template <bool DROPOUT>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Sq, int Sk,
-                     Strides qs, Strides ks_, Strides vs, Strides dos, Strides dks, Strides dvs,
-                     float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
-  __shared__ __align__(16) bf16 qsm[BQ * LDS];  // Q tile (scaled), [query][d]
-  __shared__ __align__(16) bf16 qtr[D * LDS];   // the same transposed, [d][query]
-  __shared__ __align__(16) bf16 dsm[BQ * LDS];  // dO tile, [query][d]
-  __shared__ __align__(16) bf16 dtr[D * LDS];   // the same transposed, [d][query]
-  __shared__ float lse_s[BQ], delta_s[BQ];
-
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int Sq, int Sk, Strides dqs, float scale,
+                    const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = *reinterpret_cast<DqSmem*>(align_1k(smem_raw));
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK + warp * 16;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* db = dout + b * dos.b + h * dos.h;
-  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+  const int row_blk = blockIdx.x * BROWS;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int ntiles = (Sk + BT - 1) / BT;
+  init_barriers(sm, 1);
 
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a(k + b * ks_.b + h * ks_.h, ks_.s, k0, Sk, 1.0f, ka);
-  load_a(v + b * vs.b + h * vs.h, vs.s, k0, Sk, 1.0f, va);
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = dva[n][0] = dva[n][1] = dva[n][2] =
-        dva[n][3] = 0.0f;
-
-  const int ntiles = (Sq + BQ - 1) / BQ;
-  for (int qt = 0; qt < ntiles; ++qt) {
-    const int r0 = qt * BQ;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<true>(qb, qs.s, r0, Sq, scale, qsm, qtr);
-    load_tile<false>(db, dos.s, r0, Sq, 1.0f, dsm, dtr);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      const bool in = r0 + i < Sq;
-      lse_s[i] = in ? lse[(long long)bh * Sq + r0 + i] : 0.0f;
-      delta_s[i] = in ? delta[(long long)bh * Sq + r0 + i] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.0f;
-    mma_abt(s, ka, qsm);   // S^T = K Q^T
-    mma_abt(dp, va, dsm);  // dP^T = V dO^T
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), row = r0 + c;
-        const float p = row < Sq ? exp2f((s[n][e] - lse_s[c]) * LOG2E) : 0.0f;
-        float pd = p, d = dp[n][e];
-        if (DROPOUT) {
-          const bool keep = keep_elem((uint32_t)row, (uint32_t)(k0 + g + (e >> 1) * 8), salt, thr);
-          pd = keep ? p * inv_keep : 0.0f;
-          d = keep ? d * inv_keep : 0.0f;
-        }
-        s[n][e] = pd;
-        dp[n][e] = p * (d - delta_s[c]);  // dS^T, from the undropped p
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (warp == 0 && lane == 0) {
+      mbar_expect(&sm.fixed, 4 * TILE_BYTES);
+      tma_rows128(sm.q, &tq, &sm.fixed, row_blk, h, b);
+      tma_rows128(sm.dout, &tdo, &sm.fixed, row_blk, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&sm.empty[s], (i / STAGES - 1) & 1);
+        mbar_expect(&sm.full[s], 2 * TILE_BYTES);
+        tma_load(sm.k[s], &tk, &sm.full[s], i * BT, h, b);
+        tma_load(sm.v[s], &tv, &sm.full[s], i * BT, h, b);
       }
     }
-    mma_cb(dva, s, dtr);   // dV += bf16(pd)^T dO
-    mma_cb(dka, dp, qtr);  // dK += bf16(dS)^T Q
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int g = lane >> 2, t = lane & 3;
+    const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    float lr[2], dr[2];
+    uint32_t rt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_thr + 8 * r;
+      lr[r] = row < Sq ? lse[(long long)bh * Sq + row] : pos_inf();  // p = 0 past Sq
+      dr[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.0f;
+      rt[r] = row_term(row) ^ salt;
+    }
+    const bf16* qw = sm.q + wg * 64 * D;
+    const bf16* dw = sm.dout + wg * 64 * D;
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    mbar_wait(&sm.fixed, 0);
+    __syncwarp();
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % STAGES, k0 = i * BT;
+      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+      __syncwarp();  // converged again for the .aligned wgmma instructions
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, kmajor(qw, kk), kmajor(sm.k[s], kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, kmajor(dw, kk), kmajor(sm.v[s], kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      reg_fence(sc);
+      const bool tail = k0 + BT > Sk;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          const float p = exp2f((sc[x] * scale - lr[e >> 1]) * LOG2E);
+          sc[x] = (tail && k0 + 8 * j + 2 * t + (e & 1) >= Sk) ? 0.0f : p;
+        }
+      }
+      wg_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = k0 + 8 * j + 2 * t;
+        const uint32_t ct[2] = {col_term(c), col_term(c + 1)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          float d = dp[x];
+          if (DROPOUT) d = keep_hash(rt[e >> 1] ^ ct[e & 1], thr) ? d * inv_keep : 0.0f;
+          sc[x] = sc[x] * (d - dr[e >> 1]);  // dS, from the undropped p
+        }
+      }
+      uint32_t a[4][4];
+      to_a(sc, a);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(acc, a[kk], mnmajor(sm.k[s], kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(acc);
+      release(&sm.empty[s]);
+    }
+
+    bf16* out = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_thr + 8 * r;
+      if (row >= Sq) continue;
+      bf16* o = out + (long long)row * dqs.s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float x0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * r])) * scale;
+        const float x1 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * r + 1])) * scale;
+        *reinterpret_cast<uint32_t*>(o + 8 * j + 2 * t) = pack_bf16(x0, x1);
+      }
+    }
   }
-  store_rows<false>(dk + b * dks.b + h * dks.h, dks.s, k0, Sk, dka, 1.0f);
-  store_rows<false>(dv + b * dvs.b + h * dvs.h, dvs.s, k0, Sk, dva, 1.0f);
+}
+
+// K8: dK and dV of one block per (bh, 128 key rows). Each consumer
+// warpgroup owns 64 keys and walks every streamed tile of 64 query rows,
+// taking the products transposed, keys as rows: s^T = k q^T, p^T =
+// exp(s^T scale - lse) (0 for query rows >= Sq: their lse reads +inf),
+// dp^T = v dO^T; under dropout the mask of (query row, key col) -- the same
+// bits K6 drew -- gives pd = mask p / keep and masks and scales dp;
+// dv += bf16(pd)^T dO, ds = p (dp - delta), dk += bf16(ds)^T q, as
+// _dkv_kernel; dk = bf16(dk scale) at the end (q's power-of-two scale
+// taken out of the products).
+template <bool DROPOUT>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int H, int Sq, int Sk, Strides dks, Strides dvs,
+                     float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(align_1k(smem_raw));
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int key_blk = blockIdx.x * BROWS;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int ntiles = (Sq + BT - 1) / BT;
+  init_barriers(sm, 1 + 32);  // the TMA arrival and the producer warp's 32 lanes
+
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_expect(&sm.fixed, 4 * TILE_BYTES);
+        tma_rows128(sm.k, &tk, &sm.fixed, key_blk, h, b);
+        tma_rows128(sm.v, &tv, &sm.fixed, key_blk, h, b);
+      }
+      const float* lrow = lse + (long long)bh * Sq;
+      const float* drow = delta + (long long)bh * Sq;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES, r0 = i * BT;
+        if (i >= STAGES) mbar_wait(&sm.empty[s], (i / STAGES - 1) & 1);
+        if (lane == 0) {
+          mbar_expect(&sm.full[s], 2 * TILE_BYTES);
+          tma_load(sm.q[s], &tq, &sm.full[s], r0, h, b);
+          tma_load(sm.dout[s], &tdo, &sm.full[s], r0, h, b);
+        }
+#pragma unroll
+        for (int r = lane; r < BT; r += 32) {
+          const bool in = r0 + r < Sq;
+          sm.lse[s][r] = in ? lrow[r0 + r] : pos_inf();  // p = 0 past Sq
+          sm.delta[s][r] = in ? drow[r0 + r] : 0.0f;
+        }
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int g = lane >> 2, t = lane & 3;
+    const int k_thr = key_blk + wg * 64 + warp * 16 + g;  // keys k_thr and k_thr + 8
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    const uint32_t kt[2] = {col_term(k_thr) ^ salt, col_term(k_thr + 8) ^ salt};
+    const bf16* kw = sm.k + wg * 64 * D;
+    const bf16* vw = sm.v + wg * 64 * D;
+    float dka[32], dva[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.0f;
+    mbar_wait(&sm.fixed, 0);
+    __syncwarp();
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % STAGES, r0 = i * BT;
+      mbar_wait(&sm.full[s], (i / STAGES) & 1);
+      __syncwarp();  // converged again for the .aligned wgmma instructions
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, kmajor(kw, kk), kmajor(sm.q[s], kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, kmajor(vw, kk), kmajor(sm.dout[s], kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      reg_fence(sc);
+      float lc[16];  // lse of this thread's 16 query columns
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[s][8 * j + 2 * t]);
+        lc[2 * j] = l2.x;
+        lc[2 * j + 1] = l2.y;
+      }
+#pragma unroll
+      for (int x = 0; x < 32; ++x)
+        sc[x] = exp2f((sc[x] * scale - lc[2 * (x / 4) + (x & 1)]) * LOG2E);
+      wg_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 d2 = *reinterpret_cast<const float2*>(&sm.delta[s][c]);
+        const uint32_t rt[2] = {row_term(r0 + c), row_term(r0 + c + 1)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          const float p = sc[x];
+          float pd = p, d = dp[x];
+          if (DROPOUT) {
+            const bool keep = keep_hash(rt[e & 1] ^ kt[e >> 1], thr);
+            pd = keep ? p * inv_keep : 0.0f;
+            d = keep ? d * inv_keep : 0.0f;
+          }
+          sc[x] = pd;
+          dp[x] = p * (d - ((e & 1) ? d2.y : d2.x));  // dS^T, from the undropped p
+        }
+      }
+      uint32_t apd[4][4], ads[4][4];
+      to_a(sc, apd);
+      to_a(dp, ads);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(dva, apd[kk], mnmajor(sm.dout[s], kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(dka, ads[kk], mnmajor(sm.q[s], kk));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dva);
+      reg_fence(dka);
+      release(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k_thr + 8 * r;
+      if (key >= Sk) continue;
+      bf16* ko = dk + b * dks.b + h * dks.h + (long long)key * dks.s;
+      bf16* vo = dv + b * dvs.b + h * dvs.h + (long long)key * dvs.s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<uint32_t*>(ko + 8 * j + 2 * t) =
+            pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(vo + 8 * j + 2 * t) =
+            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+EncodeTiled encode_fn() {
+  void* fn = nullptr;
+#if CUDART_VERSION >= 12050
+  cudaDriverEntryPointQueryResult res;
+  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
+                                       &res) != cudaSuccess ||
+      res != cudaDriverEntryPointSuccess)
+    return nullptr;
+#else
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault) != cudaSuccess)
+    return nullptr;
+#endif
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// A (d, row, head, batch) map of a bf16 [B, H, rows, 64] tensor given by
+// element strides, 64 x 64 boxes, 128-byte swizzle, zeros out of bounds. A
+// dimension of extent 1 is never stepped, so its stride may be anything;
+// it is given one TMA takes.
+bool make_map(CUtensorMap* map, const void* base, int rows, int H, int B, Strides st) {
+  static const EncodeTiled encode = encode_fn();
+  if (!encode) return false;
+  auto bytes = [](long long stride, int n) { return (cuuint64_t)(n == 1 ? 128 : stride * 2); };
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {bytes(st.s, rows), bytes(st.h, H), bytes(st.b, B)};
+  const cuuint32_t box[4] = {(cuuint32_t)D, (cuuint32_t)BT, 1, 1}, ones[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
+
+bool pow2(float x) {
+  int e;
+  return x != 0.0f && isfinite(x) && frexpf(fabsf(x), &e) == 0.5f;
 }
 
 }  // namespace
@@ -559,49 +861,62 @@ extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void*
   return (int)cudaGetLastError();
 }
 
-namespace {
-
-Strides strides_at(const long long* s, int i) { return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]}; }
-
-}  // namespace
 
 // K7. q, k, v, dO [B, H, S, 64] and dq [B, H, Sq, 64] bf16 with (batch,
 // head, row) element strides, 15 values for q, k, v, dO, dq in that order,
-// the head dimension contiguous, rows 16-byte aligned for k and v; lse and
-// delta = rowsum(dO o) [B * H, Sq] f32; the rest as tgtc_flash_fwd.
+// the head dimension contiguous, rows and bases 16-byte aligned for q, k,
+// v and dO (they are read by TMA); lse and delta = rowsum(dO o) [B * H, Sq]
+// f32; scale a power of two; the rest as tgtc_flash_fwd.
 extern "C" int tgtc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const float* lse, const float* delta, void* dq, int B, int H,
                                  int Sq, int Sk, const long long* strides, float scale,
                                  int dropout, const int* seed, unsigned int thr, float inv_keep,
                                  void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  if (Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
+  if (Sk <= 0 || B * H > 65535 || !pow2(scale)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q, Sq, H, B, strides_at(strides, 0)) ||
+      !make_map(&mk, k, Sk, H, B, strides_at(strides, 1)) ||
+      !make_map(&mv, v, Sk, H, B, strides_at(strides, 2)) ||
+      !make_map(&mdo, dout, Sq, H, B, strides_at(strides, 3)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(DqSmem) + 1024;  // + the slack of the 1 KB alignment
   auto kernel = dropout ? flash_bwd_dq_kernel<true> : flash_bwd_dq_kernel<false>;
-  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), H, Sq, Sk,
-      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-      strides_at(strides, 3), strides_at(strides, 4), scale, seed, thr, inv_keep);
+  // Set on every launch: the attribute belongs to the current device's context.
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((unsigned)((Sq + BROWS - 1) / BROWS), (unsigned)(B * H));
+  kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, strides_at(strides, 4),
+      scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }
 
 // K8. As K7, with dk, dv [B, H, Sk, 64] bf16: 18 strides for q, k, v, dO,
-// dk, dv in that order; q and dO rows 16-byte aligned.
+// dk, dv in that order.
 extern "C" int tgtc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const float* lse, const float* delta, void* dk, void* dv,
                                   int B, int H, int Sq, int Sk, const long long* strides,
                                   float scale, int dropout, const int* seed, unsigned int thr,
                                   float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Sk <= 0) return 0;
-  if (Sq <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Sk + BK - 1) / BK), (unsigned)(B * H));
+  if (Sq <= 0 || B * H > 65535 || !pow2(scale)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, q, Sq, H, B, strides_at(strides, 0)) ||
+      !make_map(&mk, k, Sk, H, B, strides_at(strides, 1)) ||
+      !make_map(&mv, v, Sk, H, B, strides_at(strides, 2)) ||
+      !make_map(&mdo, dout, Sq, H, B, strides_at(strides, 3)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(DkvSmem) + 1024;
   auto kernel = dropout ? flash_bwd_dkv_kernel<true> : flash_bwd_dkv_kernel<false>;
-  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, strides_at(strides, 0), strides_at(strides, 1),
-      strides_at(strides, 2), strides_at(strides, 3), strides_at(strides, 4),
-      strides_at(strides, 5), scale, seed, thr, inv_keep);
+  // Set on every launch: the attribute belongs to the current device's context.
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((unsigned)((Sk + BROWS - 1) / BROWS), (unsigned)(B * H));
+  kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
+      strides_at(strides, 4), strides_at(strides, 5), scale, seed, thr, inv_keep);
   return (int)cudaGetLastError();
 }

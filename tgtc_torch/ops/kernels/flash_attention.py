@@ -18,12 +18,13 @@ first use by :mod:`tgtc_torch.ops.kernels._build`):
 ``q [B, H, Sq, D]``, ``k``/``v [B, H, Sk, D]`` and the gradients may be
 strided views (the ``[B, S, H, D]`` layout of the projections transposed),
 as are the returned ``o``, ``dq``, ``dk`` and ``dv`` on the card. Each
-wrapper launches its kernel for CUDA tensors (bf16, D 64, or it raises) and
-runs its twin only for CPU tensors; the twins take every D and f32 too. The
-twins follow the kernels' rounding points one head and a few query rows at
-a time: the forward with one softmax per row instead of per tile (logits
-f32, ``p = exp(s - m)`` and ``l`` over the undropped p, then the mask and
-``1/keep``, p cast to v's type, ``o = acc / l`` in q's type, ``lse = m +
+wrapper launches its kernel for CUDA tensors (bf16, D 64 and, for K7/K8, a
+power-of-two ``sm_scale``, or it raises) and runs its twin only for CPU
+tensors; the twins take every D, scale and f32 too. The twins follow the
+kernels' rounding points one head and a few query rows at a time: the
+forward with one softmax per row instead of per tile (logits f32, ``p =
+exp(s - m)`` and ``l`` over the undropped p, then the mask and ``1/keep``,
+p cast to v's type, ``o = acc / l`` in q's type, ``lse = m +
 log l``); the backward as ``_dq_kernel`` / ``_dkv_kernel`` (``p = exp(s -
 lse)``, ``dp = dO vᵀ`` masked and scaled, ``ds = p (dp - Δ)`` from the
 undropped p cast to the operands' type, ``pd = mask p / keep`` cast to dO's
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -284,6 +286,18 @@ def _bf16_scale(sm_scale: float) -> float:
     return float(torch.tensor(sm_scale, dtype=torch.bfloat16))
 
 
+def _pow2_scale(sm_scale: float, what: str) -> float:
+    """The bf16 scale of K7/K8, which must be a power of two: they scale
+    the logits and dk in f32, which equals the products of bf16(q · scale)
+    exactly only then."""
+    s = _bf16_scale(sm_scale)
+    if s == 0.0 or not math.isfinite(s) or math.frexp(abs(s))[0] != 0.5:
+        raise NotImplementedError(
+            f"{what} takes a power-of-two sm_scale (1/sqrt(64) = 0.125 on every path), got "
+            f"{sm_scale}; the twins take any scale on the CPU")
+    return s
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The kernels' library, built and bound on the first launch."""
@@ -343,6 +357,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float = 1.0,
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
                                             dropout_seed)
     _check_cuda(q=q, k=k, v=v, do=do)
+    scale = _pow2_scale(sm_scale, "K7")
     b, h, sq, sk, d = _launch_shape(q, k, "K7")
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     lse, delta = _rows(lse, q), _rows(delta, q)
@@ -351,8 +366,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float = 1.0,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().tgtc_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
-                                  _strides(q, k, v, do, dq), _bf16_scale(sm_scale), drop,
-                                  _ptr(seed), thr, inv_keep, stream)
+                                  _strides(q, k, v, do, dq), scale, drop, _ptr(seed), thr,
+                                  inv_keep, stream)
     _raise_on(rc, "tgtc_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -368,6 +383,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float = 1.0,
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
                                              dropout_seed)
     _check_cuda(q=q, k=k, v=v, do=do)
+    scale = _pow2_scale(sm_scale, "K8")
     b, h, sq, sk, d = _launch_shape(q, k, "K8")
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     lse, delta = _rows(lse, q), _rows(delta, q)
@@ -378,8 +394,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float = 1.0,
     rc = _lib().tgtc_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                                    dv.data_ptr(), b, h, sq, sk, _strides(q, k, v, do, dk, dv),
-                                   _bf16_scale(sm_scale), drop, _ptr(seed), thr, inv_keep,
-                                   stream)
+                                   scale, drop, _ptr(seed), thr, inv_keep, stream)
     _raise_on(rc, "tgtc_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -425,7 +440,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in-kernel attention-probs dropout, differentiable in q, k and v (K6
     forward, K7 + K8 backward). ``dropout_seed`` (an int or int32 tensor)
     is required when ``dropout_rate > 0``; the same seed gives the same
-    mask in the forward and the backward."""
+    mask in the forward and the backward. On the card a call that will be
+    differentiated refuses a scale K7/K8 do not take before K6 runs."""
+    if (q.device.type == "cuda" and torch.is_grad_enabled()
+            and any(x.requires_grad for x in (q, k, v))):
+        _pow2_scale(sm_scale, "K7/K8")
     return FlashAttention.apply(q, k, v, float(sm_scale), float(dropout_rate), dropout_seed,
                                 False)
 

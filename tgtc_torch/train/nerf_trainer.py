@@ -45,6 +45,7 @@ from tgtc_torch.render.fast import _points_t
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer
+from tgtc_torch.utils.seeds import step_seed
 
 _BUDGET_NOT_PORTED = ("train_fine_budget is not ported yet (ROADMAP queue 1, "
                       "module 2: select_sample_budget)")
@@ -402,12 +403,6 @@ def budget_at_step(segments: "list[Tuple[int, Optional[int]]]", step: int
 
 
 # ---------------------------------------------------------------- the loop
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of one step: a resumed run draws what an
-    uninterrupted one would (JAX folds the step into its key)."""
-    return ((seed + 1) << 32) + step
 
 
 def train_nerf(

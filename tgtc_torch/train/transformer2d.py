@@ -31,6 +31,7 @@ import torch
 
 from tgtc_torch.models.stytrans import StyTrans
 from tgtc_torch.utils.img import from_uint8, to_uint8
+from tgtc_torch.utils.seeds import step_seed
 
 TRAIN_KEYS = ("transformer", "embedding")
 
@@ -47,12 +48,6 @@ class TransformerTrainConfig:
     id2_weight: float = 1.0
     warmup_iters: int = 10000
     patch: int = 256
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of one step, distinct for every (seed, step) in
-    its low 32 bits too (a CPU ``torch.Generator`` keeps only those)."""
-    return ((seed + 1) * 0x9E3779B97F4A7C15 + step) % (1 << 63)
 
 
 def lr_schedule(cfg: TransformerTrainConfig) -> Callable[[int], float]:
