@@ -67,15 +67,19 @@ started together), then:
    nothing;
 8. K6 (flash-attention forward): bf16 q/k/v (numpy seed 4) against its
    plain twin at the C3 shape (8 heads, Sq = Sk = 11,970, D 64, scale
-   0.125), at 11,970 x 4,096 and at a ragged 300 x 180 with 16 heads
-   (max|o - twin| <= 1e-2 max|twin| and <= 3e-2, lse <= 1e-3), two
-   launches bitwise equal; a mask probe with
+   0.125), at 11,970 x 4,096, at a ragged 300 x 180 with 16 heads and at
+   shapes that cut its 128-row blocks and 128-key tiles (4 heads 200 x 130,
+   2 heads 1,000 x 1,030, 4 heads 300 x 1 and 300 x 65; these at dropout 0
+   and 0.25) (max|o - twin| <= 1e-2 max|twin| and <= 3e-2, lse <= 1e-3),
+   two launches bitwise equal; a mask probe with
    dropout 0.1, seed 7 (q = 0, Sk = 256, row j of v = 2^(j // 64)
    e_(j mod 64), so that each output element encodes four keep bits) whose
    decoded mask equals the twin's hash mask bit for bit over 16 heads and
-   1,000 rows; K6 timed at both large shapes beside its bound, its twin and
-   the library call (scaled_dot_product_attention with scale 1 on the
-   prescaled q; the backend it took is printed);
+   1,000 rows; K6 timed at both large shapes by CUDA events and by the
+   profiler's device time, beside its four-floor bound (as phase 10's), its
+   twin and the library call (scaled_dot_product_attention with scale 1 on
+   the prescaled q, by events and device time; its kernels are printed),
+   with K6 / SDPA by device time;
 9. Phase C3: a full-width StyTrans (d_model 512, 8 heads, 3+3 layers, FFN
    2048, bf16, attn_impl="flash", torch seed 21) stylizes phase 5's
    rgb_00000.png (756x1008, padded to 760x1008: 11,970 tokens) with a seeded
@@ -98,8 +102,9 @@ started together), then:
    dropout 0.1 against its twin (phase 8's bounds); K6, K7 and K8 timed at
    the C1 shape (dropout 0.1, the C1 path's, and 0) and K7/K8 at 11,970 x
    4,096, by CUDA events and by the profiler's device time, beside their
-   bounds (the largest of the tensor-core, HBM, SFU and, under dropout,
-   INT32 floors at the card's maximum SM clock), their twins and the
+   bounds (flash_bound_ms: the largest of the tensor-core, HBM, SFU and,
+   under dropout, INT32 floors at the card's maximum SM clock, each kernel
+   with its own products and I/O), their twins and the
    library calls: scaled_dot_product_attention's forward and its backward
    at dropout 0 on the same tensors (torch.autograd.grad of one saved
    forward, the device time of its kernels and memsets from the profiler;
@@ -1020,52 +1025,83 @@ def k6_inputs(rng: np.random.Generator, heads: int, sq: int, sk: int):
                  .to("cuda", torch.bfloat16) for n in (sq, sk, sk))
 
 
-def k6_bound_ms(heads: int, sq: int, sk: int) -> float:
-    """max(4 Sq Sk D FLOP per head / bf16 peak, q, k, v and o in bf16 and
-    lse in f32 / HBM rate)."""
-    flops = 4 * heads * sq * sk * D_HEAD
-    io = heads * (2 * (2 * sq + 2 * sk) * D_HEAD + 4 * sq)
-    return 1e3 * max(flops / PEAK_BF16_FLOPS, io / PEAK_BYTES)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
 
 
-def sdpa_backend(q, k, v) -> str:
-    """The device kernels of one scaled_dot_product_attention call."""
-    from torch.profiler import ProfilerActivity, profile
+FLASH_PRODUCTS = {"K6": 2, "K7": 3, "K8": 4}  # matrix products per tile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=1.0)
-        torch.cuda.synchronize()
-    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
-    return "; ".join(sorted(n[:80] for n in names)) or "no device kernel recorded"
+
+def flash_io_bytes(kernel: str, bh: int, sq: int, sk: int) -> int:
+    """The bytes ``kernel`` must move, each input read once and each output
+    written once: K6 q, k, v in and o out in bf16, lse out in f32; K7 q, k,
+    v, dO in and dq out in bf16, lse and delta in in f32; K8 as K7 with dk
+    and dv out."""
+    bf16_rows = {"K6": 2 * sq + 2 * sk, "K7": 3 * sq + 2 * sk, "K8": 2 * sq + 4 * sk}[kernel]
+    f32_vals = sq if kernel == "K6" else 2 * sq
+    return bh * (2 * bf16_rows * D_HEAD + 4 * f32_vals)
+
+
+def flash_floors_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):
+    """The four floors of ``kernel`` (K6, K7 or K8) in ms. Tensor cores: 2
+    Sq Sk D FLOP per product / bf16 peak. HBM: flash_io_bytes / HBM rate.
+    SFU: one ex2 per element of S. INT32, under dropout only: the hash's
+    integer operations per element of S (HASH_INT_OPS)."""
+    elems = bh * sq * sk
+    return {
+        "tensor": 1e3 * FLASH_PRODUCTS[kernel] * 2 * elems * D_HEAD / PEAK_BF16_FLOPS,
+        "hbm": 1e3 * flash_io_bytes(kernel, bh, sq, sk) / PEAK_BYTES,
+        "sfu": 1e3 * elems / (SMS * SFU_PER_CLK * clock_hz),
+        "int32": 1e3 * elems * HASH_INT_OPS / (SMS * INT32_PER_CLK * clock_hz) if dropout else 0.0,
+    }
+
+
+def flash_bound_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):
+    """(ms, floor): the largest of ``kernel``'s four floors and its name."""
+    floors = flash_floors_ms(kernel, bh, sq, sk, dropout, clock_hz)
+    floor = max(floors, key=floors.get)
+    return floors[floor], floor
 
 
 def phase_k6(fa):
-    """K6 against its twin at the C3, rectangular and ragged shapes (a
-    second launch bitwise equal), the dropout mask probe, and timings at
-    both large shapes beside the bound, the twin and SDPA."""
+    """K6 against its twin at the C3, rectangular and ragged shapes and at
+    shapes that cut its 128-row blocks and 128-key tiles (at dropout 0 and
+    0.25), a second launch bitwise equal; the dropout mask probe; timings
+    at both large shapes by CUDA events and by the profiler's device time,
+    beside the four-floor bound, the twin and SDPA."""
     rng = np.random.default_rng(4)
     shapes = {"c3": (C3_HEADS, C3_TOKENS, C3_TOKENS), "rect": (C3_HEADS, C3_TOKENS, 4096),
-              "ragged": (16, 300, 180)}
+              "ragged": (16, 300, 180), "cut": (4, 200, 130), "cut2": (2, 1000, 1030),
+              "sk1": (4, 300, 1), "sk65": (4, 300, 65)}
+    cases = [(name, 0.0) for name in shapes]
+    cases += [(name, 0.25) for name in ("cut", "cut2", "sk1", "sk65")]
     err_o, err_lse, inputs = 0.0, 0.0, {}
-    for name, (heads, sq, sk) in shapes.items():
-        q, k, v = inputs[name] = k6_inputs(rng, heads, sq, sk)
-        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE)
-        o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE)
+    for name, rate in cases:
+        heads, sq, sk = shapes[name]
+        if name not in inputs:
+            inputs[name] = k6_inputs(rng, heads, sq, sk)
+        q, k, v = inputs[name]
+        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, 11)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, 11)
         torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE)
+        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, 11)
         e_o = float((o.float() - o_p.float()).abs().max())
         e_l = float((lse - lse_p).abs().max())
         lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
         same = torch.equal(o, o2) and torch.equal(lse, lse2)
-        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: max|o - twin| {e_o:.3e} (limit "
-              f"{lim_o:.3e} = min({TOL_K6_O}, {TOL_K6_O_REL} max|twin|)), max|lse - twin| "
+        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk} dropout {rate}: max|o - twin| {e_o:.3e} "
+              f"(limit {lim_o:.3e} = min({TOL_K6_O}, {TOL_K6_O_REL} max|twin|)), max|lse - twin| "
               f"{e_l:.3e} (limit {TOL_K6_LSE}), |o| max {float(o_p.float().abs().max()):.3f}, "
               f"mean {float(o_p.float().abs().mean()):.4f}; second launch bitwise equal: {same}",
               flush=True)
         check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()),
-              f"K6 output not finite at {name}")
-        check(e_o <= lim_o and e_l <= TOL_K6_LSE, f"K6 disagrees with its twin at {name}")
-        check(same, f"K6 is not bitwise repeatable at {name}")
+              f"K6 output not finite at {name}, dropout {rate}")
+        check(e_o <= lim_o and e_l <= TOL_K6_LSE, f"K6 disagrees with its twin at {name}, "
+              f"dropout {rate}")
+        check(same, f"K6 is not bitwise repeatable at {name}, dropout {rate}")
         err_o, err_lse = max(err_o, e_o), max(err_lse, e_l)
         del o, lse, o2, lse2, o_p, lse_p
 
@@ -1094,36 +1130,48 @@ def phase_k6(fa):
           f"kept share {float(decoded.float().mean()):.4f} (keep {keep:.4f})", flush=True)
     check(mismatched == 0, "K6's dropout mask differs from the twin's hash mask")
 
+    clock = sm_clock_hz()
     timing = {}
     for name in ("c3", "rect"):
         q, k, v = inputs[name]
         heads, sq, sk = shapes[name]
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE), 20)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE), 2)
         qs = q * torch.tensor(K6_SCALE, dtype=torch.bfloat16)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, k, v, scale=1.0), 20)
-        backend = sdpa_backend(qs, k, v)
-        b = k6_bound_ms(heads, sq, sk)
+
+        def kernel():
+            return fa.flash_attention_fwd(q, k, v, K6_SCALE)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qs, k, v, scale=1.0)
+
+        ms, (dev, _) = cuda_ms(kernel, 20), device_ms(kernel, 20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE), 2)
+        lib_ms, (lib_dev, backend) = cuda_ms(library, 20), device_ms(library, 20)
+        floors = flash_floors_ms("K6", heads, sq, sk, False, clock)
+        floor = max(floors, key=floors.get)
+        b = floors[floor]
         flops = 4 * heads * sq * sk * D_HEAD
-        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: kernel {ms:.3f} ms "
-              f"({flops / ms * 1e-9:.1f} TFLOP/s, {b / ms:.2%} of the bound), bound {b:.3f} ms "
-              f"(operations), plain twin {plain_ms:.3f} ms, library "
-              f"scaled_dot_product_attention {lib_ms:.3f} ms [{backend}]", flush=True)
-        timing[name] = (ms, plain_ms, lib_ms, b, backend)
-    c3, rect = timing["c3"], timing["rect"]
+        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: kernel {ms:.4f} ms by events, {dev:.4f} "
+              f"ms device time ({flops / dev * 1e-9:.1f} TFLOP/s, {b / dev:.2%} of the bound), "
+              f"bound {b:.4f} ms ({floor}; floors "
+              f"{', '.join(f'{f} {t:.4f}' for f, t in floors.items())}; SM clock "
+              f"{clock * 1e-6:.0f} MHz), plain twin {plain_ms:.3f} ms, library "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms by events, {lib_dev:.4f} ms device "
+              f"time; K6 / SDPA by device time {dev / lib_dev:.3f} [{backend}]", flush=True)
+        timing[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
+                        "bound_by": "bytes" if floor == "hbm" else "operations",
+                        "bound_floor": floor, "bound_ms_sfu": floors["sfu"], "library_ms": lib_ms,
+                        "library_device_ms": lib_dev, "library_backend": backend,
+                        "k6_over_library_device": dev / lib_dev}
     return {
         "name": "K6", "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
         "replaces": "tgtc/ops/pallas/flash_attention.py:231",
         "wrapper": "tgtc_torch.ops.kernels.flash_attention.flash_attention_fwd",
         "shape": [C3_HEADS, C3_TOKENS, C3_TOKENS, D_HEAD],
         "max_abs_err": err_o, "max_err": err_o, "max_abs_err_lse": err_lse,
-        "mask_probe_mismatches": mismatched,
-        "ms": c3[0], "plain_ms": c3[1], "bound_ms": c3[3], "bound_by": "operations",
-        "library_ms": c3[2], "library": "torch.nn.functional.scaled_dot_product_attention",
-        "library_backend": c3[4],
-        "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[0],
-        "plain_ms_rect": rect[1], "bound_ms_rect": rect[3], "library_ms_rect": rect[2],
+        "mask_probe_mismatches": mismatched, "sm_clock_mhz": clock * 1e-6,
+        "library": "torch.nn.functional.scaled_dot_product_attention", **timing["c3"],
+        "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD],
+        **{f"{key}_rect": val for key, val in timing["rect"].items()},
     }
 
 
@@ -1244,32 +1292,6 @@ def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: in
     return tuple(torch.from_numpy(rng.standard_normal((batch, heads, n, D_HEAD))
                                   .astype(np.float32)).to("cuda", torch.bfloat16)
                  for n in (sq, sk, sk, sq))
-
-
-def sm_clock_hz() -> float:
-    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout
-    return float(out.split()[0]) * 1e6
-
-
-def k78_bound_ms(products: int, outputs: int, bh: int, sq: int, sk: int, dropout: bool,
-                 clock_hz: float):
-    """(ms, floor): the largest of four floors and its name. Tensor cores:
-    2 Sq Sk D FLOP per product / bf16 peak. HBM: q, k, v and dO in bf16, lse
-    and delta in f32 and the outputs in bf16 / HBM rate. SFU: one ex2 per
-    element of S. INT32, under dropout only: the hash's integer operations
-    per element of S (HASH_INT_OPS)."""
-    elems = bh * sq * sk
-    rows_out = sq if outputs == 1 else 2 * sk
-    floors = {
-        "tensor": products * 2 * elems * D_HEAD / PEAK_BF16_FLOPS,
-        "hbm": bh * (2 * (2 * sq + 2 * sk + rows_out) * D_HEAD + 8 * sq) / PEAK_BYTES,
-        "sfu": elems / (SMS * SFU_PER_CLK * clock_hz),
-        "int32": elems * HASH_INT_OPS / (SMS * INT32_PER_CLK * clock_hz) if dropout else 0.0,
-    }
-    floor = max(floors, key=floors.get)
-    return 1e3 * floors[floor], floor
 
 
 def device_ms(fn, iters: int):
@@ -1402,9 +1424,8 @@ def phase_k78(fa):
         times[rate] = {name: (cuda_ms(fn, 20), device_ms(fn, 20)[0], cuda_ms(plain, 2))
                        for name, (fn, plain) in calls.items()}
     lib_fwd, lib_bwd, backend = sdpa_bwd(q, k, v, do, 20)
-    bounds = {rate: {"K6": (k6_bound_ms(bh, C1_TOKENS, C1_TOKENS), "tensor"),
-                     "K7": k78_bound_ms(3, 1, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock),
-                     "K8": k78_bound_ms(4, 2, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock)}
+    bounds = {rate: {name: flash_bound_ms(name, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock)
+                     for name in ("K6", "K7", "K8")}
               for rate in (C1_RATE, 0.0)}
     for name in ("K6", "K7", "K8"):
         for rate in (C1_RATE, 0.0):
@@ -1431,8 +1452,8 @@ def phase_k78(fa):
     plain_rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 1),
                   "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 1)}
     _, lib_rect, _ = sdpa_bwd(q, k, v, do, 10)
-    b_rect = {"K7": k78_bound_ms(3, 1, C3_HEADS, C3_TOKENS, 4096, False, clock),
-              "K8": k78_bound_ms(4, 2, C3_HEADS, C3_TOKENS, 4096, False, clock)}
+    b_rect = {name: flash_bound_ms(name, C3_HEADS, C3_TOKENS, 4096, False, clock)
+              for name in ("K7", "K8")}
     rect_dev = rect["K7"][1] + rect["K8"][1]
     print(f"[k78] at {C3_HEADS} heads x {C3_TOKENS} x 4096: K7 {rect['K7'][0]:.3f} ms by events, "
           f"{rect['K7'][1]:.3f} ms device time (bound {b_rect['K7'][0]:.3f}, {b_rect['K7'][1]}; "
@@ -1471,6 +1492,9 @@ def phase_k78(fa):
              "ms_c1_no_dropout": times[0.0]["K6"][0],
              "device_ms_c1_no_dropout": times[0.0]["K6"][1],
              "plain_ms_c1": times[C1_RATE]["K6"][2], "bound_ms_c1": bounds[C1_RATE]["K6"][0],
+             "bound_floor_c1": bounds[C1_RATE]["K6"][1],
+             "bound_ms_c1_no_dropout": bounds[0.0]["K6"][0],
+             "bound_floor_c1_no_dropout": bounds[0.0]["K6"][1],
              "max_abs_err_c1_dropout": e_o, "library_ms_c1": lib_fwd}
     return rows, k6_c1
 

@@ -236,20 +236,36 @@ def _qkv(heads, sq, sk, device, seed=7):
                  .to(device, torch.bfloat16) for n in (sq, sk, sk))
 
 
-@pytest.mark.parametrize("heads,sq,sk,rate", [(16, 300, 180, 0.0), (2, 2000, 700, 0.0),
-                                              (2, 64, 4096, 0.0), (4, 257, 129, 0.25)])
-def test_cuda_k6_matches_twin_and_repeats(cuda_device, heads, sq, sk, rate):
+def _k6_case(heads, sq, sk, rate, scale=0.125, q_view=False):
+    name = f"{heads}-{sq}-{sk}-{rate}" + (f"-scale{scale}" if scale != 0.125 else "")
+    return pytest.param(heads, sq, sk, rate, scale, q_view, id=name + ("-qview" if q_view else ""))
+
+
+# The last cases cut K6's 128-row blocks and 128-key tiles: rows past Sq in
+# a block's second warpgroup or second TMA box, one key, one key past a
+# box; then a scale that is not a power of two, and q alone as a view.
+@pytest.mark.parametrize("heads,sq,sk,rate,scale,q_view", [
+    _k6_case(16, 300, 180, 0.0), _k6_case(2, 2000, 700, 0.0), _k6_case(2, 64, 4096, 0.0),
+    _k6_case(4, 257, 129, 0.25),
+    _k6_case(4, 200, 130, 0.0), _k6_case(4, 200, 130, 0.25), _k6_case(2, 1000, 1030, 0.0),
+    _k6_case(2, 1000, 1030, 0.25), _k6_case(4, 300, 1, 0.0), _k6_case(4, 300, 1, 0.25),
+    _k6_case(4, 300, 65, 0.0), _k6_case(4, 300, 65, 0.25),
+    _k6_case(4, 300, 200, 0.0, scale=0.1), _k6_case(4, 300, 200, 0.25, q_view=True)])
+def test_cuda_k6_matches_twin_and_repeats(cuda_device, heads, sq, sk, rate, scale, q_view):
+    """K6 against its twin, and a second launch bitwise equal (with q given
+    as a head-transposed view of [B, S, H, D] for ``q_view``)."""
     q, k, v = _qkv(heads, sq, sk, cuda_device)
-    o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 11)
-    o2, lse2 = fa.flash_attention_fwd(q, k, v, 0.125, rate, 11)
+    o, lse = fa.flash_attention_fwd(q, k, v, scale, rate, 11)
+    q2 = q.transpose(1, 2).contiguous().transpose(1, 2) if q_view else q
+    o2, lse2 = fa.flash_attention_fwd(q2, k, v, scale, rate, 11)
     torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, 0.125, rate, 11)
+    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, rate, 11)
     assert o.shape == q.shape and o.dtype == torch.bfloat16 and lse.shape == (1, heads, sq)
     e_o = float((o.float() - o_p.float()).abs().max())
     e_l = float((lse - lse_p).abs().max())
     lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
-    print(f"parity K6 vs twin, {heads} heads, Sq {sq}, Sk {sk}, dropout {rate}: o {e_o:.3e} "
-          f"(limit {lim_o:.3e}), lse {e_l:.3e} (limit {TOL_K6_LSE})")
+    print(f"parity K6 vs twin, {heads} heads, Sq {sq}, Sk {sk}, dropout {rate}, scale {scale}: "
+          f"o {e_o:.3e} (limit {lim_o:.3e}), lse {e_l:.3e} (limit {TOL_K6_LSE})")
     assert e_o <= lim_o
     assert e_l <= TOL_K6_LSE
     assert torch.equal(o, o2) and torch.equal(lse, lse2)

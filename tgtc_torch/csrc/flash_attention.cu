@@ -18,73 +18,86 @@
 //   acc = acc alpha + bf16(p) v;
 //   o = bf16(acc / l), lse = m + log l (f32).
 // q is scaled inside the kernel, in the order of _prep: bf16(q * scale) with
-// the scale already rounded to q's type, before the first product.
+// the scale already rounded to q's type (any scale), before the first
+// product.
 //
-// What bounds it: operations. 4 Sq Sk D FLOP against (2 Sq + 2 Sk) D bf16
-// values and Sq f32 of I/O: at the C3 shape (8 heads, Sq = Sk = 11,970,
-// D 64) 2.934e11 FLOP and 49 MB, 0.297 ms at the bf16 tensor-core peak and
-// 0.015 ms at the HBM rate. Its Sq Sk exponentials (1.15e9 at C3) are a
-// second floor of about the same size on the SFUs.
+// What bounds them: the largest of four floors (chip_smoke.flash_bound_ms),
+// at the card's 1,980 MHz maximum SM clock:
+//   tensor cores: 2 Sq Sk D FLOP per product, 2 products for K6, 3 for K7,
+//     4 for K8, at the bf16 dense peak;
+//   HBM: every input read once, every output written once (K6: q, k, v in,
+//     o out in bf16, lse out in f32; K7/K8: q, k, v, dO, lse, delta in, dq
+//     or dk, dv out);
+//   SFU: one ex2 per element of S at 16 a clock per SM;
+//   INT32, under dropout only: keep_hash's 10 integer operations per
+//     element (one 3-input xor, three shift-xor pairs, two multiplies, one
+//     compare; the row and column products are hoisted) at 64 a clock per SM.
+// K6 at the C3 shape (8 heads, Sq = Sk = 11,970, D 64): tensor 2.934e11
+// FLOP, 0.297 ms -- the binding floor, with the SFU's 1.146e9 exponentials,
+// 0.274 ms, right below it; HBM 49 MB, 0.015 ms. K6 at the C1 shape (64
+// batch*heads, Sq = Sk = 1,024; 6.7e7 elements of S): with dropout 0.1 the
+// INT32 floor binds, 0.040 ms; without it the tensor cores, 0.017 ms (SFU
+// 0.016 ms). K7 and K8 at C1: tensor 2.58e10 and 3.44e10 FLOP,
+// 0.026 and 0.035 ms; HBM 42 and 51 MB; SFU 0.016 ms; INT32 0.040 ms, the
+// binding floor with dropout.
 //
-// Design (first, simple version): one block of four warps per (bh, 64 query
-// rows); each warp owns 16 rows and keeps its Q fragments, its S tile
-// (16 x 64) and its O accumulator (16 x 64) in registers, as mma.sync
-// m16n8k16 bf16 fragments with f32 accumulation, so the S tile's C layout
-// is reused as the A operand of P V without a trip through shared memory.
-// K/V tiles of 64 keys are staged through shared memory (V transposed, rows
-// padded to 72 values so the 32-bit fragment loads are bank-conflict free),
-// loaded synchronously: several blocks per SM hide the latency. Tails need
-// no padding: key rows >= Sk are zero-filled in shared memory and masked to
-// -1e30, query rows >= Sq read zeros and are never written. q, k, v and o
-// are addressed through (batch, head, row) strides with D contiguous, so
-// the [B, S, H, D] layout of the projections needs no transposes. wgmma,
-// TMA and pipelining are for a later version.
+// Design of all three: warp-specialized blocks, one per SM: consumer
+// warpgroups of 64 output rows each and one producer warpgroup whose first
+// warp issues TMA; setmaxnreg moves registers from the producer to the
+// consumers. The producer brings the block's fixed operands once by TMA and
+// streams the walked operands, 64 rows a slot, through a ring of STAGES
+// slots on full/empty mbarriers. TMA descriptors are 4-D (d, row, head,
+// batch) maps over the (batch, head, row) strides the entry points
+// receive, with the 128-byte swizzle (a 64-wide bf16 row is 128 B), so the
+// [B, S, H, D] projections seen through a transpose load as they lie; rows
+// past S arrive as zeros (TMA's out-of-bounds fill) and are never written.
+// Every product is a wgmma with f32 accumulators; wgmma's accumulator
+// repeats the mma.sync C pattern for each warp's 16 rows, so an f32
+// accumulator repacks as the bf16 A fragments of the next product. No
+// operand is transposed in shared memory: B is read K-major, or MN-major
+// through the descriptor's transpose bit. A slot is released when every
+// consumer's last product on it has completed.
+//
+// K6 (flash_fwd_kernel): a block of 512 threads per (bh, 192 query rows):
+// three consumer warpgroups at 160 registers and the producer at 24; q of
+// the block's rows is its fixed operand, k and v tiles of 64 keys its
+// walked ones. Each consumer reads its 64 rows of q once from the swizzled
+// tile, scales them in f32 by any bf16 scale and keeps bf16(q scale) as A
+// fragments, so S = q k^T is a wgmma m64n64k16 with A from registers and k
+// K-major, and P V one with P's A fragments from registers and v MN-major.
+// The online softmax stays in f32 registers (row max and sum by two xor
+// shuffles, one FFMA and one ex2 an element); keys >= Sk are masked in the
+// last tile only. The consumers take turns on the tensor cores: named
+// barriers 1-3 let a consumer issue its products -- S of tile i, then P V
+// of tile i - 1 -- only after the previous one has issued its own, so that
+// the others' softmax runs while one's products run. Nothing overlaps
+// inside one warpgroup: each waits for its products right after issuing
+// them (ptxas serialized in-warpgroup pipelining in K7/K8). o is written
+// from registers into [B, Sq, H, D] through its strides, lse in f32 [B*H,
+// Sq]. Why 192 rows and 64 keys (FlashAttention-3's row count at D 64),
+// as timed on an H100 against other builds of this kernel: 192-row blocks
+// read k and v from L2 a third as often as 64-row ones, give 504 blocks at
+// C3 (3.8 waves of 132 SMs), and let three warpgroups' softmax hide one
+// another's products, where two consumers of 128 rows ran slower; S of 64
+// keys (32 registers) fits 160 registers with P's fragments (16), q's (16)
+// and the output (32), where 128-key tiles spilled.
 //
 // K7 and K8 (the comments at each kernel give the arithmetic) recompute
 // S = q k^T and dP = dO v^T tile by tile and accumulate dq = dS k (K7, 3
 // products: 6 Sq Sk D FLOP) or dv = P^T dO and dk = dS^T q (K8, 4
 // products: 8 Sq Sk D FLOP). Neither needs atomics, so a launch repeats bit
 // for bit. Both regenerate the dropout mask from the hash of the absolute
-// (query row, key col), as K6 drew it.
-//
-// What bounds them, four floors (chip_smoke.k78_bound_ms), at the C1 shape
-// (64 batch*heads, Sq = Sk = 1,024, D 64; 6.7e7 elements of S):
-//   tensor cores: 2.58e10 (K7) and 3.44e10 (K8) FLOP, 0.026 and 0.035 ms
-//     at the bf16 dense peak;
-//   HBM: 42 and 51 MB (q, k, v, dO, lse, delta in; dq or dk, dv out),
-//     0.013 and 0.015 ms;
-//   SFU: one ex2 per element of S at 16 a clock per SM, 0.016 ms at
-//     1,980 MHz;
-//   INT32, under dropout only: keep_hash's 10 integer operations per
-//     element (one 3-input xor, three shift-xor pairs, two multiplies, one
-//     compare; the row and column products are hoisted) at 64 a clock per
-//     SM, 0.04 ms at 1,980 MHz -- the binding floor with dropout.
-//
-// Design: warp-specialized blocks of three warpgroups per (bh, 128 rows of
-// the output): warpgroups 0 and 1 consume, 64 output rows each; the first
-// warp of warpgroup 2 produces. setmaxnreg gives the consumers 232
-// registers and the producer 40 (the 168 at launch, 384 threads, one block
-// per SM, rebalanced). The producer brings the block's fixed operands (K7: q
-// and dO; K8: k and v; 128 x 64 bf16 each) once by TMA, then streams the
-// walked operands (K7: k and v tiles; K8: q and dO tiles with their lse and
-// delta slices) through a ring of STAGES slots of 64 rows on full/empty
-// mbarriers. TMA descriptors are 4-D (d, row, head, batch) maps over the
-// (batch, head, row) strides the entry points receive, with the 128-byte
-// swizzle (a 64-wide bf16 row is 128 B), so the [B, S, H, D] projections
-// seen through a transpose load as they lie; rows past S arrive as zeros
-// (TMA's out-of-bounds fill) and are never written. Every product is a
-// wgmma m64n64k16 with f32 accumulators (32 registers a thread per 64 x 64
-// tile): S (or S^T = k q^T, keys as rows in K8) and dP from shared memory,
-// both operands K-major; then dq += bf16(dS) k, dv += bf16(pd)^T dO and
-// dk += bf16(dS)^T q with A taken from registers -- the f32 accumulator
-// repacked as bf16 A fragments, since wgmma's accumulator repeats the
-// mma.sync C pattern for each warp's 16 rows -- and B the same k, dO or q
-// tile read MN-major through the descriptor's transpose bit. No operand is
-// transposed or rescaled in shared memory: the scale must be a power of two
-// (0.125 = 1/sqrt(64) on every path), so S is scaled in f32 and dk's
-// accumulator once at the end, which equals the products of bf16(q scale)
-// exactly. A slot is released when both consumers' last product on it has
-// completed.
+// (query row, key col), as K6 drew it. Blocks of 384 threads per (bh, 128
+// rows of the output): two consumer warpgroups at 232 registers, the
+// producer at 40; fixed operands K7: q and dO, K8: k and v (128 x 64 bf16
+// each); walked K7: k and v tiles, K8: q and dO tiles with their lse and
+// delta slices. Every product is a wgmma m64n64k16: S (or S^T = k q^T, keys
+// as rows in K8) and dP from shared memory, both operands K-major; then dq
+// += bf16(dS) k, dv += bf16(pd)^T dO and dk += bf16(dS)^T q with A from
+// registers and B the same k, dO or q tile read MN-major. The scale must be
+// a power of two (0.125 = 1/sqrt(64) on every path), so S is scaled in f32
+// and dk's accumulator once at the end, which equals the products of
+// bf16(q scale) exactly.
 
 #include <cuda.h>  // CUtensorMap; the encoder is fetched at run time, so no -lcuda
 #include <cuda_bf16.h>
@@ -97,19 +110,23 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;
-constexpr int BQ = 64;  // K6: query rows per block, 16 per warp
-constexpr int BK = 64;  // K6: keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int LDS = D + 8;  // K6: shared row pitch in bf16 values (144 B)
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr int BT = 64;                    // K7/K8: rows of a TMA box and of a streamed tile
-constexpr int BROWS = 128;                // K7/K8: output rows per block, 64 per consumer
-constexpr int STAGES = 4;                 // K7/K8: slots of the ring
+constexpr int BT = 64;                    // rows of a TMA box and of a streamed tile
+constexpr int STAGES = 4;                 // slots of the ring
 constexpr int TILE_BYTES = BT * D * 2;    // one 64 x 64 bf16 box, 8 KB
-constexpr int BWD_THREADS = 384;          // consumers: warpgroups 0, 1; producer: warpgroup 2
+// K6: three consumer warpgroups of 64 query rows, then one producer
+// warpgroup. setmaxnreg.inc waits for registers that a .dec released: the
+// producer's 128 x (128 - 24) = 13,312 cover the consumers' 384 x (160 - 128)
+// = 12,288, and 128 x 24 + 384 x 160 = 64,512 fit the SM's 65,536.
+constexpr int FWD_CONSUMERS = 3;
+constexpr int FWD_ROWS = 64 * FWD_CONSUMERS;  // query rows per block
+constexpr int FWD_THREADS = 128 * (FWD_CONSUMERS + 1);
+constexpr int FWD_PRODUCER_REGS = 24, FWD_CONSUMER_REGS = 160;
+// K7/K8: two consumer warpgroups of 64 output rows, one producer warpgroup
+constexpr int BROWS = 128;                // output rows per block
+constexpr int BWD_THREADS = 384;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 = 384 x 168
 
 struct Strides {
@@ -121,14 +138,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D (16x8, f32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// 2^x on the SFU (one MUFU.EX2; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // _dropout_mask of the TPU kernel, bit for bit: uint32 arithmetic that wraps
@@ -147,18 +161,13 @@ __device__ __forceinline__ bool keep_hash(uint32_t x, uint32_t thr) {
 __device__ __forceinline__ uint32_t row_term(int row) { return (uint32_t)row * 0x9E3779B9u; }
 __device__ __forceinline__ uint32_t col_term(int col) { return (uint32_t)col * 0x85EBCA6Bu; }
 
-__device__ __forceinline__ bool keep_elem(uint32_t row, uint32_t col, uint32_t salt,
-                                          uint32_t thr) {
-  return keep_hash(row_term(row) ^ col_term(col) ^ salt, thr);
-}
-
 // The hash's per-(seed, batch*head) term. The seed is one int32 in device
 // memory, so a caller can draw it on the device without a host sync.
 __device__ __forceinline__ uint32_t dropout_salt(const int* seed, int bh) {
   return (uint32_t)seed[0] + (uint32_t)bh * 0xC2B2AE35u;
 }
 
-// ------------------------------------------------ Hopper primitives (K7/K8)
+// ------------------------------------------------------- Hopper primitives
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -214,9 +223,10 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
 // 64 bf16 = 128 B, swizzle atoms of 8 rows = 1 KB, atoms 1 KB aligned): start
 // address, leading byte offset `lbo` and stride byte offset 1 KB (the next 8
 // rows), both in 16-byte units, layout type 1 (128B swizzle). K-major: k
-// steps of 16 advance the start by 32 B within the row. MN-major (the
-// transpose bit): k steps of 16 rows advance it by 2 KB; the leading offset
-// (the next 64 columns) is never stepped at N = 64.
+// steps of 16 advance the start by 32 B within the row; the 8-row atoms of
+// N = 64 or 128 rows follow each other 1 KB apart. MN-major (the transpose
+// bit): k steps of 16 rows advance it by 2 KB; the leading offset (the next
+// 64 columns) is never stepped at N = 64.
 __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
@@ -282,6 +292,26 @@ __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= A B with A (64 x 16 bf16) in registers as for wgmma_rs_t and B
+// (16 x 64) in shared memory, K-major (transpose bit 0); d is overwritten
+// when !accumulate.
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // The four k16 A fragments of bf16(x), x a 64 x 64 f32 accumulator: the
 // accumulator's C layout (register 4 j + e at row 16 warp + g + 8 (e >> 1),
 // col 8 j + 2 t + (e & 1)) is the A layout of k step j / 2.
@@ -301,166 +331,234 @@ __device__ __forceinline__ uint8_t* align_1k(uint8_t* p) {
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
-// Register fragments of one warp, lane = 4 g + t:
-//   A (16x16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-//   B (16x8):  b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g)
-//   C (16x8):  c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-template <bool DROPOUT>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk, Strides qs, Strides ks_, Strides vs, Strides os,
-                 float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
-  __shared__ __align__(16) bf16 ks[BK * LDS];  // K tile, ks[key][d]
-  __shared__ __align__(16) bf16 vt[D * LDS];   // V tile transposed, vt[d][key]
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ + warp * 16;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks_.b + h * ks_.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-  const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
-
-  // this warp's 16 query rows as A fragments, bf16(q * scale)
-  uint32_t qa[D / 16][4];
+// The barriers: `fixed` completes once the fixed operands have landed;
+// full[s] when slot s holds its tile (TMA bytes, and in K8 the producer
+// warp's 32 lse/delta stores); empty[s] when every consumer warp is done
+// with it.
+template <typename Smem>
+__device__ __forceinline__ void init_barriers(Smem& sm, uint32_t full_count,
+                                              uint32_t consumer_warps) {
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + g + (i & 1) * 8, col = kk * 16 + 2 * t + (i >> 1) * 8;
-      float x0 = 0.0f, x1 = 0.0f;
-      if (row < Sq) {
-        const bf16* p = qb + row * qs.s + col;
-        x0 = __bfloat162float(p[0]) * scale;
-        x1 = __bfloat162float(p[1]) * scale;
-      }
-      qa[kk][i] = pack_bf16(x0, x1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], full_count);
+      mbar_init(&sm.empty[s], consumer_warps);
     }
+    mbar_init(&sm.fixed, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  const int ntiles = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int c = threadIdx.x; c < BK * D / 8; c += NTHREADS) {
-      const int r = c / (D / 8), d0 = (c % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * ks_.s + d0);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * vs.s + d0);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * LDS + d0]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(d0 + j) * LDS + r] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T: eight 16x8 tiles over the tile's 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const bf16* kr = &ks[(n * 8 + g) * LDS + kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    // mask the keys past Sk, then the new row maxima (rows g and g + 8)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + n * 8 + 2 * t + (e & 1) >= Sk) s[n][e] = NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-
-    float alpha[2], rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f((s[n][e] - mx[e >> 1]) * LOG2E);
-        rs[e >> 1] += p;
-        s[n][e] = p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = l[r] * alpha[r] + rs[r];
-      m[r] = mx[r];
-    }
-
-    if (DROPOUT) {  // after the normalizer: only the p that meets V is dropped
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t row = (uint32_t)(q0 + g + (e >> 1) * 8);
-          const uint32_t col = (uint32_t)(k0 + n * 8 + 2 * t + (e & 1));
-          s[n][e] = keep_elem(row, col, salt, thr) ? s[n][e] * inv_keep : 0.0f;
-        }
-      }
-    }
-
-    // acc = acc * alpha + bf16(P) V; P's C fragments are A fragments of P V
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const bf16* vr = &vt[(n * 8 + g) * LDS + kk * 16 + 2 * t];
-        mma_bf16(acc[n], pa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + r * 8;
-    if (row >= Sq) continue;
-    bf16* orow = o + b * os.b + h * os.h + (long long)row * os.s;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r] / l[r], acc[n][2 * r + 1] / l[r]);
-    if (t == 0) lse[(long long)bh * Sq + row] = m[r] + logf(l[r]);
-  }
+  __syncthreads();
 }
 
+// The 128 rows starting at `row` of a tensor map, as two 64-row boxes.
+__device__ __forceinline__ void tma_rows128(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int row, int h, int b) {
+  tma_load(dst, map, bar, row, h, b);
+  tma_load(dst + BT * D, map, bar, row + BT, h, b);
+}
 
+// After the last product on slot s: one arrival per consumer warp.
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
+}
+
+// -------------------------------------------------------------------- K6
+
+// Shared memory of K6: q of the block's 192 query rows, a ring of k and v
+// tiles of 64 keys. Every tile starts on a 1 KB boundary.
+struct FwdSmem {
+  bf16 q[FWD_ROWS * D];
+  bf16 k[STAGES][BT * D];
+  bf16 v[STAGES][BT * D];
+  uint64_t full[STAGES], empty[STAGES], fixed;
+};
+
+// The consumers' turns on the tensor cores, in the order of their indices:
+// warpgroup wg waits on named barrier 1 + wg (256 threads: its own 128 at
+// bar.sync, the previous warpgroup's 128 at bar.arrive) and passes the turn
+// by arriving on the next one's barrier.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(1 + (wg + 1) % FWD_CONSUMERS) : "memory");
+}
+
+// The online softmax of one 64 x 64 tile of S (a warpgroup's; this thread's
+// registers cover rows g and g + 8 of its warp): masks keys >= Sk in the
+// last tile, updates the row max m and the normalizer l (undropped p),
+// applies dropout, leaves bf16(p) as the A fragments of P V in pa and
+// rescales the output accumulator o by exp(m_old - m_new).
+template <bool DROPOUT>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[32], uint32_t (&pa)[4][4],
+                                             float (&m)[2], float (&l)[2], int k0, int Sk, int t,
+                                             const uint32_t (&rt)[2], uint32_t thr,
+                                             float inv_keep) {
+  if (k0 + BT > Sk) {  // the last tile: its keys >= Sk arrived as zeros
+#pragma unroll
+    for (int x = 0; x < 32; ++x)
+      if (k0 + 8 * (x >> 2) + 2 * t + (x & 1) >= Sk) s[x] = NEG_INF;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+  float alpha[2], nb[2], rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    alpha[r] = ex2((m[r] - mx[r]) * LOG2E);
+    nb[r] = -mx[r] * LOG2E;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const float p = ex2(fmaf(s[x], LOG2E, nb[(x >> 1) & 1]));  // exp(s - m)
+    rs[(x >> 1) & 1] += p;
+    s[x] = p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+    rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    l[r] = l[r] * alpha[r] + rs[r];
+  }
+  if (DROPOUT) {  // after the normalizer: only the p that meets v is dropped
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = k0 + 8 * j + 2 * t;
+      const uint32_t ct[2] = {col_term(c), col_term(c + 1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = keep_hash(rt[e >> 1] ^ ct[e & 1], thr) ? s[4 * j + e] * inv_keep : 0.0f;
+    }
+  }
+  to_a(s, pa);
+#pragma unroll
+  for (int x = 0; x < 32; ++x) o[x] *= alpha[(x >> 1) & 1];
+}
+
+// K6: o and lse of one block per (bh, 192 query rows); see the header.
+template <bool DROPOUT>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int H, int Sq, int Sk, Strides os, float scale,
+                 const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align_1k(smem_raw));
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row_blk = blockIdx.x * FWD_ROWS;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int ntiles = (Sk + BT - 1) / BT;
+  init_barriers(sm, 1, 4 * FWD_CONSUMERS);
+
+  if (wg == FWD_CONSUMERS) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(FWD_PRODUCER_REGS));
+    if (warp == 0 && lane == 0) {
+      mbar_expect(&sm.fixed, FWD_CONSUMERS * TILE_BYTES);
+#pragma unroll
+      for (int c = 0; c < FWD_CONSUMERS; ++c)
+        tma_load(sm.q + c * BT * D, &tq, &sm.fixed, row_blk + c * BT, h, b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&sm.empty[s], (i / STAGES - 1) & 1);
+        mbar_expect(&sm.full[s], 2 * TILE_BYTES);
+        tma_load(sm.k[s], &tk, &sm.full[s], i * BT, h, b);
+        tma_load(sm.v[s], &tv, &sm.full[s], i * BT, h, b);
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(FWD_CONSUMER_REGS));
+    const int g = lane >> 2, t = lane & 3;
+    const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    const uint32_t rt[2] = {row_term(r_thr) ^ salt, row_term(r_thr + 8) ^ salt};
+    if (wg == FWD_CONSUMERS - 1) turn_pass(wg);  // warpgroup 0 takes the first turn
+
+    // this warpgroup's 64 rows of bf16(q scale) as A fragments: element
+    // (row, col) of the swizzled tile lies at row * 128 + ((col / 8) ^ (row
+    // % 8)) * 16 + (col % 8) * 2 bytes, and row % 8 = g here
+    mbar_wait(&sm.fixed, 0);
+    __syncwarp();
+    const uint8_t* qt = reinterpret_cast<const uint8_t*>(sm.q + wg * 64 * D);
+    uint32_t qa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = warp * 16 + g + 8 * (i & 1), col = kk * 16 + 2 * t + 8 * (i >> 1);
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            qt + row * 128 + (((col >> 3) ^ g) << 4) + (col & 7) * 2));
+        qa[kk][i] = pack_bf16(f.x * scale, f.y * scale);
+      }
+    }
+
+    float oa[32], s[32], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oa[i] = 0.0f;
+
+    // turn 0: S of tile 0
+    mbar_wait(&sm.full[0], 0);
+    __syncwarp();
+    turn_wait(wg);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_k(s, qa[kk], kmajor(sm.k[0], kk), kk > 0);
+    wg_commit();
+    turn_pass(wg);
+    wg_wait<0>();
+    reg_fence(s);
+    softmax_tile<DROPOUT>(s, oa, pa, m, l, 0, Sk, t, rt, thr, inv_keep);
+
+    // turn i: S of tile i, then P V of tile i - 1
+    for (int i = 1; i < ntiles; ++i) {
+      const int sp = (i - 1) % STAGES, sn = i % STAGES;
+      mbar_wait(&sm.full[sn], (i / STAGES) & 1);
+      __syncwarp();
+      turn_wait(wg);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_k(s, qa[kk], kmajor(sm.k[sn], kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs_t(oa, pa[kk], mnmajor(sm.v[sp], kk));
+      wg_commit();
+      turn_pass(wg);
+      wg_wait<0>();
+      reg_fence(oa);
+      reg_fence(s);
+      release(&sm.empty[sp]);
+      softmax_tile<DROPOUT>(s, oa, pa, m, l, i * BT, Sk, t, rt, thr, inv_keep);
+    }
+
+    // P V of the last tile, outside the turns; warpgroup 0 takes the last
+    // warpgroup's last pass, so that every arrival on a named barrier is
+    // consumed
+    if (wg == 0) turn_wait(0);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_t(oa, pa[kk], mnmajor(sm.v[(ntiles - 1) % STAGES], kk));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(oa);
+
+    bf16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_thr + 8 * r;
+      if (row >= Sq) continue;
+      bf16* orow = ob + (long long)row * os.s;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+            pack_bf16(oa[4 * j + 2 * r] / l[r], oa[4 * j + 2 * r + 1] / l[r]);
+      if (t == 0) lse[(long long)bh * Sq + row] = m[r] + logf(l[r]);
+    }
+  }
+}
 
 // ---------------------------------------------------------------- K7, K8
 
@@ -486,37 +584,6 @@ struct DkvSmem {
   uint64_t full[STAGES], empty[STAGES], fixed;
 };
 
-// The barriers: `fixed` completes once the fixed operands have landed;
-// full[s] when slot s holds its tile (TMA bytes, and in K8 the producer
-// warp's 32 lse/delta stores); empty[s] when all 8 consumer warps are done
-// with it.
-template <typename Smem>
-__device__ __forceinline__ void init_barriers(Smem& sm, uint32_t full_count) {
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&sm.full[s], full_count);
-      mbar_init(&sm.empty[s], 8);
-    }
-    mbar_init(&sm.fixed, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// The 128 rows starting at `row` of a tensor map, as two 64-row boxes.
-__device__ __forceinline__ void tma_rows128(bf16* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int row, int h, int b) {
-  tma_load(dst, map, bar, row, h, b);
-  tma_load(dst + BT * D, map, bar, row + BT, h, b);
-}
-
-// After the last product on slot s: one arrival per consumer warp.
-__device__ __forceinline__ void release(uint64_t* empty) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
-}
-
 // K7: dQ of one block per (bh, 128 query rows). Each consumer warpgroup owns
 // 64 rows: S = q k^T and dP = dO v^T (wgmma from shared memory) for each
 // streamed tile of 64 keys; as _dq_kernel, p = exp(s scale - lse) (0 past
@@ -537,7 +604,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   const int row_blk = blockIdx.x * BROWS;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int ntiles = (Sk + BT - 1) / BT;
-  init_barriers(sm, 1);
+  init_barriers(sm, 1, 8);
 
   if (wg == 2) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
@@ -663,7 +730,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   const int key_blk = blockIdx.x * BROWS;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int ntiles = (Sq + BT - 1) / BT;
-  init_barriers(sm, 1 + 32);  // the TMA arrival and the producer warp's 32 lanes
+  init_barriers(sm, 1 + 32, 8);  // the TMA arrival and the producer warp's 32 lanes
 
   if (wg == 2) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
@@ -834,33 +901,35 @@ bool pow2(float x) {
 
 // q [B, H, Sq, 64], k/v [B, H, Sk, 64], o [B, H, Sq, 64] bf16, each given by
 // element strides (batch, head, row; 12 values in that order for q, k, v,
-// o) with the head dimension contiguous; rows 16-byte aligned for k and v.
-// lse [B * H, Sq] f32. scale: sm_scale rounded to bf16. dropout != 0 drops
-// where the hash draw is < thr and scales the rest by inv_keep; seed points
-// to the hash's int32 seed in device memory (read only under dropout).
-// Returns cudaGetLastError() after the launch.
+// o) with the head dimension contiguous; rows and bases 16-byte aligned for
+// q, k and v (they are read by TMA). lse [B * H, Sq] f32. scale: sm_scale
+// rounded to bf16, any value. dropout != 0 drops where the hash draw is <
+// thr and scales the rest by inv_keep; seed points to the hash's int32 seed
+// in device memory (read only under dropout). Returns cudaGetLastError()
+// after the launch.
 extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Sq, int Sk, const long long* strides,
                               float scale, int dropout, const int* seed, unsigned int thr,
                               float inv_keep, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
-  const Strides qs{strides[0], strides[1], strides[2]}, ks{strides[3], strides[4], strides[5]},
-      vs{strides[6], strides[7], strides[8]}, os{strides[9], strides[10], strides[11]};
-  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * H));
-  auto* qp = static_cast<const bf16*>(q);
-  auto* kp = static_cast<const bf16*>(k);
-  auto* vp = static_cast<const bf16*>(v);
-  auto* op = static_cast<bf16*>(o);
-  if (dropout)
-    flash_fwd_kernel<true><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        qp, kp, vp, op, lse, H, Sq, Sk, qs, ks, vs, os, scale, seed, thr, inv_keep);
-  else
-    flash_fwd_kernel<false><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-        qp, kp, vp, op, lse, H, Sq, Sk, qs, ks, vs, os, scale, seed, thr, inv_keep);
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, Sq, H, B, strides_at(strides, 0)) ||
+      !make_map(&mk, k, Sk, H, B, strides_at(strides, 1)) ||
+      !make_map(&mv, v, Sk, H, B, strides_at(strides, 2)))
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(FwdSmem) + 1024;  // + the slack of the 1 KB alignment
+  auto kernel = dropout ? flash_fwd_kernel<true> : flash_fwd_kernel<false>;
+  // Set on every launch: the attribute belongs to the current device's context.
+  const cudaError_t rc =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((unsigned)((Sq + FWD_ROWS - 1) / FWD_ROWS), (unsigned)(B * H));
+  kernel<<<grid, FWD_THREADS, smem, (cudaStream_t)stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, H, Sq, Sk, strides_at(strides, 3), scale, seed,
+      thr, inv_keep);
   return (int)cudaGetLastError();
 }
-
 
 // K7. q, k, v, dO [B, H, S, 64] and dq [B, H, Sq, 64] bf16 with (batch,
 // head, row) element strides, 15 values for q, k, v, dO, dq in that order,

@@ -335,7 +335,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, sm_scale, dropout_rate, dropout_seed)
     _check_cuda(q=q, k=k, v=v)
     b, h, sq, sk, d = _launch_shape(q, k, "K6")
-    k, v = _aligned(k), _aligned(v)
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     drop, seed, thr, inv_keep = _dropout_args(q, dropout_rate, dropout_seed)
