@@ -6,14 +6,19 @@
 Builds every CUDA source under tgtc_torch/csrc (one nvcc per source, all
 started together), then:
 
-0. prints the card (name, power limit), the torch/CUDA versions and the
-   kernel build time;
+0. prints the card (name, power limit), the torch/CUDA versions, the
+   kernel build time and ptxas's report of every kernel (registers,
+   barriers, spills, wgmma notes) with K1's and K4's dynamic shared memory;
 1. kernels: runs K1/K2 on random full-width weights (He init, numpy seed
-   0, D8/W256) at P = 2,097,152 + 300 against their plain PyTorch twins
-   (rgb <= 3e-2, sigma <= 2e-1, K2 sigma == K1 sigma bit for bit) and times
+   0, D8/W256) against their plain PyTorch twins (rgb <= 3e-2, sigma <=
+   2e-1, K2 sigma == K1 sigma and a second K1 launch bit for bit) at P =
+   2,097,152 + 300 and at P = 1, 127, 129 and 132 x 128 + 17 (cutting K1's
+   128-point tiles and wrapping its persistent loop over 132 SMs), and times
    each at the main path's shapes (K1 P = 16384 rays x 128 samples, K2
-   P = 16384 x 64) beside its bound, its twin and, for orientation only, the
-   same layer chain as bf16 torch.addmm calls;
+   P = 16384 x 64) by CUDA events and by the profiler's device time, beside
+   its bound (and the share of it reached), its twin and, for orientation
+   only, the same layer chain as bf16 torch.addmm calls (events and device
+   time);
 2. main path: renders a fern-shaped 756x1008 NDC frame with
    FusedNerfRenderer(coarse_rgb=False), 64+64 samples, 16384-ray blocks,
    three times after a warm-up frame; launch counts are zeroed just before
@@ -48,14 +53,14 @@ started together), then:
    LLFF scene, loads it and runs dump_geometry; every artifact must exist
    and coor_map be finite;
 6. style kernels: K4/K5 on random fern-width weights (the K1/K2 trunk, He
-   style MLPs, numpy seed 0) at P = 2,097,152 + 300 with per-point latents
-   against their twins (rgb <= 3e-2, sigma <= 2e-1), with three sigmas
-   bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4
-   launches); then each held against its twin again (same bounds) on the
-   stylized frame's arguments (K4 P = 16384 rays x 128 samples with
-   per-ray latents, distinct random rows, K5 P = 16384 x 64) and timed
-   there beside its bound, its twin and, for orientation only, the same
-   chain as bf16 torch.addmm calls;
+   style MLPs, numpy seed 0) with per-point latents against their twins
+   (rgb <= 3e-2, sigma <= 2e-1), with three sigmas bitwise equal (K5 and
+   K4, K5 and K2 on the same trunk, two K4 launches), at P = 2,097,152 +
+   300 and at phase 1's tile-cutting P, and with 128 samples per ray at 128
+   and 133 x 128 points; then each held against its twin again (same
+   bounds) on the stylized frame's arguments (K4 P = 16384 rays x 128
+   samples with per-ray latents, distinct random rows, K5 P = 16384 x 64)
+   and timed there as in phase 1;
 7. Phase F from the trained trunks, with seeded style MLPs and a 1-style
    latent table: stylized 756x1008 NDC frames at the scene's spiral poses
    through FusedStyleRenderer(coarse_rgb=False), 64+64 samples, 16384-ray
@@ -260,6 +265,19 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Point counts that cut the Hopper engine's 128-point tiles (K1, K4:
+# csrc/trunk_sm90.cuh) and wrap its persistent loop (133 tiles on 132 SMs).
+ENGINE_TILE = 128
+ENGINE_P = (1, ENGINE_TILE - 1, ENGINE_TILE + 1, 132 * ENGINE_TILE + 17)
+
+
+def timed(fn, iters: int):
+    """``fn``'s time by CUDA events and by the profiler's device time (ms)."""
+    ms = cuda_ms(fn, iters)
+    dev, _ = device_ms(fn, max(2, iters // 2))
+    return ms, dev
+
+
 def bound_ms(name: str, p: int, packed, io=None) -> float:
     """max(operations / bf16 peak, bytes / HBM rate); ``io`` defaults to
     pts(+dirs) in and sigma(+rgb) out, f32."""
@@ -327,44 +345,55 @@ def style_matmul_chain(packed, e_c, lat):
 
 
 def phase_kernels(ks, sd_c):
-    """Twin comparison at P = 2^21 + 300 and timings at the main path's shapes."""
+    """Twin comparison at P = 2^21 + 300 and at the engine's tile-cutting P,
+    timings at the main path's shapes."""
     packed = ks.pack_nerf_params(sd_c, device="cuda")
     rng = np.random.default_rng(1)
     p = P_K1 + RAGGED
     pts = torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).cuda()
     dirs = torch.from_numpy(rng.standard_normal((3, p)).astype(np.float32)).cuda()
-    rgb, sigma = ks.fused_nerf_apply_t(packed, pts, dirs)
-    sigma2 = ks.fused_nerf_sigma_apply_t(packed, pts)
-    torch.cuda.synchronize()
-    rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pts, dirs)
-    sigma2_p = ks.fused_nerf_sigma_apply_t_plain(packed, pts)
-    err = {"K1": (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max())),
-           "K2": (0.0, float((sigma2 - sigma2_p).abs().max()))}
-    print(f"[kernels] P={p}: K1 max|rgb err| {err['K1'][0]:.3e} max|sigma err| "
-          f"{err['K1'][1]:.3e}; K2 max|sigma err| {err['K2'][1]:.3e}; "
-          f"|sigma| max {float(sigma_p.abs().max()):.3e}", flush=True)
-    check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()), "K1 output not finite")
-    check(err["K1"][0] <= TOL_RGB and err["K1"][1] <= TOL_SIGMA, "K1 disagrees with its twin")
-    check(err["K2"][1] <= TOL_SIGMA, "K2 disagrees with its twin")
-    check(torch.equal(sigma, sigma2), "K2 sigma is not bitwise equal to K1 sigma")
-    del rgb, sigma, sigma2, rgb_p, sigma_p, sigma2_p
+    err = {"K1": (0.0, 0.0), "K2": (0.0, 0.0)}
+    for n in ENGINE_P + (p,):
+        pt, dr = pts[:, :n].contiguous(), dirs[:, :n].contiguous()
+        rgb, sigma = ks.fused_nerf_apply_t(packed, pt, dr)
+        rgb2, sigma2 = ks.fused_nerf_apply_t(packed, pt, dr)
+        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed, pt)
+        torch.cuda.synchronize()
+        rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pt, dr)
+        sigma_k2_p = ks.fused_nerf_sigma_apply_t_plain(packed, pt)
+        e1 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
+        e2 = float((sigma_k2 - sigma_k2_p).abs().max())
+        same = {"K1 = K1": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
+                "K2 = K1": torch.equal(sigma, sigma_k2)}
+        print(f"[kernels] P={n}: K1 max|rgb err| {e1[0]:.3e} max|sigma err| {e1[1]:.3e}; K2 "
+              f"max|sigma err| {e2:.3e}; |sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
+              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+        check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
+              "K1 output not finite")
+        check(e1[0] <= TOL_RGB and e1[1] <= TOL_SIGMA, f"K1 disagrees with its twin at P={n}")
+        check(e2 <= TOL_SIGMA, f"K2 disagrees with its twin at P={n}")
+        check(all(same.values()), f"sigma or a repeat not bitwise equal at P={n}: {same}")
+        err = {"K1": tuple(max(a, b) for a, b in zip(err["K1"], e1)),
+               "K2": (0.0, max(err["K2"][1], e2))}
+        del rgb, sigma, rgb2, sigma2, sigma_k2, rgb_p, sigma_p, sigma_k2_p
 
     rows = []
     for name, fn, twin, n in (("K1", ks.fused_nerf_apply_t, ks.fused_nerf_apply_t_plain, P_K1),
                               ("K2", ks.fused_nerf_sigma_apply_t,
                                ks.fused_nerf_sigma_apply_t_plain, P_K2)):
         args = (packed, pts[:, :n].contiguous()) + ((dirs[:, :n].contiguous(),) if name == "K1" else ())
-        ms = cuda_ms(lambda: fn(*args), 10)
+        ms, dev = timed(lambda: fn(*args), 10)
         plain_ms = cuda_ms(lambda: twin(*args), 3)
         e_c = ks._encode_plain(args[1].T, 10, packed.k_coor).to(torch.bfloat16)
         e_d = (ks._encode_plain(args[2].T, 4, packed.k_dir).to(torch.bfloat16)
                if name == "K1" else None)
-        chain_ms = cuda_ms(matmul_chain(packed, e_c, e_d, name == "K1"), 10)
+        chain_ms, chain_dev = timed(matmul_chain(packed, e_c, e_d, name == "K1"), 10)
         del e_c, e_d
         b = bound_ms(name, n, packed)
-        print(f"[kernels] {name} P={n}: kernel {ms:.3f} ms, bound {b:.3f} ms "
-              f"(operations), plain twin {plain_ms:.3f} ms, orientation only: "
-              f"bf16 torch.addmm chain {chain_ms:.3f} ms", flush=True)
+        print(f"[kernels] {name} P={n}: kernel {ms:.3f} ms ev, {dev:.3f} ms dev, bound {b:.3f} ms "
+              f"(operations), {100 * b / dev:.2f}% of the bound by device time; plain twin "
+              f"{plain_ms:.3f} ms; orientation only: bf16 torch.addmm chain {chain_ms:.3f} ms ev, "
+              f"{chain_dev:.3f} ms dev (kernel / chain {dev / chain_dev:.3f})", flush=True)
         rows.append({
             "name": name, "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp.cu",
             "replaces": ("tgtc/ops/pallas/nerf_mlp.py:359" if name == "K1"
@@ -374,8 +403,9 @@ def phase_kernels(ks, sd_c):
             "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
             "max_abs_err_rgb": err[name][0] if name == "K1" else None,
             "max_abs_err_sigma": err[name][1],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
-            "library_ms": None, "matmul_chain_ms": chain_ms,
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": "operations", "bound_share": b / dev, "library_ms": None,
+            "matmul_chain_ms": chain_ms, "matmul_chain_device_ms": chain_dev,
         })
     return rows
 
@@ -822,34 +852,44 @@ def phase_b(ks, renderer, root: str) -> str:
 
 
 def phase_style_kernels(ks, kst, sd_c, style_sds):
-    """K4/K5 against their twins at P = 2^21 + 300 (three sigmas bitwise
-    equal: K5 and K4, K5 and K2 on the same trunk, two K4 launches) and
-    timings at the stylized frame's shapes."""
+    """K4/K5 against their twins at P = 2^21 + 300 and at the engine's
+    tile-cutting P (samples per ray 1, and 128 at one and 133 tiles), with
+    sigmas bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4
+    launches), and timings at the stylized frame's shapes."""
     packed = kst.pack_style_params(sd_c, *style_sds, device="cuda")
+    packed_k2 = ks.pack_nerf_params(sd_c, device="cuda")
     rng = np.random.default_rng(3)
     p = P_K1 + RAGGED
     pts = torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).cuda()
     lat = torch.from_numpy(rng.standard_normal((p, LATENT)).astype(np.float32)).cuda()
-    rgb, sigma = kst.fused_style_apply_t(packed, pts, lat)
-    rgb2, sigma2 = kst.fused_style_apply_t(packed, pts, lat)
-    sigma5 = kst.fused_sigma_apply_t(packed, pts)
-    sigma_k2 = ks.fused_nerf_sigma_apply_t(ks.pack_nerf_params(sd_c, device="cuda"), pts)
-    torch.cuda.synchronize()
-    rgb_p, sigma_p = kst.fused_style_apply_t_plain(packed, pts, lat)
-    sigma5_p = kst.fused_sigma_apply_t_plain(packed, pts)
-    err = {"K4": (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max())),
-           "K5": (0.0, float((sigma5 - sigma5_p).abs().max()))}
-    same = {"K5 = K4": torch.equal(sigma5, sigma), "K5 = K2": torch.equal(sigma5, sigma_k2),
-            "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)}
-    print(f"[style_kernels] P={p}: K4 max|rgb err| {err['K4'][0]:.3e} max|sigma err| "
-          f"{err['K4'][1]:.3e}; K5 max|sigma err| {err['K5'][1]:.3e}; |rgb| mean "
-          f"{float(rgb_p.mean()):.3f}, |sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
-          + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
-    check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()), "K4 output not finite")
-    check(err["K4"][0] <= TOL_RGB and err["K4"][1] <= TOL_SIGMA, "K4 disagrees with its twin")
-    check(err["K5"][1] <= TOL_SIGMA, "K5 disagrees with its twin")
-    check(all(same.values()), f"sigma not bitwise equal where it must be: {same}")
-    del rgb, sigma, rgb2, sigma2, sigma5, sigma_k2, rgb_p, sigma_p, sigma5_p
+    err = {"K4": (0.0, 0.0), "K5": (0.0, 0.0)}
+    cases = ([(n, 1) for n in ENGINE_P] + [(ENGINE_TILE, 128), (133 * ENGINE_TILE, 128)]
+             + [(p, 1)])
+    for n, spr in cases:
+        pt, lt = pts[:, :n].contiguous(), lat[:n // spr].contiguous()
+        rgb, sigma = kst.fused_style_apply_t(packed, pt, lt, spr)
+        rgb2, sigma2 = kst.fused_style_apply_t(packed, pt, lt, spr)
+        sigma5 = kst.fused_sigma_apply_t(packed, pt)
+        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed_k2, pt)
+        torch.cuda.synchronize()
+        rgb_p, sigma_p = kst.fused_style_apply_t_plain(packed, pt, lt, spr)
+        sigma5_p = kst.fused_sigma_apply_t_plain(packed, pt)
+        e4 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
+        e5 = float((sigma5 - sigma5_p).abs().max())
+        same = {"K5 = K4": torch.equal(sigma5, sigma), "K5 = K2": torch.equal(sigma5, sigma_k2),
+                "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)}
+        print(f"[style_kernels] P={n} spr={spr}: K4 max|rgb err| {e4[0]:.3e} max|sigma err| "
+              f"{e4[1]:.3e}; K5 max|sigma err| {e5:.3e}; |rgb| mean {float(rgb_p.mean()):.3f}, "
+              f"|sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
+              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+        check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
+              "K4 output not finite")
+        check(e4[0] <= TOL_RGB and e4[1] <= TOL_SIGMA, f"K4 disagrees with its twin at P={n}")
+        check(e5 <= TOL_SIGMA, f"K5 disagrees with its twin at P={n}")
+        check(all(same.values()), f"sigma not bitwise equal where it must be at P={n}: {same}")
+        err = {"K4": tuple(max(a, b) for a, b in zip(err["K4"], e4)),
+               "K5": (0.0, max(err["K5"][1], e5))}
+        del rgb, sigma, rgb2, sigma2, sigma5, sigma_k2, rgb_p, sigma_p, sigma5_p
 
     rows = []
     lat_r = lat[:BLOCK].contiguous()  # one fine block's per-ray latents, distinct random rows
@@ -883,14 +923,15 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
         check(err_main[0] <= TOL_RGB and err_main[1] <= TOL_SIGMA,
               f"{name} disagrees with its twin on the frame's arguments")
         err[name] = tuple(max(a, b) for a, b in zip(err[name], err_main))
-        ms = cuda_ms(lambda: fn(*args), 10)
+        ms, dev = timed(lambda: fn(*args), 10)
         plain_ms = cuda_ms(lambda: twin(*args), 3)
-        chain_ms = cuda_ms(chain, 10)
+        chain_ms, chain_dev = timed(chain, 10)
         del e_c, chain
         b = bound_ms(name, n, packed, io)
-        print(f"[style_kernels] {name} P={n}: kernel {ms:.3f} ms, bound {b:.3f} ms "
-              f"(operations), plain twin {plain_ms:.3f} ms, orientation only: bf16 "
-              f"torch.addmm chain {chain_ms:.3f} ms", flush=True)
+        print(f"[style_kernels] {name} P={n}: kernel {ms:.3f} ms ev, {dev:.3f} ms dev, bound "
+              f"{b:.3f} ms (operations), {100 * b / dev:.2f}% of the bound by device time; plain "
+              f"twin {plain_ms:.3f} ms; orientation only: bf16 torch.addmm chain {chain_ms:.3f} "
+              f"ms ev, {chain_dev:.3f} ms dev (kernel / chain {dev / chain_dev:.3f})", flush=True)
         rows.append({
             "name": name, "route": "cuda", "source": "tgtc_torch/csrc/style_kernel.cu",
             "replaces": ("tgtc/ops/pallas/style_kernel.py:432" if name == "K4"
@@ -900,8 +941,9 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
             "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
             "max_abs_err_rgb": err[name][0] if name == "K4" else None,
             "max_abs_err_sigma": err[name][1],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
-            "library_ms": None, "matmul_chain_ms": chain_ms,
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": "operations", "bound_share": b / dev, "library_ms": None,
+            "matmul_chain_ms": chain_ms, "matmul_chain_device_ms": chain_dev,
         })
     return rows
 
@@ -1295,29 +1337,45 @@ def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: in
 
 
 def device_ms(fn, iters: int):
-    """``fn``'s device time per call, the sum of the kernels (and memsets)
-    the profiler records over ``iters`` calls after one warm-up, and their
-    names. Host time between kernels is not counted. A window in which the
-    profiler recorded no device activity at all (seen on the card once in
-    ten-odd back-to-back sessions, cause unknown) is profiled again, at most
-    three windows in all, each empty one printed."""
+    """``fn``'s device time per call and the names of its kernels (and
+    memsets), from the profiler over ``iters`` calls after one warm-up. Host
+    time between kernels is not counted. A window can lose launches (seen on
+    the card: the last of five calls' kernels in most windows, or two of five
+    of K4's in every window of phase 6), so each window starts and ends with
+    short spin kernels that are left out, and a window counts whole only
+    where every kernel was recorded a multiple of ``iters`` times: then the
+    time is the sum over ``iters``. After three windows that are not whole,
+    the time is each kernel's mean recorded duration times its launches per
+    call (its count over ``iters``, rounded up), and that is printed. A
+    window that recorded nothing at all is a failure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(2000)
             for _ in range(iters):
                 fn()
+            for _ in range(4):
+                torch.cuda._sleep(2000)
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
-            break
-        print(f"[profiler] window {attempt + 1} recorded no device kernel; profiling again",
-              flush=True)
-    check(bool(events), "the profiler recorded no device kernel")
-    names = "; ".join(sorted({e.name[:80] for e in events}))
-    return sum(e.time_range.elapsed_us() for e in events) * 1e-3 / iters, names
+        durations = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us() * 1e-3)
+        names = "; ".join(sorted({n[:80] for n in durations}))
+        if durations and all(len(d) % iters == 0 for d in durations.values()):
+            return sum(sum(d) for d in durations.values()) / iters, names
+        print(f"[profiler] window {attempt + 1} recorded "
+              f"{sum(len(d) for d in durations.values())} device kernels of {len(durations)} "
+              f"names over {iters} calls, not a whole number a call", flush=True)
+    check(bool(durations), "the profiler recorded no device kernel")
+    total = sum(math.ceil(len(d) / iters) * sum(d) / len(d) for d in durations.values())
+    print(f"[profiler] taking each kernel's mean recorded duration times its launches per call: "
+          f"{total:.4f} ms", flush=True)
+    return total, names
 
 
 def sdpa_bwd(q, k, v, do, iters: int):
@@ -1726,8 +1784,12 @@ def main() -> int:
           f"{', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
     for lib in libs:  # ptxas: registers, shared memory and spills per kernel
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if any(w in line.lower() for w in ("registers", "spill", "entry function", "warning")):
+            if any(w in line.lower() for w in ("registers", "spill", "entry function", "warning",
+                                               "(c75")):
                 print(f"[build] {line.strip()}", flush=True)
+    print(f"[build] dynamic shared memory a block: K1 {ks._nerf_lib().tgtc_nerf_mlp_fwd_smem()} B, "
+          f"K4 {kst._style_lib().tgtc_style_fwd_smem()} B (the 1 KB alignment slack included)",
+          flush=True)
 
     rng = np.random.default_rng(0)
     sd_c = nerf_state_dict_from_flax(he_params(rng))

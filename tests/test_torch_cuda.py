@@ -71,6 +71,48 @@ def test_cuda_kernels_match_twins(cuda_device, p):
     assert torch.equal(sigma, sigma2)
 
 
+# Point counts that cut the Hopper engine's 128-point tiles (K1, K4) and wrap
+# its persistent loop (one block per SM walks over the tiles: 133 tiles on
+# 132 SMs).
+ENGINE_TILE = 128
+ENGINE_P = [1, ENGINE_TILE - 1, ENGINE_TILE + 1, 132 * ENGINE_TILE + 17]
+
+
+@pytest.mark.parametrize("p", ENGINE_P)
+def test_cuda_k1_engine_tiles_match_twin_and_repeat(cuda_device, p):
+    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    pts, dirs = _points(p, cuda_device)
+    rgb, sigma = tk.fused_nerf_apply_t(packed, pts, dirs)
+    rgb2, sigma2 = tk.fused_nerf_apply_t(packed, pts, dirs)
+    sigma_k2 = tk.fused_nerf_sigma_apply_t(packed, pts)
+    torch.cuda.synchronize()
+    rgb_p, sigma_p = tk.fused_nerf_apply_t_plain(packed, pts, dirs)
+    assert rgb.shape == (3, p) and sigma.shape == (1, p)
+    assert (rgb - rgb_p).abs().max() <= TOL_RGB
+    assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+    assert torch.equal(sigma, sigma_k2)
+
+
+@pytest.mark.parametrize("p", [ENGINE_TILE + 1, 132 * ENGINE_TILE + 17])
+def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
+    """K1 at a depth and skip other than the configs' 8 and 4 (the kernel
+    fixes those at compile time and takes any other at run time)."""
+    cfg = NerfConfig(depth=6, skips=(2,))
+    sd = make_nerf(cfg, torch.Generator().manual_seed(3), device="cpu").state_dict()
+    packed = tk.pack_nerf_params(sd, depth=6, skip=2, device=cuda_device)
+    pts, dirs = _points(p, cuda_device)
+    rgb, sigma = tk.fused_nerf_apply_t(packed, pts, dirs)
+    rgb2, sigma2 = tk.fused_nerf_apply_t(packed, pts, dirs)
+    sigma_k2 = tk.fused_nerf_sigma_apply_t(packed, pts)
+    torch.cuda.synchronize()
+    rgb_p, sigma_p = tk.fused_nerf_apply_t_plain(packed, pts, dirs)
+    assert (rgb - rgb_p).abs().max() <= TOL_RGB
+    assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+    assert torch.equal(sigma, sigma_k2)
+
+
 def test_launch_counters_count_launches(cuda_device):
     packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
     pts, dirs = _points(128, cuda_device)
@@ -188,6 +230,25 @@ def test_cuda_style_kernels_match_twins_and_repeat(cuda_device, p, spr):
     assert (sigma5 - ts.fused_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
     assert torch.equal(sigma5, sigma)
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+
+
+@pytest.mark.parametrize("p,spr", [(p, 1) for p in ENGINE_P] + [
+    (ENGINE_TILE, 128), (133 * ENGINE_TILE, 128)])
+def test_cuda_k4_engine_tiles_match_twin_and_repeat(cuda_device, p, spr):
+    packed = ts.pack_style_params(_state_dict(0), *_style_sds(), device=cuda_device)
+    pts, _ = _points(p, cuda_device)
+    lat = torch.from_numpy(np.random.default_rng(5).normal(size=(p // spr, 32))
+                           .astype(np.float32)).to(cuda_device)
+    rgb, sigma = ts.fused_style_apply_t(packed, pts, lat, spr)
+    rgb2, sigma2 = ts.fused_style_apply_t(packed, pts, lat, spr)
+    sigma5 = ts.fused_sigma_apply_t(packed, pts)
+    torch.cuda.synchronize()
+    rgb_p, sigma_p = ts.fused_style_apply_t_plain(packed, pts, lat, spr)
+    assert rgb.shape == (3, p) and sigma.shape == (1, p)
+    assert (rgb - rgb_p).abs().max() <= TOL_RGB
+    assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
+    assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
+    assert torch.equal(sigma, sigma5)
 
 
 def test_style_launch_counters_count_launches(cuda_device):

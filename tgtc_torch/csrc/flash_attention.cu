@@ -99,14 +99,13 @@
 // and dk's accumulator once at the end, which equals the products of
 // bf16(q scale) exactly.
 
-#include <cuda.h>  // CUtensorMap; the encoder is fetched at run time, so no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, setmaxnreg, the tensor-map encoder
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 64;
@@ -132,11 +131,6 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 
 struct Strides {
   long long b, h, s;  // element strides; the head dimension is contiguous
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 2^x on the SFU (one MUFU.EX2; results below 2^-126 flush to 0).
 __device__ __forceinline__ float ex2(float x) {
@@ -167,166 +161,13 @@ __device__ __forceinline__ uint32_t dropout_salt(const int* seed, int bh) {
   return (uint32_t)seed[0] + (uint32_t)bh * 0xC2B2AE35u;
 }
 
-// ------------------------------------------------------- Hopper primitives
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic to come
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity `parity`. A
-// phase that never completes is a fault: trap after 2^24 polls (seconds)
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (n == (1u << 24)) __trap();
-  }
-}
+// ------------------------------------------- TMA and barriers of K6, K7, K8
 
 // One 64-row box of a (d, row, head, batch) tensor map into shared memory,
 // completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
                                          int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h), "r"(b),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand in shared memory (rows of
-// 64 bf16 = 128 B, swizzle atoms of 8 rows = 1 KB, atoms 1 KB aligned): start
-// address, leading byte offset `lbo` and stride byte offset 1 KB (the next 8
-// rows), both in 16-byte units, layout type 1 (128B swizzle). K-major: k
-// steps of 16 advance the start by 32 B within the row; the 8-row atoms of
-// N = 64 or 128 rows follow each other 1 KB apart. MN-major (the transpose
-// bit): k steps of 16 rows advance it by 2 KB; the leading offset (the next
-// 64 columns) is never stepped at N = 64.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t kmajor(const bf16* tile, int kk) {
-  return sw128_desc(tile + kk * 16, 1);
-}
-__device__ __forceinline__ uint64_t mnmajor(const bf16* tile, int kk) {
-  return sw128_desc(tile + kk * 16 * D, 1024 >> 4);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// an asynchronous wgmma (it sees the asm as done when issued).
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A B, a 64 x 64 f32 tile per warpgroup, A (64 x 16) and B (16 x 64)
-// bf16 in shared memory, both K-major; d is overwritten when !accumulate.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B with A (64 x 16 bf16) in registers, four 32-bit fragments a
-// thread in the mma.sync A layout of its warp's 16 rows, and B (16 x 64) in
-// shared memory, MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (+)= A B with A (64 x 16 bf16) in registers as for wgmma_rs_t and B
-// (16 x 64) in shared memory, K-major (transpose bit 0); d is overwritten
-// when !accumulate.
-__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// The four k16 A fragments of bf16(x), x a 64 x 64 f32 accumulator: the
-// accumulator's C layout (register 4 j + e at row 16 warp + g + 8 (e >> 1),
-// col 8 j + 2 t + (e & 1)) is the A layout of k step j / 2.
-__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-__device__ __forceinline__ uint8_t* align_1k(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+  tma_load_4d(dst, map, bar, 0, row, h, b);
 }
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
@@ -355,12 +196,6 @@ __device__ __forceinline__ void tma_rows128(bf16* dst, const CUtensorMap* map, u
                                             int row, int h, int b) {
   tma_load(dst, map, bar, row, h, b);
   tma_load(dst + BT * D, map, bar, row + BT, h, b);
-}
-
-// After the last product on slot s: one arrival per consumer warp.
-__device__ __forceinline__ void release(uint64_t* empty) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
 }
 
 // -------------------------------------------------------------------- K6
@@ -455,7 +290,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   init_barriers(sm, 1, 4 * FWD_CONSUMERS);
 
   if (wg == FWD_CONSUMERS) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(FWD_PRODUCER_REGS));
+    setmaxnreg_dec<FWD_PRODUCER_REGS>();
     if (warp == 0 && lane == 0) {
       mbar_expect(&sm.fixed, FWD_CONSUMERS * TILE_BYTES);
 #pragma unroll
@@ -470,7 +305,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     }
   } else {  // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(FWD_CONSUMER_REGS));
+    setmaxnreg_inc<FWD_CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
     const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
@@ -607,7 +442,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   init_barriers(sm, 1, 8);
 
   if (wg == 2) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == 0 && lane == 0) {
       mbar_expect(&sm.fixed, 4 * TILE_BYTES);
       tma_rows128(sm.q, &tq, &sm.fixed, row_blk, h, b);
@@ -621,7 +456,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       }
     }
   } else {  // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    setmaxnreg_inc<CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
     const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
@@ -733,7 +568,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
   init_barriers(sm, 1 + 32, 8);  // the TMA arrival and the producer warp's 32 lanes
 
   if (wg == 2) {  // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    setmaxnreg_dec<PRODUCER_REGS>();
     if (warp == 0) {
       if (lane == 0) {
         mbar_expect(&sm.fixed, 4 * TILE_BYTES);
@@ -760,7 +595,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
       }
     }
   } else {  // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    setmaxnreg_inc<CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int k_thr = key_blk + wg * 64 + warp * 16 + g;  // keys k_thr and k_thr + 8
     const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
@@ -851,27 +686,6 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
 }
 
 // ------------------------------------------------------------ host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded.
-EncodeTiled encode_fn() {
-  void* fn = nullptr;
-#if CUDART_VERSION >= 12050
-  cudaDriverEntryPointQueryResult res;
-  if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                       &res) != cudaSuccess ||
-      res != cudaDriverEntryPointSuccess)
-    return nullptr;
-#else
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault) != cudaSuccess)
-    return nullptr;
-#endif
-  return reinterpret_cast<EncodeTiled>(fn);
-}
 
 // A (d, row, head, batch) map of a bf16 [B, H, rows, 64] tensor given by
 // element strides, 64 x 64 boxes, 128-byte swizzle, zeros out of bounds. A

@@ -7,22 +7,34 @@
 // Plain PyTorch twins of the same arithmetic live beside the wrappers in
 // tgtc_torch/ops/kernels/nerf_mlp.py.
 //
-// The shared device code (encoding, trunk, heads) is in nerf_trunk.cuh.
-//
-// What bounds it: operations. 1,186,816 FLOP/point for K1 (982,528 for
+// What bounds them: operations. 1,186,816 FLOP/point for K1 (982,528 for
 // K2) against ~40 bytes of point I/O, far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
 //
-// Design (first, simple version; see nerf_trunk.cuh): a block owns 64
-// points and keeps their activations in shared memory; nothing but points,
-// rgb and sigma touch device memory. K1 and K2 share the trunk/sigma device
-// function, so their sigma outputs are bitwise equal.
+// K1 runs on the Hopper dense-layer engine (trunk_sm90.cuh): persistent
+// blocks over 128-point tiles, two consumer warpgroups of 64 rows with
+// wgmma m64n256k16, the weights of every layer streamed by TMA through a
+// ring of four 32 KB slots. Per tile: enc(pts) and enc(dirs) into their
+// swizzled blocks, the trunk with h in registers ([enc(pts) | h] at the skip
+// layer), h to shared memory for the sigma head on CUDA cores, base_remap,
+// rgb_0 (wgmma m64n128k16) on [base_remap | enc(dirs)] into shared memory,
+// the sigmoid rgb on CUDA cores. K2 keeps the first design (nerf_trunk.cuh):
+// a block owns 64 points and eight warps run WMMA tiles with weights
+// streamed from L2. K1's sigma sums as K2's; wgmma accumulates a row's k
+// steps as K2's mma.sync does, so K1's sigma equals K2's bit for bit (phase 1
+// of chip_smoke.py holds it).
+//
+// K1's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
+// 128 KB, h 4 x 16 KB = 64 KB (for the heads), enc(pts) 16 KB, enc(dirs)
+// 16 KB (32 of 64 columns used), barriers 64 B: 229,440 B of the 232,448 a
+// block may have.
 
-#include "nerf_trunk.cuh"
+#include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
 
 namespace {
 
 using namespace tgtc;
+using namespace hopper;
 
 __global__ void __launch_bounds__(NTHREADS)
 nerf_sigma_kernel(const float* __restrict__ pts_t, long long P,
@@ -36,24 +48,99 @@ nerf_sigma_kernel(const float* __restrict__ pts_t, long long P,
   trunk_sigma(pts_t, P, p0, w, b, L, depth, skip, h, ec, scratch, sigma, nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-nerf_fwd_kernel(const float* __restrict__ pts_t, const float* __restrict__ dirs_t,
-                long long P, const bf16* __restrict__ w,
-                const float* __restrict__ b, Layout L, int depth, int skip,
-                float* __restrict__ rgb, float* __restrict__ sigma) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  bf16* ec = reinterpret_cast<bf16*>(smem + H_BYTES);
-  bf16* ed = reinterpret_cast<bf16*>(smem + H_BYTES + EC_BYTES);
-  bf16* rf = reinterpret_cast<bf16*>(smem + H_BYTES + EC_BYTES + ED_BYTES);
-  float* scratch = reinterpret_cast<float*>(smem + H_BYTES + EC_BYTES + ED_BYTES + RF_BYTES);
-  const long long p0 = (long long)blockIdx.x * T;
+constexpr int K1_STAGES = 4;
 
-  trunk_sigma(pts_t, P, p0, w, b, L, depth, skip, h, ec, scratch, sigma, nullptr);
-  rgb_features(dirs_t, P, p0, w, b, L, depth, h, ed, rf, scratch);
-  // threads 0..2 of each group of four write one point's rgb
-  const int p = threadIdx.x / 4, c = threadIdx.x % 4;
-  if (c < 3 && p0 + p < P) rgb[c * P + p0 + p] = rgb_out(w, b, L, depth, rf, p, c);
+struct K1Smem {
+  uint8_t ring[K1_STAGES][sm90::CHUNK_BYTES];
+  uint8_t h[4][sm90::BLK_BYTES];
+  uint8_t ec[sm90::BLK_BYTES];
+  uint8_t ed[sm90::BLK_BYTES];
+  uint64_t full[K1_STAGES], empty[K1_STAGES];
+};
+constexpr int K1_SMEM = (int)sizeof(K1Smem) + 1024;  // + the slack of the 1 KB alignment
+static_assert(K1_SMEM <= 232448, "K1's shared memory exceeds a block's 227 KB");
+
+// K1: persistent blocks over 128-point tiles (see the header). The maps and
+// plan list the depth + 2 tensor-core layers: trunk 0..depth-1, base_remap,
+// rgb_0. Activations pass from layer to layer in registers; h goes to
+// shared memory for the sigma head, rgb_0's output for the rgb head.
+// DEPTH > 0 fixes depth and skip at compile time (the configs' D8, skip 4):
+// the trunk loop unrolls, and ptxas keeps the wgmma pipeline without
+// serializing it (with run-time depth and skip it reports C7511).
+template <int DEPTH, int SKIP>
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
+                const float* __restrict__ pts_t, const float* __restrict__ dirs_t, long long P,
+                const bf16* __restrict__ w, const float* __restrict__ b, Layout L, int depth_rt,
+                int skip_rt, float* __restrict__ rgb, float* __restrict__ sigma) {
+  const int depth = DEPTH > 0 ? DEPTH : depth_rt, skip = DEPTH > 0 ? SKIP : skip_rt;
+  extern __shared__ uint8_t smem_raw[];
+  K1Smem& sm = *reinterpret_cast<K1Smem*>(align_1k(smem_raw));
+  const long long ntiles = (P + sm90::ROWS - 1) / sm90::ROWS;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  sm90::init_ring<K1_STAGES>(sm.full, sm.empty);
+
+  if (wg == sm90::CONSUMERS) {  // producer
+    setmaxnreg_dec<sm90::PRODUCER_REGS>();
+    if (tid == 0)
+      sm90::produce<K1_STAGES>(maps, plan, depth + 2,
+                               (int)((ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x),
+                               sm.ring[0], sm.full, sm.empty);
+    return;
+  }
+  setmaxnreg_inc<sm90::CONSUMER_REGS>();
+  const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3, bar = 1 + wg;
+  const int rows = wg * sm90::WG_BLK_BYTES;  // this consumer's rows of each block
+  uint8_t* h = sm.h[0] + rows;
+  uint8_t* ec = sm.ec + rows;
+  uint8_t* ed = sm.ed + rows;
+  const uint32_t s_h = smem_u32(h), s_ec = smem_u32(ec), s_ed = smem_u32(ed);
+  const uint32_t ring = smem_u32(sm.ring[0]);
+  float acc[128];
+  uint32_t act[64];  // the layer input's 256 columns as wgmma A fragments
+  uint32_t q = 0;    // chunks consumed
+  using sm90::REGS;
+  using sm90::SMEM;
+
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
+    sm90::encode(pts_t, P, p0, FC, KC, ec, tid);
+    sm90::encode(dirs_t, P, p0, FD, KD, ed, tid);
+    fence_proxy_async();
+    bar_sync(bar, 128);
+#pragma unroll(DEPTH > 0 ? DEPTH : 1)
+    for (int i = 0; i < depth; ++i) {  // the trunk, h in registers
+      if (i == 0)
+        sm90::mma_layer<W, K1_STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, sm.full, sm.empty, q);
+      else if (i == skip + 1)
+        sm90::mma_layer<W, K1_STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, sm.full,
+                                                         sm.empty, q);
+      else
+        sm90::mma_layer<W, K1_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
+      sm90::epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
+    }
+    sm90::store_act<W>(act, s_h, warp, g, t);
+    bar_sync(bar, 128);
+    sm90::sigma_head(h, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
+
+    // base_remap, then rgb_0 on [base_remap | enc(dirs)] into h's first 128 columns
+    sm90::mma_layer<W, K1_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
+    sm90::epilogue<W, false>(acc, act, b + L.b[depth], nullptr, 0.0f, 0.0f, t);
+    sm90::mma_layer<HW, K1_STAGES, REGS, W, SMEM, KD>(acc, act, 0, s_ed, 0, ring, sm.full,
+                                                      sm.empty, q);
+    sm90::epilogue<HW, false>(acc, act, b + L.b[depth + 2], nullptr, 0.0f, 0.0f, t);
+    bar_sync(bar, 128);  // sigma_head has read h
+    sm90::store_act<HW>(act, s_h, warp, g, t);
+    bar_sync(bar, 128);
+
+    // rgb channel c of row r: sigmoid(wr1[c] . rf[r] + br1[c])
+    for (int idx = tid; idx < 3 * sm90::WG_ROWS; idx += 128) {
+      const int r = idx % sm90::WG_ROWS, c = idx / sm90::WG_ROWS;
+      if (p0 + r >= P) continue;
+      const float v = sm90::row_dot(h, HW / sm90::CK, w + L.w[depth + 3] + c * HW, r);
+      rgb[c * P + p0 + r] = 1.0f / (1.0f + expf(-(v + b[L.b[depth + 3] + c])));
+    }
+  }
 }
 
 }  // namespace
@@ -65,16 +152,32 @@ extern "C" int tgtc_nerf_mlp_fwd(const float* pts_t, const float* dirs_t,
                                  const long long* offsets, int depth, int skip,
                                  float* rgb, float* sigma, void* stream) {
   if (depth < 1 || depth + 4 > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  auto kernel = depth == 8 && skip == 4 ? nerf_fwd_kernel<8, 4> : nerf_fwd_kernel<0, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K1_SMEM);
   if (err != cudaSuccess) return (int)err;
   if (P == 0) return 0;
   const Layout L = make_layout(offsets, depth + 4);
-  const unsigned grid = (unsigned)((P + T - 1) / T);
-  nerf_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      pts_t, dirs_t, P, (const bf16*)w, b, L, depth, skip, rgb, sigma);
+  // the tensor-core layers: trunk 0..depth-1, base_remap, rgb_0
+  sm90::Maps maps;
+  sm90::Plan plan = {};
+  for (int i = 0; i <= depth + 1; ++i) {
+    const int mat = i < depth ? i : (i == depth ? depth : depth + 2);
+    plan.k[i] = i == 0 ? KC : (i == skip + 1 && i < depth ? KC + W : (i == depth + 1 ? W + KD : W));
+    plan.n[i] = i == depth + 1 ? HW : W;
+    if (!sm90::weight_map(&maps.m[i], w, L.w[mat], plan.n[i], plan.k[i]))
+      return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = (P + sm90::ROWS - 1) / sm90::ROWS;
+  const int grid = sm90::persistent_grid(tiles);
+  if (grid <= 0) return (int)cudaErrorInvalidDevice;
+  kernel<<<grid, sm90::THREADS, K1_SMEM, (cudaStream_t)stream>>>(
+      maps, plan, pts_t, dirs_t, P, (const bf16*)w, b, L, depth, skip, rgb, sigma);
   return (int)cudaGetLastError();
 }
+
+// K1's dynamic shared memory a block, in bytes.
+extern "C" int tgtc_nerf_mlp_fwd_smem() { return K1_SMEM; }
 
 extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
                                    const void* w, const float* b,

@@ -11,7 +11,7 @@
 //
 // Per point, at the one shape these kernels take (trunk D8/W256, skip 4,
 // L=10; style_d 8, style width 256, latent 32):
-//   trunk_sigma (nerf_trunk.cuh, the code of K1/K2) -> h, sigma;
+//   the trunk and sigma, K1's arithmetic -> h, sigma;
 //   base_remap = relu(h) in its own buffer;
 //   concat MLP, 5 layers: [enc(pts) | lat], then [cf | lat] with enc(pts)
 //     appended at layer index skip (the reference's column order);
@@ -34,61 +34,80 @@
 // per point); 982,528 for K5, as K2. Both far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
 //
-// Design (first, simple version): K1's. A block owns 64 points; eight warps
-// split every layer's 256 output columns over WMMA bf16 16x16x16 tiles,
-// weights streamed from L2 (the 2.8 MB packed buffer stays resident). Shared
-// memory (90,368 B): one activation buffer serves the trunk h, then the
-// concat features, then the style activations, each layer written in place;
-// base_remap keeps a second buffer until style layer 0; plus enc(pts), the
-// bf16 latents, their means and the epilogue scratch. Nothing but points,
-// latents, rgb and sigma touches device memory. K4 and K5 call the same
-// trunk_sigma, so their sigma is bitwise equal (and equal to K2's on the
-// same trunk weights).
+// K4 runs on the Hopper dense-layer engine (trunk_sm90.cuh), as K1:
+// persistent blocks over 128-point tiles, two consumer warpgroups of 64 rows,
+// wgmma m64n256k16 for all 21 tensor-core layers (trunk, base_remap, 5
+// concat, 7 style), the weights streamed by TMA through a ring of two 32 KB
+// slots. Per tile: enc(pts), the bf16 latents and their means into shared
+// memory, the trunk with h in registers, h to shared memory for sigma on
+// CUDA cores, base_remap into its own buffer (kept until style layer 0), the
+// concat and style layers with the previous layer's output in registers and
+// the other inputs as shared-memory segments in the reference's column
+// order (the latent's 32 columns a segment of their own, [base_remap | cf |
+// enc(pts)] at style layer 0), the rank-1 term in the style layers'
+// epilogue, the last style layer to shared memory for rgb_out on CUDA cores.
+// K5 keeps the first design (nerf_trunk.cuh's trunk_sigma, K2's code: 64
+// points a block, WMMA tiles, weights from L2), so K5's sigma is K2's bit
+// for bit; K4's trunk accumulates as theirs, so its sigma is too (phase 6 of
+// chip_smoke.py holds it).
+//
+// K4's shared memory (the 1 KB alignment slack on top): ring 2 x 32 KB =
+// 64 KB, h 64 KB, base_remap 64 KB, enc(pts) 16 KB, latents 16 KB (32 of 64
+// columns used), latent means 512 B, barriers 32 B: 230,944 B of the
+// 232,448 a block may have. Two slots is what fits beside base_remap.
 
-#include "nerf_trunk.cuh"
+#include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
 
 namespace {
 
 using namespace tgtc;
+using namespace hopper;
 
 constexpr int DEPTH = 8, SKIP = 4;
 constexpr int NCONCAT = 5;  // min(style_d - 1, skip + 1)
 constexpr int NSTYLE = 7;   // style_d - 1 hidden style layers
 constexpr int LAT = 32;
-constexpr int LDL = LAT + 8;
 // packed matrices: trunk 0..7, base_remap, sigma, concat, style, rgb_out
 constexpr int BR = DEPTH, CONCAT0 = DEPTH + 2, STYLE0 = CONCAT0 + NCONCAT;
 constexpr int RGB_OUT = STYLE0 + NSTYLE;
 constexpr int NMATS = RGB_OUT + 1;
 static_assert(NMATS <= MAX_LAYERS, "Layout holds the style matrices");
 
-constexpr int LAT_BYTES = T * LDL * 2;
-constexpr int LMEAN_BYTES = T * 4;
-constexpr int STYLE_SMEM = 2 * H_BYTES + EC_BYTES + LAT_BYTES + LMEAN_BYTES + SCRATCH_BYTES;
 constexpr int SIGMA_SMEM = H_BYTES + EC_BYTES + SCRATCH_BYTES;
-constexpr int NT = W / 16 / NWARPS;
+constexpr int NMMA = NMATS - 2;  // all but sigma and rgb_out run on the tensor cores
+static_assert(NMMA <= sm90::MAX_MMA, "the engine's maps hold K4's layers");
+constexpr int K4_STAGES = 2;
+
+struct K4Smem {
+  uint8_t ring[K4_STAGES][sm90::CHUNK_BYTES];
+  uint8_t h[4][sm90::BLK_BYTES];
+  uint8_t br[4][sm90::BLK_BYTES];
+  uint8_t ec[sm90::BLK_BYTES];
+  uint8_t lat[sm90::BLK_BYTES];
+  float lmean[sm90::ROWS];
+  uint64_t full[K4_STAGES], empty[K4_STAGES];
+};
+constexpr int K4_SMEM = (int)sizeof(K4Smem) + 1024;  // + the slack of the 1 KB alignment
+static_assert(K4_SMEM <= 232448, "K4's shared memory exceeds a block's 227 KB");
+
+// The packed matrix of tensor-core layer i (trunk, base_remap, concat,
+// style) and its input columns.
+__host__ __device__ constexpr int mma_mat(int i) { return i <= BR ? i : i + 1; }
+__host__ __device__ constexpr int mma_k(int i) {
+  return i == 0 ? KC
+       : i == SKIP + 1 ? KC + W
+       : i <= BR ? W
+       : i == BR + 1 ? KC + LAT
+       : i < BR + 1 + SKIP ? W + LAT
+       : i == BR + 1 + SKIP ? W + LAT + KC
+       : i == BR + 1 + NCONCAT ? 2 * W + KC
+       : i == BR + 1 + NCONCAT + SKIP ? W + KC
+       : W;
+}
 
 struct LatentSums {  // element offsets of the latent row sums in b
   long long off[NSTYLE + 1];
 };
-
-// ls[T, LDL] = bf16(lat[(p0 + p) / spr]) (zero past P); lmean[p] = the f32
-// mean of a point's bf16 latents. Ordered before their readers by the
-// trunk's first __syncthreads.
-__device__ void load_latents(const float* __restrict__ lat, long long P, long long p0,
-                             int spr, bf16* ls, float* lmean) {
-  for (int idx = threadIdx.x; idx < T * LAT; idx += NTHREADS) {
-    const int p = idx / LAT, k = idx % LAT;
-    const long long q = p0 + p;
-    ls[p * LDL + k] = __float2bfloat16(q < P ? lat[(q / spr) * LAT + k] : 0.0f);
-  }
-  __syncthreads();
-  if (threadIdx.x < T) {
-    float s = 0.0f;
-    for (int k = 0; k < LAT; ++k) s += __bfloat162float(ls[threadIdx.x * LDL + k]);
-    lmean[threadIdx.x] = s / (float)LAT;
-  }
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 style_sigma_kernel(const float* __restrict__ pts_t, long long P,
@@ -102,68 +121,123 @@ style_sigma_kernel(const float* __restrict__ pts_t, long long P,
   trunk_sigma(pts_t, P, p0, w, b, L, DEPTH, SKIP, h, ec, scratch, sigma, nullptr);
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-style_fwd_kernel(const float* __restrict__ pts_t, const float* __restrict__ lat,
-                 long long P, int spr, const bf16* __restrict__ w,
-                 const float* __restrict__ b, Layout L, LatentSums S,
-                 float* __restrict__ rgb, float* __restrict__ sigma) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  bf16* br = reinterpret_cast<bf16*>(smem + H_BYTES);
-  bf16* ec = reinterpret_cast<bf16*>(smem + 2 * H_BYTES);
-  bf16* ls = reinterpret_cast<bf16*>(smem + 2 * H_BYTES + EC_BYTES);
-  float* lmean = reinterpret_cast<float*>(smem + 2 * H_BYTES + EC_BYTES + LAT_BYTES);
-  float* scratch = reinterpret_cast<float*>(smem + 2 * H_BYTES + EC_BYTES + LAT_BYTES +
-                                            LMEAN_BYTES);
-  const long long p0 = (long long)blockIdx.x * T;
+// K4: persistent blocks over 128-point tiles (see the header).
+__global__ void __launch_bounds__(sm90::THREADS, 1)
+style_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
+                 const float* __restrict__ pts_t, const float* __restrict__ lat, long long P,
+                 int spr, const bf16* __restrict__ w, const float* __restrict__ b, Layout L,
+                 LatentSums S, float* __restrict__ rgb, float* __restrict__ sigma) {
+  extern __shared__ uint8_t smem_raw[];
+  K4Smem& sm = *reinterpret_cast<K4Smem*>(align_1k(smem_raw));
+  const long long ntiles = (P + sm90::ROWS - 1) / sm90::ROWS;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  sm90::init_ring<K4_STAGES>(sm.full, sm.empty);
 
-  load_latents(lat, P, p0, spr, ls, lmean);
-  trunk_sigma(pts_t, P, p0, w, b, L, DEPTH, SKIP, h, ec, scratch, sigma, nullptr);
-  Seg sr[1] = {{h, LDH, W, 0}};
-  gemm_bias_relu<NT>(sr, 1, w + L.w[BR], W, b + L.b[BR], br, LDH, scratch);
-
-  // concat MLP, in place over h
-  for (int i = 0; i < NCONCAT; ++i) {
-    const bf16* wi = w + L.w[CONCAT0 + i];
-    const float* bi = b + L.b[CONCAT0 + i];
-    if (i == 0) {
-      Seg s[2] = {{ec, LDC, KC, 0}, {ls, LDL, LAT, KC}};
-      gemm_bias_relu<NT>(s, 2, wi, KC + LAT, bi, h, LDH, scratch);
-    } else if (i == SKIP) {
-      Seg s[3] = {{h, LDH, W, 0}, {ls, LDL, LAT, W}, {ec, LDC, KC, W + LAT}};
-      gemm_bias_relu<NT>(s, 3, wi, W + LAT + KC, bi, h, LDH, scratch);
-    } else {
-      Seg s[2] = {{h, LDH, W, 0}, {ls, LDL, LAT, W}};
-      gemm_bias_relu<NT>(s, 2, wi, W + LAT, bi, h, LDH, scratch);
-    }
+  if (wg == sm90::CONSUMERS) {  // producer
+    setmaxnreg_dec<sm90::PRODUCER_REGS>();
+    if (tid == 0)
+      sm90::produce<K4_STAGES>(maps, plan, NMMA,
+                               (int)((ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x),
+                               sm.ring[0], sm.full, sm.empty);
+    return;
   }
+  setmaxnreg_inc<sm90::CONSUMER_REGS>();
+  const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3, bar = 1 + wg;
+  const int rows = wg * sm90::WG_BLK_BYTES;  // this consumer's rows of each block
+  uint8_t* h = sm.h[0] + rows;
+  uint8_t* ec = sm.ec + rows;
+  uint8_t* ls = sm.lat + rows;
+  float* lmean = sm.lmean + wg * sm90::WG_ROWS;
+  const uint32_t s_h = smem_u32(h), s_br = smem_u32(sm.br[0] + rows), s_ec = smem_u32(ec),
+                 s_lat = smem_u32(ls);
+  const uint32_t ring = smem_u32(sm.ring[0]);
+  float acc[128];
+  uint32_t act[64];  // the layer input's 256 columns as wgmma A fragments
+  uint32_t q = 0;    // chunks consumed
+  using sm90::REGS;
+  using sm90::SMEM;
 
-  // style MLP, in place over h, with the rank-1 latent term
-  for (int i = 0; i < NSTYLE; ++i) {
-    const bf16* wi = w + L.w[STYLE0 + i];
-    const float* bi = b + L.b[STYLE0 + i];
-    const float* li = b + S.off[i];
-    if (i == 0) {
-      Seg s[3] = {{br, LDH, W, 0}, {h, LDH, W, W}, {ec, LDC, KC, 2 * W}};
-      gemm_bias_relu<NT, true>(s, 3, wi, 2 * W + KC, bi, h, LDH, scratch, li, lmean);
-    } else if (i == SKIP) {
-      Seg s[2] = {{h, LDH, W, 0}, {ec, LDC, KC, W}};
-      gemm_bias_relu<NT, true>(s, 2, wi, W + KC, bi, h, LDH, scratch, li, lmean);
-    } else {
-      Seg s[1] = {{h, LDH, W, 0}};
-      gemm_bias_relu<NT, true>(s, 1, wi, W, bi, h, LDH, scratch, li, lmean);
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
+    sm90::encode(pts_t, P, p0, FC, KC, ec, tid);
+    // bf16(lat[(p0 + p) / spr]) (zero past P), then the f32 mean of each
+    // point's bf16 latents
+    for (int idx = tid; idx < sm90::WG_ROWS * LAT; idx += 128) {
+      const int p = idx / LAT, k = idx % LAT;
+      const long long pq = p0 + p;
+      *reinterpret_cast<bf16*>(ls + sm90::sw(p, k)) =
+          __float2bfloat16(pq < P ? lat[(pq / spr) * LAT + k] : 0.0f);
     }
-  }
+    bar_sync(bar, 128);
+    if (tid < sm90::WG_ROWS) {
+      float s = 0.0f;
+      for (int k = 0; k < LAT; ++k)
+        s += __bfloat162float(*reinterpret_cast<const bf16*>(ls + sm90::sw(tid, k)));
+      lmean[tid] = s / (float)LAT;
+    }
+    fence_proxy_async();
+    bar_sync(bar, 128);
+    const float lm0 = lmean[warp * 16 + g], lm1 = lmean[warp * 16 + g + 8];
 
-  // rgb_out: threads 0..2 of each group of four write one point's rgb
-  const int p = threadIdx.x / 4, c = threadIdx.x % 4;
-  if (c < 3 && p0 + p < P) {
-    const bf16* wo = w + L.w[RGB_OUT] + c * W;
-    float acc = 0.0f;
-    for (int k = 0; k < W; ++k)
-      acc = fmaf(__bfloat162float(wo[k]), __bfloat162float(h[p * LDH + k]), acc);
-    const float v = acc + b[S.off[NSTYLE] + c] * lmean[p] + b[L.b[RGB_OUT] + c];
-    rgb[c * P + p0 + p] = 1.0f / (1.0f + expf(-v));
+    for (int i = 0; i < DEPTH; ++i) {  // the trunk, h in registers
+      if (i == 0)
+        sm90::mma_layer<W, K4_STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, sm.full, sm.empty, q);
+      else if (i == SKIP + 1)
+        sm90::mma_layer<W, K4_STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, sm.full,
+                                                         sm.empty, q);
+      else
+        sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
+      sm90::epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
+    }
+    sm90::store_act<W>(act, s_h, warp, g, t);
+    bar_sync(bar, 128);
+    sm90::sigma_head(h, w + L.w[BR + 1], b[L.b[BR + 1]], P, p0, sigma, tid);
+
+    // base_remap into its own buffer, kept until style layer 0
+    sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
+    sm90::epilogue<W, false>(acc, act, b + L.b[BR], nullptr, 0.0f, 0.0f, t);
+    sm90::store_act<W>(act, s_br, warp, g, t);
+    fence_proxy_async();
+
+    // the concat MLP: [enc(pts) | lat], [cf | lat] ..., [cf | lat | enc(pts)] at the skip
+    sm90::mma_layer<W, K4_STAGES, SMEM, KC, SMEM, LAT>(acc, act, s_ec, s_lat, 0, ring, sm.full,
+                                                       sm.empty, q);
+    sm90::epilogue<W, false>(acc, act, b + L.b[CONCAT0], nullptr, 0.0f, 0.0f, t);
+    for (int c = 1; c < NCONCAT; ++c) {
+      if (c == SKIP)
+        sm90::mma_layer<W, K4_STAGES, REGS, W, SMEM, LAT, SMEM, KC>(acc, act, 0, s_lat, s_ec,
+                                                                    ring, sm.full, sm.empty, q);
+      else
+        sm90::mma_layer<W, K4_STAGES, REGS, W, SMEM, LAT>(acc, act, 0, s_lat, 0, ring, sm.full,
+                                                          sm.empty, q);
+      sm90::epilogue<W, false>(acc, act, b + L.b[CONCAT0 + c], nullptr, 0.0f, 0.0f, t);
+    }
+
+    // the style MLP with the rank-1 latent term: [base_remap | cf | enc(pts)],
+    // then [s], with enc(pts) appended at the skip
+    bar_sync(bar, 128);  // base_remap is in shared memory
+    sm90::mma_layer<W, K4_STAGES, SMEM, W, REGS, W, SMEM, KC>(acc, act, s_br, 0, s_ec, ring,
+                                                              sm.full, sm.empty, q);
+    sm90::epilogue<W, true>(acc, act, b + L.b[STYLE0], b + S.off[0], lm0, lm1, t);
+    for (int s = 1; s < NSTYLE; ++s) {
+      if (s == SKIP)
+        sm90::mma_layer<W, K4_STAGES, REGS, W, SMEM, KC>(acc, act, 0, s_ec, 0, ring, sm.full,
+                                                         sm.empty, q);
+      else
+        sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
+      sm90::epilogue<W, true>(acc, act, b + L.b[STYLE0 + s], b + S.off[s], lm0, lm1, t);
+    }
+    sm90::store_act<W>(act, s_h, warp, g, t);
+    bar_sync(bar, 128);
+
+    // rgb channel c of row r: sigmoid(w_out[c] . s[r] + lsum_out[c] mean + b_out[c])
+    for (int idx = tid; idx < 3 * sm90::WG_ROWS; idx += 128) {
+      const int r = idx % sm90::WG_ROWS, c = idx / sm90::WG_ROWS;
+      if (p0 + r >= P) continue;
+      const float acc_c = sm90::row_dot(h, W / sm90::CK, w + L.w[RGB_OUT] + c * W, r);
+      const float v = acc_c + b[S.off[NSTYLE] + c] * lmean[r] + b[L.b[RGB_OUT] + c];
+      rgb[c * P + p0 + r] = 1.0f / (1.0f + expf(-v));
+    }
   }
 }
 
@@ -178,17 +252,30 @@ extern "C" int tgtc_style_fwd(const float* pts_t, const float* lat, long long P,
                               float* rgb, float* sigma, void* stream) {
   if (spr < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      style_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STYLE_SMEM);
+      style_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K4_SMEM);
   if (err != cudaSuccess) return (int)err;
   if (P == 0) return 0;
   const Layout L = make_layout(offsets, NMATS);
   LatentSums S;
   for (int i = 0; i <= NSTYLE; ++i) S.off[i] = offsets[2 * NMATS + i];
-  const unsigned grid = (unsigned)((P + T - 1) / T);
-  style_fwd_kernel<<<grid, NTHREADS, STYLE_SMEM, (cudaStream_t)stream>>>(
-      pts_t, lat, P, spr, (const bf16*)w, b, L, S, rgb, sigma);
+  sm90::Maps maps;
+  sm90::Plan plan = {};
+  for (int i = 0; i < NMMA; ++i) {
+    plan.k[i] = mma_k(i);
+    plan.n[i] = W;
+    if (!sm90::weight_map(&maps.m[i], w, L.w[mma_mat(i)], W, plan.k[i]))
+      return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = (P + sm90::ROWS - 1) / sm90::ROWS;
+  const int grid = sm90::persistent_grid(tiles);
+  if (grid <= 0) return (int)cudaErrorInvalidDevice;
+  style_fwd_kernel<<<grid, sm90::THREADS, K4_SMEM, (cudaStream_t)stream>>>(
+      maps, plan, pts_t, lat, P, spr, (const bf16*)w, b, L, S, rgb, sigma);
   return (int)cudaGetLastError();
 }
+
+// K4's dynamic shared memory a block, in bytes.
+extern "C" int tgtc_style_fwd_smem() { return K4_SMEM; }
 
 extern "C" int tgtc_style_sigma(const float* pts_t, long long P, const void* w,
                                 const float* b, const long long* offsets, float* sigma,

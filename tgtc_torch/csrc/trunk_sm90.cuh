@@ -1,0 +1,335 @@
+// Dense-layer engine for Hopper (sm_90a), shared by K1 (nerf_mlp.cu) and
+// K4 (style_kernel.cu): persistent blocks that run a chain of 256- or
+// 128-wide bf16 layers on tiles of 128 points with wgmma, the weights
+// streamed by TMA through a ring of mbarrier slots.
+//
+// What bounds the kernels on it: operations (K1 1,186,816 and K4 2,898,944
+// FLOP a point against at most 156 bytes of point I/O). Between the first
+// design (nerf_trunk.cuh) and the tensor cores stood mma.sync fragments
+// loaded by every warp from L2 at every k step, and the weights re-read
+// from L2 for every 64-point tile (39 GB a K1 launch at 16,384 x 128
+// points). The engine's answer:
+//
+// * One block of 384 threads per SM walks over tiles of ROWS = 128 points
+//   (tile = blockIdx.x, += gridDim.x). Warpgroups 0 and 1 are consumers,
+//   each owning 64 rows of the tile through every layer; warpgroup 2 is the
+//   producer, whose first thread issues every TMA load. setmaxnreg gives
+//   the consumers 232 registers and the producer 40 (128 x 40 + 256 x 232 =
+//   384 x 168: the producer's release covers the consumers' growth).
+// * Weights: each layer's packed matrix, row-major [N, K] bf16 (K-major B
+//   as wgmma wants it), has its own 2-D tensor map with boxes of 64 columns
+//   x N rows (32 KB at N = 256) and the 128-byte swizzle. The producer
+//   streams every layer's K in chunks of 64 columns through a ring of
+//   STAGES slots on full/empty mbarriers, layer after layer and tile after
+//   tile, so the next layer's weights arrive while the consumers finish a
+//   layer. Both consumers read every chunk, so each weight byte is read from
+//   L2 once per 128 points (half the first design's traffic). A chunk that
+//   runs past K arrives zero-filled (TMA's out-of-bounds fill) and its
+//   steps past K are not issued.
+// * Activations pass from layer to layer in registers: a consumer's 64 rows
+//   of a 256-wide layer output are 64 registers a thread of bf16 pairs in
+//   the wgmma A layout (the accumulator's layout repacked, as K6's P), so the
+//   next layer's wgmma m64n256k16 (m64n128k16 at N = 128) takes A from
+//   registers and B from the ring. Inputs that do not come from the previous
+//   layer (enc(pts), enc(dirs), the latents, K4's base_remap) sit in shared
+//   memory in the swizzled K-major A layout: 64-column blocks of ROWS x 128 B
+//   (16 KB), element (row, col) at row * 128 + ((col / 8) ^ (row % 8)) * 16 +
+//   (col % 8) * 2, each consumer's 64 rows at 8 KB into a block. A layer's
+//   input is a list of up to three segments fixed at compile time (the
+//   reference's column order, e.g. [enc(pts) | h]), and every k step of 16
+//   columns is one wgmma on its segment, so no input is copied to
+//   concatenate it. With the activations in registers a layer needs no
+//   barrier: a consumer syncs with itself (named barrier 1 + its index) only
+//   where shared memory changes hands, once or twice a tile.
+// * The epilogue runs in registers: (rank-1 latent term,) bias, ReLU and a
+//   bf16 round, in the order of nerf_trunk.cuh's gemm_bias_relu, straight
+//   into the next layer's A fragments. Only the outputs that CUDA-core heads
+//   or a later layer read from shared memory are stored there (st.shared:
+//   the 1 KB alignment arithmetic hides the space from the compiler).
+// * Small heads run on CUDA cores in a fixed order: sigma (256 -> 1) as
+//   nerf_trunk.cuh's trunk_sigma sums it (two threads a point, four
+//   64-column partials, one shuffle), rgb (128 or 256 -> 3) one thread per
+//   point and channel.
+//
+// Packed weights and biases follow nerf_trunk.cuh (Layout); every matrix
+// starts 32-byte aligned and K is a multiple of 16, so each row is a
+// multiple of 16 bytes, as TMA requires.
+
+#pragma once
+
+#include "hopper.cuh"
+#include "nerf_trunk.cuh"  // Layout, make_layout, the encoding constants
+
+namespace tgtc {
+namespace sm90 {
+
+using namespace hopper;
+
+constexpr int ROWS = 128;        // points per tile
+constexpr int WG_ROWS = 64;      // rows per consumer warpgroup
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int CK = 64;                           // weight columns per chunk (128 B)
+constexpr int CHUNK_BYTES = 256 * CK * 2;        // one ring slot: 256 rows x 64 columns
+constexpr int BLK_BYTES = ROWS * CK * 2;         // one 64-column activation block
+constexpr int WG_BLK_BYTES = WG_ROWS * CK * 2;   // a consumer's rows of a block
+constexpr int MAX_MMA = 22;                      // tensor-core layers of one kernel
+
+// Tensor maps of the layers on the tensor cores, in the order they run.
+struct Maps {
+  CUtensorMap m[MAX_MMA];
+};
+
+// Columns (K) and rows (N) of those layers.
+struct Plan {
+  int k[MAX_MMA];
+  int n[MAX_MMA];
+};
+
+__host__ __device__ constexpr int chunks(int k) { return (k + CK - 1) / CK; }
+
+// Where a segment of a layer's input lives: shared memory (swizzled
+// 64-column blocks), or this consumer's registers (the previous layer's
+// output as wgmma A fragments, `act`).
+enum SegKind { NONE = 0, SMEM = 1, REGS = 2 };
+
+// Block start: full[s] completes on the producer's arrival and its TMA
+// bytes, empty[s] on one arrival per consumer warp.
+template <int STAGES>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer: every chunk of every layer of every tile this block runs,
+// in the consumers' order.
+template <int STAGES>
+__device__ __forceinline__ void produce(const Maps& maps, const Plan& plan, int layers,
+                                        int tiles, uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty) {
+  uint32_t q = 0;
+  for (int t = 0; t < tiles; ++t)
+    for (int l = 0; l < layers; ++l)
+      for (int c = 0; c < chunks(plan.k[l]); ++c, ++q) {
+        const uint32_t s = q % STAGES;
+        if (q >= STAGES) mbar_wait(&empty[s], (q / STAGES - 1) & 1);
+        mbar_expect(&full[s], plan.n[l] * CK * 2);
+        tma_load_2d(ring + s * CHUNK_BYTES, &maps.m[l], &full[s], c * CK, 0);
+      }
+}
+
+// acc[0 .. N/2) = this consumer's 64 rows of input @ W^T for the layer whose
+// chunks come next in the ring (chunk counter q). The input is up to three
+// segments (kind, columns) in the packed matrix's column order, fixed at
+// compile time; shared-memory segments start at at0..at2 (this consumer's
+// rows of their first block). Every k step of 16 columns is one wgmma: A from
+// `act` (registers) or from shared memory, B from the chunk. Steps past K
+// are not issued (the chunk's zero fill is never read).
+template <int N, int STAGES, int KIND0, int C0, int KIND1 = NONE, int C1 = 0, int KIND2 = NONE,
+          int C2 = 0>
+__device__ __forceinline__ void mma_layer(float (&acc)[128], const uint32_t (&act)[64],
+                                          uint32_t at0, uint32_t at1, uint32_t at2,
+                                          uint32_t ring, uint64_t* full, uint64_t* empty,
+                                          uint32_t& q) {
+  constexpr int K = C0 + C1 + C2;
+  wg_fence();
+#pragma unroll
+  for (int c = 0; c < chunks(K); ++c, ++q) {
+    const uint32_t s = q % STAGES;
+    mbar_wait(&full[s], (q / STAGES) & 1);
+    __syncwarp();  // converged again for the .aligned wgmma instructions
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const int col = c * CK + kk * 16;  // constants once unrolled
+      if (col >= K) continue;
+      const int seg = col < C0 ? 0 : (col < C0 + C1 ? 1 : 2);
+      const int kind = seg == 0 ? KIND0 : (seg == 1 ? KIND1 : KIND2);
+      const int cs = col - (seg == 0 ? 0 : (seg == 1 ? C0 : C0 + C1));
+      const uint64_t db = sw128_desc_at(ring + s * CHUNK_BYTES + kk * 32, 1);
+      if (kind == REGS) {
+        const int r = 4 * (cs / 16);
+        if constexpr (N == 256)
+          wgmma_rs_n256(acc, act[r], act[r + 1], act[r + 2], act[r + 3], db, col > 0);
+        else
+          wgmma_rs_n128(acc, act[r], act[r + 1], act[r + 2], act[r + 3], db, col > 0);
+      } else {
+        const uint32_t at =
+            (seg == 0 ? at0 : (seg == 1 ? at1 : at2)) + (cs / CK) * BLK_BYTES + (cs % CK) * 2;
+        if constexpr (N == 256)
+          wgmma_ss_n256(acc, sw128_desc_at(at, 1), db, col > 0);
+        else
+          wgmma_ss_n128(acc, sw128_desc_at(at, 1), db, col > 0);
+      }
+    }
+    wg_commit();
+    if (c > 0) {
+      wg_wait<1>();
+      release(&empty[(q - 1) % STAGES]);
+    }
+  }
+  wg_wait<0>();
+  reg_fence(acc);
+  release(&empty[(q - 1) % STAGES]);
+}
+
+// The A fragments of accumulator n8 group j (columns 8 j .. 8 j + 7) for
+// the thread's rows g and g + 8: k step j / 2, registers 2 (j % 2) and + 1.
+__host__ __device__ constexpr int act_at(int j) { return 4 * (j / 2) + 2 * (j % 2); }
+
+// act = bf16(relu(acc (+ lsum[n] lm) + bias[n])) as the next layer's A
+// fragments; lm0 and lm1 are the rank-1 scalars of the thread's rows (warp *
+// 16 + g and + 8). The operations and their order are those of
+// nerf_trunk.cuh's gemm_bias_relu.
+template <int N, bool RANK1>
+__device__ __forceinline__ void epilogue(const float (&acc)[128], uint32_t (&act)[64],
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ lsum, float lm0, float lm1,
+                                         int t) {
+  const float* bt = bias + 2 * t;
+  const float* lt = RANK1 ? lsum + 2 * t : nullptr;
+  asm("" : "+l"(bt), "+l"(lt));  // one base a thread, so the loads take immediate offsets
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = 8 * j;
+    float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+    if constexpr (RANK1) {
+      const float l0 = __ldg(lt + col), l1 = __ldg(lt + col + 1);
+      v[0] = fmaf(l0, lm0, v[0]);
+      v[1] = fmaf(l1, lm0, v[1]);
+      v[2] = fmaf(l0, lm1, v[2]);
+      v[3] = fmaf(l1, lm1, v[3]);
+    }
+    const float b0 = __ldg(bt + col), b1 = __ldg(bt + col + 1);
+    act[act_at(j)] = pack_bf16(fmaxf(v[0] + b0, 0.0f), fmaxf(v[1] + b1, 0.0f));
+    act[act_at(j) + 1] = pack_bf16(fmaxf(v[2] + b0, 0.0f), fmaxf(v[3] + b1, 0.0f));
+  }
+}
+
+// The first N columns of `act` into this consumer's rows of the 64-column
+// blocks at shared address `dst`, swizzled.
+template <int N>
+__device__ __forceinline__ void store_act(const uint32_t (&act)[64], uint32_t dst, int warp,
+                                          int g, int t) {
+  const uint32_t row0 = dst + (warp * 16 + g) * 128 + t * 4;  // rows r0 and r0 + 8: r0 % 8 == g
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const uint32_t at = row0 + (j / 8) * BLK_BYTES + (((j % 8) ^ g) << 4);
+    st_shared_b32(at, act[act_at(j)]);
+    st_shared_b32(at + 8 * 128, act[act_at(j) + 1]);
+  }
+}
+
+// Element (row, col) of a swizzled block at a consumer's rows.
+__device__ __forceinline__ int sw(int row, int col) {
+  return row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
+}
+
+// This consumer's 64 rows of bf16([x, sin(2^0 x), cos(2^0 x), ..., 0 pad]),
+// kpad columns, at `blk` (nerf_trunk.cuh's encode); points past P encode 0.
+__device__ __forceinline__ void encode(const float* __restrict__ x_t, long long P,
+                                       long long p0, int nfreq, int kpad, uint8_t* blk,
+                                       int tid) {
+  const int nfeat = 3 + 6 * nfreq;
+  for (int idx = tid; idx < WG_ROWS * kpad; idx += 128) {
+    const int p = idx / kpad, f = idx % kpad;
+    const long long q = p0 + p;
+    float v = 0.0f;
+    if (f < nfeat && q < P) {
+      if (f < 3) {
+        v = x_t[f * P + q];
+      } else {
+        const int gi = f - 3, k = gi / 6, d = gi % 3;
+        const float arg = x_t[d * P + q] * (float)(1 << k);
+        v = ((gi % 6) < 3) ? sinf(arg) : cosf(arg);
+      }
+    }
+    *reinterpret_cast<bf16*>(blk + sw(p, f)) = __float2bfloat16(v);
+  }
+}
+
+// Eight bf16 of row `row` of a swizzled block, columns 8 cb .. 8 cb + 7.
+__device__ __forceinline__ uint4 row8(const uint8_t* blk, int row, int cb) {
+  return *reinterpret_cast<const uint4*>(blk + row * 128 + ((cb ^ (row & 7)) << 4));
+}
+
+// acc = fma over the 8 columns of a row8 against 8 weights, in column order.
+__device__ __forceinline__ float dot8(uint4 a, uint4 w, float acc) {
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&a);
+  const __nv_bfloat16* y = reinterpret_cast<const __nv_bfloat16*>(&w);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc = fmaf(__bfloat162float(y[e]), __bfloat162float(x[e]), acc);
+  return acc;
+}
+
+// sigma = wsig . h + bsig for this consumer's 64 rows of the 256-wide h
+// (four blocks): two threads a point, each two 64-column partials summed in
+// column order, then (p0 + p1) + (p2 + p3), as nerf_trunk.cuh's trunk_sigma,
+// so that the same h gives the same sigma bit for bit.
+__device__ __forceinline__ void sigma_head(const uint8_t* h, const bf16* __restrict__ wsig,
+                                           float bsig, long long P, long long p0,
+                                           float* __restrict__ sigma, int tid) {
+  const int r = tid / 2, half = tid % 2;
+  float part[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int blk = 2 * half + i;
+    float acc = 0.0f;
+#pragma unroll
+    for (int cb = 0; cb < 8; ++cb)
+      acc = dot8(row8(h + blk * BLK_BYTES, r, cb),
+                 __ldg(reinterpret_cast<const uint4*>(wsig + blk * CK + cb * 8)), acc);
+    part[i] = acc;
+  }
+  float s = part[0] + part[1];
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  if (half == 0 && p0 + r < P) sigma[p0 + r] = s + bsig;
+}
+
+// acc = w[c] . x[row] over `blocks` 64-column blocks, in column order.
+__device__ __forceinline__ float row_dot(const uint8_t* x, int blocks, const bf16* __restrict__ w,
+                                         int row) {
+  float acc = 0.0f;
+  for (int blk = 0; blk < blocks; ++blk)
+#pragma unroll
+    for (int cb = 0; cb < 8; ++cb)
+      acc = dot8(row8(x + blk * BLK_BYTES, row, cb),
+                 __ldg(reinterpret_cast<const uint4*>(w + blk * CK + cb * 8)), acc);
+  return acc;
+}
+
+// ------------------------------------------------------------ host side
+
+// The tensor map of a packed [n, k] bf16 matrix at element offset `off` of
+// `w`: boxes of 64 columns x n rows, 128-byte swizzle, zeros past k.
+inline bool weight_map(CUtensorMap* map, const void* w, long long off, int n, int k) {
+  static const EncodeTiled encode = encode_fn();
+  if (!encode || n < 1 || n > 256 || k % 16 != 0) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)k, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)k * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)CK, (cuuint32_t)n}, ones[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<bf16*>(static_cast<const bf16*>(w) + off), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Blocks of a persistent launch over `tiles` tiles: one per SM at most.
+inline int persistent_grid(long long tiles) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return (int)(tiles < sms ? tiles : sms);
+}
+
+}  // namespace sm90
+}  // namespace tgtc

@@ -276,6 +276,8 @@ def _nerf_lib() -> ctypes.CDLL:
     lib.tgtc_nerf_mlp_fwd.restype = i
     lib.tgtc_nerf_mlp_sigma.argtypes = [vp, ll, vp, vp, vp, i, i, vp, vp]
     lib.tgtc_nerf_mlp_sigma.restype = i
+    lib.tgtc_nerf_mlp_fwd_smem.argtypes = []
+    lib.tgtc_nerf_mlp_fwd_smem.restype = i
     return lib
 
 

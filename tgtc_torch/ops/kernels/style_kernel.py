@@ -277,6 +277,8 @@ def _style_lib() -> ctypes.CDLL:
     lib.tgtc_style_fwd.restype = i
     lib.tgtc_style_sigma.argtypes = [vp, ll, vp, vp, vp, vp, vp]
     lib.tgtc_style_sigma.restype = i
+    lib.tgtc_style_fwd_smem.argtypes = []
+    lib.tgtc_style_fwd_smem.restype = i
     return lib
 
 
