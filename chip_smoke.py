@@ -8,17 +8,22 @@ started together), then:
 
 0. prints the card (name, power limit), the torch/CUDA versions, the
    kernel build time and ptxas's report of every kernel (registers,
-   barriers, spills, wgmma notes) with K1's and K4's dynamic shared memory;
-1. kernels: runs K1/K2 on random full-width weights (He init, numpy seed
-   0, D8/W256) against their plain PyTorch twins (rgb <= 3e-2, sigma <=
-   2e-1, K2 sigma == K1 sigma and a second K1 launch bit for bit) at P =
-   2,097,152 + 300 and at P = 1, 127, 129 and 132 x 128 + 17 (cutting K1's
-   128-point tiles and wrapping its persistent loop over 132 SMs), and times
-   each at the main path's shapes (K1 P = 16384 rays x 128 samples, K2
-   P = 16384 x 64) by CUDA events and by the profiler's device time, beside
-   its bound (and the share of it reached), its twin and, for orientation
-   only, the same layer chain as bf16 torch.addmm calls (events and device
-   time);
+   barriers, spills, wgmma notes) with the dynamic shared memory of K1, K2,
+   K4 and K5;
+1. kernels: runs K1/K2 (both on the Hopper dense-layer engine of
+   tgtc_torch/csrc/trunk_sm90.cuh and its one trunk function; K2 is the
+   engine's sigma-only kernel) on random full-width weights (He init, numpy
+   seed 0, D8/W256) against their plain PyTorch twins (rgb <= 3e-2, sigma
+   <= 2e-1, K2 sigma == K1 sigma, and second K1 and K2 launches, bit for
+   bit) at P = 2,097,152 + 300 and at P = 1, 127, 129 and 132 x 128 + 17
+   (cutting the engine's 128-point tiles and wrapping its persistent loop
+   over 132 SMs), then at depth 6 with skip 2 (their run-time depth
+   builds: twins, K2 == K1, repeats) at P = 129 and 132 x 128 + 17, and
+   times each at the main path's shapes (K1 P = 16384 rays x 128 samples,
+   K2 P = 16384 x 64) by CUDA events and by the profiler's device time,
+   beside its bound (and the share of it reached), its twin and, for
+   orientation only, the same layer chain as bf16 torch.addmm calls
+   (events and device time);
 2. main path: renders a fern-shaped 756x1008 NDC frame with
    FusedNerfRenderer(coarse_rgb=False), 64+64 samples, 16384-ray blocks,
    three times after a warm-up frame; launch counts are zeroed just before
@@ -52,15 +57,16 @@ started together), then:
 5. Phase B from the trained weights: writes a 2-view 756x1008 synthetic
    LLFF scene, loads it and runs dump_geometry; every artifact must exist
    and coor_map be finite;
-6. style kernels: K4/K5 on random fern-width weights (the K1/K2 trunk, He
-   style MLPs, numpy seed 0) with per-point latents against their twins
-   (rgb <= 3e-2, sigma <= 2e-1), with three sigmas bitwise equal (K5 and
-   K4, K5 and K2 on the same trunk, two K4 launches), at P = 2,097,152 +
-   300 and at phase 1's tile-cutting P, and with 128 samples per ray at 128
-   and 133 x 128 points; then each held against its twin again (same
-   bounds) on the stylized frame's arguments (K4 P = 16384 rays x 128
-   samples with per-ray latents, distinct random rows, K5 P = 16384 x 64)
-   and timed there as in phase 1;
+6. style kernels: K4/K5 (on the same engine: K4 the trunk and the style
+   layers, K5 the sigma-only kernel on K4's packing) on random fern-width
+   weights (the K1/K2 trunk, He style MLPs, numpy seed 0) with per-point
+   latents against their twins (rgb <= 3e-2, sigma <= 2e-1), with sigmas
+   bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4 launches,
+   two K5 launches), at P = 2,097,152 + 300 and at phase 1's tile-cutting
+   P, and with 128 samples per ray at 128 and 133 x 128 points; then each
+   held against its twin again (same bounds) on the stylized frame's
+   arguments (K4 P = 16384 rays x 128 samples with per-ray latents,
+   distinct random rows, K5 P = 16384 x 64) and timed there as in phase 1;
 7. Phase F from the trained trunks, with seeded style MLPs and a 1-style
    latent table: stylized 756x1008 NDC frames at the scene's spiral poses
    through FusedStyleRenderer(coarse_rgb=False), 64+64 samples, 16384-ray
@@ -265,10 +271,17 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# Point counts that cut the Hopper engine's 128-point tiles (K1, K4:
+# Point counts that cut the Hopper engine's 128-point tiles (K1, K2, K4, K5:
 # csrc/trunk_sm90.cuh) and wrap its persistent loop (133 tiles on 132 SMs).
 ENGINE_TILE = 128
 ENGINE_P = (1, ENGINE_TILE - 1, ENGINE_TILE + 1, 132 * ENGINE_TILE + 17)
+# What each kernel on the engine runs (the kernels line's "design").
+ENGINE_DESIGN = {
+    "K1": "Hopper engine csrc/trunk_sm90.cuh: trunk_tile, then base_remap, rgb_0 and rgb",
+    "K2": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel (trunk_tile and the sigma head)",
+    "K4": "Hopper engine csrc/trunk_sm90.cuh: trunk_tile, then base_remap, concat and style",
+    "K5": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel on K4's packing",
+}
 
 
 def timed(fn, iters: int):
@@ -358,13 +371,15 @@ def phase_kernels(ks, sd_c):
         rgb, sigma = ks.fused_nerf_apply_t(packed, pt, dr)
         rgb2, sigma2 = ks.fused_nerf_apply_t(packed, pt, dr)
         sigma_k2 = ks.fused_nerf_sigma_apply_t(packed, pt)
+        sigma_k2b = ks.fused_nerf_sigma_apply_t(packed, pt)
         torch.cuda.synchronize()
         rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pt, dr)
         sigma_k2_p = ks.fused_nerf_sigma_apply_t_plain(packed, pt)
         e1 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
         e2 = float((sigma_k2 - sigma_k2_p).abs().max())
         same = {"K1 = K1": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
-                "K2 = K1": torch.equal(sigma, sigma_k2)}
+                "K2 = K1": torch.equal(sigma, sigma_k2),
+                "K2 = K2": torch.equal(sigma_k2, sigma_k2b)}
         print(f"[kernels] P={n}: K1 max|rgb err| {e1[0]:.3e} max|sigma err| {e1[1]:.3e}; K2 "
               f"max|sigma err| {e2:.3e}; |sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
               + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
@@ -375,7 +390,8 @@ def phase_kernels(ks, sd_c):
         check(all(same.values()), f"sigma or a repeat not bitwise equal at P={n}: {same}")
         err = {"K1": tuple(max(a, b) for a, b in zip(err["K1"], e1)),
                "K2": (0.0, max(err["K2"][1], e2))}
-        del rgb, sigma, rgb2, sigma2, sigma_k2, rgb_p, sigma_p, sigma_k2_p
+        del rgb, sigma, rgb2, sigma2, sigma_k2, sigma_k2b, rgb_p, sigma_p, sigma_k2_p
+    phase_runtime_depth(ks, pts, dirs)
 
     rows = []
     for name, fn, twin, n in (("K1", ks.fused_nerf_apply_t, ks.fused_nerf_apply_t_plain, P_K1),
@@ -400,6 +416,7 @@ def phase_kernels(ks, sd_c):
                          else "tgtc/ops/pallas/nerf_mlp.py:316"),
             "wrapper": ("tgtc_torch.ops.kernels.nerf_mlp." +
                         ("fused_nerf_apply_t" if name == "K1" else "fused_nerf_sigma_apply_t")),
+            "design": ENGINE_DESIGN[name],
             "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
             "max_abs_err_rgb": err[name][0] if name == "K1" else None,
             "max_abs_err_sigma": err[name][1],
@@ -408,6 +425,36 @@ def phase_kernels(ks, sd_c):
             "matmul_chain_ms": chain_ms, "matmul_chain_device_ms": chain_dev,
         })
     return rows
+
+
+def phase_runtime_depth(ks, pts, dirs, depth=6, skip=2):
+    """K1 and K2 at a depth and skip other than the configs' (their run-time
+    depth builds, off the main path): each against its twin, K2 = K1 and
+    both repeats bit for bit, at a tile cut and at the persistent wrap."""
+    from tgtc_torch.convert import nerf_state_dict_from_flax
+
+    sd = nerf_state_dict_from_flax(he_params(np.random.default_rng(6), depth=depth, skip=skip))
+    packed = ks.pack_nerf_params(sd, depth=depth, skip=skip, device="cuda")
+    for n in (ENGINE_TILE + 1, 132 * ENGINE_TILE + 17):
+        pt, dr = pts[:, :n].contiguous(), dirs[:, :n].contiguous()
+        rgb, sigma = ks.fused_nerf_apply_t(packed, pt, dr)
+        rgb2, sigma2 = ks.fused_nerf_apply_t(packed, pt, dr)
+        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed, pt)
+        sigma_k2b = ks.fused_nerf_sigma_apply_t(packed, pt)
+        torch.cuda.synchronize()
+        rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pt, dr)
+        e1 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
+        e2 = float((sigma_k2 - ks.fused_nerf_sigma_apply_t_plain(packed, pt)).abs().max())
+        same = {"K1 = K1": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
+                "K2 = K1": torch.equal(sigma, sigma_k2),
+                "K2 = K2": torch.equal(sigma_k2, sigma_k2b)}
+        print(f"[kernels] depth {depth} skip {skip} P={n}: K1 max|rgb err| {e1[0]:.3e} "
+              f"max|sigma err| {e1[1]:.3e}; K2 max|sigma err| {e2:.3e}; bitwise: "
+              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
+        check(e1[0] <= TOL_RGB and e1[1] <= TOL_SIGMA and e2 <= TOL_SIGMA,
+              f"K1 or K2 at depth {depth} disagrees with its twin at P={n}")
+        check(all(same.values()), f"depth {depth}: sigma or a repeat not bitwise equal at "
+                                  f"P={n}: {same}")
 
 
 def fern_camera():
@@ -855,7 +902,8 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
     """K4/K5 against their twins at P = 2^21 + 300 and at the engine's
     tile-cutting P (samples per ray 1, and 128 at one and 133 tiles), with
     sigmas bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4
-    launches), and timings at the stylized frame's shapes."""
+    launches, two K5 launches), and timings at the stylized frame's
+    shapes."""
     packed = kst.pack_style_params(sd_c, *style_sds, device="cuda")
     packed_k2 = ks.pack_nerf_params(sd_c, device="cuda")
     rng = np.random.default_rng(3)
@@ -870,6 +918,7 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
         rgb, sigma = kst.fused_style_apply_t(packed, pt, lt, spr)
         rgb2, sigma2 = kst.fused_style_apply_t(packed, pt, lt, spr)
         sigma5 = kst.fused_sigma_apply_t(packed, pt)
+        sigma5b = kst.fused_sigma_apply_t(packed, pt)
         sigma_k2 = ks.fused_nerf_sigma_apply_t(packed_k2, pt)
         torch.cuda.synchronize()
         rgb_p, sigma_p = kst.fused_style_apply_t_plain(packed, pt, lt, spr)
@@ -877,7 +926,8 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
         e4 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
         e5 = float((sigma5 - sigma5_p).abs().max())
         same = {"K5 = K4": torch.equal(sigma5, sigma), "K5 = K2": torch.equal(sigma5, sigma_k2),
-                "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)}
+                "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
+                "K5 = K5": torch.equal(sigma5, sigma5b)}
         print(f"[style_kernels] P={n} spr={spr}: K4 max|rgb err| {e4[0]:.3e} max|sigma err| "
               f"{e4[1]:.3e}; K5 max|sigma err| {e5:.3e}; |rgb| mean {float(rgb_p.mean()):.3f}, "
               f"|sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
@@ -889,7 +939,7 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
         check(all(same.values()), f"sigma not bitwise equal where it must be at P={n}: {same}")
         err = {"K4": tuple(max(a, b) for a, b in zip(err["K4"], e4)),
                "K5": (0.0, max(err["K5"][1], e5))}
-        del rgb, sigma, rgb2, sigma2, sigma5, sigma_k2, rgb_p, sigma_p, sigma5_p
+        del rgb, sigma, rgb2, sigma2, sigma5, sigma5b, sigma_k2, rgb_p, sigma_p, sigma5_p
 
     rows = []
     lat_r = lat[:BLOCK].contiguous()  # one fine block's per-ray latents, distinct random rows
@@ -938,6 +988,7 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
                          else "tgtc/ops/pallas/style_kernel.py:387"),
             "wrapper": ("tgtc_torch.ops.kernels.style_kernel." +
                         ("fused_style_apply_t" if name == "K4" else "fused_sigma_apply_t")),
+            "design": ENGINE_DESIGN[name],
             "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
             "max_abs_err_rgb": err[name][0] if name == "K4" else None,
             "max_abs_err_sigma": err[name][1],
@@ -1787,8 +1838,10 @@ def main() -> int:
             if any(w in line.lower() for w in ("registers", "spill", "entry function", "warning",
                                                "(c75")):
                 print(f"[build] {line.strip()}", flush=True)
-    print(f"[build] dynamic shared memory a block: K1 {ks._nerf_lib().tgtc_nerf_mlp_fwd_smem()} B, "
-          f"K4 {kst._style_lib().tgtc_style_fwd_smem()} B (the 1 KB alignment slack included)",
+    nerf_lib, style_lib = ks._nerf_lib(), kst._style_lib()
+    print(f"[build] dynamic shared memory a block: K1 {nerf_lib.tgtc_nerf_mlp_fwd_smem()} B, "
+          f"K2 {nerf_lib.tgtc_nerf_mlp_sigma_smem()} B, K4 {style_lib.tgtc_style_fwd_smem()} B, "
+          f"K5 {style_lib.tgtc_style_sigma_smem()} B (the 1 KB alignment slack included)",
           flush=True)
 
     rng = np.random.default_rng(0)

@@ -71,7 +71,7 @@ def test_cuda_kernels_match_twins(cuda_device, p):
     assert torch.equal(sigma, sigma2)
 
 
-# Point counts that cut the Hopper engine's 128-point tiles (K1, K4) and wrap
+# Point counts that cut the Hopper engine's 128-point tiles (K1, K2, K4, K5) and wrap
 # its persistent loop (one block per SM walks over the tiles: 133 tiles on
 # 132 SMs).
 ENGINE_TILE = 128
@@ -94,6 +94,22 @@ def test_cuda_k1_engine_tiles_match_twin_and_repeat(cuda_device, p):
     assert torch.equal(sigma, sigma_k2)
 
 
+@pytest.mark.parametrize("p", ENGINE_P)
+def test_cuda_k2_engine_tiles_match_twin_and_repeat(cuda_device, p):
+    """K2 on the engine's sigma-only kernel: its twin, a second launch bit
+    for bit, and K1's sigma bit for bit (one trunk function)."""
+    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    pts, dirs = _points(p, cuda_device)
+    sigma = tk.fused_nerf_sigma_apply_t(packed, pts)
+    sigma2 = tk.fused_nerf_sigma_apply_t(packed, pts)
+    _, sigma_k1 = tk.fused_nerf_apply_t(packed, pts, dirs)
+    torch.cuda.synchronize()
+    assert sigma.shape == (1, p)
+    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
+    assert torch.equal(sigma, sigma2)
+    assert torch.equal(sigma, sigma_k1)
+
+
 @pytest.mark.parametrize("p", [ENGINE_TILE + 1, 132 * ENGINE_TILE + 17])
 def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
     """K1 at a depth and skip other than the configs' 8 and 4 (the kernel
@@ -105,12 +121,13 @@ def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
     rgb, sigma = tk.fused_nerf_apply_t(packed, pts, dirs)
     rgb2, sigma2 = tk.fused_nerf_apply_t(packed, pts, dirs)
     sigma_k2 = tk.fused_nerf_sigma_apply_t(packed, pts)
+    sigma_k2b = tk.fused_nerf_sigma_apply_t(packed, pts)
     torch.cuda.synchronize()
     rgb_p, sigma_p = tk.fused_nerf_apply_t_plain(packed, pts, dirs)
     assert (rgb - rgb_p).abs().max() <= TOL_RGB
     assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
-    assert torch.equal(sigma, sigma_k2)
+    assert torch.equal(sigma, sigma_k2) and torch.equal(sigma_k2, sigma_k2b)
 
 
 def test_launch_counters_count_launches(cuda_device):
@@ -249,6 +266,25 @@ def test_cuda_k4_engine_tiles_match_twin_and_repeat(cuda_device, p, spr):
     assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
     assert torch.equal(sigma, sigma5)
+
+
+@pytest.mark.parametrize("p", ENGINE_P)
+def test_cuda_k5_engine_tiles_match_twin_and_repeat(cuda_device, p):
+    """K5 on the engine's sigma-only kernel: its twin, a second launch bit
+    for bit, and K2's sigma bit for bit on the same trunk (K4's packing
+    holds the trunk and sigma matrices at K2's indices)."""
+    sd = _state_dict(0)
+    packed = ts.pack_style_params(sd, *_style_sds(), device=cuda_device)
+    packed_k2 = tk.pack_nerf_params(sd, device=cuda_device)
+    pts, _ = _points(p, cuda_device)
+    sigma = ts.fused_sigma_apply_t(packed, pts)
+    sigma2 = ts.fused_sigma_apply_t(packed, pts)
+    sigma_k2 = tk.fused_nerf_sigma_apply_t(packed_k2, pts)
+    torch.cuda.synchronize()
+    assert sigma.shape == (1, p)
+    assert (sigma - ts.fused_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
+    assert torch.equal(sigma, sigma2)
+    assert torch.equal(sigma, sigma_k2)
 
 
 def test_style_launch_counters_count_launches(cuda_device):

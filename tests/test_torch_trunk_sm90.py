@@ -1,6 +1,6 @@
-"""What the Hopper dense-layer engine (tgtc_torch/csrc/trunk_sm90.cuh, K1
-and K4) assumes of the packed weights, held on the CPU for both packers at
-fern widths and at the narrow widths of the twin tests.
+"""What the Hopper dense-layer engine (tgtc_torch/csrc/trunk_sm90.cuh: K1,
+K2, K4 and K5) assumes of the packed weights, held on the CPU for both
+packers at fern widths and at the narrow widths of the twin tests.
 
 Each tensor-core layer is one packed row-major [N, K] bf16 matrix streamed
 by TMA in boxes of 64 columns x N rows: its start must be 16-byte aligned
@@ -9,7 +9,10 @@ most a box's 256 rows, and its input segments (the reference's column
 order) must add up to K, each a multiple of 16 columns so that every wgmma
 k step of 16 columns lies in one segment. K splits into ceil(K / 64)
 chunks; the last chunk's columns past K arrive as TMA's zero fill. The
-heads on CUDA cores (sigma, rgb) are not streamed.
+heads on CUDA cores (sigma, rgb) are not streamed. The sigma-only kernels
+K2 and K5 stream the trunk's layers alone, the same matrices and segments
+that begin K1's and K4's plans: that, and the one trunk function all four
+run, is why their sigmas tie bit for bit.
 """
 
 import math
@@ -80,6 +83,22 @@ def _k4_layers(packed):
     return layers
 
 
+def _k2_layers(packed):
+    """K2's tensor-core layers (csrc/trunk_sm90.cuh, sigma_kernel): the
+    trunk's depth layers, [enc(pts) | h] at skip + 1; sigma runs on CUDA
+    cores from matrix depth + 1."""
+    d, kc, w = packed.depth, packed.k_coor, packed.width
+    return [(i, (("enc_pts", kc),) if i == 0 else
+             (("enc_pts", kc), ("h", w)) if i == packed.skip + 1 else (("h", w),))
+            for i in range(d)]
+
+
+def _k5_layers(packed):
+    """K5's tensor-core layers: K2's plan on K4's packing, whose trunk
+    matrices are 0..depth-1 and sigma depth + 1 as in K2's."""
+    return _k2_layers(packed)
+
+
 def _chunks(k):
     """The engine's chunks of a layer: (first column, columns streamed,
     columns of TMA zero fill)."""
@@ -133,3 +152,52 @@ def test_k4_packing_meets_the_engines_tma_boxes(width, style_d):
         assert ks[9:] == [96, 288, 288, 288, 352, 576, 256, 256, 256, 320, 256, 256]
         assert [_chunks(k)[-1][2] for k in ks[9:14]] == [32, 32, 32, 32, 32]
         assert len(layers) == 21
+
+
+# The sigma-only plan at fern width: (columns, chunks) of each trunk layer.
+SIGMA_KS = [64, 256, 256, 256, 256, 320, 256, 256]
+SIGMA_CHUNKS = [1, 4, 4, 4, 4, 5, 4, 4]
+
+
+@pytest.mark.parametrize("depth,width,freqs,skip", NERF_SHAPES)
+def test_k2_packing_meets_the_engines_tma_boxes(depth, width, freqs, skip):
+    _, packed = _nerf(depth, width, freqs, skip)
+    layers = _k2_layers(packed)
+    _check_engine_layout(packed, layers, list(range(depth)))
+    assert packed.layers()[depth + 1] == (1, width)  # sigma, on CUDA cores
+    if (depth, width, freqs) == (8, 256, (10, 4)):  # the shape the CUDA kernel takes
+        ks = [packed.layers()[m][1] for m, _ in layers]
+        assert ks == SIGMA_KS
+        assert [len(_chunks(k)) for k in ks] == SIGMA_CHUNKS
+        assert sum(SIGMA_CHUNKS) == 30  # 983,040 B of weights a tile
+
+
+@pytest.mark.parametrize("width,style_d", STYLE_SHAPES)
+def test_k5_packing_meets_the_engines_tma_boxes(width, style_d):
+    packed = _style(width, style_d)
+    layers = _k5_layers(packed)
+    _check_engine_layout(packed, layers, list(range(packed.depth)))
+    assert packed.layers()[packed.depth + 1] == (1, packed.width)  # sigma
+    ks = [packed.layers()[m][1] for m, _ in layers]
+    assert ks == SIGMA_KS and [len(_chunks(k)) for k in ks] == SIGMA_CHUNKS
+
+
+@pytest.mark.parametrize("kind,shape", [("nerf", s) for s in NERF_SHAPES]
+                         + [("style", s) for s in STYLE_SHAPES])
+def test_sigma_plan_is_the_head_of_k1s_and_k4s(kind, shape):
+    """K2's plan is the first depth entries of K1's, K5's of K4's: the same
+    matrices with the same segments, so the four kernels stream the same
+    trunk. On the same trunk K5's matrices, biases and sigma head equal
+    K2's element for element."""
+    if kind == "nerf":
+        _, packed = _nerf(*shape)
+        sigma_plan, full_plan = _k2_layers(packed), _k1_layers(packed)
+    else:
+        packed = _style(*shape)
+        sigma_plan, full_plan = _k5_layers(packed), _k4_layers(packed)
+        _, nerf = _nerf(8, 256, (10, 4), 4)  # _style's trunk
+        assert _k2_layers(nerf) == sigma_plan
+        for m in list(range(packed.depth)) + [packed.depth + 1]:
+            assert torch.equal(packed.weight(m), nerf.weight(m)), m
+            assert torch.equal(packed.bias(m), nerf.bias(m)), m
+    assert sigma_plan == full_plan[:packed.depth]

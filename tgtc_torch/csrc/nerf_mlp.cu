@@ -11,23 +11,24 @@
 // K2) against ~40 bytes of point I/O, far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
 //
-// K1 runs on the Hopper dense-layer engine (trunk_sm90.cuh): persistent
-// blocks over 128-point tiles, two consumer warpgroups of 64 rows with
-// wgmma m64n256k16, the weights of every layer streamed by TMA through a
-// ring of four 32 KB slots. Per tile: enc(pts) and enc(dirs) into their
-// swizzled blocks, the trunk with h in registers ([enc(pts) | h] at the skip
-// layer), h to shared memory for the sigma head on CUDA cores, base_remap,
-// rgb_0 (wgmma m64n128k16) on [base_remap | enc(dirs)] into shared memory,
-// the sigmoid rgb on CUDA cores. K2 keeps the first design (nerf_trunk.cuh):
-// a block owns 64 points and eight warps run WMMA tiles with weights
-// streamed from L2. K1's sigma sums as K2's; wgmma accumulates a row's k
-// steps as K2's mma.sync does, so K1's sigma equals K2's bit for bit (phase 1
-// of chip_smoke.py holds it).
+// Both run on the Hopper dense-layer engine (trunk_sm90.cuh): persistent
+// blocks over 128-point tiles, two consumer warpgroups of 64 rows with wgmma
+// m64n256k16, the weights of every layer streamed by TMA through a ring of
+// four 32 KB slots, and one trunk function (sm90::trunk_tile) for both. Per
+// K1 tile: enc(pts) and enc(dirs) into their swizzled blocks, the trunk with
+// h in registers ([enc(pts) | h] at the skip layer), h to shared memory for
+// the sigma head on CUDA cores, base_remap, rgb_0 (wgmma m64n128k16) on
+// [base_remap | enc(dirs)] into shared memory, the sigmoid rgb on CUDA
+// cores. K2 is the engine's sigma-only kernel (sm90::sigma_kernel): the same
+// trunk and sigma head, nothing after them, so K2's sigma equals K1's bit for
+// bit (phase 1 of chip_smoke.py holds it). Depth 8 with skip 4 is compiled
+// in for both; other depths run on a run-time-depth build of each.
 //
 // K1's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
 // 128 KB, h 4 x 16 KB = 64 KB (for the heads), enc(pts) 16 KB, enc(dirs)
 // 16 KB (32 of 64 columns used), barriers 64 B: 229,440 B of the 232,448 a
-// block may have.
+// block may have. K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers
+// 64 B: 213,056 B (sm90::SIGMA_KERNEL_SMEM).
 
 #include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
 
@@ -35,18 +36,6 @@ namespace {
 
 using namespace tgtc;
 using namespace hopper;
-
-__global__ void __launch_bounds__(NTHREADS)
-nerf_sigma_kernel(const float* __restrict__ pts_t, long long P,
-                  const bf16* __restrict__ w, const float* __restrict__ b,
-                  Layout L, int depth, int skip, float* __restrict__ sigma) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  bf16* ec = reinterpret_cast<bf16*>(smem + H_BYTES);
-  float* scratch = reinterpret_cast<float*>(smem + H_BYTES + EC_BYTES + ED_BYTES + RF_BYTES);
-  const long long p0 = (long long)blockIdx.x * T;
-  trunk_sigma(pts_t, P, p0, w, b, L, depth, skip, h, ec, scratch, sigma, nullptr);
-}
 
 constexpr int K1_STAGES = 4;
 
@@ -64,16 +53,14 @@ static_assert(K1_SMEM <= 232448, "K1's shared memory exceeds a block's 227 KB");
 // plan list the depth + 2 tensor-core layers: trunk 0..depth-1, base_remap,
 // rgb_0. Activations pass from layer to layer in registers; h goes to
 // shared memory for the sigma head, rgb_0's output for the rgb head.
-// DEPTH > 0 fixes depth and skip at compile time (the configs' D8, skip 4):
-// the trunk loop unrolls, and ptxas keeps the wgmma pipeline without
-// serializing it (with run-time depth and skip it reports C7511).
+// DEPTH > 0 fixes depth and skip at compile time (sm90::trunk_tile).
 template <int DEPTH, int SKIP>
 __global__ void __launch_bounds__(sm90::THREADS, 1)
 nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
                 const float* __restrict__ pts_t, const float* __restrict__ dirs_t, long long P,
                 const bf16* __restrict__ w, const float* __restrict__ b, Layout L, int depth_rt,
                 int skip_rt, float* __restrict__ rgb, float* __restrict__ sigma) {
-  const int depth = DEPTH > 0 ? DEPTH : depth_rt, skip = DEPTH > 0 ? SKIP : skip_rt;
+  const int depth = DEPTH > 0 ? DEPTH : depth_rt;
   extern __shared__ uint8_t smem_raw[];
   K1Smem& sm = *reinterpret_cast<K1Smem*>(align_1k(smem_raw));
   const long long ntiles = (P + sm90::ROWS - 1) / sm90::ROWS;
@@ -94,7 +81,7 @@ nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
   uint8_t* h = sm.h[0] + rows;
   uint8_t* ec = sm.ec + rows;
   uint8_t* ed = sm.ed + rows;
-  const uint32_t s_h = smem_u32(h), s_ec = smem_u32(ec), s_ed = smem_u32(ed);
+  const uint32_t s_h = smem_u32(h), s_ed = smem_u32(ed);
   const uint32_t ring = smem_u32(sm.ring[0]);
   float acc[128];
   uint32_t act[64];  // the layer input's 256 columns as wgmma A fragments
@@ -104,24 +91,9 @@ nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
 
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
-    sm90::encode(pts_t, P, p0, FC, KC, ec, tid);
-    sm90::encode(dirs_t, P, p0, FD, KD, ed, tid);
-    fence_proxy_async();
-    bar_sync(bar, 128);
-#pragma unroll(DEPTH > 0 ? DEPTH : 1)
-    for (int i = 0; i < depth; ++i) {  // the trunk, h in registers
-      if (i == 0)
-        sm90::mma_layer<W, K1_STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, sm.full, sm.empty, q);
-      else if (i == skip + 1)
-        sm90::mma_layer<W, K1_STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, sm.full,
-                                                         sm.empty, q);
-      else
-        sm90::mma_layer<W, K1_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
-      sm90::epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
-    }
-    sm90::store_act<W>(act, s_h, warp, g, t);
-    bar_sync(bar, 128);
-    sm90::sigma_head(h, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
+    sm90::trunk_tile<DEPTH, SKIP, K1_STAGES, true>(
+        acc, act, depth_rt, skip_rt, pts_t, P, p0, ec, h, w, b, L, sigma, ring, sm.full,
+        sm.empty, q, tid, bar, [=] { sm90::encode(dirs_t, P, p0, FD, KD, ed, tid); });
 
     // base_remap, then rgb_0 on [base_remap | enc(dirs)] into h's first 128 columns
     sm90::mma_layer<W, K1_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
@@ -179,18 +151,17 @@ extern "C" int tgtc_nerf_mlp_fwd(const float* pts_t, const float* dirs_t,
 // K1's dynamic shared memory a block, in bytes.
 extern "C" int tgtc_nerf_mlp_fwd_smem() { return K1_SMEM; }
 
+// K2: as tgtc_nerf_mlp_fwd, sigma only. Returns cudaGetLastError() after
+// the launch.
 extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
                                    const void* w, const float* b,
                                    const long long* offsets, int depth,
                                    int skip, float* sigma, void* stream) {
   if (depth < 1 || depth + 4 > MAX_LAYERS) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      nerf_sigma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  if (P == 0) return 0;
   const Layout L = make_layout(offsets, depth + 4);
-  const unsigned grid = (unsigned)((P + T - 1) / T);
-  nerf_sigma_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      pts_t, P, (const bf16*)w, b, L, depth, skip, sigma);
-  return (int)cudaGetLastError();
+  auto launch = depth == 8 && skip == 4 ? sm90::launch_sigma<8, 4> : sm90::launch_sigma<0, 0>;
+  return launch(pts_t, P, w, b, L, depth, skip, sigma, (cudaStream_t)stream);
 }
+
+// K2's dynamic shared memory a block, in bytes.
+extern "C" int tgtc_nerf_mlp_sigma_smem() { return sm90::SIGMA_KERNEL_SMEM; }

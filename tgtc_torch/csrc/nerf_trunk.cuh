@@ -1,8 +1,12 @@
-// Device code shared by the fused NeRF trunk kernels: K1/K2 (nerf_mlp.cu),
-// the backward K3 (nerf_mlp_grad.cu) and the stylized K4/K5
-// (style_kernel.cu). K3 recomputes the forward with these same functions,
-// so its ReLU masks and rgb are bit for bit those of the K1 launch that
-// produced the loss; K4/K5 run the same trunk_sigma, so their sigma is K2's.
+// Device code of the first NeRF trunk design, used by the backward K3
+// (nerf_mlp_grad.cu) alone: K3 recomputes the forward with these functions
+// (trunk_sigma, rgb_features, rgb_out, store_rows) into its workspace.
+// The forward kernels K1, K2, K4 and K5 run on the Hopper engine
+// (trunk_sm90.cuh), which takes Layout, make_layout and the encoding
+// constants from here. Its epilogue rounds as gemm_bias_relu, its sigma
+// head sums as trunk_sigma, and wgmma accumulates a row's k steps in the
+// order of this file's mma.sync, so K3 recomputes the activations of the K1
+// launch whose loss it differentiates.
 //
 // Per point: positional encoding of pts (L=10) and dirs (L=4) with accurate
 // sinf/cosf in f32 (arguments reach 2^9 |x|; build without fast math), an

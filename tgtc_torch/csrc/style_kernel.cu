@@ -34,27 +34,30 @@
 // per point); 982,528 for K5, as K2. Both far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
 //
-// K4 runs on the Hopper dense-layer engine (trunk_sm90.cuh), as K1:
+// Both run on the Hopper dense-layer engine (trunk_sm90.cuh), as K1 and K2:
 // persistent blocks over 128-point tiles, two consumer warpgroups of 64 rows,
-// wgmma m64n256k16 for all 21 tensor-core layers (trunk, base_remap, 5
-// concat, 7 style), the weights streamed by TMA through a ring of two 32 KB
-// slots. Per tile: enc(pts), the bf16 latents and their means into shared
-// memory, the trunk with h in registers, h to shared memory for sigma on
-// CUDA cores, base_remap into its own buffer (kept until style layer 0), the
-// concat and style layers with the previous layer's output in registers and
-// the other inputs as shared-memory segments in the reference's column
-// order (the latent's 32 columns a segment of their own, [base_remap | cf |
-// enc(pts)] at style layer 0), the rank-1 term in the style layers'
-// epilogue, the last style layer to shared memory for rgb_out on CUDA cores.
-// K5 keeps the first design (nerf_trunk.cuh's trunk_sigma, K2's code: 64
-// points a block, WMMA tiles, weights from L2), so K5's sigma is K2's bit
-// for bit; K4's trunk accumulates as theirs, so its sigma is too (phase 6 of
-// chip_smoke.py holds it).
+// wgmma m64n256k16, the weights streamed by TMA through a ring of 32 KB
+// slots, and the engine's one trunk function (sm90::trunk_tile). K4 runs all
+// 21 tensor-core layers (trunk, base_remap, 5 concat, 7 style) through a
+// ring of two slots. Per tile: enc(pts), the bf16 latents and their means
+// into shared memory, the trunk with h in registers, h to shared memory for
+// sigma on CUDA cores, base_remap into its own buffer (kept until style
+// layer 0), the concat and style layers with the previous layer's output in
+// registers and the other inputs as shared-memory segments in the
+// reference's column order (the latent's 32 columns a segment of their own,
+// [base_remap | cf | enc(pts)] at style layer 0), the rank-1 term in the
+// style layers' epilogue, the last style layer to shared memory for rgb_out
+// on CUDA cores. K5 is the engine's sigma-only kernel (sm90::sigma_kernel,
+// K2's body) on K4's packing, whose trunk and sigma matrices sit at K2's
+// indices: K5's sigma equals K4's, and K2's on the same trunk, bit for bit
+// (phase 6 of chip_smoke.py holds it).
 //
 // K4's shared memory (the 1 KB alignment slack on top): ring 2 x 32 KB =
 // 64 KB, h 64 KB, base_remap 64 KB, enc(pts) 16 KB, latents 16 KB (32 of 64
 // columns used), latent means 512 B, barriers 32 B: 230,944 B of the
-// 232,448 a block may have. Two slots is what fits beside base_remap.
+// 232,448 a block may have. Two slots is what fits beside base_remap. K5's
+// is K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers 64 B: 213,056 B
+// (sm90::SIGMA_KERNEL_SMEM).
 
 #include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
 
@@ -73,7 +76,6 @@ constexpr int RGB_OUT = STYLE0 + NSTYLE;
 constexpr int NMATS = RGB_OUT + 1;
 static_assert(NMATS <= MAX_LAYERS, "Layout holds the style matrices");
 
-constexpr int SIGMA_SMEM = H_BYTES + EC_BYTES + SCRATCH_BYTES;
 constexpr int NMMA = NMATS - 2;  // all but sigma and rgb_out run on the tensor cores
 static_assert(NMMA <= sm90::MAX_MMA, "the engine's maps hold K4's layers");
 constexpr int K4_STAGES = 2;
@@ -108,18 +110,6 @@ __host__ __device__ constexpr int mma_k(int i) {
 struct LatentSums {  // element offsets of the latent row sums in b
   long long off[NSTYLE + 1];
 };
-
-__global__ void __launch_bounds__(NTHREADS)
-style_sigma_kernel(const float* __restrict__ pts_t, long long P,
-                   const bf16* __restrict__ w, const float* __restrict__ b,
-                   Layout L, float* __restrict__ sigma) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h = reinterpret_cast<bf16*>(smem);
-  bf16* ec = reinterpret_cast<bf16*>(smem + H_BYTES);
-  float* scratch = reinterpret_cast<float*>(smem + H_BYTES + EC_BYTES);
-  const long long p0 = (long long)blockIdx.x * T;
-  trunk_sigma(pts_t, P, p0, w, b, L, DEPTH, SKIP, h, ec, scratch, sigma, nullptr);
-}
 
 // K4: persistent blocks over 128-point tiles (see the header).
 __global__ void __launch_bounds__(sm90::THREADS, 1)
@@ -159,39 +149,26 @@ style_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
 
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
-    sm90::encode(pts_t, P, p0, FC, KC, ec, tid);
-    // bf16(lat[(p0 + p) / spr]) (zero past P), then the f32 mean of each
-    // point's bf16 latents
-    for (int idx = tid; idx < sm90::WG_ROWS * LAT; idx += 128) {
-      const int p = idx / LAT, k = idx % LAT;
-      const long long pq = p0 + p;
-      *reinterpret_cast<bf16*>(ls + sm90::sw(p, k)) =
-          __float2bfloat16(pq < P ? lat[(pq / spr) * LAT + k] : 0.0f);
-    }
-    bar_sync(bar, 128);
-    if (tid < sm90::WG_ROWS) {
-      float s = 0.0f;
-      for (int k = 0; k < LAT; ++k)
-        s += __bfloat162float(*reinterpret_cast<const bf16*>(ls + sm90::sw(tid, k)));
-      lmean[tid] = s / (float)LAT;
-    }
-    fence_proxy_async();
-    bar_sync(bar, 128);
+    // beside enc(pts): bf16(lat[(p0 + p) / spr]) (zero past P), then the f32
+    // mean of each point's bf16 latents
+    sm90::trunk_tile<DEPTH, SKIP, K4_STAGES, false>(
+        acc, act, DEPTH, SKIP, pts_t, P, p0, ec, h, w, b, L, sigma, ring, sm.full, sm.empty, q,
+        tid, bar, [=] {
+          for (int idx = tid; idx < sm90::WG_ROWS * LAT; idx += 128) {
+            const int p = idx / LAT, k = idx % LAT;
+            const long long pq = p0 + p;
+            *reinterpret_cast<bf16*>(ls + sm90::sw(p, k)) =
+                __float2bfloat16(pq < P ? lat[(pq / spr) * LAT + k] : 0.0f);
+          }
+          bar_sync(bar, 128);
+          if (tid < sm90::WG_ROWS) {
+            float s = 0.0f;
+            for (int k = 0; k < LAT; ++k)
+              s += __bfloat162float(*reinterpret_cast<const bf16*>(ls + sm90::sw(tid, k)));
+            lmean[tid] = s / (float)LAT;
+          }
+        });
     const float lm0 = lmean[warp * 16 + g], lm1 = lmean[warp * 16 + g + 8];
-
-    for (int i = 0; i < DEPTH; ++i) {  // the trunk, h in registers
-      if (i == 0)
-        sm90::mma_layer<W, K4_STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, sm.full, sm.empty, q);
-      else if (i == SKIP + 1)
-        sm90::mma_layer<W, K4_STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, sm.full,
-                                                         sm.empty, q);
-      else
-        sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
-      sm90::epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
-    }
-    sm90::store_act<W>(act, s_h, warp, g, t);
-    bar_sync(bar, 128);
-    sm90::sigma_head(h, w + L.w[BR + 1], b[L.b[BR + 1]], P, p0, sigma, tid);
 
     // base_remap into its own buffer, kept until style layer 0
     sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
@@ -277,16 +254,15 @@ extern "C" int tgtc_style_fwd(const float* pts_t, const float* lat, long long P,
 // K4's dynamic shared memory a block, in bytes.
 extern "C" int tgtc_style_fwd_smem() { return K4_SMEM; }
 
+// K5: K2's kernel on K4's packing (trunk 0..7, sigma 9). Returns
+// cudaGetLastError() after the launch.
 extern "C" int tgtc_style_sigma(const float* pts_t, long long P, const void* w,
                                 const float* b, const long long* offsets, float* sigma,
                                 void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      style_sigma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SIGMA_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  if (P == 0) return 0;
   const Layout L = make_layout(offsets, NMATS);
-  const unsigned grid = (unsigned)((P + T - 1) / T);
-  style_sigma_kernel<<<grid, NTHREADS, SIGMA_SMEM, (cudaStream_t)stream>>>(
-      pts_t, P, (const bf16*)w, b, L, sigma);
-  return (int)cudaGetLastError();
+  return sm90::launch_sigma<DEPTH, SKIP>(pts_t, P, w, b, L, DEPTH, SKIP, sigma,
+                                         (cudaStream_t)stream);
 }
+
+// K5's dynamic shared memory a block, in bytes.
+extern "C" int tgtc_style_sigma_smem() { return sm90::SIGMA_KERNEL_SMEM; }

@@ -1,15 +1,20 @@
-// Dense-layer engine for Hopper (sm_90a), shared by K1 (nerf_mlp.cu) and
-// K4 (style_kernel.cu): persistent blocks that run a chain of 256- or
-// 128-wide bf16 layers on tiles of 128 points with wgmma, the weights
-// streamed by TMA through a ring of mbarrier slots.
+// Dense-layer engine for Hopper (sm_90a): persistent blocks that run a
+// chain of 256- or 128-wide bf16 layers on tiles of 128 points with wgmma,
+// the weights streamed by TMA through a ring of mbarrier slots. Four kernels
+// run on it, and all four run the NeRF trunk through one function,
+// trunk_tile: K1 and K4 (nerf_mlp.cu, style_kernel.cu) go on from the h it
+// leaves in registers; K2 and K5, the sigma-only kernels, are sigma_kernel
+// below, one body launched by launch_sigma on either packing (trunk 0..depth-1
+// and sigma at depth + 1 in both). So K2's sigma equals K1's, and K5's equals
+// K4's and K2's on the same trunk, bit for bit by construction.
 //
-// What bounds the kernels on it: operations (K1 1,186,816 and K4 2,898,944
-// FLOP a point against at most 156 bytes of point I/O). Between the first
-// design (nerf_trunk.cuh) and the tensor cores stood mma.sync fragments
-// loaded by every warp from L2 at every k step, and the weights re-read
-// from L2 for every 64-point tile (39 GB a K1 launch at 16,384 x 128
-// points). The engine's answer:
-//
+// What bounds the kernels on it: operations (K1 1,186,816, K2 and K5
+// 982,528, K4 2,898,944 FLOP a point against at most 156 bytes of point
+// I/O). Between the first design (nerf_trunk.cuh, now K3's alone) and the
+// tensor cores stood mma.sync fragments loaded by every warp from L2 at
+// every k step, and the weights re-read from L2 for every 64-point tile (39
+// GB a K1 launch at 16,384 x 128 points, 16 GB a K2 launch at 16,384 x 64).
+// The engine's answer:
 // * One block of 384 threads per SM walks over tiles of ROWS = 128 points
 //   (tile = blockIdx.x, += gridDim.x). Warpgroups 0 and 1 are consumers,
 //   each owning 64 rows of the tile through every layer; warpgroup 2 is the
@@ -50,6 +55,11 @@
 //   nerf_trunk.cuh's trunk_sigma sums it (two threads a point, four
 //   64-column partials, one shuffle), rgb (128 or 256 -> 3) one thread per
 //   point and channel.
+// * The sigma-only kernel streams the trunk's depth layers and nothing else
+//   (at D8: K = 64, 256 x 4, 320, 256 x 2, so 30 chunks, 983,040 B, a tile,
+//   half the first design's weight traffic). Its shared memory: the ring,
+//   SIGMA_KERNEL_STAGES x 32 KB, h 4 x 16 KB for the sigma head, enc(pts) 16 KB
+//   and the barriers (SIGMA_KERNEL_SMEM with the 1 KB alignment slack).
 //
 // Packed weights and biases follow nerf_trunk.cuh (Layout); every matrix
 // starts 32-byte aligned and K is a multiple of 16, so each row is a
@@ -305,6 +315,98 @@ __device__ __forceinline__ float row_dot(const uint8_t* x, int blocks, const bf1
   return acc;
 }
 
+// One tile's trunk, the sequence K1, K2, K4 and K5 share: enc(pts) into
+// `ec` and whatever `extra` writes beside it (K1's enc(dirs), K4's latents),
+// the depth tensor-core layers with h in registers ([enc(pts) | h] at layer
+// skip + 1), h into this consumer's rows of `hs` (four blocks) and sigma on
+// CUDA cores. Leaves act = h (wgmma A fragments) for a caller that goes on,
+// and q past the trunk's chunks. DEPTH > 0 fixes depth and skip at compile
+// time (the configs' D8, skip 4), and ptxas then keeps the wgmma pipeline
+// (with run-time depth and skip it serializes it, C7511). UNROLL unrolls the
+// layer loop, as K1, K2 and K5 want; K4, whose 21 layers make a long kernel,
+// leaves it to the compiler. The barrier after the encodings also orders the
+// previous tile's reads of hs (its heads) before this tile's store into it.
+template <int DEPTH, int SKIP, int STAGES, bool UNROLL, class Extra>
+__device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64], int depth_rt,
+                                           int skip_rt, const float* __restrict__ pts_t,
+                                           long long P, long long p0, uint8_t* ec, uint8_t* hs,
+                                           const bf16* __restrict__ w,
+                                           const float* __restrict__ b, const Layout& L,
+                                           float* __restrict__ sigma, uint32_t ring,
+                                           uint64_t* full, uint64_t* empty, uint32_t& q, int tid,
+                                           int bar, Extra&& extra) {
+  const int depth = DEPTH > 0 ? DEPTH : depth_rt, skip = DEPTH > 0 ? SKIP : skip_rt;
+  const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
+  const uint32_t s_ec = smem_u32(ec);
+  encode(pts_t, P, p0, FC, KC, ec, tid);
+  extra();
+  fence_proxy_async();
+  bar_sync(bar, 128);
+  auto layer = [&](int i) {
+    if (i == 0)
+      mma_layer<W, STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, full, empty, q);
+    else if (i == skip + 1)
+      mma_layer<W, STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, full, empty, q);
+    else
+      mma_layer<W, STAGES, REGS, W>(acc, act, 0, 0, 0, ring, full, empty, q);
+    epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
+  };
+  if constexpr (UNROLL) {
+#pragma unroll(DEPTH > 0 ? DEPTH : 1)
+    for (int i = 0; i < depth; ++i) layer(i);
+  } else {
+    for (int i = 0; i < depth; ++i) layer(i);
+  }
+  store_act<W>(act, smem_u32(hs), warp, g, t);
+  bar_sync(bar, 128);
+  sigma_head(hs, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
+}
+
+// The sigma-only kernel's ring depth and shared memory.
+constexpr int SIGMA_KERNEL_STAGES = 4;
+struct SigmaSmem {
+  uint8_t ring[SIGMA_KERNEL_STAGES][CHUNK_BYTES];
+  uint8_t h[4][BLK_BYTES];
+  uint8_t ec[BLK_BYTES];
+  uint64_t full[SIGMA_KERNEL_STAGES], empty[SIGMA_KERNEL_STAGES];
+};
+constexpr int SIGMA_KERNEL_SMEM = (int)sizeof(SigmaSmem) + 1024;  // + the 1 KB alignment slack
+static_assert(SIGMA_KERNEL_SMEM <= 232448, "the sigma kernel's shared memory exceeds 227 KB");
+
+// K2 and K5: persistent blocks over 128-point tiles, each tile the trunk
+// and sigma (trunk_tile) and nothing after it. The maps and plan list the
+// depth trunk layers.
+template <int DEPTH, int SKIP>
+__global__ void __launch_bounds__(THREADS, 1)
+sigma_kernel(const __grid_constant__ Maps maps, const Plan plan, const float* __restrict__ pts_t,
+             long long P, const bf16* __restrict__ w, const float* __restrict__ b, Layout L,
+             int depth_rt, int skip_rt, float* __restrict__ sigma) {
+  extern __shared__ uint8_t smem_raw[];
+  SigmaSmem& sm = *reinterpret_cast<SigmaSmem*>(align_1k(smem_raw));
+  const long long ntiles = (P + ROWS - 1) / ROWS;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  init_ring<SIGMA_KERNEL_STAGES>(sm.full, sm.empty);
+
+  if (wg == CONSUMERS) {  // producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0)
+      produce<SIGMA_KERNEL_STAGES>(maps, plan, DEPTH > 0 ? DEPTH : depth_rt,
+                                   (int)((ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x),
+                                   sm.ring[0], sm.full, sm.empty);
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int rows = wg * WG_BLK_BYTES;  // this consumer's rows of each block
+  const uint32_t ring = smem_u32(sm.ring[0]);
+  float acc[128];
+  uint32_t act[64];
+  uint32_t q = 0;  // chunks consumed
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+    trunk_tile<DEPTH, SKIP, SIGMA_KERNEL_STAGES, true>(
+        acc, act, depth_rt, skip_rt, pts_t, P, tile * ROWS + wg * WG_ROWS, sm.ec + rows,
+        sm.h[0] + rows, w, b, L, sigma, ring, sm.full, sm.empty, q, tid, 1 + wg, [] {});
+}
+
 // ------------------------------------------------------------ host side
 
 // The tensor map of a packed [n, k] bf16 matrix at element offset `off` of
@@ -329,6 +431,33 @@ inline int persistent_grid(long long tiles) {
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
   return (int)(tiles < sms ? tiles : sms);
+}
+
+// Launches sigma_kernel<DEPTH, SKIP> (DEPTH 0: any depth and skip) on the
+// trunk of a packing whose matrices 0..depth-1 are the trunk layers and
+// depth + 1 the sigma head (pack_nerf_params's and pack_style_params's).
+// Returns cudaGetLastError() after the launch.
+template <int DEPTH, int SKIP>
+inline int launch_sigma(const float* pts_t, long long P, const void* w, const float* b,
+                        const Layout& L, int depth, int skip, float* sigma,
+                        cudaStream_t stream) {
+  if (depth < 1 || depth > MAX_MMA) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      sigma_kernel<DEPTH, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SIGMA_KERNEL_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (P == 0) return 0;
+  Maps maps;
+  Plan plan = {};
+  for (int i = 0; i < depth; ++i) {
+    plan.k[i] = i == 0 ? KC : (i == skip + 1 ? KC + W : W);
+    plan.n[i] = W;
+    if (!weight_map(&maps.m[i], w, L.w[i], W, plan.k[i])) return (int)cudaErrorInvalidValue;
+  }
+  const int grid = persistent_grid((P + ROWS - 1) / ROWS);
+  if (grid <= 0) return (int)cudaErrorInvalidDevice;
+  sigma_kernel<DEPTH, SKIP><<<grid, THREADS, SIGMA_KERNEL_SMEM, stream>>>(
+      maps, plan, pts_t, P, static_cast<const bf16*>(w), b, L, depth, skip, sigma);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90

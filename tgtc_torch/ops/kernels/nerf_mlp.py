@@ -7,7 +7,9 @@ use by :mod:`tgtc_torch.ops.kernels._build`):
 * K1 :func:`fused_nerf_apply_t` replaces the Pallas ``fused_nerf_apply_t``
   — ``pts_t/dirs_t [3, P]`` → ``rgb [3, P]``, ``sigma [1, P]``;
 * K2 :func:`fused_nerf_sigma_apply_t` replaces the Pallas
-  ``fused_nerf_sigma_apply_t`` — ``pts_t [3, P]`` → ``sigma [1, P]``.
+  ``fused_nerf_sigma_apply_t`` — the trunk alone, ``pts_t [3, P]`` →
+  ``sigma [1, P]``, bit for bit K1's σ (both run the trunk function of the
+  Hopper engine, ``csrc/trunk_sm90.cuh``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 twin (``*_plain``) only for CPU tensors. The twins follow the kernel's
@@ -276,8 +278,9 @@ def _nerf_lib() -> ctypes.CDLL:
     lib.tgtc_nerf_mlp_fwd.restype = i
     lib.tgtc_nerf_mlp_sigma.argtypes = [vp, ll, vp, vp, vp, i, i, vp, vp]
     lib.tgtc_nerf_mlp_sigma.restype = i
-    lib.tgtc_nerf_mlp_fwd_smem.argtypes = []
-    lib.tgtc_nerf_mlp_fwd_smem.restype = i
+    for smem in (lib.tgtc_nerf_mlp_fwd_smem, lib.tgtc_nerf_mlp_sigma_smem):
+        smem.argtypes = []
+        smem.restype = i
     return lib
 
 

@@ -277,8 +277,9 @@ def _style_lib() -> ctypes.CDLL:
     lib.tgtc_style_fwd.restype = i
     lib.tgtc_style_sigma.argtypes = [vp, ll, vp, vp, vp, vp, vp]
     lib.tgtc_style_sigma.restype = i
-    lib.tgtc_style_fwd_smem.argtypes = []
-    lib.tgtc_style_fwd_smem.restype = i
+    for smem in (lib.tgtc_style_fwd_smem, lib.tgtc_style_sigma_smem):
+        smem.argtypes = []
+        smem.restype = i
     return lib
 
 
