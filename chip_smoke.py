@@ -32,13 +32,19 @@ started together), then:
    last-sample f32 sigma lies within the sigma tolerance of 0 (a sign flip
    there moves the ray's weight onto the 1e10 last interval), of which at
    most 0.1% may differ;
-3. K3: the backward kernel on the same He weights at P = 262,144 + 300
-   with random cotangents (numpy seed 2) against its plain twin, per packed
-   layer max|err| / max|twin| <= 2e-2 and cosine >= 0.999, and a second
-   launch bitwise equal; timed at the training step's two shapes (P =
-   2048 x 64 and 2048 x 128) beside its bound, its twin and, for
-   orientation only, the same backward as bf16 autograd through the
-   torch.addmm chain;
+3. K3: the backward (a tile kernel on the Hopper engine that recomputes
+   K1's forward with K1's own trunk_tile and rgb_tail, a weight-gradient
+   kernel on wgmma, an in-order reduce) on the same He weights at P =
+   262,144 + 300 with random cotangents (numpy seed 2) against its plain
+   twin, per packed layer max|err| / max|twin| <= 2e-2 and cosine >= 0.999,
+   a second launch bitwise equal and the recomputed rgb and sigma equal to
+   K1's on the same inputs bit for bit; the tie also at P = 300; the same
+   checks at depth 6 with skip 2 (its run-time depth build, seeded weights);
+   timed at the training step's two shapes (P = 2048 x 64 and 2048 x 128)
+   by CUDA events and by the profiler's device time (each launch apart)
+   beside its bound, the bound counting its workspace (bytes a point
+   printed), its twin and, for orientation only, the same backward as bf16
+   autograd through the torch.addmm chain;
 4. train (Phase A): writes a 4-view 756x1008 synthetic LLFF scene and runs
    train_nerf at fern width (D8/W256, L 10/4, viewdirs, batch 2048, 64+64
    samples, perturb, sigma noise 1.0): 20 warm-up steps, then 300 counted
@@ -281,6 +287,9 @@ ENGINE_DESIGN = {
     "K2": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel (trunk_tile and the sigma head)",
     "K4": "Hopper engine csrc/trunk_sm90.cuh: trunk_tile, then base_remap, concat and style",
     "K5": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel on K4's packing",
+    "K3": "transposed weights; a tile kernel on the Hopper engine csrc/trunk_sm90.cuh "
+          "(trunk_tile and rgb_tail, K1's forward, then the input-gradient products); a "
+          "split-K weight-gradient kernel on wgmma; an in-order reduce",
 }
 
 
@@ -597,34 +606,67 @@ def layer_errors(packed, dw, db, tw, tb):
     return out, max_abs
 
 
+def k3_check(ks, kg, packed, args, what: str, twin: bool = True):
+    """The recompute's rgb and sigma (forward_out) against K1's on the same
+    inputs, bit for bit, and with ``twin``: K3 against its twin (per packed
+    layer, TOL_K3_*) and a second launch bitwise equal. Without the twin at
+    a P too small for its bounds (there one flipped ReLU mask moves a few
+    percent of a layer). Returns (max abs error, worst relative error,
+    lowest cosine), or None without the twin."""
+    p = args[0].shape[1]
+    fwd = torch.empty(4, p, device="cuda")
+    dw, db = kg.fused_nerf_bwd(packed, *args, forward_out=fwd)
+    rgb, sigma = ks.fused_nerf_apply_t(packed, args[0], args[1])
+    torch.cuda.synchronize()
+    tie = bool(torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma))
+    msg = f"recomputed rgb and sigma equal K1's bit for bit: {tie}"
+    if not twin:
+        print(f"[k3] {what} P={p}: {msg}", flush=True)
+        check(tie, f"K3's recompute differs from K1's forward ({what}, P={p})")
+        return None
+    dw2, db2 = kg.fused_nerf_bwd(packed, *args)
+    tw, tb = kg.fused_nerf_bwd_plain(packed, *args)
+    errs, max_abs = layer_errors(packed, dw, db, tw, tb)
+    worst_rel, worst_cos = max(e[0] for e in errs), min(e[1] for e in errs)
+    repeat = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
+    print(f"[k3] {what} P={p}: per packed layer (then biases) max|err|/max|twin| "
+          f"{', '.join(f'{e[0]:.2e}' for e in errs)}; cosine >= {worst_cos:.7f}; "
+          f"max|err| {max_abs:.3e}; second launch bitwise equal: {repeat}; {msg}", flush=True)
+    check(bool(torch.isfinite(dw).all() and torch.isfinite(db).all()), "K3 output not finite")
+    check(worst_rel <= TOL_K3_REL and worst_cos >= TOL_K3_COS,
+          f"K3 disagrees with its twin ({what}, P={p})")
+    check(repeat, f"K3 is not bitwise repeatable ({what}, P={p})")
+    check(tie, f"K3's recompute differs from K1's forward ({what}, P={p})")
+    return max_abs, worst_rel, worst_cos
+
+
 def phase_k3(ks, kg, sd_c):
-    """K3 against its twin at P = 262,144 + 300, a repeat launch bitwise
-    equal, and timings at the training step's two shapes."""
+    """K3 against its twin at P = 262,144 + 300 (D8 and, on its run-time
+    depth build, D6 with skip 2), a repeat launch bitwise equal, the
+    recompute's rgb and sigma equal to K1's bit for bit there and at P =
+    300, and timings at the training step's two shapes by events and by
+    device time, each launch apart."""
+    from tgtc_torch.convert import nerf_state_dict_from_flax
+
     packed = ks.pack_nerf_params(sd_c, device="cuda")
     rng = np.random.default_rng(2)
     p = P_K3["fine"] + RAGGED
     arrs = (rng.uniform(-1, 1, (3, p)), rng.standard_normal((3, p)),
             rng.standard_normal((3, p)), rng.standard_normal((1, p)))
     pts, dirs, g_rgb, g_sig = (torch.from_numpy(a.astype(np.float32)).cuda() for a in arrs)
-    dw, db = kg.fused_nerf_bwd(packed, pts, dirs, g_rgb, g_sig)
-    dw2, db2 = kg.fused_nerf_bwd(packed, pts, dirs, g_rgb, g_sig)
-    torch.cuda.synchronize()
-    tw, tb = kg.fused_nerf_bwd_plain(packed, pts, dirs, g_rgb, g_sig)
-    errs, max_abs = layer_errors(packed, dw, db, tw, tb)
-    worst_rel, worst_cos = max(e[0] for e in errs), min(e[1] for e in errs)
-    repeat = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
-    print(f"[k3] P={p}: per packed layer (then biases) max|err|/max|twin| "
-          f"{', '.join(f'{e[0]:.2e}' for e in errs)}; cosine >= {worst_cos:.7f}; "
-          f"max|err| {max_abs:.3e}; second launch bitwise equal: {repeat}", flush=True)
-    check(bool(torch.isfinite(dw).all() and torch.isfinite(db).all()), "K3 output not finite")
-    check(worst_rel <= TOL_K3_REL and worst_cos >= TOL_K3_COS, "K3 disagrees with its twin")
-    check(repeat, "K3 is not bitwise repeatable")
-    del dw, db, dw2, db2, tw, tb
+    full = (pts, dirs, g_rgb, g_sig)
+    max_abs, worst_rel, worst_cos = k3_check(ks, kg, packed, full, "D8")
+    k3_check(ks, kg, packed, tuple(t[:, :RAGGED].contiguous() for t in full), "D8", twin=False)
+    sd6 = nerf_state_dict_from_flax(he_params(np.random.default_rng(6), depth=6, skip=2))
+    packed6 = ks.pack_nerf_params(sd6, depth=6, skip=2, device="cuda")
+    k3_check(ks, kg, packed6, full, "D6 skip 2")
 
-    times = {}
+    times, devs, per = {}, {}, {}
     for shape, n in P_K3.items():
-        args = (packed,) + tuple(t[:, :n].contiguous() for t in (pts, dirs, g_rgb, g_sig))
+        args = (packed,) + tuple(t[:, :n].contiguous() for t in full)
         times[shape] = cuda_ms(lambda: kg.fused_nerf_bwd(*args), 10)
+        devs[shape], _, per[shape] = device_ms(lambda: kg.fused_nerf_bwd(*args), 5,
+                                               per_kernel=True)
     n = P_K3["fine"]
     plain_ms = cuda_ms(lambda: kg.fused_nerf_bwd_plain(*args), 3)
     e_c = ks._encode_plain(args[1].T, 10, packed.k_coor).to(torch.bfloat16)
@@ -634,24 +676,43 @@ def phase_k3(ks, kg, sd_c):
     nwb = packed.w.numel() + packed.b.numel()
     flops = FLOP_PER_POINT["K3"] * n
     fn_bytes = 40 * n + packed.w.numel() * 2 + packed.b.numel() * 4 + nwb * 4
-    # this design's workspace: saved activations and gradients written and
-    # read (9,984 bytes per point), per-4096-point partials written and read
-    ws_bytes = 2 * 9_984 * n + 2 * math.ceil(n / 4096) * nwb * 4
+    # this design's workspace (the saved activations and gradients, the
+    # transposed weights, the masks and the per-chunk partials), each byte
+    # written once and read once
+    point_bytes = kg.workspace_point_bytes(packed.depth)
+    ws_bytes = 2 * kg.workspace_bytes(packed, n)
     b = 1e3 * max(flops / PEAK_BF16_FLOPS, fn_bytes / PEAK_BYTES)
     b_ws = 1e3 * max(flops / PEAK_BF16_FLOPS, (fn_bytes + ws_bytes) / PEAK_BYTES)
-    print(f"[k3] kernel {times['coarse']:.3f} ms at P={P_K3['coarse']}, {times['fine']:.3f} ms "
-          f"at P={n}; bound {b:.3f} ms (operations; {b_ws:.3f} ms counting this design's "
-          f"workspace traffic); plain twin {plain_ms:.3f} ms; orientation only: bf16 "
-          f"autograd through the torch.addmm chain {chain_ms:.3f} ms", flush=True)
+
+    def launches(shape):
+        return "; ".join(f"{name.replace('void ', '').replace('(anonymous namespace)::', '')} "
+                         f"{ms:.3f}" for name, ms in sorted(per[shape].items(),
+                                                            key=lambda kv: -kv[1]))
+
+    print(f"[k3] kernel {times['coarse']:.3f} ms ev, {devs['coarse']:.3f} ms dev at "
+          f"P={P_K3['coarse']}; {times['fine']:.3f} ms ev, {devs['fine']:.3f} ms dev at P={n}; "
+          f"bound {b:.3f} ms (operations), {100 * b / devs['fine']:.2f}% of it by device time; "
+          f"{b_ws:.3f} ms counting this design's workspace ({point_bytes} bytes a point, "
+          f"{ws_bytes / 2 / n:.1f} with the fixed parts at this P, written and read once); "
+          f"plain twin {plain_ms:.3f} ms; orientation only: bf16 autograd through the "
+          f"torch.addmm chain {chain_ms:.3f} ms ev (kernel / chain {times['fine'] / chain_ms:.3f})",
+          flush=True)
+    for shape in P_K3:
+        print(f"[k3] device time by launch at P={P_K3[shape]} (ms a call): {launches(shape)}",
+              flush=True)
     return {
         "name": "K3", "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp_grad.cu",
         "replaces": "tgtc/ops/pallas/nerf_mlp_grad.py:268",
         "wrapper": "tgtc_torch.ops.kernels.nerf_mlp_grad.fused_nerf_bwd",
+        "design": ENGINE_DESIGN["K3"],
         "P": n, "max_abs_err": max_abs, "max_err": max_abs, "max_rel_err": worst_rel,
         "min_cos": worst_cos,
         "ms": times["fine"], "ms_coarse": times["coarse"], "P_coarse": P_K3["coarse"],
+        "dev_ms": devs["fine"], "dev_ms_coarse": devs["coarse"],
+        "dev_ms_by_launch": per["fine"], "dev_ms_by_launch_coarse": per["coarse"],
         "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
-        "bound_ms_with_workspace": b_ws, "library_ms": None, "matmul_chain_ms": chain_ms,
+        "bound_ms_with_workspace": b_ws, "workspace_bytes_per_point": point_bytes,
+        "library_ms": None, "matmul_chain_ms": chain_ms,
     }
 
 
@@ -1387,7 +1448,7 @@ def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: in
                  for n in (sq, sk, sk, sq))
 
 
-def device_ms(fn, iters: int):
+def device_ms(fn, iters: int, per_kernel: bool = False):
     """``fn``'s device time per call and the names of its kernels (and
     memsets), from the profiler over ``iters`` calls after one warm-up. Host
     time between kernels is not counted. A window can lose launches (seen on
@@ -1398,7 +1459,8 @@ def device_ms(fn, iters: int):
     time is the sum over ``iters``. After three windows that are not whole,
     the time is each kernel's mean recorded duration times its launches per
     call (its count over ``iters``, rounded up), and that is printed. A
-    window that recorded nothing at all is a failure."""
+    window that recorded nothing at all is a failure. With ``per_kernel``,
+    also each kernel's (or memset's) device time per call, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1418,15 +1480,19 @@ def device_ms(fn, iters: int):
                 durations.setdefault(e.name, []).append(e.time_range.elapsed_us() * 1e-3)
         names = "; ".join(sorted({n[:80] for n in durations}))
         if durations and all(len(d) % iters == 0 for d in durations.values()):
-            return sum(sum(d) for d in durations.values()) / iters, names
+            total = sum(sum(d) for d in durations.values()) / iters
+            if per_kernel:
+                return total, names, {n[:60]: sum(d) / iters for n, d in durations.items()}
+            return total, names
         print(f"[profiler] window {attempt + 1} recorded "
               f"{sum(len(d) for d in durations.values())} device kernels of {len(durations)} "
               f"names over {iters} calls, not a whole number a call", flush=True)
     check(bool(durations), "the profiler recorded no device kernel")
-    total = sum(math.ceil(len(d) / iters) * sum(d) / len(d) for d in durations.values())
+    each = {n[:60]: math.ceil(len(d) / iters) * sum(d) / len(d) for n, d in durations.items()}
+    total = sum(each.values())
     print(f"[profiler] taking each kernel's mean recorded duration times its launches per call: "
           f"{total:.4f} ms", flush=True)
-    return total, names
+    return (total, names, each) if per_kernel else (total, names)
 
 
 def sdpa_bwd(q, k, v, do, iters: int):

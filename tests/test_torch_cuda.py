@@ -1,5 +1,5 @@
-"""The CUDA kernels on a card: K1-K8 against their plain twins, their
-launch counters, the fused render, the fused stylized render, one fused
+"""The CUDA kernels on a card: K1-K8 against their plain twins (K3's
+recompute against K1 bit for bit), their launch counters, the fused render, the fused stylized render, one fused
 training step, a narrow C3 stylization and a narrow C1 step on the card
 against the same on the CPU (where the wrappers run the twins).
 
@@ -177,6 +177,43 @@ def test_cuda_k3_matches_twin_and_repeats(cuda_device, p):
     dw2, db2 = tg.fused_nerf_bwd(packed, *args)
     torch.cuda.synchronize()
     assert torch.equal(dw, dw2) and torch.equal(db, db2)  # deterministic
+    tw, tb = tg.fused_nerf_bwd_plain(packed, *args)
+    for i, (n, k) in enumerate(packed.layers()):
+        a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        b = tw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        assert (a - b).abs().max() <= TOL_K3_REL * b.abs().max(), i
+        assert (a * b).sum() >= TOL_K3_COS * a.norm() * b.norm(), i
+    assert (db - tb).abs().max() <= TOL_K3_REL * tb.abs().max()
+
+
+@pytest.mark.parametrize("p", [300, 64 * 1000 + 17])
+def test_cuda_k3_recompute_ties_k1(cuda_device, p):
+    """K3 recomputes the forward with K1's own device code (trunk_tile and
+    rgb_tail): its rgb and sigma equal K1's on the same inputs bit for bit."""
+    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    args = _points(p, cuda_device) + _cotangents(p, cuda_device)
+    fwd = torch.empty(4, p, device=cuda_device)
+    tg.fused_nerf_bwd(packed, *args, forward_out=fwd)
+    rgb, sigma = tk.fused_nerf_apply_t(packed, args[0], args[1])
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma)
+
+
+def test_cuda_k3_runtime_depth_matches_twin(cuda_device):
+    """K3 at depth 6 with skip 2 (its run-time depth build): the twin per
+    packed layer, a second launch and K1's forward bit for bit."""
+    cfg = NerfConfig(depth=6, skips=(2,))
+    sd = make_nerf(cfg, torch.Generator().manual_seed(3), device="cpu").state_dict()
+    packed = tk.pack_nerf_params(sd, depth=6, skip=2, device=cuda_device)
+    p = 64 * 1000 + 17
+    args = _points(p, cuda_device) + _cotangents(p, cuda_device)
+    fwd = torch.empty(4, p, device=cuda_device)
+    dw, db = tg.fused_nerf_bwd(packed, *args, forward_out=fwd)
+    dw2, db2 = tg.fused_nerf_bwd(packed, *args)
+    rgb, sigma = tk.fused_nerf_apply_t(packed, args[0], args[1])
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma)
     tw, tb = tg.fused_nerf_bwd_plain(packed, *args)
     for i, (n, k) in enumerate(packed.layers()):
         a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()

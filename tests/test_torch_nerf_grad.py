@@ -212,3 +212,22 @@ def test_wrapper_takes_the_twin_only_on_cpu(setup):
     meta = torch.empty(3, 64, device="meta")
     with pytest.raises(TypeError):
         tg.fused_nerf_bwd(packed, meta, meta, meta, torch.empty(1, 64, device="meta"))
+
+
+def test_forward_out_receives_the_recompute(setup):
+    """``forward_out`` (for the checks) gets the recomputed forward, rgb in
+    rows 0-2 and sigma in row 3: on the CPU the K1 twin's, and the gradients
+    do not change; a tensor of another shape is refused."""
+    params, _ = setup
+    packed = tk.pack_nerf_params(_model(params).state_dict())
+    pts, dirs, crgb, csig = _inputs(80, seed=6)
+    args = (torch.from_numpy(pts.T.copy()), torch.from_numpy(dirs.T.copy()),
+            torch.from_numpy(crgb.T.copy()), torch.from_numpy(csig[None].copy()))
+    fwd = torch.full((4, 80), float("nan"))
+    got = tg.fused_nerf_bwd(packed, *args, forward_out=fwd)
+    rgb, sigma = tk.fused_nerf_apply_t_plain(packed, args[0], args[1])
+    assert torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma)
+    want = tg.fused_nerf_bwd_plain(packed, *args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        tg.fused_nerf_bwd(packed, *args, forward_out=torch.empty(3, 80))

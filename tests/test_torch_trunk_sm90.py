@@ -17,12 +17,14 @@ run, is why their sigmas tie bit for bit.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
 from tgtc_torch.models.nerf import NerfConfig, make_nerf
 from tgtc_torch.models.style_field import StyleFieldConfig, make_style_mlps
 from tgtc_torch.ops.kernels import nerf_mlp as tk
+from tgtc_torch.ops.kernels import nerf_mlp_grad as tg
 from tgtc_torch.ops.kernels import style_kernel as ts
 
 # What csrc/trunk_sm90.cuh streams: each tensor-core layer's packed [N, K]
@@ -201,3 +203,215 @@ def test_sigma_plan_is_the_head_of_k1s_and_k4s(kind, shape):
             assert torch.equal(packed.weight(m), nerf.weight(m)), m
             assert torch.equal(packed.bias(m), nerf.bias(m)), m
     assert sigma_plan == full_plan[:packed.depth]
+
+
+# ---------------------------------------------------------------- K3
+#
+# K3 (csrc/nerf_mlp_grad.cu) recomputes K1's forward (K1's plan above), then
+# streams the backward's input-gradient products through the same ring: each
+# is a transposed copy (WT) of the propagating columns of one packed matrix,
+# [256 input columns, K output rows], in K-major boxes of 64 columns x 256
+# rows. Then a weight-gradient kernel forms dW = G^T A per (layer, input
+# segment) in tiles of 128 rows x up to 4 boxes of 64 columns; sigma and
+# rgb_1 run on CUDA cores. The mirrors below follow the C code, and the
+# emulation runs K3's dataflow on them in f32, held against the twin.
+
+K3_TILE_ROWS, K3_TILE_BOXES = 128, 4
+
+
+def _k3_backward_products(packed):
+    """The backward's products in the producer's order: (packed matrix,
+    first propagating input column, propagating columns, output rows
+    contracted). rgb_0's base_remap columns, base_remap, then trunk layers
+    depth-1 .. 1 (their h columns: the last width columns, KC.. at skip + 1)."""
+    d, w = packed.depth, packed.width
+    prods = [(d + 2, 0, tk.TRUNK_W, w // 2), (d, 0, w, tk.TRUNK_W)]
+    for i in range(d - 1, 0, -1):
+        prods.append((i, packed.k_coor if i == packed.skip + 1 else 0, w, w))
+    return prods
+
+
+def _k3_wt(packed, prods):
+    """WT as transpose_kernel builds it: product m's propagating columns of
+    its matrix, transposed, [columns, output rows]."""
+    return [packed.weight(mat)[:, c0:c0 + n].float().T for mat, c0, n, _ in prods]
+
+
+def _k3_jobs(packed):
+    """The weight-gradient jobs of tgtc_nerf_mlp_bwd: (G array and its layer,
+    A array and its layer, rows n, columns k, element offset of dW[0, 0],
+    row stride, bias offset or None), and their tiles (job, n0, k0, boxes)."""
+    d, w, kc, kd = packed.depth, packed.width, packed.k_coor, packed.k_dir
+    n_l = len(packed.layers())
+    woff, boff = packed.offsets[:n_l], packed.offsets[n_l:]
+    jobs = [(("g", 0), ("ec", 0), w, kc, woff[0], kc, boff[0])]
+    for i in range(1, d):
+        if i == packed.skip + 1:
+            jobs.append((("g", i), ("ec", 0), w, kc, woff[i], kc + w, boff[i]))
+            jobs.append((("g", i), ("h", i - 1), w, w, woff[i] + kc, kc + w, None))
+        else:
+            jobs.append((("g", i), ("h", i - 1), w, w, woff[i], w, boff[i]))
+    jobs.append((("g", d), ("h", d - 1), tk.TRUNK_W, w, woff[d], w, boff[d]))
+    jobs.append((("grf", 0), ("xrf", 0), w // 2, tk.TRUNK_W + kd, woff[d + 2],
+                 tk.TRUNK_W + kd, boff[d + 2]))
+    tiles = []
+    for j, (_, _, n, k, _, _, _) in enumerate(jobs):
+        for n0 in range(0, n, K3_TILE_ROWS):
+            for k0 in range(0, k, K3_TILE_BOXES * TMA_BOX_COLS):
+                tiles.append((j, n0, k0, min(K3_TILE_BOXES, math.ceil((k - k0) / TMA_BOX_COLS))))
+    return jobs, tiles
+
+
+def _emulate_k3(packed, pts_t, dirs_t, g_rgb, g_sigma):
+    """K3's dataflow in f32 on its plans: K1's forward with every input kept,
+    the masked bf16 gradients through the WT products, dW and the biases from
+    the jobs' tiles (zero fill past each array's columns), the heads."""
+    d, bf = packed.depth, tk._bf16
+    e_c = tk._encode_plain(pts_t.T.float(), packed.num_freq_coor, packed.k_coor)
+    arrays = {("ec", 0): e_c}
+    h = e_c
+    for i in range(d):
+        inp = e_c if i == 0 else (torch.cat([e_c, h], -1) if i == packed.skip + 1 else h)
+        h = bf(torch.relu(tk._linear(inp, packed, i)))
+        arrays[("h", i)] = h
+    e_d = tk._encode_plain(dirs_t.T.float(), packed.num_freq_dir, packed.k_dir)
+    br = bf(torch.relu(tk._linear(h, packed, d)))
+    arrays[("xrf", 0)] = torch.cat([br, e_d], -1)
+    rf = bf(torch.relu(tk._linear(arrays[("xrf", 0)], packed, d + 2)))
+    rgb = torch.sigmoid(tk._linear(rf, packed, d + 3))
+    gs = bf(g_rgb.T.float() * rgb * (1 - rgb))
+    g = bf(torch.where(rf > 0, gs @ packed.weight(d + 3).float(), 0.0))
+    arrays[("grf", 0)] = g
+    masks = [br] + [arrays[("h", i)] for i in range(d - 1, -1, -1)]
+    prods = _k3_backward_products(packed)
+    g_sig = bf(g_sigma.T.float())
+    for m, wt in enumerate(_k3_wt(packed, prods)):
+        pre = g @ wt.T
+        if m == 1:  # the sigma head's rank-1 term
+            pre = pre + g_sig @ packed.weight(d + 1).float()
+        g = bf(torch.where(masks[m] > 0, pre, 0.0))
+        arrays[("g", d if m == 0 else d - m)] = g
+    dw = torch.zeros(packed.w.numel())
+    db = torch.zeros(packed.b.numel())
+    jobs, tiles = _k3_jobs(packed)
+    for j, n0, k0, kb in tiles:
+        gk, ak, n, k, w_off, ldw, b_off = jobs[j]
+        gt = arrays[gk][:, n0:n0 + K3_TILE_ROWS]
+        at = torch.nn.functional.pad(arrays[ak], (0, 512))[:, k0:k0 + kb * TMA_BOX_COLS]
+        part = gt.T @ at
+        for r in range(gt.shape[1]):
+            cols = min(part.shape[1], k - k0)
+            dw[w_off + (n0 + r) * ldw + k0: w_off + (n0 + r) * ldw + k0 + cols] = part[r, :cols]
+        if k0 == 0 and b_off is not None:
+            db[b_off + n0: b_off + n0 + gt.shape[1]] = gt.sum(0)
+    n_l = len(packed.layers())
+    w_sig, w_rgb1 = packed.offsets[d + 1], packed.offsets[d + 3]
+    dw[w_sig: w_sig + packed.width] = (g_sig.T @ arrays[("h", d - 1)])[0]
+    db[packed.offsets[n_l + d + 1]] = g_sigma.sum()
+    dw[w_rgb1: w_rgb1 + 3 * (packed.width // 2)] = (gs.T @ rf).reshape(-1)
+    db[packed.offsets[n_l + d + 3]: packed.offsets[n_l + d + 3] + 3] = gs.sum(0)
+    return dw, db
+
+
+@pytest.mark.parametrize("depth,width,freqs,skip", NERF_SHAPES)
+def test_k3_forward_plan_is_k1s(depth, width, freqs, skip):
+    """K3's recompute streams K1's plan: the same matrices, segments and
+    chunks, then the backward's products; at fern width 39 + 34 chunks a
+    tile."""
+    _, packed = _nerf(depth, width, freqs, skip)
+    layers = _k1_layers(packed)
+    _check_engine_layout(packed, layers, list(range(depth)) + [depth, depth + 2])
+    prods = _k3_backward_products(packed)
+    assert len(prods) == depth + 1  # layer 0 needs no input gradient
+    if (depth, width, freqs) == (8, 256, (10, 4)):
+        fwd = sum(len(_chunks(packed.layers()[m][1])) for m, _ in layers)
+        bwd = sum(len(_chunks(k)) for _, _, _, k in prods)
+        assert (fwd, bwd) == (39, 34)
+
+
+@pytest.mark.parametrize("depth,width,freqs,skip", NERF_SHAPES)
+def test_k3_backward_products_meet_the_ring(depth, width, freqs, skip):
+    """Each backward product is a [propagating columns, output rows] WT
+    matrix streamed as the forward's: at most 256 rows a box, K (the layer's
+    output rows) in whole 64-column chunks, the skip layer's h columns and
+    rgb_0's base_remap columns picked by offset."""
+    _, packed = _nerf(depth, width, freqs, skip)
+    prods = _k3_backward_products(packed)
+    shapes = packed.layers()
+    assert [m for m, _, _, _ in prods] == [depth + 2, depth] + list(range(depth - 1, 0, -1))
+    for (mat, c0, n, k), wt in zip(prods, _k3_wt(packed, prods)):
+        out_rows, in_cols = shapes[mat]
+        assert k == out_rows and wt.shape == (n, k)
+        assert 1 <= n <= TMA_MAX_ROWS and k % 16 == 0
+        assert c0 + n <= in_cols
+        if (depth, width, freqs) == (8, 256, (10, 4)):
+            assert k % TMA_BOX_COLS == 0  # no zero fill in the backward
+        torch.testing.assert_close(wt.T, packed.weight(mat)[:, c0:c0 + n].float())
+    # rgb_0: [base_remap | enc(dirs)], the first 256 columns propagate
+    assert prods[0][1:3] == (0, tk.TRUNK_W)
+    assert shapes[depth + 2][1] == tk.TRUNK_W + packed.k_dir
+    # the skip layer: [enc(pts) | h], only the h columns propagate
+    skip_prod = [p for p in prods if p[0] == skip + 1]
+    if skip + 1 < depth:
+        assert skip_prod == [(skip + 1, packed.k_coor, width, width)]
+        assert shapes[skip + 1][1] == packed.k_coor + width
+
+
+@pytest.mark.parametrize("depth,width,freqs,skip", NERF_SHAPES)
+def test_k3_weight_gradient_jobs_cover_every_weight_once(depth, width, freqs, skip):
+    """The jobs' tiles and the two heads write every element of the packed
+    weight and bias buffers exactly once (alignment gaps never), each tile
+    in boxes of 64 columns that stay inside its job, TMA's zero fill only
+    past an array's last column."""
+    _, packed = _nerf(depth, width, freqs, skip)
+    jobs, tiles = _k3_jobs(packed)
+    shapes = packed.layers()
+    n_l = len(shapes)
+    wcount = torch.zeros(packed.w.numel(), dtype=torch.int32)
+    bcount = torch.zeros(packed.b.numel(), dtype=torch.int32)
+    for j, n0, k0, kb in tiles:
+        _, _, n, k, w_off, ldw, b_off = jobs[j]
+        assert n0 < n and k0 < k and 1 <= kb <= K3_TILE_BOXES
+        # a tile's last box reaches past its job's columns by less than a box
+        assert kb == K3_TILE_BOXES or 0 <= k0 + kb * TMA_BOX_COLS - k < TMA_BOX_COLS
+        for r in range(n0, min(n, n0 + K3_TILE_ROWS)):
+            lo = w_off + r * ldw + k0
+            wcount[lo: lo + min(kb * TMA_BOX_COLS, k - k0)] += 1
+        if k0 == 0 and b_off is not None:
+            bcount[b_off + n0: b_off + min(n, n0 + K3_TILE_ROWS)] += 1
+    for head in (depth + 1, depth + 3):  # sigma, rgb_1 on CUDA cores
+        n, k = shapes[head]
+        wcount[packed.offsets[head]: packed.offsets[head] + n * k] += 1
+        bcount[packed.offsets[n_l + head]: packed.offsets[n_l + head] + n] += 1
+    used = torch.zeros(packed.w.numel(), dtype=torch.int32)
+    for i, (n, k) in enumerate(shapes):
+        used[packed.offsets[i]: packed.offsets[i] + n * k] = 1
+    assert torch.equal(wcount, used)
+    assert bool((bcount == 1).all())
+    # the skip layer's two segments and rgb_0's one job of [base_remap | enc(dirs)]
+    if skip + 1 < depth:
+        seg = [jb for jb in jobs if jb[0] == ("g", skip + 1)]
+        assert [(a, k, w_off - packed.offsets[skip + 1]) for _, a, _, k, w_off, _, _ in seg] == [
+            (("ec", 0), packed.k_coor, 0), (("h", skip), width, packed.k_coor)]
+    last = jobs[-1]
+    assert last[:4] == (("grf", 0), ("xrf", 0), width // 2, tk.TRUNK_W + packed.k_dir)
+    if (depth, width, freqs) == (8, 256, (10, 4)):
+        assert len(jobs) == 11 and len(tiles) == 22
+        # rgb_0's last box holds enc(dirs)'s 32 columns and 32 of zero fill
+        assert tiles[-1] == (10, 0, 256, 1)
+
+
+@pytest.mark.parametrize("depth,width,freqs,skip", NERF_SHAPES)
+def test_k3_emulated_on_its_plans_matches_the_twin(depth, width, freqs, skip):
+    """K3's dataflow on its plans (WT products, jobs, tiles, heads) gives the
+    twin's gradients: the offsets, segments and transposes are the packing's."""
+    _, packed = _nerf(depth, width, freqs, skip)
+    rng = np.random.default_rng(3)
+    p = 96
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.uniform(-1, 1, (3, p)), rng.normal(size=(3, p)), rng.normal(size=(3, p)),
+        rng.normal(size=(1, p)))]
+    dw, db = _emulate_k3(packed, *args)
+    tw, tb = tg.fused_nerf_bwd_plain(packed, *args)
+    torch.testing.assert_close(dw, tw, rtol=1e-5, atol=1e-5 * float(tw.abs().max()))
+    torch.testing.assert_close(db, tb, rtol=1e-5, atol=1e-5 * float(tb.abs().max()))

@@ -17,12 +17,13 @@
 // four 32 KB slots, and one trunk function (sm90::trunk_tile) for both. Per
 // K1 tile: enc(pts) and enc(dirs) into their swizzled blocks, the trunk with
 // h in registers ([enc(pts) | h] at the skip layer), h to shared memory for
-// the sigma head on CUDA cores, base_remap, rgb_0 (wgmma m64n128k16) on
-// [base_remap | enc(dirs)] into shared memory, the sigmoid rgb on CUDA
-// cores. K2 is the engine's sigma-only kernel (sm90::sigma_kernel): the same
-// trunk and sigma head, nothing after them, so K2's sigma equals K1's bit for
-// bit (phase 1 of chip_smoke.py holds it). Depth 8 with skip 4 is compiled
-// in for both; other depths run on a run-time-depth build of each.
+// the sigma head on CUDA cores, then K1's tail (sm90::rgb_tail, which K3
+// recomputes with too): base_remap, rgb_0 (wgmma m64n128k16) on [base_remap
+// | enc(dirs)] into shared memory, the sigmoid rgb on CUDA cores. K2 is the
+// engine's sigma-only kernel (sm90::sigma_kernel): the same trunk and sigma
+// head, nothing after them, so K2's sigma equals K1's bit for bit (phase 1
+// of chip_smoke.py holds it). Depth 8 with skip 4 is compiled in for both;
+// other depths run on a run-time-depth build of each.
 //
 // K1's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
 // 128 KB, h 4 x 16 KB = 64 KB (for the heads), enc(pts) 16 KB, enc(dirs)
@@ -30,7 +31,7 @@
 // block may have. K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers
 // 64 B: 213,056 B (sm90::SIGMA_KERNEL_SMEM).
 
-#include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
+#include "trunk_sm90.cuh"
 
 namespace {
 
@@ -86,8 +87,6 @@ nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
   float acc[128];
   uint32_t act[64];  // the layer input's 256 columns as wgmma A fragments
   uint32_t q = 0;    // chunks consumed
-  using sm90::REGS;
-  using sm90::SMEM;
 
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
@@ -95,23 +94,9 @@ nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
         acc, act, depth_rt, skip_rt, pts_t, P, p0, ec, h, w, b, L, sigma, ring, sm.full,
         sm.empty, q, tid, bar, [=] { sm90::encode(dirs_t, P, p0, FD, KD, ed, tid); });
 
-    // base_remap, then rgb_0 on [base_remap | enc(dirs)] into h's first 128 columns
-    sm90::mma_layer<W, K1_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
-    sm90::epilogue<W, false>(acc, act, b + L.b[depth], nullptr, 0.0f, 0.0f, t);
-    sm90::mma_layer<HW, K1_STAGES, REGS, W, SMEM, KD>(acc, act, 0, s_ed, 0, ring, sm.full,
-                                                      sm.empty, q);
-    sm90::epilogue<HW, false>(acc, act, b + L.b[depth + 2], nullptr, 0.0f, 0.0f, t);
-    bar_sync(bar, 128);  // sigma_head has read h
-    sm90::store_act<HW>(act, s_h, warp, g, t);
-    bar_sync(bar, 128);
-
-    // rgb channel c of row r: sigmoid(wr1[c] . rf[r] + br1[c])
-    for (int idx = tid; idx < 3 * sm90::WG_ROWS; idx += 128) {
-      const int r = idx % sm90::WG_ROWS, c = idx / sm90::WG_ROWS;
-      if (p0 + r >= P) continue;
-      const float v = sm90::row_dot(h, HW / sm90::CK, w + L.w[depth + 3] + c * HW, r);
-      rgb[c * P + p0 + r] = 1.0f / (1.0f + expf(-(v + b[L.b[depth + 3] + c])));
-    }
+    sm90::rgb_tail<K1_STAGES>(acc, act, depth, P, p0, h, s_ed, w, b, L, ring, sm.full, sm.empty,
+                              q, tid, bar, warp, g, t, s_h,
+                              [=](int r, int c, float y) { rgb[c * P + p0 + r] = y; });
   }
 }
 
@@ -130,16 +115,9 @@ extern "C" int tgtc_nerf_mlp_fwd(const float* pts_t, const float* dirs_t,
   if (err != cudaSuccess) return (int)err;
   if (P == 0) return 0;
   const Layout L = make_layout(offsets, depth + 4);
-  // the tensor-core layers: trunk 0..depth-1, base_remap, rgb_0
   sm90::Maps maps;
-  sm90::Plan plan = {};
-  for (int i = 0; i <= depth + 1; ++i) {
-    const int mat = i < depth ? i : (i == depth ? depth : depth + 2);
-    plan.k[i] = i == 0 ? KC : (i == skip + 1 && i < depth ? KC + W : (i == depth + 1 ? W + KD : W));
-    plan.n[i] = i == depth + 1 ? HW : W;
-    if (!sm90::weight_map(&maps.m[i], w, L.w[mat], plan.n[i], plan.k[i]))
-      return (int)cudaErrorInvalidValue;
-  }
+  sm90::Plan plan;
+  if (!sm90::rgb_plan(&maps, &plan, w, L, depth, skip)) return (int)cudaErrorInvalidValue;
   const long long tiles = (P + sm90::ROWS - 1) / sm90::ROWS;
   const int grid = sm90::persistent_grid(tiles);
   if (grid <= 0) return (int)cudaErrorInvalidDevice;

@@ -59,7 +59,7 @@
 // is K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers 64 B: 213,056 B
 // (sm90::SIGMA_KERNEL_SMEM).
 
-#include "trunk_sm90.cuh"  // includes nerf_trunk.cuh
+#include "trunk_sm90.cuh"
 
 namespace {
 

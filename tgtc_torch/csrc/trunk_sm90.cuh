@@ -1,16 +1,19 @@
 // Dense-layer engine for Hopper (sm_90a): persistent blocks that run a
 // chain of 256- or 128-wide bf16 layers on tiles of 128 points with wgmma,
-// the weights streamed by TMA through a ring of mbarrier slots. Four kernels
-// run on it, and all four run the NeRF trunk through one function,
-// trunk_tile: K1 and K4 (nerf_mlp.cu, style_kernel.cu) go on from the h it
-// leaves in registers; K2 and K5, the sigma-only kernels, are sigma_kernel
-// below, one body launched by launch_sigma on either packing (trunk 0..depth-1
-// and sigma at depth + 1 in both). So K2's sigma equals K1's, and K5's equals
-// K4's and K2's on the same trunk, bit for bit by construction.
+// the weights streamed by TMA through a ring of mbarrier slots. Every kernel
+// on it runs the NeRF trunk through one function, trunk_tile: K1 and K4
+// (nerf_mlp.cu, style_kernel.cu) go on from the h it leaves in registers;
+// K2 and K5, the sigma-only kernels, are sigma_kernel below, one body
+// launched by launch_sigma on either packing (trunk 0..depth-1 and sigma at
+// depth + 1 in both); K3, the backward (nerf_mlp_grad.cu), recomputes K1's
+// forward with trunk_tile and K1's tail, rgb_tail, then runs the
+// input-gradient products on the same ring. So K2's sigma equals K1's, K5's
+// equals K4's and K2's on the same trunk, and K3's forward is K1's, bit for
+// bit by construction.
 //
 // What bounds the kernels on it: operations (K1 1,186,816, K2 and K5
 // 982,528, K4 2,898,944 FLOP a point against at most 156 bytes of point
-// I/O). Between the first design (nerf_trunk.cuh, now K3's alone) and the
+// I/O). Between the first design (64-point blocks on WMMA, retired) and the
 // tensor cores stood mma.sync fragments loaded by every warp from L2 at
 // every k step, and the weights re-read from L2 for every 64-point tile (39
 // GB a K1 launch at 16,384 x 128 points, 16 GB a K2 launch at 16,384 x 64).
@@ -47,30 +50,60 @@
 //   barrier: a consumer syncs with itself (named barrier 1 + its index) only
 //   where shared memory changes hands, once or twice a tile.
 // * The epilogue runs in registers: (rank-1 latent term,) bias, ReLU and a
-//   bf16 round, in the order of nerf_trunk.cuh's gemm_bias_relu, straight
-//   into the next layer's A fragments. Only the outputs that CUDA-core heads
+//   bf16 round, in the order of the reference's layer, straight into the
+//   next layer's A fragments. Only the outputs that CUDA-core heads
 //   or a later layer read from shared memory are stored there (st.shared:
 //   the 1 KB alignment arithmetic hides the space from the compiler).
-// * Small heads run on CUDA cores in a fixed order: sigma (256 -> 1) as
-//   nerf_trunk.cuh's trunk_sigma sums it (two threads a point, four
-//   64-column partials, one shuffle), rgb (128 or 256 -> 3) one thread per
-//   point and channel.
+// * Small heads run on CUDA cores in a fixed order: sigma (256 -> 1) in four
+//   64-column partials (two threads a point, one shuffle), rgb (128 or 256 ->
+//   3) one thread per point and channel.
 // * The sigma-only kernel streams the trunk's depth layers and nothing else
 //   (at D8: K = 64, 256 x 4, 320, 256 x 2, so 30 chunks, 983,040 B, a tile,
 //   half the first design's weight traffic). Its shared memory: the ring,
 //   SIGMA_KERNEL_STAGES x 32 KB, h 4 x 16 KB for the sigma head, enc(pts) 16 KB
 //   and the barriers (SIGMA_KERNEL_SMEM with the 1 KB alignment slack).
 //
-// Packed weights and biases follow nerf_trunk.cuh (Layout); every matrix
-// starts 32-byte aligned and K is a multiple of 16, so each row is a
-// multiple of 16 bytes, as TMA requires.
+// Packed weights (pack_nerf_params, pack_style_params): one bf16 buffer of
+// row-major [out, in_padded] matrices and one f32 bias buffer (bf16-rounded
+// values), at the element offsets of Layout. Inputs are padded to 64 (pts
+// encoding, 63 used) and 32 (dirs encoding, 27 used) columns; the skip
+// layer's columns are [enc(pts) | h], rgb_0's [base_remap | enc(dirs)].
+// Every matrix starts 32-byte aligned and K is a multiple of 16, so each row
+// is a multiple of 16 bytes, as TMA requires. The encodings use accurate
+// sinf/cosf in f32 (arguments reach 2^9 |x|): build without fast math.
 
 #pragma once
 
 #include "hopper.cuh"
-#include "nerf_trunk.cuh"  // Layout, make_layout, the encoding constants
 
 namespace tgtc {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int W = 256;   // trunk width (also base_remap width)
+constexpr int HW = 128;  // rgb hidden width
+constexpr int FC = 10, FD = 4;
+constexpr int KC = 64;  // 3 + 6*FC = 63, padded
+constexpr int KD = 32;  // 3 + 6*FD = 27, padded
+constexpr int MAX_LAYERS = 24;
+
+// Element offsets into the packed buffers: entries 0..depth-1 are the trunk
+// layers, then base_remap, sigma, rgb_0, rgb_1 (the style packing goes on
+// with its own layers).
+struct Layout {
+  long long w[MAX_LAYERS];
+  long long b[MAX_LAYERS];
+};
+
+inline Layout make_layout(const long long* offsets, int n) {
+  Layout L = {};
+  for (int i = 0; i < n; ++i) {
+    L.w[i] = offsets[i];
+    L.b[i] = offsets[n + i];
+  }
+  return L;
+}
+
 namespace sm90 {
 
 using namespace hopper;
@@ -196,8 +229,8 @@ __host__ __device__ constexpr int act_at(int j) { return 4 * (j / 2) + 2 * (j % 
 
 // act = bf16(relu(acc (+ lsum[n] lm) + bias[n])) as the next layer's A
 // fragments; lm0 and lm1 are the rank-1 scalars of the thread's rows (warp *
-// 16 + g and + 8). The operations and their order are those of
-// nerf_trunk.cuh's gemm_bias_relu.
+// 16 + g and + 8): the f32 sum, the rank-1 term, the bias, ReLU, one bf16
+// round.
 template <int N, bool RANK1>
 __device__ __forceinline__ void epilogue(const float (&acc)[128], uint32_t (&act)[64],
                                          const float* __restrict__ bias,
@@ -243,7 +276,7 @@ __device__ __forceinline__ int sw(int row, int col) {
 }
 
 // This consumer's 64 rows of bf16([x, sin(2^0 x), cos(2^0 x), ..., 0 pad]),
-// kpad columns, at `blk` (nerf_trunk.cuh's encode); points past P encode 0.
+// kpad columns, at `blk`; points past P encode 0.
 __device__ __forceinline__ void encode(const float* __restrict__ x_t, long long P,
                                        long long p0, int nfreq, int kpad, uint8_t* blk,
                                        int tid) {
@@ -281,8 +314,8 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 w, float acc) {
 
 // sigma = wsig . h + bsig for this consumer's 64 rows of the 256-wide h
 // (four blocks): two threads a point, each two 64-column partials summed in
-// column order, then (p0 + p1) + (p2 + p3), as nerf_trunk.cuh's trunk_sigma,
-// so that the same h gives the same sigma bit for bit.
+// column order, then (p0 + p1) + (p2 + p3), so that the same h gives the same
+// sigma bit for bit in every kernel.
 __device__ __forceinline__ void sigma_head(const uint8_t* h, const bf16* __restrict__ wsig,
                                            float bsig, long long P, long long p0,
                                            float* __restrict__ sigma, int tid) {
@@ -315,18 +348,24 @@ __device__ __forceinline__ float row_dot(const uint8_t* x, int blocks, const bf1
   return acc;
 }
 
-// One tile's trunk, the sequence K1, K2, K4 and K5 share: enc(pts) into
-// `ec` and whatever `extra` writes beside it (K1's enc(dirs), K4's latents),
-// the depth tensor-core layers with h in registers ([enc(pts) | h] at layer
-// skip + 1), h into this consumer's rows of `hs` (four blocks) and sigma on
-// CUDA cores. Leaves act = h (wgmma A fragments) for a caller that goes on,
-// and q past the trunk's chunks. DEPTH > 0 fixes depth and skip at compile
-// time (the configs' D8, skip 4), and ptxas then keeps the wgmma pipeline
-// (with run-time depth and skip it serializes it, C7511). UNROLL unrolls the
-// layer loop, as K1, K2 and K5 want; K4, whose 21 layers make a long kernel,
-// leaves it to the compiler. The barrier after the encodings also orders the
+// A per-layer hook that does nothing: K1, K2, K4 and K5 keep no activation.
+struct NoHook {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// One tile's trunk, the sequence every kernel on the engine runs: enc(pts)
+// into `ec` and whatever `extra` writes beside it (K1's and K3's enc(dirs),
+// K4's latents), the depth tensor-core layers with h in registers ([enc(pts)
+// | h] at layer skip + 1), hook(i) after layer i's epilogue (K3 keeps each
+// layer's output and ReLU mask there), h into this consumer's rows of `hs`
+// (four blocks) and sigma on CUDA cores. Leaves act = h (wgmma A fragments)
+// for a caller that goes on, and q past the trunk's chunks. DEPTH > 0 fixes
+// depth and skip at compile time (the configs' D8, skip 4), and ptxas then
+// keeps the wgmma pipeline (with run-time depth and skip it serializes it,
+// C7511). UNROLL unrolls the layer loop, as K1, K2 and K5 want; K4 and K3,
+// long kernels, leave it to the compiler. The barrier after the encodings also orders the
 // previous tile's reads of hs (its heads) before this tile's store into it.
-template <int DEPTH, int SKIP, int STAGES, bool UNROLL, class Extra>
+template <int DEPTH, int SKIP, int STAGES, bool UNROLL, class Extra, class Hook = NoHook>
 __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64], int depth_rt,
                                            int skip_rt, const float* __restrict__ pts_t,
                                            long long P, long long p0, uint8_t* ec, uint8_t* hs,
@@ -334,7 +373,7 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
                                            const float* __restrict__ b, const Layout& L,
                                            float* __restrict__ sigma, uint32_t ring,
                                            uint64_t* full, uint64_t* empty, uint32_t& q, int tid,
-                                           int bar, Extra&& extra) {
+                                           int bar, Extra&& extra, Hook&& hook = Hook{}) {
   const int depth = DEPTH > 0 ? DEPTH : depth_rt, skip = DEPTH > 0 ? SKIP : skip_rt;
   const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
   const uint32_t s_ec = smem_u32(ec);
@@ -350,6 +389,7 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
     else
       mma_layer<W, STAGES, REGS, W>(acc, act, 0, 0, 0, ring, full, empty, q);
     epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
+    hook(i);
   };
   if constexpr (UNROLL) {
 #pragma unroll(DEPTH > 0 ? DEPTH : 1)
@@ -360,6 +400,39 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
   store_act<W>(act, smem_u32(hs), warp, g, t);
   bar_sync(bar, 128);
   sigma_head(hs, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
+}
+
+// K1's tail of a tile, after trunk_tile (act = h): base_remap, rgb_0 on
+// [base_remap | enc(dirs)] (wgmma m64n128k16; enc(dirs) at shared address
+// s_ed) into the first two of this consumer's blocks of `hs` (at shared
+// address s_hs; warp, g and t are the thread's, as in epilogue), and the rgb
+// head on CUDA cores, out(r, c, sigmoid(wr1[c] . rf[r] + br1[c])) for each
+// row r of this consumer below P and channel c. hook(depth) runs after
+// base_remap's epilogue and hook(depth + 2) after rgb_0's, before rf goes to
+// `hs`. Leaves act = rf. K1 and K3 both run it, so K3's recompute is K1's.
+template <int STAGES, class Out, class Hook = NoHook>
+__device__ __forceinline__ void rgb_tail(float (&acc)[128], uint32_t (&act)[64], int depth,
+                                         long long P, long long p0, uint8_t* hs, uint32_t s_ed,
+                                         const bf16* __restrict__ w,
+                                         const float* __restrict__ b, const Layout& L,
+                                         uint32_t ring, uint64_t* full, uint64_t* empty,
+                                         uint32_t& q, int tid, int bar, int warp, int g,
+                                         int t, uint32_t s_hs, Out&& out, Hook&& hook = Hook{}) {
+  mma_layer<W, STAGES, REGS, W>(acc, act, 0, 0, 0, ring, full, empty, q);
+  epilogue<W, false>(acc, act, b + L.b[depth], nullptr, 0.0f, 0.0f, t);
+  hook(depth);
+  mma_layer<HW, STAGES, REGS, W, SMEM, KD>(acc, act, 0, s_ed, 0, ring, full, empty, q);
+  epilogue<HW, false>(acc, act, b + L.b[depth + 2], nullptr, 0.0f, 0.0f, t);
+  hook(depth + 2);
+  bar_sync(bar, 128);  // sigma_head has read hs
+  store_act<HW>(act, s_hs, warp, g, t);
+  bar_sync(bar, 128);
+  for (int idx = tid; idx < 3 * WG_ROWS; idx += 128) {
+    const int r = idx % WG_ROWS, c = idx / WG_ROWS;
+    if (p0 + r >= P) continue;
+    const float v = row_dot(hs, HW / CK, w + L.w[depth + 3] + c * HW, r);
+    out(r, c, 1.0f / (1.0f + expf(-(v + b[L.b[depth + 3] + c]))));
+  }
 }
 
 // The sigma-only kernel's ring depth and shared memory.
@@ -422,6 +495,22 @@ inline bool weight_map(CUtensorMap* map, const void* w, long long off, int n, in
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K1's tensor-core layers, in the order they run: trunk 0..depth-1,
+// base_remap, rgb_0 (matrices 0..depth-1, depth, depth + 2 of the packing).
+// False if a map cannot be made.
+inline bool rgb_plan(Maps* maps, Plan* plan, const void* w, const Layout& L, int depth,
+                     int skip) {
+  *plan = {};
+  for (int i = 0; i <= depth + 1; ++i) {
+    const int mat = i < depth ? i : (i == depth ? depth : depth + 2);
+    plan->k[i] =
+        i == 0 ? KC : (i == skip + 1 && i < depth ? KC + W : (i == depth + 1 ? W + KD : W));
+    plan->n[i] = i == depth + 1 ? HW : W;
+    if (!weight_map(&maps->m[i], w, L.w[mat], plan->n[i], plan->k[i])) return false;
+  }
+  return true;
 }
 
 // Blocks of a persistent launch over `tiles` tiles: one per SM at most.

@@ -6,7 +6,9 @@ first use):
 
 * K3 :func:`fused_nerf_bwd` replaces the Pallas ``_fused_nerf_bwd`` —
   ``pts_t/dirs_t/g_rgb [3, P]``, ``g_sigma [1, P]`` → the f32 gradients of
-  the packed weight and bias buffers, in their layout.
+  the packed weight and bias buffers, in their layout. It recomputes the
+  forward with K1's own device code (``csrc/trunk_sm90.cuh``), so its ReLU
+  masks, rgb and σ are K1's bit for bit; ``forward_out`` shows them.
 
 :func:`pack_nerf_params_traceable` packs live ``nn.Linear`` parameters on
 their device with ``cat``/``pad``/``.to(bfloat16)``, so autograd routes the
@@ -30,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -45,6 +47,7 @@ from tgtc_torch.ops.kernels.nerf_mlp import (
     _offsets,
     _raise_on,
     fused_nerf_apply_t,
+    fused_nerf_apply_t_plain,
     pack_layers,
 )
 
@@ -133,20 +136,52 @@ def _grad_lib() -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tgtc_nerf_mlp_bwd_workspace.argtypes = [ll, i, ll]
     lib.tgtc_nerf_mlp_bwd_workspace.restype = ll
+    lib.tgtc_nerf_mlp_bwd_point_bytes.argtypes = [i]
+    lib.tgtc_nerf_mlp_bwd_point_bytes.restype = ll
     lib.tgtc_nerf_mlp_bwd.argtypes = [vp, vp, vp, vp, ll, vp, vp, vp, i, i, ll, ll,
-                                      vp, vp, vp]
+                                      vp, vp, vp, vp]
     lib.tgtc_nerf_mlp_bwd.restype = i
     return lib
 
 
+def _check_forward_out(forward_out: Optional[torch.Tensor], pts_t: torch.Tensor) -> None:
+    p = pts_t.shape[-1]
+    if forward_out is not None and (
+            forward_out.device != pts_t.device or forward_out.dtype != torch.float32
+            or forward_out.shape != (4, p) or not forward_out.is_contiguous()):
+        raise ValueError(f"expected a contiguous float32 [4, {p}] forward_out on "
+                         f"{pts_t.device}, got {forward_out.dtype} "
+                         f"{tuple(forward_out.shape)} on {forward_out.device}")
+
+
+def workspace_bytes(packed: PackedNerf, p: int) -> int:
+    """Bytes of K3's workspace for ``p`` points (needs the card's toolchain)."""
+    return _grad_lib().tgtc_nerf_mlp_bwd_workspace(p, packed.depth,
+                                                   packed.w.numel() + packed.b.numel())
+
+
+def workspace_point_bytes(depth: int) -> int:
+    """Bytes a point of K3's workspace at ``depth`` (the saved activations
+    and gradients; the transposed weights, masks and per-chunk partials come
+    on top). Builds K3's library, so it needs the card's toolchain."""
+    return _grad_lib().tgtc_nerf_mlp_bwd_point_bytes(depth)
+
+
 def fused_nerf_bwd(packed: PackedNerf, pts_t: torch.Tensor, dirs_t: torch.Tensor,
-                   g_rgb: torch.Tensor, g_sigma: torch.Tensor
+                   g_rgb: torch.Tensor, g_sigma: torch.Tensor, *,
+                   forward_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: the packed weight and bias gradients ``(dw, db)`` (f32, the
     layouts of ``packed.w`` and ``packed.b``) of ``sum(g_rgb * rgb) +
     sum(g_sigma * sigma)`` for K1's ``rgb [3, P]``, ``sigma [1, P]``.
-    Deterministic: the same inputs give the same bits."""
+    Deterministic: the same inputs give the same bits. For the checks only,
+    ``forward_out`` (f32 ``[4, P]``) receives the recomputed forward: rgb in
+    rows 0-2, σ in row 3 (on the card, K1's bit for bit)."""
+    _check_forward_out(forward_out, pts_t)
     if pts_t.device.type == "cpu":
+        if forward_out is not None:
+            rgb, sigma = fused_nerf_apply_t_plain(packed, pts_t, dirs_t)
+            forward_out.copy_(torch.cat([rgb, sigma]))
         return fused_nerf_bwd_plain(packed, pts_t, dirs_t, g_rgb, g_sigma)
     p = _check_cuda(packed, pts_t, dirs_t, g_rgb)
     if (g_sigma.device != pts_t.device or g_sigma.dtype != torch.float32
@@ -157,13 +192,13 @@ def fused_nerf_bwd(packed: PackedNerf, pts_t: torch.Tensor, dirs_t: torch.Tensor
     lib = _grad_lib()
     nw, nb = packed.w.numel(), packed.b.numel()
     dev = pts_t.device
-    ws = torch.empty(lib.tgtc_nerf_mlp_bwd_workspace(p, packed.depth, nw + nb),
-                     dtype=torch.uint8, device=dev)
+    ws = torch.empty(workspace_bytes(packed, p), dtype=torch.uint8, device=dev)
     out = torch.empty(nw + nb, dtype=torch.float32, device=dev)
     rc = lib.tgtc_nerf_mlp_bwd(
         pts_t.data_ptr(), dirs_t.data_ptr(), g_rgb.data_ptr(), g_sigma.data_ptr(), p,
         packed.w.data_ptr(), packed.b.data_ptr(), _offsets(packed), packed.depth,
         packed.skip, nw, nb, ws.data_ptr(), out.data_ptr(),
+        None if forward_out is None else forward_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "tgtc_nerf_mlp_bwd")
     fused_nerf_bwd.launches += 1
