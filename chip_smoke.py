@@ -144,7 +144,46 @@ started together), then:
    gradient norm); at dropout 0 the same against the eager f32 "xla" step
    (TF32 off; cosine 0.99, the worst leaf's error within 1.3x the eager
    bf16 "xla" step's + 5e-3); 30 steps on one fixed batch lower the loss;
-12. prints the kernels line (JSON, K1-K8), then the result line.
+12. Phase C2 from phase 11's trained state (the same full-width StyTrans,
+   dropout 0.1, bf16, flash): train.temporal.run_temporal_finetune at
+   TemporalTrainConfig's defaults (batch 4 of 256x256 patches, 100 steps,
+   temporal weight 3500, splat radius 1.5, threshold 5e-2) on phase 5's
+   two renders, its NDC coor maps and poses, and phase 11's 8 styles at
+   512x512, logged every 10 steps: 36 K6 launches a step plus 36 for the
+   end-of-C2 debug pass, no K7 or K8; only the decoder moves; the five
+   losses finite and loss_t > 0; the debug PNGs and style_image.png
+   written; C2 steps/s over steps 11-100 (the log windows' times, the log's
+   fetch the sync). On the first step's batch: the splat of its point cloud
+   (65,536 points into 4 views of 756x1008) on the card against the CPU
+   with one w2c (hit masks differ at <= 0.1% of the pixels, warped
+   features equal where the winners are, a second card splat bitwise
+   equal) and through rasterize_warp with each device's own pose inversion
+   (masks within the same 0.1%); the patch splatted into its own camera
+   covers > 95% of the patch (tests/test_rasterize.py's bound); one step
+   (36 K6 launches, no K7/K8) against the same step with the twin's
+   attention on the card (loss within 1e-2 relative, decoder gradient
+   cosine >= 0.999), and whether the same step repeats bit for bit (read,
+   not held: cuDNN's convolution backward does not promise a fixed order);
+13. Phase C3 after C2: stylize_all with phase 12's model over phase 5's two
+   views and all 8 styles: every style_XX/NNN.jpg at 756x1008,
+   style_features [8, 1024] finite, 12 K6 launches a view and style,
+   seconds a view and style;
+14. Phase D: tools/train2d.main(["--task", "vae", ...]) on phase 11's
+   styles at the pipeline's Phase-D settings (VaeConfig 1024 -> 512 x3 ->
+   32, lr 1e-3, batch 8, 256x256 crops of the styles resized to 512, 2,000
+   steps; TF32 at PyTorch's default), resumed after 20 warm-up steps,
+   logged every step (one fetch a step): the loss finite, the mean of the
+   last 100 steps below the first 100's, the checkpoint written, VAE
+   steps/s over the resumed loop; one VAE step on the card against the same
+   step on the CPU (same features and eps, TF32 off: loss within 1e-5
+   relative, every gradient cosine >= 0.9999); the latent table seeded by
+   train.vae_trainer.seed_latents_from_features from phase 13's
+   style_features with one frame per phase 5 view: finite, [8, 2, 32],
+   equal to eps exp(logvar / 2) + mu for the eps drawn; a 756x1008 frame of
+   style 0 from the table through phase 7's FusedStyleRenderer settings,
+   trunks and style MLPs (47 K4 and 47 K5 launches, no K1/K2), its first
+   16,384 rays held to the eager f32 render as in phase 7;
+15. prints the kernels line (JSON, K1-K8), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -219,6 +258,10 @@ TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
 TOL_C1_LOSS, TOL_C1_COS, TOL_C1_LEAF = 1e-2, 0.999, 0.1      # vs the twin-attention step
 TOL_C1_ATTN_LEAF = 0.5
 TOL_C1_F32_COS, TOL_C1_F32_RATIO, TOL_C1_F32_ADD = 0.99, 1.3, 5e-3  # vs the eager f32 step
+C2_SEED, C2_WARM, C2_PRINT = 21, 10, 10  # steps 11-100 counted, over log windows of 10
+TOL_SPLAT_MASK, TOL_OWN_VIEW = 1e-3, 0.95  # tests/test_rasterize.py's coverage bound
+D_WARM, D_STEPS = 20, 2000  # the pipeline's vae_iters
+TOL_VAE_LOSS, TOL_VAE_COS = 1e-5, 0.9999
 
 
 def check(ok: bool, what: str) -> None:
@@ -1060,6 +1103,49 @@ def phase_style_kernels(ks, kst, sd_c, style_sds):
     return rows
 
 
+def style_mlps():
+    """Phase 7's seeded style MLPs (torch seed 11) on the card."""
+    from tgtc_torch.models.style_field import StyleFieldConfig, make_style_mlps
+
+    return make_style_mlps(StyleFieldConfig(), torch.Generator().manual_seed(11), device="cuda")
+
+
+def stylized_vs_eager(renderer, trained, concat, style, fo, fd, out, tag: str, what: str):
+    """The first BLOCK rays of a stylized frame (style 0, frame 0, seed
+    F_SEED) against the eager f32 chain with the same jitter: phase 2's
+    bounds and exemption."""
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
+    from tgtc_torch.render.fast_style import block_generator
+    from tgtc_torch.train.render_style import make_stylized_render_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = []
+    for sd in (trained["coarse"], trained["fine"]):
+        m = NerfMLP(NerfConfig(compute_dtype=torch.float32))
+        m.load_state_dict(sd)
+        models.append(m.cuda())
+    eager = make_stylized_render_fn(*models, concat, style, NC, NF, renderer.settings.near,
+                                    renderer.settings.far)
+    bo, bd = fo[:BLOCK], fd[:BLOCK]
+    ids = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
+    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
+    ref = eager(renderer.latent_state, bo, bd, ids, ids, u=u)
+    with torch.no_grad():
+        last = nerf_apply(models[1], bo + ref["ts_fine"][:, -1:] * bd, bd)["sigma"]
+    err = torch.maximum((out["rgb"][:BLOCK] - ref["rgb"]).abs().amax(-1),
+                        (out["t_exp"][:BLOCK] - ref["t_exp"]).abs())
+    bad, flip = err > TOL_RENDER, last.abs() <= TOL_SIGMA  # phase 2's exemption
+    worst = float(err[~flip].max()) if bool((~flip).any()) else 0.0
+    print(f"[{tag}] first {BLOCK} rays vs the eager f32 stylized render: max|err| over rgb "
+          f"and t_exp {float(err.max()):.3e}; {int(bad.sum())} rays above {TOL_RENDER}, all "
+          f"with |last-sample sigma| <= {TOL_SIGMA}: {bool((flip | ~bad).all())}; max|err| "
+          f"over the other {int((~flip).sum())} rays {worst:.3e}", flush=True)
+    check(bool((flip | ~bad).all()), f"{what} disagrees with the eager render")
+    check(int(bad.sum()) <= BLOCK // 1000, f"too many rays of the {what} differ from the eager "
+          "render")
+
+
 def phase_f(ks, kst, trained):
     """Phase F from the trained trunks: seeded style MLPs and a 1-style
     latent table; stylized 756x1008 frames at spiral poses through
@@ -1070,17 +1156,12 @@ def phase_f(ks, kst, trained):
     from PIL import Image
 
     from tgtc_torch.data.rays import rays_for_poses
-    from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
-    from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
-    from tgtc_torch.render.fast_style import FusedStyleRenderer, block_generator
+    from tgtc_torch.models.style_field import init_latents
+    from tgtc_torch.render.fast_style import FusedStyleRenderer
     from tgtc_torch.render.volume import RenderSettings
-    from tgtc_torch.train.render_style import (
-        make_stylized_render_fn,
-        render_stylized_frames_fused,
-    )
+    from tgtc_torch.train.render_style import render_stylized_frames_fused
 
-    concat, style = make_style_mlps(StyleFieldConfig(), torch.Generator().manual_seed(11),
-                                    device="cuda")
+    concat, style = style_mlps()
     lat = init_latents(torch.Generator().manual_seed(12), 1, LATENT_FRAMES, LATENT,
                        device="cuda")
     settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
@@ -1116,33 +1197,8 @@ def phase_f(ks, kst, trained):
     check(bool(torch.isfinite(out["rgb"]).all() and torch.isfinite(out["t_exp"]).all()),
           "stylized frame not finite")
 
-    # the first block against the eager f32 chain with the same jitter
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    models = []
-    for sd in (trained["coarse"], trained["fine"]):
-        m = NerfMLP(NerfConfig(compute_dtype=torch.float32))
-        m.load_state_dict(sd)
-        models.append(m.cuda())
-    eager = make_stylized_render_fn(*models, concat, style, NC, NF, settings.near,
-                                    settings.far)
-    bo, bd = fo[:BLOCK], fd[:BLOCK]
-    ids = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
-    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
-    ref = eager(renderer.latent_state, bo, bd, ids, ids, u=u)
-    with torch.no_grad():
-        last = nerf_apply(models[1], bo + ref["ts_fine"][:, -1:] * bd, bd)["sigma"]
-    err = torch.maximum((out["rgb"][:BLOCK] - ref["rgb"]).abs().amax(-1),
-                        (out["t_exp"][:BLOCK] - ref["t_exp"]).abs())
-    bad, flip = err > TOL_RENDER, last.abs() <= TOL_SIGMA  # phase 2's exemption
-    worst = float(err[~flip].max()) if bool((~flip).any()) else 0.0
-    print(f"[phase_f] first {BLOCK} rays vs the eager f32 stylized render: max|err| over rgb "
-          f"and t_exp {float(err.max()):.3e}; {int(bad.sum())} rays above {TOL_RENDER}, all "
-          f"with |last-sample sigma| <= {TOL_SIGMA}: {bool((flip | ~bad).all())}; max|err| "
-          f"over the other {int((~flip).sum())} rays {worst:.3e}", flush=True)
-    check(bool((flip | ~bad).all()), "stylized frame disagrees with the eager render")
-    check(int(bad.sum()) <= BLOCK // 1000, "too many rays differ from the eager render")
-    del models, eager, ref, out
+    stylized_vs_eager(renderer, trained, concat, style, fo, fd, out, "phase_f", "stylized frame")
+    del out
 
     with tempfile.TemporaryDirectory() as tmp:
         for k in counters.values():
@@ -1875,7 +1931,339 @@ def phase_c1(fa, geo_dir: str, root: str):
     print(f"[c1] {C1_OVERFIT} steps on one fixed batch: mean loss of the first 5 {first:.5f}, of "
           f"the last 5 {last:.5f}", flush=True)
     check(all(math.isfinite(x) for x in losses) and last < first, "C1 overfit loss did not fall")
-    return launches, steps_per_s, collages
+    return launches, steps_per_s, collages, ckpt, styles
+
+
+def load_rgb(path: str, size=None) -> np.ndarray:
+    """The pipeline's _load_image: RGB f32 in [0, 1], PIL-bilinear resized."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if size is not None:
+        img = img.resize(size, Image.BILINEAR)
+    return np.asarray(img, np.float32) / 255.0
+
+
+def grad_cosines(got, ref):
+    return [grad_cos(a, b) for a, b in zip(got, ref)]
+
+
+def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
+    """Phase C2 at full width through train.temporal.run_temporal_finetune
+    from phase 11's trained state, then the splat and step witnesses.
+    Returns the finetuned model, the loop's K6/K7/K8 launches and its
+    steps/s."""
+    import tgtc_torch.models.transformer as tr
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.ops import rasterize as rz
+    from tgtc_torch.train import temporal as tp
+
+    cfg = tr.TransformerConfig(dtype=torch.bfloat16, attn_impl="flash")
+    model = make_stytrans(cfg, torch.Generator().manual_seed(21), device="cuda")
+    model.load_state_dict(torch.load(c1_ckpt, map_location="cuda", weights_only=True)["model"])
+    geo = np.load(os.path.join(geo_dir, "geometry.npz"))
+    coor_maps, cps = geo["coor_maps"], geo["cps"]
+    renders = np.stack([load_rgb(os.path.join(geo_dir, f)) for f in sorted(os.listdir(geo_dir))
+                        if f.startswith("rgb_")])
+    style_files = sorted(os.listdir(styles_dir))
+    styles = np.stack([load_rgb(os.path.join(styles_dir, f), (512, 512)) for f in style_files])
+    ccfg = tp.TemporalTrainConfig()
+    out = os.path.join(root, "c2")
+    counters = {"K6": fa.flash_attention_fwd, "K7": fa.flash_attention_bwd_dq,
+                "K8": fa.flash_attention_bwd_dkv}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    tp.run_temporal_finetune(model, renders, coor_maps, cps, styles, (H, W, FOCAL), ccfg,
+                             seed=C2_SEED, is_ndc=True, out_dir=out, device="cuda",
+                             log_every=C2_PRINT)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    with open(os.path.join(out, "logs", "temporal.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    counted = [r for r in records if r["step"] > C2_WARM]
+    loop_s = float(sum(C2_PRINT / r["steps_per_s"] for r in counted))
+    steps_per_s = C2_PRINT * len(counted) / loop_s
+    moved = sorted({k.split(".")[0] for k, v in model.state_dict().items()
+                    if not torch.equal(v, before[k])})
+    pngs = [f"{n}_{b:03d}.png" for n in tp.DEBUG_IMAGES for b in range(ccfg.batch_size)]
+    missing = [f for f in pngs + ["style_image.png"] if not os.path.exists(os.path.join(out, f))]
+    print(f"[c2] StyTrans d_model 512, 8 heads, 3+3 layers, FFN 2048, dropout {C1_RATE}, bf16, "
+          f"flash, from phase 11's state: {ccfg.max_iter} steps of batch {ccfg.batch_size} x "
+          f"{ccfg.patch}x{ccfg.patch} patches of {renders.shape[0]} {H}x{W} renders, "
+          f"{len(style_files)} 512x512 styles, temporal weight {ccfg.temporal_weight}, splat "
+          f"radius {ccfg.splat_radius}, threshold {ccfg.space_dist_threshold}: {run_s:.2f} s "
+          f"(call, set-up and the debug dumps included); steps {C2_WARM + 1}-{ccfg.max_iter} "
+          f"in {loop_s:.3f} s over the log windows: {steps_per_s:.3f} steps/s "
+          f"({1e3 / steps_per_s:.2f} ms a step); launches K6 {launches['K6']} K7 "
+          f"{launches['K7']} K8 {launches['K8']} (expect {C1_SITES} x ({ccfg.max_iter} steps + "
+          f"1 debug pass), 0, 0); loss {records[0]['loss']:.4f} at step {records[0]['step']} "
+          f"-> {records[-1]['loss']:.4f}, loss_t {records[0]['loss_t']:.5f} -> "
+          f"{records[-1]['loss_t']:.5f}; moved {moved}", flush=True)
+    check(launches == {"K6": C1_SITES * (ccfg.max_iter + 1), "K7": 0, "K8": 0},
+          f"C2 launch counts {launches}")
+    check(len(counted) * C2_PRINT == ccfg.max_iter - C2_WARM,
+          f"the log windows cover {len(counted) * C2_PRINT} steps")
+    check(all(math.isfinite(r[k]) for r in records
+              for k in ("loss", "loss_c", "loss_s", "loss_t", "l_id1", "l_id2"))
+          and all(r["loss_t"] > 0 for r in records), "C2 losses not finite or loss_t not > 0")
+    check(moved == ["decode"], f"C2 moved {moved}, not the decoder alone")
+    check(not missing, f"C2 debug PNGs missing: {missing}")
+
+    # the first step's batch again, for the witnesses
+    dev_arrays = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+                  for a in (renders, coor_maps, cps, styles)]
+    batch = tp.draw_batch(np.random.default_rng(C2_SEED), H, W, renders.shape[0],
+                          styles.shape[0], styles.shape[1:3], ccfg)
+    content, coor, cps_b, style = tp.gather_batch(batch, *dev_arrays, ccfg.patch)
+
+    # the splat: card against CPU on the step's own point cloud and poses
+    pcl = rz.ndc_to_world(coor, H, W, FOCAL)[0].reshape(-1, 3)
+    feats = torch.cat([content[0].reshape(-1, 3), pcl], dim=-1)
+    proj = torch.from_numpy(rz.llff_projection_matrix(H, W, FOCAL))
+    w2c = torch.linalg.inv(cps_b.cpu())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    win = rz.splat_winners(pcl, w2c.cuda(), proj.cuda(), H, W, ccfg.splat_radius)
+    torch.cuda.synchronize()
+    splat_ms = (time.perf_counter() - t0) * 1e3
+    win2 = rz.splat_winners(pcl, w2c.cuda(), proj.cuda(), H, W, ccfg.splat_radius)
+    win_cpu = rz.splat_winners(pcl.cpu(), w2c, proj, H, W, ccfg.splat_radius)
+    n = pcl.shape[0]
+    hit, hit_cpu = win.cpu() < n, win_cpu < n
+    same = win.cpu() == win_cpu
+    mask_share = float((hit != hit_cpu).float().mean())
+    warped = rz.gather_winners(feats, win)[0].cpu()
+    warped_cpu = rz.gather_winners(feats.cpu(), win_cpu)[0]
+    feats_equal = torch.equal(warped[same], warped_cpu[same])
+    rgb_c, _, mask_c = rz.rasterize_warp(pcl, content[0].reshape(-1, 3), cps_b, proj.cuda(), H,
+                                         W, ccfg.splat_radius)
+    rgb_h, _, mask_h = rz.rasterize_warp(pcl.cpu(), content[0].reshape(-1, 3).cpu(),
+                                         cps_b.cpu(), proj, H, W, ccfg.splat_radius)
+    warp_share = float((mask_c.cpu() != mask_h).float().mean())
+    own = rz.splat_winners(pcl, torch.linalg.inv(cps_b[:1]), proj.cuda(), H, W,
+                           ccfg.splat_radius)[0]
+    (y0, x0), p = batch.origin, ccfg.patch
+    coverage = float((own[y0: y0 + p, x0: x0 + p] < n).float().mean())
+    print(f"[c2] splat of the first step's cloud ({n} points, {ccfg.batch_size} views of "
+          f"{H}x{W}, radius {ccfg.splat_radius}, one w2c): {splat_ms:.2f} ms on the card "
+          f"(first call); card vs CPU: hit masks differ at {mask_share:.3e} of the pixels "
+          f"(limit {TOL_SPLAT_MASK}), winners equal at {float(same.float().mean()):.6f}, warped "
+          f"features equal where the winners are: {feats_equal}; a second card splat bitwise "
+          f"equal: {torch.equal(win, win2)}; rasterize_warp with each device's own pose "
+          f"inversion: masks differ at {warp_share:.3e}; view {int(batch.ids[0])}'s patch into "
+          f"its own camera covers {coverage:.4f} of the patch (limit {TOL_OWN_VIEW})", flush=True)
+    check(mask_share <= TOL_SPLAT_MASK and warp_share <= TOL_SPLAT_MASK,
+          "the card's splat masks disagree with the CPU's")
+    check(feats_equal, "warped features differ where the card and the CPU pick the same point")
+    check(torch.equal(win, win2), "the card's splat does not repeat")
+    check(coverage > TOL_OWN_VIEW, "the patch does not cover its own view")
+    del rgb_c, rgb_h, mask_c, mask_h, warped, warped_cpu
+
+    # one step with K6 against the same step with the twin's attention
+    cam = tp.SplatCamera.llff(H, W, FOCAL, device="cuda")
+    step = tp.make_temporal_train_step(model, ccfg, cam)
+    args = (content, coor, cps_b, style, batch.origin)
+    for c in counters.values():
+        c.launches = 0
+    m_k, g_k = step.loss_and_grad(model, *args, step.base.generator(C2_SEED + 4, 0))
+    torch.cuda.synchronize()
+    step_launches = {n: c.launches for n, c in counters.items()}
+    kernel = tr.flash_attention
+    tr.flash_attention = fa.flash_attention_plain
+    try:
+        m_t, g_t = step.loss_and_grad(model, *args, step.base.generator(C2_SEED + 4, 0))
+        torch.cuda.synchronize()
+    finally:
+        tr.flash_attention = kernel
+    m_r, g_r = step.loss_and_grad(model, *args, step.base.generator(C2_SEED + 4, 0))
+    repeats = torch.equal(m_r["loss"], m_k["loss"]) and all(
+        torch.equal(x, y) for x, y in zip(g_r, g_k))
+    dl = abs(float(m_k["loss"]) - float(m_t["loss"])) / abs(float(m_t["loss"]))
+    a = torch.cat([g.double().flatten() for g in g_k])
+    b = torch.cat([g.double().flatten() for g in g_t])
+    cos = grad_cos(a, b)
+    lows = sorted(grad_cosines(g_k, g_t))[:3]
+    print(f"[c2] one step, fixed batch and generator: launches K6 {step_launches['K6']} K7 "
+          f"{step_launches['K7']} K8 {step_launches['K8']}; vs the same step with the twin's "
+          f"attention on the card: loss {float(m_k['loss']):.6f} vs {float(m_t['loss']):.6f} "
+          f"(relative {dl:.3e}, limit {TOL_C1_LOSS}), loss_t {float(m_k['loss_t']):.6f} vs "
+          f"{float(m_t['loss_t']):.6f}; decoder gradient cosine {cos:.7f} (limit {TOL_C1_COS}), "
+          f"lowest leaf cosines {', '.join(f'{c:.5f}' for c in lows)}; read, not held: the "
+          f"same step again gives the same loss and decoder gradient bit for bit: {repeats}",
+          flush=True)
+    check(step_launches == {"K6": C1_SITES, "K7": 0, "K8": 0},
+          f"one C2 step launched {step_launches}")
+    check(dl <= TOL_C1_LOSS and cos >= TOL_C1_COS,
+          "C2 step disagrees with the twin-attention step")
+    del g_k, g_t, g_r, dev_arrays
+    return model, launches, steps_per_s
+
+
+def phase_c3c2(fa, model, geo_dir: str, styles_dir: str, root: str):
+    """Phase C3 with phase 12's decoder over phase 5's views and all eight
+    styles. Returns the launches, seconds per view and the style features."""
+    from PIL import Image
+
+    from tgtc_torch.train import stylize as st
+
+    style_files = sorted(os.listdir(styles_dir))
+    style_imgs = [load_rgb(os.path.join(styles_dir, f)) for f in style_files]
+    views = sorted(f for f in os.listdir(geo_dir) if f.startswith("rgb_"))
+    out = os.path.join(root, "stylized_c2")
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = st.stylize_all(model, geo_dir, style_imgs, style_files, out, device="cuda")
+    loop_s = time.perf_counter() - t0
+    launches = fa.flash_attention_fwd.launches
+    jpgs = [os.path.join(out, f"style_{s:02d}", f"{i + 1:03d}.jpg")
+            for s in range(len(style_files)) for i in range(len(views))]
+    sizes = [Image.open(p).size for p in jpgs if os.path.exists(p)]
+    feats = res["style_features"]
+    per_view = loop_s / len(jpgs)
+    print(f"[c3c2] stylize_all with phase 12's decoder: {len(views)} views x "
+          f"{len(style_files)} styles in {loop_s:.3f} s, {per_view:.4f} s per view and style with "
+          f"the JPEG writes; {len(sizes)} of {len(jpgs)} JPEGs at {W}x{H}; style_features "
+          f"{feats.shape} finite {bool(np.isfinite(feats).all())}; K6 launches {launches} "
+          f"(expect {C3_SITES} x {len(jpgs)})", flush=True)
+    check(len(sizes) == len(jpgs) and all(sz == (W, H) for sz in sizes),
+          "C3 after C2: JPEGs missing or of the wrong size")
+    check(feats.shape == (len(style_files), 1024) and bool(np.isfinite(feats).all()),
+          "C3 after C2: style_features")
+    check(launches == C3_SITES * len(jpgs), f"C3 after C2 launched K6 {launches} times")
+    return launches, per_view, feats
+
+
+def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, root: str):
+    """Phase D: the VAE through tools/train2d's vae task at the pipeline's
+    settings, the card step against the CPU step, the latent table seeded
+    from phase 13's features, and a stylized frame rendered from it.
+    Returns the VAE's steps/s and the frame's K4/K5 launches."""
+    import contextlib
+
+    from tgtc_torch.data.prefetch import load_crop
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.vae import VaeConfig, make_vae
+    from tgtc_torch.models.vgg import make_vgg
+    from tgtc_torch.render.fast_style import FusedStyleRenderer
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.tools import train2d
+    from tgtc_torch.train import vae_trainer as vt
+
+    save, log = os.path.join(root, "d_save"), os.path.join(root, "d_log")
+    argv = ["--task", "vae", "--style_dir", styles_dir, "--save_dir", save, "--log_dir", log,
+            "--lr", "1e-3", "--lr_decay", "0", "--batch_size", "8", "--patch", "256",
+            "--print_interval", "1", "--save_model_interval", "1000", "--vgg", "", "--seed",
+            "21", "--n_threads", "8"]
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as a user's run has it
+    quiet = open(os.path.join(root, "d_stdout.txt"), "w")
+    t0 = time.perf_counter()
+    with quiet, contextlib.redirect_stdout(quiet):  # one log line a step
+        check(train2d.main(argv + ["--max_iter", str(D_WARM)], device="cuda") == 0,
+              "VAE warm-up")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        check(train2d.main(argv + ["--max_iter", str(D_STEPS)], device="cuda") == 0,
+              "VAE counted run")
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    with open(os.path.join(log, "vae.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    counted = [r for r in records if r["step"] > D_WARM]
+    loop_s = float(sum(1 / r["steps_per_s"] for r in counted))
+    steps_per_s = len(counted) / loop_s
+    losses = [r["loss"] for r in records]
+    first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
+    ckpt = os.path.join(save, "vae", f"ckpt_{D_STEPS:08d}.pt")
+    print(f"[d] VAE 1024 -> 512 x3 -> 32 (kl 0.1, lr 1e-3, batch 8) on VGG relu4_1 features "
+          f"of 256x256 crops of {len(os.listdir(styles_dir))} styles resized to 512: {D_WARM} "
+          f"warm-up steps in {warm_s:.2f} s, then {D_STEPS - D_WARM} steps in {run_s:.2f} s "
+          f"(call, restore and the final save included), of which the loop {loop_s:.3f} s: "
+          f"{steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.3f} ms a step, one log fetch a "
+          f"step); mean loss of the first 100 steps {first:.4f}, of the last 100 {last:.4f}",
+          flush=True)
+    check(len(records) == D_STEPS and [r["step"] for r in records] == list(range(1, D_STEPS + 1)),
+          "the VAE log does not hold every step")
+    check(all(math.isfinite(x) for x in losses) and last < first, "the VAE loss did not fall")
+    check(os.path.exists(ckpt), "the VAE checkpoint is missing")
+
+    # one step on the card against the same step on the CPU, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vcfg, tcfg = VaeConfig(), vt.VaeTrainConfig()
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    vgg = make_vgg(torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(25)
+    paths = [os.path.join(styles_dir, f) for f in sorted(os.listdir(styles_dir))]
+    crops = np.stack([load_crop(paths[i % len(paths)], rng, 256, 512) for i in range(8)])
+    with torch.no_grad():
+        x = vt.vgg_style_feature(vgg, torch.from_numpy(crops).cuda().float() / 255.0)
+    eps = torch.randn((8, vcfg.latent_dim), generator=torch.Generator().manual_seed(26))
+    steps = []
+    for dev in ("cuda", "cpu"):
+        vae = make_vae(vcfg, device=dev)
+        vae.load_state_dict(sd)
+        m, g = vt.make_vae_train_step(vae, tcfg).loss_and_grad(vae, x.to(dev), eps.to(dev))
+        steps.append((float(m["loss"]), [t.cpu() for t in g]))
+    (loss_card, g_card), (loss_cpu, g_cpu) = steps
+    dl = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    cosines = grad_cosines(g_card, g_cpu)
+    print(f"[d] one VAE step, card vs CPU (same x and eps, TF32 off): loss {loss_card:.7f} vs "
+          f"{loss_cpu:.7f} (relative {dl:.3e}, limit {TOL_VAE_LOSS}); lowest gradient cosine "
+          f"{min(cosines):.7f} (limit {TOL_VAE_COS})", flush=True)
+    check(dl <= TOL_VAE_LOSS and min(cosines) >= TOL_VAE_COS,
+          "the VAE step on the card disagrees with the CPU's")
+
+    # the latent table from phase 13's style features
+    vae = make_vae(vcfg, device="cuda")
+    vae.load_state_dict(sd)
+    f = torch.from_numpy(feats).cuda()
+    eps = torch.randn((f.shape[0], n_views, vcfg.latent_dim),
+                      generator=torch.Generator().manual_seed(27)).cuda()
+    table = vt.seed_latents_from_features(vae, f, n_views, eps=eps)
+    with torch.no_grad():
+        mu, logvar = vae.encode(f)
+    want = eps * torch.exp(0.5 * logvar[:, None]) + mu[:, None]
+    lat = table["latents"]
+    err = float((lat - want).abs().max())
+    print(f"[d] latent table from phase 13's style_features {tuple(f.shape)}: "
+          f"{tuple(lat.shape)}, finite {bool(torch.isfinite(lat).all())}, max|table - (eps "
+          f"exp(logvar / 2) + mu)| {err:.3e}; |mu| mean {float(mu.abs().mean()):.4f}, std "
+          f"exp(logvar / 2) mean {float(torch.exp(0.5 * logvar).mean()):.4f}", flush=True)
+    check(lat.shape == (feats.shape[0], n_views, vcfg.latent_dim)
+          and bool(torch.isfinite(lat).all()) and err == 0.0, "the seeded latent table")
+
+    # a stylized frame of style 0 from the seeded table
+    concat, style = style_mlps()
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    renderer = FusedStyleRenderer.from_params(trained["coarse"], trained["fine"],
+                                              concat.state_dict(), style.state_dict(), table,
+                                              settings, coarse_rgb=False, device="cuda")
+    ro, rd = rays_for_poses(H, W, trained["intrinsics"], trained["render_poses"][:1],
+                            use_ndc=True, device="cuda")
+    fo, fd = ro[0].reshape(-1, 3), rd[0].reshape(-1, 3)
+    blocks = math.ceil(fo.shape[0] / BLOCK)
+    counters = {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
+                "K4": kst.fused_style_apply_t, "K5": kst.fused_sigma_apply_t}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    frame = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[d] stylized {H}x{W} frame of style 0 from the seeded table: {frame_s * 1e3:.1f} ms "
+          f"(first frame of this renderer), launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    check(launches == {"K1": 0, "K2": 0, "K4": blocks, "K5": blocks},
+          f"seeded-latent frame launch counts {launches}")
+    check(bool(torch.isfinite(frame["rgb"]).all()), "seeded-latent frame not finite")
+    stylized_vs_eager(renderer, trained, concat, style, fo, fd, frame, "d",
+                      "seeded-latent frame")
+    return steps_per_s, launches
 
 
 def main() -> int:
@@ -1935,21 +2323,33 @@ def main() -> int:
         k6_row = phase_k6(fa)
         c3_launches, c3_frames_per_s, c3_s_per_view = phase_c3(fa, geo_dir, tmp)
         k78_rows, k6_c1 = phase_k78(fa)
-        c1_launches, c1_steps_per_s, collages = phase_c1(fa, geo_dir, tmp)
+        c1_launches, c1_steps_per_s, collages, c1_ckpt, styles = phase_c1(fa, geo_dir, tmp)
+        model, c2_launches, c2_steps_per_s = phase_c2(fa, geo_dir, c1_ckpt, styles, tmp)
+        c3c2_launches, c3c2_s_per_view, feats = phase_c3c2(fa, model, geo_dir, styles, tmp)
+        del model
+        n_views = len([f for f in os.listdir(geo_dir) if f.startswith("rgb_")])
+        vae_steps_per_s, d_launches = phase_d(ks, kst, trained, styles, feats, n_views, tmp)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
-                  launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS)
+                  launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
+                  launches_c2=c2_launches["K6"], launches_c3c2=c3c2_launches)
     rows.append(k6_row)
     for row in k78_rows:
         row["launches"] = c1_launches[row["name"]]
         row["launches_per_step"] = c1_launches[row["name"]] // C1_STEPS
+        row["launches_c2"] = c2_launches[row["name"]]
     rows += k78_rows
+    for row in rows:  # the stylized frame from the seeded latents
+        if row["name"] in ("K4", "K5"):
+            row["launches_d"] = d_launches[row["name"]]
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
           f"{f_frames_per_min:.2f} frames/min; C3 {c3_frames_per_s:.3f} frames/s, "
           f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views); C1 "
-          f"{c1_steps_per_s:.3f} steps/s", flush=True)
+          f"{c1_steps_per_s:.3f} steps/s; C2 {c2_steps_per_s:.3f} steps/s; C3 after C2 "
+          f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -443,7 +443,7 @@ def test_parser_and_per_task_defaults():
     assert ns.lr == 5e-4 and ns.max_iter == 160000
 
 
-@pytest.mark.parametrize("task", ["vae", "finetune_decoder", "temporal_decoder"])
+@pytest.mark.parametrize("task", ["finetune_decoder", "temporal_decoder"])
 def test_unported_tasks_raise(task):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train2d.main(["--task", task], device="cpu")

@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: K1-K8 against their plain twins (K3's
 recompute against K1 bit for bit), their launch counters, the fused render, the fused stylized render, one fused
-training step, a narrow C3 stylization and a narrow C1 step on the card
-against the same on the CPU (where the wrappers run the twins).
+training step, a narrow C3 stylization, a narrow C1 step, C2's splat, a
+narrow C2 step and a VAE step on the card against the same on the CPU
+(where the wrappers run the twins).
 
 Every test here needs a card and skips without one. The file imports
 neither JAX nor tgtc, so it also runs where JAX is not installed:
@@ -599,3 +600,136 @@ def test_narrow_c1_step_on_card_matches_cpu(cuda_device):
           f"gradient cosine {cos:.6f} (limit 0.99), worst leaf error {leaf:.3e} (limit 0.1)")
     assert cos >= 0.99
     assert leaf <= 0.1
+
+
+def _plane_cloud(n_side, h, w, focal, seed=11):
+    """A tilted plane of ``n_side²`` points spread over an ``h x w`` frame
+    in front of the identity camera, and two more camera-to-world poses
+    (moved and turned)."""
+    ys, xs = np.meshgrid(np.linspace(0, h - 1, n_side), np.linspace(0, w - 1, n_side),
+                         indexing="ij")
+    x_cam, y_cam = xs - (w - 1) / 2, -(ys - (h - 1) / 2)
+    z = -2.0 - 0.003 * x_cam - 0.002 * y_cam
+    pts = np.stack([x_cam / focal * -z, y_cam / focal * -z, z], -1).reshape(-1, 3)
+    cps = np.stack([np.eye(4)] * 3)
+    for i, (dx, a) in enumerate(((0.05, 0.02), (-0.04, -0.03)), 1):
+        cps[i, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        cps[i, 0, 3] = dx
+    rgb = np.random.default_rng(seed).uniform(0, 1, pts.shape)
+    return (torch.from_numpy(a.astype(np.float32)) for a in (pts, rgb, cps))
+
+
+def test_splat_on_card_matches_cpu(cuda_device):
+    """C2's splat (256² points into 3 views of 378x504) on the card against
+    the CPU with the same w2c: hit masks differ at <= 0.1% of the pixels,
+    the warped features equal wherever both pick the same point, a second
+    card splat bitwise equal (``amin`` does not depend on order), and the
+    gather's backward twice bitwise equal."""
+    from tgtc_torch.ops import rasterize as rz
+
+    h, w, focal = 378, 504, 400.0
+    pts, rgb, cps = _plane_cloud(256, h, w, focal)
+    proj = torch.from_numpy(rz.llff_projection_matrix(h, w, focal))
+    w2c = torch.linalg.inv(cps)
+    feats = torch.cat([rgb, pts], -1)
+    win_cpu = rz.splat_winners(pts, w2c, proj, h, w)
+    args = (pts.to(cuda_device), w2c.to(cuda_device), proj.to(cuda_device), h, w)
+    win, win2 = rz.splat_winners(*args), rz.splat_winners(*args)
+    torch.cuda.synchronize()
+    n = pts.shape[0]
+    assert torch.equal(win, win2)
+    differ = float(((win.cpu() < n) != (win_cpu < n)).float().mean())
+    same = win.cpu() == win_cpu
+    got = rz.gather_winners(feats.to(cuda_device), win)[0].cpu()
+    want = rz.gather_winners(feats, win_cpu)[0]
+    print(f"parity splat card vs CPU: masks differ at {differ:.3e}, winners equal at "
+          f"{float(same.float().mean()):.6f}")
+    assert differ <= 1e-3
+    assert torch.equal(got[same], want[same])
+    # the gather's backward (a scatter-add over sorted rows) repeats too
+    feats = feats.to(cuda_device).requires_grad_(True)
+    cot = torch.rand(win.shape + (6,), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    grads = [torch.autograd.grad((rz.gather_winners(feats, win)[0] * cot).sum(), feats)[0]
+             for _ in range(2)]
+    assert torch.equal(*grads)
+
+
+def test_narrow_c2_step_on_card_matches_cpu(cuda_device):
+    """One C2 step (d_model 128, 2 heads of 64, 1+1 layers, bf16, flash,
+    dropout 0, batch 2 of 32x32 patches of a 48x64 frame): 12 K6 launches
+    (3 transformer calls x 4 sites) and no K7/K8, since only the decoder
+    trains; losses within 2e-2 of the same step on the CPU (the twins) and
+    the decoder gradient at cosine >= 0.99."""
+    from tgtc_torch.ops import rasterize as rz
+    from tgtc_torch.train import temporal as tp
+
+    h, w, focal = 48, 64, 60.0
+    cfg = TransformerConfig(d_model=128, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                            dim_feedforward=256, dropout=0.0, dtype=torch.bfloat16,
+                            attn_impl="flash")
+    ccfg = tp.TemporalTrainConfig(batch_size=2, patch=32)
+    ys, xs = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
+    z = -2.0 - 0.1 * (xs - w / 2) / focal
+    world = np.stack([(xs - w / 2) / focal * -z, -(ys - h / 2) / focal * -z, z], -1)
+    ndc = np.stack([-focal / (w / 2) * world[..., 0] / z, -focal / (h / 2) * world[..., 1] / z,
+                    1 + 2 / z], -1)
+    cps = np.stack([np.eye(4), np.eye(4)]).astype(np.float32)
+    cps[1, 0, 3] = 0.03
+    rng = np.random.default_rng(12)
+    origin = (7, 20)
+    batch = [torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)),
+             torch.from_numpy(np.stack([ndc, ndc])[:, 7:39, 20:52].astype(np.float32)),
+             torch.from_numpy(cps),
+             torch.from_numpy(rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32))]
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = make_stytrans(cfg, torch.Generator().manual_seed(3), device=dev)
+        tp.init_temporal_train(model, ccfg)
+        step = tp.make_temporal_train_step(model, ccfg, tp.SplatCamera.llff(h, w, focal,
+                                                                             device=dev))
+        before = [c.launches for c in counters]
+        m, g = step.loss_and_grad(model, *(b.to(dev) for b in batch), origin, None)
+        torch.cuda.synchronize()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        out[str(dev)] = ({k: float(v) for k, v in m.items()}, [x.double().cpu() for x in g],
+                         launched)
+    (m_cpu, g_cpu, l_cpu), (m_gpu, g_gpu, l_gpu) = out["cpu"], out[str(cuda_device)]
+    assert l_cpu == [0, 0, 0] and l_gpu == [12, 0, 0]
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 2e-2 * max(1.0, abs(m_cpu[k])), k
+    a, b = torch.cat([x.flatten() for x in g_gpu]), torch.cat([x.flatten() for x in g_cpu])
+    cos = float((a * b).sum() / (a.norm() * b.norm()))
+    print(f"parity narrow C2 step, card vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, "
+          f"loss_t {m_gpu['loss_t']:.6f} vs {m_cpu['loss_t']:.6f}, decoder gradient cosine "
+          f"{cos:.6f} (limit 0.99)")
+    assert m_cpu["loss_t"] > 0 and cos >= 0.99
+
+
+def test_vae_step_on_card_matches_cpu(cuda_device):
+    """One VAE step (1024 -> 512 x3 -> 32, batch 8) with the same features
+    and eps on the card and on the CPU, TF32 off: loss within 1e-5
+    relative, every gradient cosine >= 0.9999."""
+    from tgtc_torch.models.vae import VaeConfig, make_vae
+    from tgtc_torch.train import vae_trainer as vt
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(13)
+        x = torch.from_numpy(rng.uniform(0, 2, (8, 1024)).astype(np.float32))
+        eps = torch.from_numpy(rng.standard_normal((8, 32)).astype(np.float32))
+        res = []
+        for dev in ("cpu", cuda_device):
+            vae = make_vae(VaeConfig(), torch.Generator().manual_seed(4), device=dev)
+            m, g = vt.make_vae_train_step(vae, vt.VaeTrainConfig()).loss_and_grad(
+                vae, x.to(dev), eps.to(dev))
+            res.append((float(m["loss"]), [t.double().cpu() for t in g]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = res
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(g_gpu, g_cpu)]
+    print(f"parity VAE step, card vs CPU: loss {l_gpu:.7f} vs {l_cpu:.7f}, lowest cosine "
+          f"{min(cos):.7f}")
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert min(cos) >= 0.9999

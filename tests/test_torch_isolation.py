@@ -36,7 +36,8 @@ def test_submodule_list_covers_the_slice():
                  "utils.img", "tools.profile_frame", "ops.kernels.flash_attention",
                  "models.transformer", "models.vgg", "models.decoder", "models.stytrans",
                  "train.pretrained", "train.stylize", "ops.style", "data.prefetch",
-                 "train.transformer2d", "tools.train2d"):
+                 "train.transformer2d", "tools.train2d", "ops.rasterize", "train.temporal",
+                 "models.vae", "train.vae_trainer"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -122,8 +123,17 @@ def test_entry_points_default_to_the_card():
     from tgtc_torch.models.vgg import make_vgg
     from tgtc_torch.tools import train2d
 
+    from tgtc_torch.models.vae import VaeConfig, make_vae
+    from tgtc_torch.train.temporal import SplatCamera, run_temporal_finetune
+    from tgtc_torch.train.vae_trainer import VaeTrainConfig, init_vae_train
+
     for build in (lambda: make_vgg(),
                   lambda: train2d.main(["--task", "transformer", "--save_dir", "unused"]),
+                  lambda: train2d.main(["--task", "vae", "--save_dir", "unused"]),
+                  lambda: make_vae(VaeConfig()),
+                  lambda: init_vae_train(torch.Generator(), VaeConfig(), VaeTrainConfig()),
+                  lambda: SplatCamera.llff(8, 8, 10.0),
+                  lambda: run_temporal_finetune(model, None, None, None, None, (8, 8, 10.0)),
                   lambda: tt.init_state(torch.Generator(), cfg, tc),
                   lambda: tt.make_train_step(tc),
                   lambda: tt.make_fused_train_step(NerfConfig(), tc),

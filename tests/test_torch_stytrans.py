@@ -232,15 +232,15 @@ def test_pretrained_overlay_loads_newest_and_refuses_wrong_shapes(params, tmp_pa
 
 
 def test_training_path_is_not_ported_yet(params):
-    """C1's losses and the VGG pyramid are ported; the other 2D trainers
-    (the VAE, AdaIN's decoder finetune and C2) raise, naming ROADMAP."""
+    """C1's losses and the VGG pyramid are ported; AdaIN's two decoder
+    trainers raise, naming ROADMAP."""
     from tgtc_torch.tools import train2d
 
     model = port_model(params)
     x = torch.zeros(1, 16, 16, 3)
     assert set(model.compute_losses(x, x)) == {"ics", "loss_c", "loss_s", "l_id1", "l_id2"}
     assert [tuple(f.shape) for f in model.encode_pyramid(x)][-1] == (1, 2, 2, 512)
-    for task in ("vae", "finetune_decoder", "temporal_decoder"):
+    for task in ("finetune_decoder", "temporal_decoder"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train2d.main(["--task", task], device="cpu")
 

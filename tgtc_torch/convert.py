@@ -5,7 +5,8 @@ The flax modules use the reference's layer order under flax names
 ``layer_{i}`` and ``rgb_out``); the torch modules use the reference's torch
 names (the style MLPs' ``layers.{i}``). A Dense ``kernel [in, out]`` is a
 Linear ``weight [out, in]`` transposed; biases carry over as they are. A
-JAX latent table and JAX Phase-A and C1 train states convert to tensors too.
+JAX latent table and JAX Phase-A and C1 train states convert to tensors too,
+and so do the VAE's parameters.
 """
 
 from __future__ import annotations
@@ -96,6 +97,48 @@ def style_flax_from_state_dicts(concat_sd: Dict[str, torch.Tensor],
                    "bias": arr(f"layers.{i}.bias").copy()}
             for i, name in enumerate(_style_flax_names(which, n))}}
     return out
+
+
+# flax VAE names (encoder / decoder submodules) → the reference's torch names
+_VAE_TORCH = {("encoder", "mu"): "encoder.fc_layer_mu",
+              ("encoder", "logvar"): "encoder.fc_layer_log_var",
+              ("decoder", "out"): "decoder.output_layer"}
+
+
+def _vae_torch_name(part: str, name: str) -> str:
+    if name.startswith("fc_"):
+        return f"{part}.fc_layers.{name[3:]}"
+    return _VAE_TORCH[(part, name)]
+
+
+def vae_state_dict_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params": {"encoder": {...}, "decoder": {...}}}`` (numpy or
+    any array ``np.asarray`` takes) → a ``Vae`` state dict of f32 tensors
+    under the reference's names; each Dense kernel transposed."""
+    sd: Dict[str, torch.Tensor] = {}
+    for part in ("encoder", "decoder"):
+        for name, leaf in params["params"][part].items():
+            t = _vae_torch_name(part, name)
+            sd[f"{t}.weight"] = _t(leaf["kernel"])
+            sd[f"{t}.bias"] = _t(leaf["bias"])
+    return sd
+
+
+def vae_flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`vae_state_dict_from_flax`: numpy flax params."""
+    flax_name = {v: k for k, v in _VAE_TORCH.items()}
+    p: Dict[str, Any] = {"encoder": {}, "decoder": {}}
+    for key in sd:
+        layer, kind = key.rsplit(".", 1)
+        if kind != "weight":
+            continue
+        if ".fc_layers." in layer:
+            part, _, i = layer.split(".")
+            name = f"fc_{i}"
+        else:
+            part, name = flax_name[layer]
+        p[part][name] = {"kernel": _f(sd[key]), "bias": _f(sd[f"{layer}.bias"])}
+    return {"params": p}
 
 
 def _t(x, perm=None) -> torch.Tensor:

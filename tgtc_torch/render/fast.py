@@ -29,10 +29,11 @@ from tgtc_torch.ops.kernels.nerf_mlp import (
 from tgtc_torch.ops.sampling import sample_along_rays_uniform, sample_pdf
 from tgtc_torch.render.volume import RenderSettings
 
+_LEVERS = "ROADMAP.md queue 1, 'Proposal levers and sample budgets'"
 _NOT_PORTED = {
-    "fine_budget": "ROADMAP queue 1, module 7: fine_budget / select_sample_budget",
-    "coarse_share": "ROADMAP queue 1, module 7: coarse_share",
-    "grid_spec": "ROADMAP queue 1, module 8: density-grid proposal",
+    "fine_budget": f"{_LEVERS}: fine_budget / select_sample_budget",
+    "coarse_share": f"{_LEVERS}: coarse_share",
+    "grid_spec": f"{_LEVERS}: density-grid proposal",
 }
 
 

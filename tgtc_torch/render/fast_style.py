@@ -35,11 +35,12 @@ from tgtc_torch.ops.sampling import sample_along_rays_uniform, sample_pdf
 from tgtc_torch.render.fast import _points_t, render_in_blocks
 from tgtc_torch.render.volume import RenderSettings
 
+_LEVERS = "ROADMAP.md queue 1, 'Proposal levers and sample budgets', Phase F"
 _NOT_PORTED = {
-    "fine_budget": "ROADMAP queue 2, Phase-F proposal options: fine_budget",
-    "coarse_share": "ROADMAP queue 2, Phase-F proposal options: coarse_share",
-    "grid_spec": "ROADMAP queue 2, Phase-F proposal options: density-grid proposal",
-    "proposal_dims": "ROADMAP queue 2, Phase-F proposal options: distilled proposal",
+    "fine_budget": f"{_LEVERS}: fine_budget",
+    "coarse_share": f"{_LEVERS}: coarse_share",
+    "grid_spec": f"{_LEVERS}: density-grid proposal",
+    "proposal_dims": f"{_LEVERS}: distilled proposal",
 }
 
 

@@ -42,7 +42,7 @@ class RenderSettings:
     white_bkgd: bool = False
     perturb: bool = False  # jitter coarse depths (needs perturb_u)
     feature_major: bool = False  # evaluate the trunk via nerf_apply_t
-    fine_budget: Optional[int] = None  # not ported yet (ROADMAP queue 1)
+    fine_budget: Optional[int] = None  # not ported yet (ROADMAP.md queue 1)
 
 
 def render_rays(

@@ -135,6 +135,9 @@ def kind_of(name: str) -> str:
         return "GEMM"
     if "layer_norm" in n or "layernorm" in n:
         return "LayerNorm"
+    if any(k in n for k in ("index_reduce", "indexfunc", "indexing_backward",
+                            "index_elementwise", "scatter", "gather")):
+        return "index/scatter"  # C2's splat: the z-buffer passes, the gather and its backward
     return "other"
 
 

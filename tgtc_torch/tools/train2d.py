@@ -6,13 +6,14 @@ defaults, so a reference user's tuning commands port verbatim::
     python -m tgtc_torch.tools.train2d --task transformer \\
         --nerf_content_dir ./nerf_gen_data2 --style_dir ./all_styles
 
-The ``transformer`` task (Phase C1) is ported; ``vae``,
-``finetune_decoder`` and ``temporal_decoder`` raise ``NotImplementedError``
-naming their ROADMAP items. ``main(argv, device=None)`` runs on the card
-unless the caller passes ``device="cpu"`` (a Python argument, not a flag).
-On the card the model is the pipeline's accelerator configuration (bf16,
-flash attention on K6/K7/K8); on the CPU it is f32 with the eager
-attention, as the JAX package picks per backend.
+The ``transformer`` (Phase C1) and ``vae`` (Phase D) tasks are ported;
+``finetune_decoder`` and ``temporal_decoder`` (AdaIN's trainers) raise
+``NotImplementedError`` naming their ROADMAP item. ``main(argv,
+device=None)`` runs on the card unless the caller passes ``device="cpu"``
+(a Python argument, not a flag). On the card the transformer is the
+pipeline's accelerator configuration (bf16, flash attention on
+K6/K7/K8); on the CPU it is f32 with the eager attention, as the JAX
+package picks per backend. The VAE task's VGG and VAE are f32 on both.
 """
 
 from __future__ import annotations
@@ -92,12 +93,11 @@ _TASK_DEFAULTS = {
                         save_model_interval=1000),
 }
 
+_ADAIN = "ROADMAP.md queue 1, 'AdaIN and poses': adain_net.py, adain_trainer.py"
 _NOT_PORTED = {
-    "vae": "the VAE trainer (Phase D) is not ported yet (ROADMAP queue 1, item 10)",
-    "finetune_decoder": "the AdaIN decoder finetune is not ported yet (ROADMAP queue 1, "
-                        "items 13 and 15: adain_net.py, adain_trainer.py)",
-    "temporal_decoder": "the temporal decoder finetune is not ported yet (ROADMAP queue 1, "
-                        "items 14 and 15: rasterize.py, adain_trainer.py)",
+    "finetune_decoder": f"the AdaIN decoder finetune is not ported yet ({_ADAIN})",
+    "temporal_decoder": f"AdaIN's temporal decoder finetune is not ported yet ({_ADAIN}; "
+                        "the pipeline's C2 is tgtc_torch.train.temporal)",
 }
 
 
@@ -160,10 +160,6 @@ def run_transformer(args, device: DeviceLike = None) -> int:
     step_fn = make_transformer_train_step(model, tcfg)
     workers, cache = min(args.n_threads, 8), ResizeCache()
 
-    def upload(batch):  # pinned, so the copy does not wait for the card
-        t = torch.from_numpy(batch)
-        return t.pin_memory().to(dev, non_blocking=True) if card else t
-
     with CropBatchPrefetcher(c_paths, tcfg.batch_size, tcfg.patch, seed=args.seed,
                              workers=workers, cache=cache) as cpf, \
             CropBatchPrefetcher(s_paths, tcfg.batch_size, tcfg.patch, seed=args.seed + 1,
@@ -172,7 +168,7 @@ def run_transformer(args, device: DeviceLike = None) -> int:
         t_log = time.perf_counter()
         try:
             while step < tcfg.max_iter:
-                content, style = upload(cpf.next()), upload(spf.next())
+                content, style = _upload(cpf.next(), dev), _upload(spf.next(), dev)
                 state, metrics = step_fn(state, content, style, seed=args.seed + 3)
                 step = state.step
                 if step % args.print_interval == 0:
@@ -193,6 +189,82 @@ def run_transformer(args, device: DeviceLike = None) -> int:
     return 0
 
 
+def _upload(batch, dev):
+    """A host batch on ``dev``, pinned on the way to the card so that the
+    copy does not wait for it."""
+    import torch
+
+    t = torch.from_numpy(batch)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def run_vae(args, device: DeviceLike = None) -> int:
+    """Phase D: the VAE on VGG relu4_1 ``[mean ‖ std]`` features of random
+    ``patch``² crops of the style images resized to ``2·patch``². Resumes
+    from the newest checkpoint under ``save_dir/vae`` unless
+    ``--no_reload``; logs every ``print_interval`` steps to
+    ``log_dir/vae.jsonl`` (with ``steps_per_s`` over the steps since the
+    last, the window closed by the log's fetch); checkpoints every
+    ``save_model_interval`` steps and at the end. The VGG carries
+    ``--vgg``'s ``vgg_normalised.pth`` where it exists."""
+    import torch
+
+    from tgtc_torch.data.prefetch import CropBatchPrefetcher
+    from tgtc_torch.models.vae import VaeConfig
+    from tgtc_torch.models.vgg import make_vgg
+    from tgtc_torch.train.checkpoint import CheckpointManager
+    from tgtc_torch.train.pretrained import load_vgg_overlay
+    from tgtc_torch.train.vae_trainer import (
+        VaeTrainConfig,
+        init_vae_train,
+        make_vae_train_step,
+        vgg_style_feature,
+    )
+    from tgtc_torch.utils.img import from_uint8
+    from tgtc_torch.utils.logging import MetricsLogger, fetch_scalars
+
+    dev = resolve_device(device)
+    vcfg = VaeConfig(data_dim=1024, latent_dim=args.vae_latent, width=args.vae_w,
+                     depth=args.vae_d, kl_lambda=args.vae_kl_lambda)
+    tcfg = VaeTrainConfig(lr=args.lr, lr_decay=args.lr_decay, max_iter=args.max_iter,
+                          batch_size=args.batch_size, kl_lambda=args.vae_kl_lambda)
+    _, state = init_vae_train(torch.Generator().manual_seed(args.seed), vcfg, tcfg, device=dev)
+    ckpt = CheckpointManager(os.path.join(args.save_dir, "vae"), max_to_keep=args.ckp_num)
+    if not args.no_reload and ckpt.latest_step() is not None:
+        state.load_state_dict(ckpt.restore(map_location=dev))
+    vgg = make_vgg(torch.Generator().manual_seed(0), device=dev)
+    load_vgg_overlay(vgg, args.vgg)
+    vgg.requires_grad_(False)
+    paths = _list_images(args.style_dir)
+    if not paths:
+        raise ValueError(f"no images in {args.style_dir!r}")
+    os.makedirs(args.log_dir, exist_ok=True)
+    logger = MetricsLogger(args.log_dir, name="vae")
+    step_fn = make_vae_train_step(state.model, tcfg)
+    with CropBatchPrefetcher(paths, tcfg.batch_size, args.patch, resize=2 * args.patch,
+                             seed=args.seed, workers=min(args.n_threads, 8)) as pf:
+        step = last_log = state.step
+        t_log = time.perf_counter()
+        try:
+            while step < tcfg.max_iter:
+                with torch.no_grad():
+                    x = vgg_style_feature(vgg, from_uint8(_upload(pf.next(), dev)))
+                state, metrics = step_fn(state, x, seed=args.seed + 1)
+                step = state.step
+                if step % args.print_interval == 0:
+                    scalars = fetch_scalars(metrics)  # syncs: closes the window
+                    now = time.perf_counter()
+                    scalars["steps_per_s"] = (step - last_log) / (now - t_log)
+                    logger.log(step, scalars, prefix="VAE")
+                    last_log, t_log = step, time.perf_counter()
+                if step % args.save_model_interval == 0 or step >= tcfg.max_iter:
+                    ckpt.save_device_async(step, state.state_dict(), wait=step >= tcfg.max_iter)
+        finally:
+            logger.close()
+            ckpt.close()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> int:
     args = build_parser().parse_args(argv)
     _resolve_task_defaults(args)
@@ -200,7 +272,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> int:
         raise NotImplementedError(f"--task {args.task}: {_NOT_PORTED[args.task]}")
     dev = resolve_device(device)  # before anything touches the disk
     os.makedirs(args.save_dir, exist_ok=True)
-    return run_transformer(args, dev)
+    return (run_vae if args.task == "vae" else run_transformer)(args, dev)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,8 @@ the Phase-A loop of ``Pipeline.train_nerf`` (tgtc/train/pipeline.py:263-385).
   and updates once.
 * Not ported: the K-step ``lax.scan`` dispatch (a TPU workaround) and
   training-time ``train_fine_budget``, which raises until
-  ``select_sample_budget`` is ported (ROADMAP queue 1, module 2).
+  ``select_sample_budget`` is ported (ROADMAP.md queue 1, 'Proposal
+  levers and sample budgets').
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer
 from tgtc_torch.utils.seeds import step_seed
 
-_BUDGET_NOT_PORTED = ("train_fine_budget is not ported yet (ROADMAP queue 1, "
-                      "module 2: select_sample_budget)")
+_BUDGET_NOT_PORTED = ("train_fine_budget is not ported yet (ROADMAP.md queue 1, 'Proposal "
+                      "levers and sample budgets': select_sample_budget)")
 CKPT_EVERY = 500  # steps between Phase-A checkpoints (tgtc/train/pipeline.py:377)
 
 

@@ -12,13 +12,14 @@ are dropped first. An asset whose shapes do not fit the configured model
 and the model keeps its random weights, as a missing asset does — a
 transformer trained against a random VGG minimizes a meaningless objective,
 so that case says so. The transformer's dead ``new_ps.*`` keys are dropped.
-The VAE loader comes with its slice (ROADMAP.md queue 1, item 10).
+``vae.pth`` loads into a :class:`~tgtc_torch.models.vae.Vae` as it is
+(:func:`load_vae_params`), or is absent and the VAE trains.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -108,3 +109,23 @@ def overlay_stytrans(model, decoder_pth_path: str = "", pretrained_dir: str = ""
     epth = latest_with("embedding", pretrained_dir)
     loaded["embedding"] = bool(epth) and _overlay(model.embedding, epth, "embedding")
     return loaded
+
+
+def vae_keys(depth: int = 4) -> List[str]:
+    """The reference ``VAE``'s state-dict keys at ``depth``."""
+    layers = ([f"encoder.fc_layers.{i}" for i in range(depth - 1)]
+              + ["encoder.fc_layer_mu", "encoder.fc_layer_log_var"]
+              + [f"decoder.fc_layers.{i}" for i in range(depth - 1)] + ["decoder.output_layer"])
+    return [f"{layer}.{kind}" for layer in layers for kind in ("weight", "bias")]
+
+
+def load_vae_params(vae_pth_path: str, depth: int = 4) -> Optional[Dict[str, torch.Tensor]]:
+    """``vae.pth`` → the state dict of a depth-``depth``
+    :class:`~tgtc_torch.models.vae.Vae` (its keys only), or None when the
+    path is empty or absent (the reference loads it when present). A file
+    without one of those keys raises ``KeyError``."""
+    if not vae_pth_path or not os.path.exists(vae_pth_path):
+        return None
+    _say(f"loading pretrained VAE from {vae_pth_path}")
+    sd = load_state_dict_file(vae_pth_path)
+    return {k: sd[k] for k in vae_keys(depth)}

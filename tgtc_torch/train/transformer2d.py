@@ -18,8 +18,8 @@ the update count from 0 (optax's count).
   one would. It replaces the JAX package's ``dropout_key`` (an rbg/threefry
   choice made for the TPU).
 * Metrics are 0-d device tensors, fetched only when logged.
-* ``temporal_fn(ics) -> scalar`` optionally adds Phase C2's temporal term
-  (not ported yet: ROADMAP queue 1, item 15).
+* Phase C2 (:mod:`tgtc_torch.train.temporal`) trains the decoder alone
+  with a step of its own on the same loss and optimizer.
 """
 
 from __future__ import annotations
@@ -114,10 +114,8 @@ class TransformerTrainStep:
     ``(seed, state.step)``."""
 
     def __init__(self, model: StyTrans, cfg: TransformerTrainConfig,
-                 train_keys: Sequence[str] = TRAIN_KEYS,
-                 temporal_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
-        self.model, self.cfg = model, cfg
-        self.train_keys, self.temporal_fn = train_keys, temporal_fn
+                 train_keys: Sequence[str] = TRAIN_KEYS):
+        self.model, self.cfg, self.train_keys = model, cfg, train_keys
         self._generator: Optional[torch.Generator] = None
 
     def generator(self, seed: int, step: int) -> torch.Generator:
@@ -132,19 +130,22 @@ class TransformerTrainStep:
                       ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The metrics and the gradients of ``model``'s trained parameters
         (in :func:`trained_parameters` order), before any update."""
-        c = self.cfg
         out = model.compute_losses(from_uint8(content), from_uint8(style), deterministic=False,
                                    generator=generator)
-        loss = (c.content_weight * out["loss_c"] + c.style_weight * out["loss_s"]
-                + c.id1_weight * out["l_id1"] + c.id2_weight * out["l_id2"])
+        loss = self.weighted_loss(out)
         metrics = {k: v.detach() for k, v in out.items() if k != "ics"}
-        if self.temporal_fn is not None:
-            loss_t = self.temporal_fn(out["ics"])
-            loss = loss + loss_t
-            metrics["loss_t"] = loss_t.detach()
+        return {"loss": loss.detach(), **metrics}, self.grads(model, loss)
+
+    def weighted_loss(self, out: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The four-term loss of :meth:`StyTrans.compute_losses`' output."""
+        c = self.cfg
+        return (c.content_weight * out["loss_c"] + c.style_weight * out["loss_s"]
+                + c.id1_weight * out["l_id1"] + c.id2_weight * out["l_id2"])
+
+    def grads(self, model: StyTrans, loss: torch.Tensor) -> List[torch.Tensor]:
+        """``loss``'s gradients of ``model``'s trained parameters."""
         params = [p for _, p in trained_parameters(model, self.train_keys)]
-        grads = torch.autograd.grad(loss, params)
-        return {"loss": loss.detach(), **metrics}, list(grads)
+        return list(torch.autograd.grad(loss, params))
 
     def apply(self, state: TransformerTrainState, grads: List[torch.Tensor]) -> None:
         for (_, p), g in zip(trained_parameters(state.model, self.train_keys), grads):
@@ -166,11 +167,9 @@ class TransformerTrainStep:
 
 
 def make_transformer_train_step(model: StyTrans, cfg: TransformerTrainConfig,
-                                train_keys: Sequence[str] = TRAIN_KEYS,
-                                temporal_fn=None) -> TransformerTrainStep:
-    """The C1 step (C2's with decoder-only ``train_keys`` and a
-    ``temporal_fn``) for ``model``, on the model's device."""
-    return TransformerTrainStep(model, cfg, train_keys, temporal_fn)
+                                train_keys: Sequence[str] = TRAIN_KEYS) -> TransformerTrainStep:
+    """The C1 step for ``model``, on the model's device."""
+    return TransformerTrainStep(model, cfg, train_keys)
 
 
 def make_collage_fn(model: StyTrans) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
