@@ -183,7 +183,29 @@ started together), then:
    style 0 from the table through phase 7's FusedStyleRenderer settings,
    trunks and style MLPs (47 K4 and 47 K5 launches, no K1/K2), its first
    16,384 rays held to the eager f32 render as in phase 7;
-15. prints the kernels line (JSON, K1-K8), then the result line.
+15. Phase E at fern's settings, read from configs/fern.txt through
+   tgtc_torch/config.py (batch 256 a stream, 64+64 samples, σ noise 1.0,
+   λ_coh 1e2, style_D 8, width 256, latent 32, lr 5e-4 / 1e-3, PyTorch's
+   default full-f32 matmuls), with the coherence gate moved to the end of
+   the warm-up: train/style3d.run_style3d on phase 4's trunks (bf16), phase
+   5's two renders and rays, phase 13's 8 styles x 2 views and
+   style_features and phase 14's VAE (the latent seed): 20 warm-up steps
+   (the coherence diagnostic at the first, its ratio printed), then 300
+   counted steps resumed from the warm-up's checkpoint, logged every 10:
+   every loss finite, loss_coh 0 at the first step and at each cycle's reset
+   and > 0 elsewhere, the mean loss_rgb of the last 50 steps below the first
+   50's, both trunks bitwise unchanged, no hand-written kernel launched by a
+   step, Phase-E steps/s over the counted loop's log windows (each closed
+   by the log's fetch); one step from the trained state (the coherence term
+   and its gradient in, at fern's gate) on the card against the CPU with the
+   same draws, TF32 off:
+   losses within 1e-3 relative, the gradient cosine of concat, style and
+   latents each >= 0.999; a 756x1008 frame of style 0 from the Phase-E
+   checkpoint through train/style3d.load_style_field and phase 7's
+   FusedStyleRenderer settings (47 K4 and 47 K5 launches, nothing else),
+   its first 16,384 rays held to the eager f32 render as in phase 7; the
+   in-memory field renders the first block bit for bit as the checkpoint's;
+16. prints the kernels line (JSON, K1-K8), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -262,6 +284,9 @@ C2_SEED, C2_WARM, C2_PRINT = 21, 10, 10  # steps 11-100 counted, over log window
 TOL_SPLAT_MASK, TOL_OWN_VIEW = 1e-3, 0.95  # tests/test_rasterize.py's coverage bound
 D_WARM, D_STEPS = 20, 2000  # the pipeline's vae_iters
 TOL_VAE_LOSS, TOL_VAE_COS = 1e-5, 0.9999
+E_WARM, E_STEPS, E_PRINT, E_SEED = 20, 300, 10, 31  # the reference runs 8,000 Phase-E steps
+# card vs CPU step: the trunks run bf16 on both (one bf16 ulp apart at places)
+TOL_E_LOSS, TOL_E_COS = 1e-3, 0.999
 
 
 def check(ok: bool, what: str) -> None:
@@ -2263,7 +2288,211 @@ def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, 
     check(bool(torch.isfinite(frame["rgb"]).all()), "seeded-latent frame not finite")
     stylized_vs_eager(renderer, trained, concat, style, fo, fd, frame, "d",
                       "seeded-latent frame")
-    return steps_per_s, launches
+    return steps_per_s, launches, ckpt
+
+
+def all_counters(ks, kg, kst, fa):
+    return {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
+            "K3": kg.fused_nerf_bwd, "K4": kst.fused_style_apply_t,
+            "K5": kst.fused_sigma_apply_t, "K6": fa.flash_attention_fwd,
+            "K7": fa.flash_attention_bwd_dq, "K8": fa.flash_attention_bwd_dkv}
+
+
+def step_groups(state, grads):
+    """A Phase-E gradient list as its three groups: concat, style, latents."""
+    n = len(list(state.concat.parameters()))
+    return [grads[:n], grads[n:-1], grads[-1:]]
+
+
+def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str):
+    """Phase E at fern's settings (configs/fern.txt through
+    tgtc_torch/config.py) through train/style3d.run_style3d: 20 warm-up
+    steps, then 300 counted steps resumed from the warm-up's checkpoint; the
+    card step against the CPU step; a 756x1008 frame of style 0 from the
+    trained field through phase 7's renderer settings; a checkpoint round
+    trip. Returns Phase-E steps/s, the frame's launches and its rays/s."""
+    from tgtc_torch.config import load_config
+    from tgtc_torch.data.llff import load_llff_data
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP
+    from tgtc_torch.models.vae import VaeConfig, make_vae
+    from tgtc_torch.render.fast_style import FusedStyleRenderer
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train import style3d as s3
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(["--config", os.path.join(repo, "configs", "fern.txt"),
+                       "--i_print", str(E_PRINT)])
+    origin = cfg.origin_step
+    # the coherence gate after the warm-up (fern's is origin + 1999): at
+    # λ_coh 1e2 the coherence gradient owns the update while it is on (the
+    # diagnostic reads it), and the counted loop times the plain regime that
+    # holds 6,000 of the reference's 8,000 Phase-E steps
+    cfg = dataclasses.replace(cfg, coh_until_step=origin + E_WARM - 1)
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default: full f32 matmuls
+    scene = load_llff_data(os.path.join(root, "scene"), factor=1)
+    geo_dir = os.path.join(root, "geometry")
+
+    def trunks(device):
+        out = []
+        for which in ("coarse", "fine"):
+            m = NerfMLP(NerfConfig())
+            m.load_state_dict(trained[which])
+            out.append(m.to(device))
+        return out
+
+    nerf = trunks("cuda")
+    before = [{k: v.clone() for k, v in m.state_dict().items()} for m in nerf]
+    vae = make_vae(VaeConfig(), device="cuda")
+    vae.load_state_dict(torch.load(vae_ckpt, map_location="cuda", weights_only=True)["model"])
+    scfg = s3.style_train_config(cfg, 0.0, 1.0)
+    print(f"[e] configs/fern.txt: batch_size_style {cfg.batch_size_style}, N_samples "
+          f"{cfg.N_samples}+{cfg.N_samples_fine}, sigma_noise_std {cfg.sigma_noise_std}, "
+          f"loss_coh_lambda {cfg.loss_coh_lambda:g} until step {scfg.coh_until_step}, style_D "
+          f"{cfg.style_D}, netwidth {cfg.netwidth}, vae_latent {cfg.vae_latent}, lrate "
+          f"{cfg.lrate:g} / latent {scfg.latent_lrate:g}, origin_step {origin}; trunks bf16 "
+          f"(phase 4's), style MLPs f32, torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    out = os.path.join(root, "e_run")
+    counters = all_counters(ks, kg, kst, fa)
+    lines = []
+    t0 = time.perf_counter()
+    state, warm = s3.run_style3d(dataclasses.replace(cfg, total_step=origin + E_WARM), scene,
+                                 geo_dir, styles_dir, *nerf, vae, out, device="cuda",
+                                 print_fn=lines.append)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, hist = s3.run_style3d(dataclasses.replace(cfg, total_step=origin + E_WARM + E_STEPS),
+                                 scene, geo_dir, styles_dir, *nerf, vae, out, device="cuda",
+                                 print_fn=lines.append)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    step_launches = {n: c.launches for n, c in counters.items()}
+    with open(os.path.join(out, "logs", "style.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    diag = records[0]
+    ends = [origin + E_WARM] + [r["step"] for r in hist["records"]]
+    sizes = np.diff(ends)
+    loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, hist["records"])))
+    steps_per_s = float(sizes.sum()) / loop_s
+    losses = {k: warm[k] + hist[k] for k in s3.LOSSES}
+    first, last = (float(np.mean(losses["loss_rgb"][sl])) for sl in (slice(0, 50),
+                                                                     slice(-50, None)))
+    # the coherence term's steps: 0 at the first (no buffers yet) and at each
+    # frame cycle's reset (cnt == frame_num: every other step with 2 views)
+    cnt, active = 0, []
+    for _ in losses["loss_coh"]:
+        active.append(cnt not in (0, len(scene.images)))
+        cnt = 1 if cnt == len(scene.images) else cnt + 1
+    unchanged = all(torch.equal(v, b[k]) for m, b in zip(nerf, before)
+                    for k, v in m.state_dict().items())
+    windows = lambda recs, ns: ", ".join(f"{n}: {r['steps_per_s']:.2f}" for n, r in zip(ns, recs))
+    coh_min = min(x for x, on in zip(losses["loss_coh"], active) if on)
+    print(f"[e] {scene.images.shape[0]} views x {state.latents.shape[0]} styles of {H}x{W}: "
+          f"coherence diagnostic at step {diag['step']}: ratio {diag.get('coh_grad_ratio')} "
+          f"(|grad coh| {diag.get('grad_norm_coh')}, |grad rgb| {diag.get('grad_norm_rgb')}, "
+          f"warning above {s3.COH_RATIO_WARN}); {E_WARM} warm-up steps in {warm_s:.2f} s "
+          f"(set-up and the diagnostic included; the coherence term on; steps/s per log "
+          f"window, by its last step: "
+          f"{windows(warm['records'], [r['step'] for r in warm['records']])}), then {E_STEPS} "
+          f"steps in {run_s:.2f} s (call, restore and the final save included), of which the "
+          f"loop {loop_s:.3f} s: {steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.3f} ms a step); "
+          f"per log window (steps: steps/s) {windows(hist['records'], sizes)}; loss_coh "
+          f"{losses['loss_coh'][0]} at the first step, 0 at "
+          f"{sum(x == 0.0 for x in losses['loss_coh'])} of {len(active)} steps (expect "
+          f"{active.count(False)}), min over the active steps {coh_min:.5f}; mean loss_rgb of "
+          f"the first 50 steps {first:.5f}, of the last 50 {last:.5f}; trunks bitwise unchanged "
+          f"{unchanged}; hand-written kernel launches in the counted run {step_launches}",
+          flush=True)
+    check("coh_grad_ratio" in diag and diag["step"] == origin
+          and math.isfinite(diag["coh_grad_ratio"]), "the coherence diagnostic did not run")
+    check(len(losses["loss"]) == E_WARM + E_STEPS
+          and all(math.isfinite(x) for k in s3.LOSSES for x in losses[k]),
+          "Phase-E losses not finite or missing")
+    check(all((x > 0.0) == on for x, on in zip(losses["loss_coh"], active)),
+          "loss_coh must be 0 at the first step and at each cycle's reset, > 0 elsewhere")
+    check(last < first, "Phase-E loss_rgb did not fall")
+    check(unchanged, "Phase E changed a trunk")
+    check(int(sizes.sum()) == E_STEPS, f"the log windows cover {sizes.sum()} steps")
+    check(all(v == 0 for v in step_launches.values()),
+          f"the Phase-E step launched a hand-written kernel: {step_launches}")
+
+    # one step on the card against the same step on the CPU, TF32 off, with
+    # fern's own gate, so that the coherence term's gradient is in the step
+    field = s3.style_field_config(cfg, nerf[0])
+    fern_cfg = s3.style_train_config(dataclasses.replace(cfg, coh_until_step=-1), 0.0, 1.0)
+    res = []
+    draws = None
+    for dev in ("cpu", "cuda"):
+        data = s3.load_style_scene(scene, geo_dir, styles_dir, device=dev)
+        st = s3.init_style_state(torch.Generator().manual_seed(0), field, scfg, data.style_num,
+                                 data.frame_num, device=dev)
+        st.load_state_dict(state.state_dict())
+        st.cnt = 1  # the coherence term active, as after a cycle's reset
+        step = s3.make_style_train_step(*(nerf if dev == "cuda" else trunks("cpu")), fern_cfg)
+        if draws is None:
+            draws = step.draw(data, st, seed=E_SEED)
+        d = s3.StyleStepDraws(*(tuple(t.to(dev) for t in v) if isinstance(v, tuple) else v.to(dev)
+                                for v in dataclasses.astuple(draws)))
+        m, g, _ = step.loss_and_grad(st, data, d)
+        res.append(({k: float(v) for k, v in m.items()},
+                    [torch.cat([t.double().cpu().flatten() for t in grp])
+                     for grp in step_groups(st, g)]))
+        del data, st
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = res
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(g_gpu, g_cpu)]
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    pairs = ", ".join(f"{k} {m_gpu[k]:.6f} vs {m_cpu[k]:.6f} (relative {rel[k]:.2e})"
+                      for k in m_cpu)
+    print(f"[e] one Phase-E step at step {state.step} (cnt 1 and fern's gate at step "
+          f"{fern_cfg.coh_until_step}: the coherence term and its gradient in), card vs CPU "
+          f"(same state and draws, TF32 off, bf16 trunks): {pairs}; gradient cosine concat "
+          f"{cos[0]:.6f}, style {cos[1]:.6f}, latents {cos[2]:.6f} (limits {TOL_E_LOSS} and "
+          f"{TOL_E_COS})", flush=True)
+    check(max(rel.values()) <= TOL_E_LOSS and min(cos) >= TOL_E_COS,
+          "the Phase-E step on the card disagrees with the CPU's")
+
+    # Phase F from the trained field: the checkpoint through load_style_field
+    concat, style, lat = s3.load_style_field(os.path.join(out, "ckpt_style"), field,
+                                             device="cuda")
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    renderer = FusedStyleRenderer.from_params(trained["coarse"], trained["fine"],
+                                              concat.state_dict(), style.state_dict(), lat,
+                                              settings, coarse_rgb=False, device="cuda")
+    ro, rd = rays_for_poses(H, W, trained["intrinsics"], trained["render_poses"][:1],
+                            use_ndc=True, device="cuda")
+    fo, fd = ro[0].reshape(-1, 3), rd[0].reshape(-1, 3)
+    blocks = math.ceil(fo.shape[0] / BLOCK)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    frame = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"[e] stylized {H}x{W} frame of style 0 from the trained field (checkpoint at step "
+          f"{state.step}): {frame_s * 1e3:.1f} ms (first frame of this renderer), launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    check(launches == {**{k: 0 for k in counters}, "K4": blocks, "K5": blocks},
+          f"trained-field frame launch counts {launches}")
+    check(bool(torch.isfinite(frame["rgb"]).all()), "trained-field frame not finite")
+    stylized_vs_eager(renderer, trained, concat, style, fo, fd, frame, "e", "trained-field frame")
+
+    # checkpoint round trip: the in-memory field renders what the checkpoint does
+    mem = FusedStyleRenderer.from_params(trained["coarse"], trained["fine"],
+                                         state.concat.state_dict(), state.style.state_dict(),
+                                         state.latent_state(detach=True), settings,
+                                         coarse_rgb=False, device="cuda")
+    a, b = (r.render_image(fo[:BLOCK], fd[:BLOCK], 0, 0, block=BLOCK, seed=F_SEED)
+            for r in (mem, renderer))
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[e] checkpoint round trip at step {state.step}: render of {BLOCK} rays bitwise "
+          f"equal: {same}", flush=True)
+    check(same, "the Phase-E checkpoint renders differently from the trained state")
+    return steps_per_s, launches, fo.shape[0] / frame_s
 
 
 def main() -> int:
@@ -2328,7 +2557,10 @@ def main() -> int:
         c3c2_launches, c3c2_s_per_view, feats = phase_c3c2(fa, model, geo_dir, styles, tmp)
         del model
         n_views = len([f for f in os.listdir(geo_dir) if f.startswith("rgb_")])
-        vae_steps_per_s, d_launches = phase_d(ks, kst, trained, styles, feats, n_views, tmp)
+        vae_steps_per_s, d_launches, vae_ckpt = phase_d(ks, kst, trained, styles, feats,
+                                                        n_views, tmp)
+        e_steps_per_s, e_launches, e_rays_per_s = phase_e(
+            ks, kg, kst, fa, trained, tmp, os.path.join(tmp, "stylized_c2"), vae_ckpt)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
                   launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
@@ -2339,16 +2571,18 @@ def main() -> int:
         row["launches_per_step"] = c1_launches[row["name"]] // C1_STEPS
         row["launches_c2"] = c2_launches[row["name"]]
     rows += k78_rows
-    for row in rows:  # the stylized frame from the seeded latents
+    for row in rows:  # the stylized frames from the seeded latents and the trained field
         if row["name"] in ("K4", "K5"):
             row["launches_d"] = d_launches[row["name"]]
+            row["launches_e"] = e_launches[row["name"]]
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
           f"{f_frames_per_min:.2f} frames/min; C3 {c3_frames_per_s:.3f} frames/s, "
           f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views); C1 "
           f"{c1_steps_per_s:.3f} steps/s; C2 {c2_steps_per_s:.3f} steps/s; C3 after C2 "
-          f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s",
+          f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s; "
+          f"Phase E {e_steps_per_s:.3f} steps/s; trained-field frame {e_rays_per_s:.1f} rays/s",
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: K1-K8 against their plain twins (K3's
 recompute against K1 bit for bit), their launch counters, the fused render, the fused stylized render, one fused
 training step, a narrow C3 stylization, a narrow C1 step, C2's splat, a
-narrow C2 step and a VAE step on the card against the same on the CPU
+narrow C2 step, a VAE step and a narrow Phase-E step on the card against the
+same on the CPU
 (where the wrappers run the twins).
 
 Every test here needs a card and skips without one. The file imports
@@ -733,3 +734,63 @@ def test_vae_step_on_card_matches_cpu(cuda_device):
           f"{min(cos):.7f}")
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     assert min(cos) >= 0.9999
+
+
+def test_narrow_style3d_step_on_card_matches_cpu(cuda_device):
+    """One narrow Phase-E step (D2/W32 f32 trunks with the σ bias raised by
+    2 as in tests/test_torch_style3d.py, ``style_d`` 2, width 32, latent 8,
+    2 styles x 3 frames of 8x8, batch 16, 8+8 samples, σ noise 1.0, the
+    coherence loss active) from the same state with the same draws on the
+    card and on the CPU, TF32 off: each loss within 1e-3 relative, the
+    gradient cosine of each group (concat, style, latents) >= 0.999."""
+    from tgtc_torch.data.style_dataset import synthetic_style_scene
+    from tgtc_torch.train import style3d as s3
+
+    cfg = s3.StyleTrainConfig(batch_size=16, n_samples=8, n_samples_fine=8, origin_step=0)
+    nerf_cfg = NerfConfig(depth=2, width=32, compute_dtype=torch.float32)
+    field = StyleFieldConfig(style_d=2, width=32, latent_dim=8, embed_dim=nerf_cfg.input_ch)
+    sds = []
+    for seed in (0, 1):
+        sd = make_nerf(nerf_cfg, torch.Generator().manual_seed(seed), device="cpu").state_dict()
+        sd["sigma_layer.bias"] = sd["sigma_layer.bias"] + 2.0
+        sds.append(sd)
+    cpu_data = synthetic_style_scene(torch.Generator().manual_seed(2), 2, 3, 8, 8, device="cpu")
+    rng = np.random.default_rng(3)
+    buffers = [torch.from_numpy(rng.uniform(0, 1, (16, 3)).astype(np.float32)) for _ in range(3)]
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = []
+    try:
+        for dev in ("cpu", cuda_device):
+            trunks = []
+            for sd in sds:
+                m = make_nerf(nerf_cfg, device=dev)
+                m.load_state_dict(sd)
+                trunks.append(m)
+            data = s3.StyleSceneData(**{k: getattr(cpu_data, k).to(dev) for k in (
+                "rays_o", "rays_d", "images", "stylized", "style_features")})
+            state = s3.init_style_state(torch.Generator().manual_seed(4), field, cfg, 2, 3,
+                                        device=dev)
+            state.cnt = 1
+            state.coh_x, state.coh_y, state.coh_x_origin = (b.to(dev) for b in buffers)
+            step = s3.make_style_train_step(*trunks, cfg)
+            draws = step.draw(cpu_data, state, seed=5)  # drawn on the host, used on both
+            draws = s3.StyleStepDraws(*(
+                tuple(t.to(dev) for t in v) if isinstance(v, tuple) else v.to(dev)
+                for v in dataclasses.astuple(draws)))
+            m, g, _ = step.loss_and_grad(state, data, draws)
+            n = len(list(state.concat.parameters()))
+            groups = [g[:n], g[n:-1], g[-1:]]
+            res.append(({k: float(v) for k, v in m.items()},
+                        [torch.cat([t.double().cpu().flatten() for t in grp]) for grp in groups]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = res
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(g_gpu, g_cpu)]
+    print(f"parity narrow Phase-E step, card vs CPU: " + ", ".join(
+        f"{k} {m_gpu[k]:.6f} vs {m_cpu[k]:.6f}" for k in m_cpu)
+        + f"; gradient cosines concat/style/latents {cos}")
+    assert m_cpu["loss_coh"] > 0
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]), k
+    assert min(cos) >= 0.999

@@ -37,7 +37,8 @@ def test_submodule_list_covers_the_slice():
                  "models.transformer", "models.vgg", "models.decoder", "models.stytrans",
                  "train.pretrained", "train.stylize", "ops.style", "data.prefetch",
                  "train.transformer2d", "tools.train2d", "ops.rasterize", "train.temporal",
-                 "models.vae", "train.vae_trainer"):
+                 "models.vae", "train.vae_trainer", "config", "data.style_dataset",
+                 "train.style3d"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -126,6 +127,9 @@ def test_entry_points_default_to_the_card():
     from tgtc_torch.models.vae import VaeConfig, make_vae
     from tgtc_torch.train.temporal import SplatCamera, run_temporal_finetune
     from tgtc_torch.train.vae_trainer import VaeTrainConfig, init_vae_train
+    from tgtc_torch.config import Config
+    from tgtc_torch.data.style_dataset import load_style_scene, synthetic_style_scene
+    from tgtc_torch.train import style3d as s3
 
     for build in (lambda: make_vgg(),
                   lambda: train2d.main(["--task", "transformer", "--save_dir", "unused"]),
@@ -137,6 +141,13 @@ def test_entry_points_default_to_the_card():
                   lambda: tt.init_state(torch.Generator(), cfg, tc),
                   lambda: tt.make_train_step(tc),
                   lambda: tt.make_fused_train_step(NerfConfig(), tc),
-                  lambda: tt.train_nerf(None, cfg, tc, 1, "unused", print_fn=None)):
+                  lambda: tt.train_nerf(None, cfg, tc, 1, "unused", print_fn=None),
+                  lambda: load_style_scene(None, "unused", "unused"),
+                  lambda: synthetic_style_scene(torch.Generator(), 1, 1, 2, 2),
+                  lambda: s3.init_style_state(torch.Generator(), StyleFieldConfig(),
+                                              s3.StyleTrainConfig(), 1, 2),
+                  lambda: s3.run_style3d(Config(), None, "unused", "unused", None, None, None,
+                                         "unused", print_fn=None),
+                  lambda: s3.load_style_field("unused", StyleFieldConfig())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()

@@ -12,20 +12,17 @@ plane seen from two nearby cameras.
   twin against JAX's Pallas flash in interpret mode).
 * One C2 step from JAX's state converted bit for bit: the five losses to
   1e-5 relative; nothing but ``decode`` moves
-  (tests/test_trainers_2d.py:122-156); the decoder's leaves (their scale
-  floored at the learning rate) to 1e-5 and the Adam moments to 5e-5, the
-  tolerances of tests/test_torch_c1.py, or JAX's own spread where that is
-  larger, measured as there (``jax_witness``: JAX's step from the same
-  state with every attention's key bias moved by each of
-  ``KEY_BIAS_BUMPS``, the same loss in exact arithmetic). The decoder's
-  gradient crosses the random VGG's max-pool near-ties: on one x86 host
-  the five bumped JAX runs agree to 9e-7 of each leaf's max gradient, the
-  unbumped run lies 1.4e-3 from them and the port 2.4e-4. All six are
-  equally valid, so the port's moments are held to the nearest of them.
-  Adam's first update is lr · m / (|m| + eps), so a gradient element whose
-  sign the rounding flips (|g| ~ 1e-5 of the leaf's max here, in JAX's own
-  runs too) moves 2 lr: each parameter element is held to its leaf's
-  tolerance or to 2 lr of every JAX state, whichever is larger.
+  (tests/test_trainers_2d.py:122-156); the decoder's Adam moments to 5e-5
+  and its leaves (their scale floored at the learning rate) to 1e-5, the
+  tolerances of tests/test_torch_c1.py. The decoder's gradient crosses the
+  random VGG's max-pool and ReLU near-ties (see tests/test_torch_c1.py):
+  JAX's step records its decisions there (``jax_tie_recorder``) and the
+  port's step takes them (``port_takes_jax_picks``), every rerouted window
+  or element a near-tie on both sides. Adam's first update is lr · m / (|m|
+  + eps), so a gradient element whose sign the rounding flips (|g| ~ 1e-5
+  of the leaf's max here, away from any tie) moves 2 lr: each parameter
+  element is held to its leaf's tolerance or to 2 lr of JAX's, whichever
+  is larger.
 * The debug images equal JAX's within 1 LSB.
 * ``sample_patch`` and the loop's draws (``draw_batch``) equal the
   pipeline's for the same ``np.random.default_rng``; the batches
@@ -53,7 +50,8 @@ from tgtc_torch.models.stytrans import make_stytrans
 from tgtc_torch.models.transformer import TransformerConfig
 from tgtc_torch.train import temporal as tt
 from test_torch_c1 import (  # noqa: F401 (params is a fixture)
-    KEY_BIAS_BUMPS, TOL_LOSS, TOL_MOMENT, TOL_PARAM, _bump_key_biases, _leaf_rel, _rel, params)
+    TOL_LOSS, TOL_MOMENT, TOL_PARAM, _leaf_rel, _rel, jax_tie_recorder, moves, params,
+    port_takes_jax_picks, recorded)
 from test_torch_ops import close
 from test_torch_stytrans import NARROW
 
@@ -143,18 +141,22 @@ def _adam(j_state):
 
 def _jax_one_step(params):
     """JAX's C2 state after one step on ``_batch()`` from ``params``: the
-    parameters, the decoder's Adam moments (numpy) and the metrics."""
+    parameters, the decoder's Adam moments (numpy), the metrics and the
+    step's recorded ties (``jax_tie_recorder``)."""
     jm = JStyTrans(JConfig(dropout=0.0, **NARROW))
-    step = jtemp.make_temporal_train_step(jm, J_CFG, jnp.asarray(j_proj(H, W, FOCAL)), H, W,
-                                          is_ndc=True, focal=FOCAL)
     state = jt.init_transformer_train(jax.tree.map(jnp.asarray, params),
                                       jt.TransformerTrainConfig(lr=J_CFG.lr),
                                       train_keys=("decode",))
-    state, m = step(state, *(jnp.asarray(x) for x in _batch()), ORIGIN, jax.random.PRNGKey(0))
+    with jax_tie_recorder() as seen:
+        step = jtemp.make_temporal_train_step(jm, J_CFG, jnp.asarray(j_proj(H, W, FOCAL)), H, W,
+                                              is_ndc=True, focal=FOCAL)
+        state, m = step(state, *(jnp.asarray(x) for x in _batch()), ORIGIN,
+                        jax.random.PRNGKey(0))
+        ties = recorded(seen)
     adam = _adam(state)
     pick = lambda t: {"params": {"decode": jax.tree.map(np.array, t["params"]["decode"])}}
     return (jax.tree.map(np.array, state.params), pick(adam.mu), pick(adam.nu),
-            {k: float(v) for k, v in m.items()})
+            {k: float(v) for k, v in m.items()}, ties)
 
 
 def _decoder_state(j_params, j_mu, j_nu):
@@ -166,36 +168,20 @@ def _decoder_state(j_params, j_mu, j_nu):
 
 @pytest.fixture(scope="module")
 def jax_step(params):
-    """JAX's step from ``params`` and its own spread (``jax_witness`` of
-    tests/test_torch_c1.py): the largest distance, per kind (parameters
-    floored at the learning rate, moments), between any two of its decoder
-    states after the step from ``params`` as they are and with every
-    attention's key bias moved by each of ``KEY_BIAS_BUMPS`` (the same loss
-    in exact arithmetic, other f32 rounding)."""
+    """JAX's step from ``params``: its metrics, its decoder state and the
+    ties it recorded."""
     out = _jax_one_step(params)
-    runs = [_decoder_state(*out[:3])]
-    for delta in KEY_BIAS_BUMPS:
-        runs.append(_decoder_state(*_jax_one_step(_bump_key_biases(params, delta))[:3]))
-    lr = float(jt.lr_schedule(jt.TransformerTrainConfig(lr=J_CFG.lr))(0))
-    spread = {"param": 0.0, "mu": 0.0, "nu": 0.0}
-    for i in range(len(runs)):
-        for j in range(i):
-            for kind, a, b, floor in zip(spread, runs[i], runs[j], (lr, 1e-30, 1e-30)):
-                spread[kind] = max([spread[kind]] + [_leaf_rel(a[n], b[n], floor) for n in b])
-    print(f"[parity] C2 step: JAX's own spread over {len(KEY_BIAS_BUMPS)} key-bias bumps: "
-          f"param {spread['param']:.3e}, mu {spread['mu']:.3e}, nu {spread['nu']:.3e}")
-    return out[3], runs, spread
+    return out[3], _decoder_state(*out[:3]), out[4]
 
 
 def test_one_step_matches_jax(params, jax_step):
-    jm, runs, spread = jax_step
-    tols = {"param": max(TOL_PARAM, spread["param"]), "mu": max(TOL_MOMENT, spread["mu"]),
-            "nu": max(TOL_MOMENT, spread["nu"])}
+    jm, run, ties = jax_step
     model = _port(params)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     state = tt.init_temporal_train(model, CFG)
-    state, m = tt.make_temporal_train_step(model, CFG, _cam())(
-        state, *(torch.from_numpy(x) for x in _batch()), ORIGIN)
+    with port_takes_jax_picks(ties) as rerouted:
+        state, m = tt.make_temporal_train_step(model, CFG, _cam())(
+            state, *(torch.from_numpy(x) for x in _batch()), ORIGIN)
     assert set(m) == {"loss", "loss_c", "loss_s", "loss_t", "l_id1", "l_id2"}
     for k in m:
         close(_rel(m[k], jm[k]), 0.0, TOL_LOSS)
@@ -210,23 +196,19 @@ def test_one_step_matches_jax(params, jax_step):
     ours = ({n: p.detach() for n, p in decoder}, {n: opt[p]["exp_avg"] for n, p in decoder},
             {n: opt[p]["exp_avg_sq"] for n, p in decoder})
     lr = float(jt.lr_schedule(jt.TransformerTrainConfig(lr=CFG.lr))(0))
-    dists = [{kind: max(_leaf_rel(a[n], b[n], floor) for n in b)
-              for kind, a, b, floor in zip(("mu", "nu"), ours[1:], run[1:], (1e-30, 1e-30))}
-             for run in runs]
-    flips = [max(float((ours[0][n] - run[0][n]).abs().max()) for n in run[0]) / lr
-             for run in runs]
-    for i, (d, f) in enumerate(zip(dists, flips)):
-        print(f"[parity] C2 step vs JAX's state {i} (0: unbumped): max rel "
-              + ", ".join(f"{k} {d[k]:.3e} (tol {tols[k]:.3g})" for k in d)
-              + f"; max|d param| {f:.4f} lr")
-    assert any(all(d[k] <= tols[k] for k in d) for d in dists), dists
+    dist = {kind: max(_leaf_rel(a[n], b[n], 1e-30) for n in b)
+            for kind, a, b in zip(("mu", "nu"), ours[1:], run[1:])}
+    flips = max(float((ours[0][n] - run[0][n]).abs().max()) for n in run[0]) / lr
+    print(f"[parity] C2 step vs JAX (rerouted max-pool windows and ReLU elements: "
+          f"{moves(rerouted)}): max rel " + ", ".join(f"{k} {d:.3e}" for k, d in dist.items())
+          + f" (tol {TOL_MOMENT:.3g}); max|d param| {flips:.4f} lr")
+    assert all(d <= TOL_MOMENT for d in dist.values()), dist
     # the parameters: each leaf within its tolerance, or no element further
     # than one sign flip of Adam's first update (2 lr) from JAX's
-    for run in runs:
-        for n, want in run[0].items():
-            err = float((ours[0][n] - want).abs().max())
-            scale = max(float(want.abs().max()), lr)
-            assert err <= max(tols["param"] * scale, 2 * lr * (1 + 1e-3)), (n, err / lr)
+    for n, want in run[0].items():
+        err = float((ours[0][n] - want).abs().max())
+        scale = max(float(want.abs().max()), lr)
+        assert err <= max(TOL_PARAM * scale, 2 * lr * (1 + 1e-3)), (n, err / lr)
     assert state.step == 1 and state.scheduler.last_epoch == 1
 
 

@@ -27,7 +27,7 @@ def test_profile_frame_needs_a_card(monkeypatch):
         profile_frame.main()
 
 
-@pytest.mark.parametrize("argv", [[], ["--c1"], ["--c2"]])
+@pytest.mark.parametrize("argv", [[], ["--c1"], ["--c2"], ["--e"]])
 def test_profile_step_needs_a_card(monkeypatch, argv):
     from tgtc_torch.tools import profile_step
 

@@ -5,8 +5,8 @@ The flax modules use the reference's layer order under flax names
 ``layer_{i}`` and ``rgb_out``); the torch modules use the reference's torch
 names (the style MLPs' ``layers.{i}``). A Dense ``kernel [in, out]`` is a
 Linear ``weight [out, in]`` transposed; biases carry over as they are. A
-JAX latent table and JAX Phase-A and C1 train states convert to tensors too,
-and so do the VAE's parameters.
+JAX latent table and JAX Phase-A, C1 and Phase-E train states convert to
+tensors too, and so do the VAE's parameters.
 """
 
 from __future__ import annotations
@@ -383,3 +383,48 @@ def transformer_train_state_from_jax(step: int, params: Dict[str, Any], adam_cou
         group["lr"] = base * state.scheduler.lr_lambdas[0](int(adam_count))
     state.step = int(step)
     return state
+
+
+def style_train_state_from_jax(state, field_cfg, train_cfg, device=None):
+    """A JAX Phase-E ``StyleTrainState`` (its leaves as numpy: the step, the
+    params ``{"concat", "style", "latents"}``, ``mu``/``logvar``, the
+    ``optax.multi_transform`` Adam state of the ``style`` and ``latent``
+    partitions, the coherence buffers and the counters) → the port's
+    ``StyleTrainState`` on ``device``, so that a JAX Phase-E state resumes in
+    the port. Each partition's Adam ``mu``, ``nu`` and ``count`` become torch
+    Adam's ``exp_avg``, ``exp_avg_sq`` and ``step``."""
+    from tgtc_torch.train.style3d import init_style_state
+
+    params = state.params
+    lat = latent_state_from_jax({"latents": params["latents"], "mu": state.mu,
+                                 "logvar": state.logvar}, device)
+    s, f, _ = lat["latents"].shape
+    out = init_style_state(torch.Generator().manual_seed(0), field_cfg, train_cfg, s, f,
+                           latents_init=lat, device=device)
+    concat_sd, style_sd = style_state_dicts_from_flax(params)
+    out.concat.load_state_dict(concat_sd)
+    out.style.load_state_dict(style_sd)
+    dev = out.latents.device
+
+    def adam(part):  # masked(chain(scale_by_adam, scale_by_learning_rate))
+        return state.opt_state.inner_states[part].inner_state[0]
+
+    moments = {}
+    for kind in ("mu", "nu"):
+        c, st = style_state_dicts_from_flax(getattr(adam("style"), kind))
+        moments[kind] = ([c[n] for n, _ in out.concat.named_parameters()]
+                         + [st[n] for n, _ in out.style.named_parameters()]
+                         + [torch.from_numpy(np.array(getattr(adam("latent"), kind)["latents"],
+                                                      np.float32))])
+    counts = [int(adam("style").count)] * len(out.style_parameters()) + [int(adam("latent").count)]
+    opt_state = out.optimizer.state_dict()
+    for i, (m1, m2, n) in enumerate(zip(moments["mu"], moments["nu"], counts)):
+        opt_state["state"][i] = {"step": torch.tensor(float(n)), "exp_avg": m1.to(dev),
+                                 "exp_avg_sq": m2.to(dev)}
+    out.optimizer.load_state_dict(opt_state)
+    out.step = int(state.step)
+    for k in ("coh_x", "coh_y", "coh_x_origin"):
+        setattr(out, k, torch.from_numpy(np.array(getattr(state, k), np.float32)).to(dev))
+    for k in ("cnt", "style_start", "frame_start", "block", "start"):
+        setattr(out, k, int(getattr(state, k)))
+    return out

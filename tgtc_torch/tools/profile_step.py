@@ -1,6 +1,6 @@
 """Device-time breakdown of a training step on the card.
 
-    python3 -m tgtc_torch.tools.profile_step [--c1 | --c2]
+    python3 -m tgtc_torch.tools.profile_step [--c1 | --c2 | --e]
 
 Without a flag, the fused Phase-A step that chip_smoke.py's train phase runs
 (D8/W256 trunks, L 10/4, viewdirs, batch 2048, 64+64 samples, perturb on, σ
@@ -14,7 +14,13 @@ With ``--c2``, the Phase-C2 step that chip_smoke.py's C2 phase runs: the
 same network (decoder trained alone, so K6 only) at TemporalTrainConfig's
 defaults on seeded batches of 4 256x256 patches, the point splat of the
 patch into 4 views of a 756x1008 frame whose NDC coor maps are a tilted
-plane seen from four nearby cameras, device time by kind too.
+plane seen from four nearby cameras, device time by kind too. With
+``--e``, the Phase-E step that chip_smoke.py's Phase-E phase runs at fern's
+settings (D8/W256 bf16 trunks, ``style_d`` 8, width 256, latent 32, batch
+256 a stream, 64+64 samples, σ noise 1.0, λ_coh 1e2, PyTorch's default f32
+matmuls) on 8 styles x 2 views of a fern-shaped 756x1008 NDC camera with
+seeded random images, the coherence loss active after the warm-up; device
+time by kind too (the latent table's gather backward is "index/scatter").
 10 warm-up steps, 50 steps timed without the profiler (one sync at the
 end), then 10 steps under ``torch.profiler``. Prints the card, the step
 times, the device's busy time (the union of its kernels' and copies'
@@ -92,6 +98,36 @@ def c2_step():
             f"512, bf16, flash, dropout 0.1, decoder only)")
 
 
+def e_step():
+    """One Phase-E step at fern's settings on a seeded scene, and its
+    description."""
+    from tgtc_torch.data.style_dataset import StyleSceneData
+    from tgtc_torch.models.nerf import make_nerf
+    from tgtc_torch.models.style_field import StyleFieldConfig
+    from tgtc_torch.train import style3d as s3
+
+    s, f = 8, 2
+    cfg = s3.StyleTrainConfig(origin_step=0, coh_until_step=1999)
+    nerf = [make_nerf(NerfConfig(), torch.Generator().manual_seed(i), device="cuda")
+            for i in (0, 1)]
+    intr = np.array([[FOCAL, 0, 0.5 * W], [0, FOCAL, 0.5 * H], [0, 0, 1]], np.float32)
+    poses = np.stack([np.eye(4, dtype=np.float32)[:3]] * f)
+    poses[1, 0, 3] = 0.05
+    ro, rd = rays_for_poses(H, W, intr, poses, use_ndc=True, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    data = StyleSceneData(ro, rd, torch.rand((f, H, W, 3), generator=gen).cuda(),
+                          torch.rand((s, f, H, W, 3), generator=gen).cuda(),
+                          torch.randn((s, 1024), generator=gen).cuda())
+    field = StyleFieldConfig(embed_dim=nerf[0].cfg.input_ch)
+    state = s3.init_style_state(torch.Generator().manual_seed(2), field, cfg, s, f,
+                                device="cuda")
+    step = s3.make_style_train_step(*nerf, cfg)
+    return (lambda: step(state, data, seed=3),
+            f"Phase-E step (batch {cfg.batch_size} a stream, {cfg.n_samples}+"
+            f"{cfg.n_samples_fine} samples, style_d {field.style_d}, width {field.width}, "
+            f"latent {field.latent_dim}, {s} styles x {f} views of {H}x{W})")
+
+
 def phase_a_step():
     """One fused Phase-A step at fern width, and its description."""
     cfg, tc = NerfConfig(), tt.NerfTrainConfig()
@@ -116,6 +152,9 @@ def main() -> None:
                        help="profile the Phase-C1 step (K6 + K7 + K8) instead of Phase A's")
     which.add_argument("--c2", action="store_true",
                        help="profile the Phase-C2 step (K6 and the splat) instead of Phase A's")
+    which.add_argument("--e", action="store_true",
+                       help="profile the Phase-E step (no hand-written kernel) instead of "
+                            "Phase A's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -123,7 +162,8 @@ def main() -> None:
                            "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    one_step, what = c1_step() if args.c1 else c2_step() if args.c2 else phase_a_step()
+    one_step, what = (c1_step() if args.c1 else c2_step() if args.c2 else e_step() if args.e
+                      else phase_a_step())
 
     def run(n: int) -> float:
         t0 = time.perf_counter()
@@ -158,12 +198,13 @@ def main() -> None:
     for name, (count, ms) in by_name.items():
         kinds[kind_of(name)][0] += count
         kinds[kind_of(name)][1] += ms
-    if args.c1 or args.c2:
+    if args.c1 or args.c2 or args.e:
         for kind, (count, ms) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
             print(f"  by kind: {kind:12s} {ms:10.3f} ms/step  {count // PROFILED:5d}x  "
                   f"{ms / (busy_step_s * 1e3):7.2%}")
     print(json.dumps({
-        "card": card, "c1": args.c1, "c2": args.c2, "step_ms": plain_s * 1e3, "steps_per_s": 1 / plain_s,
+        "card": card, "c1": args.c1, "c2": args.c2, "e": args.e, "step_ms": plain_s * 1e3,
+        "steps_per_s": 1 / plain_s,
         "profiled_step_ms": profiled_s * 1e3, "device_busy_ms_per_step": busy_step_s * 1e3,
         "idle_share": 1 - busy_step_s / profiled_s,
         "kernels": [{"name": n, "count_per_step": c / PROFILED, "ms_per_step": ms}
