@@ -205,7 +205,18 @@ started together), then:
    FusedStyleRenderer settings (47 K4 and 47 K5 launches, nothing else),
    its first 16,384 rays held to the eager f32 render as in phase 7; the
    in-memory field renders the first block bit for bit as the checkpoint's;
-16. prints the kernels line (JSON, K1-K8), then the result line.
+16. the pipeline A→F (phase_pipeline): configs/fern.txt through
+   tgtc_torch/config.py on a 4-view 756x1008 scene at factor 4 and 2 styles,
+   origin_step 300, total_step 500, C1 50 steps, C2 20, the VAE 200;
+   Pipeline.train_nerf() and _run_after_nerf() (A, evaluate, B, C1, C2, C3,
+   D, E), then cli.main with --render_train_style (F), with --render_train
+   and with no render flag (the re-entry run): every phase's artifacts,
+   checkpoint steps and kernel launches held (K1-K8 each by its phase, K4/K5
+   in F at 32,768-ray blocks), F's first block within phase 7's bounds of the
+   eager f32 render, and the re-entry run adding no checkpoint and no
+   training line and launching K1/K2 for evaluate only; each phase's wall
+   seconds and peak allocated memory printed beside the card;
+17. prints the kernels line (JSON, K1-K8), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -287,6 +298,12 @@ TOL_VAE_LOSS, TOL_VAE_COS = 1e-5, 0.9999
 E_WARM, E_STEPS, E_PRINT, E_SEED = 20, 300, 10, 31  # the reference runs 8,000 Phase-E steps
 # card vs CPU step: the trunks run bf16 on both (one bf16 ulp apart at places)
 TOL_E_LOSS, TOL_E_COS = 1e-3, 0.999
+# Phase 16, the pipeline A→F at configs/fern.txt's settings: a 4-view scene
+# loaded at fern's factor 4 (756x1008), 2 styles; the cut step counts
+PIPE_VIEWS, PIPE_STYLES, PIPE_FACTOR = 4, 2, 4
+PIPE_ORIGIN, PIPE_TOTAL, PIPE_PRINT = 300, 500, 50
+PIPE_C1, PIPE_C2, PIPE_VAE = 50, 20, 200
+PIPE_PHASES = ("A", "evaluate", "B", "C1", "C2", "C3", "D", "E", "F", "plain")
 
 
 def check(ok: bool, what: str) -> None:
@@ -609,18 +626,22 @@ def phase_main_path(ks, sd_c, sd_f):
     return renderer, launches, n / dt
 
 
-def write_scene(root: str, n: int = 2) -> str:
+def write_scene(root: str, n: int = 2, factor: int = 1) -> str:
     """The recipe of tests/synthetic_scene.py at 756x1008: forward-facing
-    cameras, colored gradients, poses stored with the inverse LLFF axis fix."""
+    cameras, colored gradients, poses stored with the inverse LLFF axis fix.
+    With ``factor`` > 1 the images go to ``images_<factor>`` and the poses
+    carry the full-size frame (``factor`` times 756x1008 and the focal), as
+    an LLFF capture downsampled by ``factor`` (fern's 4) has them."""
     from PIL import Image
 
-    imgdir = os.path.join(root, "images")
+    imgdir = os.path.join(root, "images" if factor == 1 else f"images_{factor}")
     os.makedirs(imgdir, exist_ok=True)
     poses = []
     for k in range(n):
         c2w = np.eye(4)[:3]
         c2w[:, 3] = [0.02 * (k - n / 2), 0.01 * (k % 3), 4.0 + 0.03 * k]
-        poses.append(np.concatenate([c2w, np.array([[H], [W], [FOCAL]])], axis=1))
+        hwf = np.array([[H * factor], [W * factor], [FOCAL * factor]])
+        poses.append(np.concatenate([c2w, hwf], axis=1))
         img = np.zeros((H, W, 3), np.uint8)
         img[..., 0] = np.linspace(0, 255, W, dtype=np.uint8)[None, :]
         img[..., 1] = np.linspace(0, 255, H, dtype=np.uint8)[:, None]
@@ -1139,8 +1160,21 @@ def stylized_vs_eager(renderer, trained, concat, style, fo, fd, out, tag: str, w
     """The first BLOCK rays of a stylized frame (style 0, frame 0, seed
     F_SEED) against the eager f32 chain with the same jitter: phase 2's
     bounds and exemption."""
-    from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
     from tgtc_torch.render.fast_style import block_generator
+
+    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
+    stylized_rays_vs_eager(trained, concat, style, renderer.latent_state, renderer.settings,
+                           fo[:BLOCK], fd[:BLOCK], 0, 0, u, out["rgb"][:BLOCK],
+                           out["t_exp"][:BLOCK], tag, what)
+
+
+def stylized_rays_vs_eager(trained, concat, style, latent_state, settings, bo, bd, style_id,
+                           frame_id, u, rgb, t_exp, tag: str, what: str):
+    """Stylized rays ``bo``/``bd`` rendered with the coarse jitter ``u``
+    (rgb, t_exp) against the eager f32 chain (TF32 off) on the same trunks
+    (``trained``'s state dicts), style MLPs and latents, in pieces of BLOCK
+    rays: phase 2's bounds and exemption."""
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
     from tgtc_torch.train.render_style import make_stylized_render_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1150,24 +1184,30 @@ def stylized_vs_eager(renderer, trained, concat, style, fo, fd, out, tag: str, w
         m = NerfMLP(NerfConfig(compute_dtype=torch.float32))
         m.load_state_dict(sd)
         models.append(m.cuda())
-    eager = make_stylized_render_fn(*models, concat, style, NC, NF, renderer.settings.near,
-                                    renderer.settings.far)
-    bo, bd = fo[:BLOCK], fd[:BLOCK]
-    ids = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
-    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
-    ref = eager(renderer.latent_state, bo, bd, ids, ids, u=u)
-    with torch.no_grad():
-        last = nerf_apply(models[1], bo + ref["ts_fine"][:, -1:] * bd, bd)["sigma"]
-    err = torch.maximum((out["rgb"][:BLOCK] - ref["rgb"]).abs().amax(-1),
-                        (out["t_exp"][:BLOCK] - ref["t_exp"]).abs())
-    bad, flip = err > TOL_RENDER, last.abs() <= TOL_SIGMA  # phase 2's exemption
+    eager = make_stylized_render_fn(*models, concat, style, settings.n_samples,
+                                    settings.n_samples_fine, settings.near, settings.far)
+    errs, flips = [], []
+    for i in range(0, bo.shape[0], BLOCK):
+        o, d = bo[i: i + BLOCK], bd[i: i + BLOCK]
+        sid = torch.full((o.shape[0],), style_id, dtype=torch.long, device="cuda")
+        fid = torch.full((o.shape[0],), frame_id, dtype=torch.long, device="cuda")
+        ref = eager(latent_state, o, d, sid, fid, u=u[i: i + BLOCK])
+        with torch.no_grad():
+            last = nerf_apply(models[1], o + ref["ts_fine"][:, -1:] * d, d)["sigma"]
+        errs.append(torch.maximum((rgb[i: i + BLOCK] - ref["rgb"]).abs().amax(-1),
+                                  (t_exp[i: i + BLOCK] - ref["t_exp"]).abs()))
+        flips.append(last.abs() <= TOL_SIGMA)  # phase 2's exemption
+        del ref
+    err, flip = torch.cat(errs), torch.cat(flips)
+    n = err.shape[0]
+    bad = err > TOL_RENDER
     worst = float(err[~flip].max()) if bool((~flip).any()) else 0.0
-    print(f"[{tag}] first {BLOCK} rays vs the eager f32 stylized render: max|err| over rgb "
+    print(f"[{tag}] first {n} rays vs the eager f32 stylized render: max|err| over rgb "
           f"and t_exp {float(err.max()):.3e}; {int(bad.sum())} rays above {TOL_RENDER}, all "
           f"with |last-sample sigma| <= {TOL_SIGMA}: {bool((flip | ~bad).all())}; max|err| "
           f"over the other {int((~flip).sum())} rays {worst:.3e}", flush=True)
     check(bool((flip | ~bad).all()), f"{what} disagrees with the eager render")
-    check(int(bad.sum()) <= BLOCK // 1000, f"too many rays of the {what} differ from the eager "
+    check(int(bad.sum()) <= n // 1000, f"too many rays of the {what} differ from the eager "
           "render")
 
 
@@ -2495,6 +2535,273 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     return steps_per_s, launches, fo.shape[0] / frame_s
 
 
+def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
+    """Phase 16: the pipeline A→F as a user runs it, in this process, at
+    configs/fern.txt's settings read through tgtc_torch/config.py (widths,
+    samples, batches, λ's, chunk 32,768 and factor 4 kept). Cuts: a
+    synthetic 4-view scene loaded at 756x1008 (write_scene at factor 4) for
+    fern's 20 views; 2 seeded 512x512 styles; origin_step 300 (of 120,001),
+    total_step 500 (200 Phase-E steps of 8,000), i_print 50; through the
+    Pipeline's own arguments and attributes (the JAX end-to-end test's
+    hooks) C1 50 steps (of 5,000), C2 20 (of 100), the VAE 200 (of 2,000).
+
+    Runs: Pipeline.train_nerf() and _run_after_nerf() (A, evaluate, B, C1,
+    C2, C3, D, E); cli.main([... "--render_train_style"]) (F);
+    cli.main([... "--render_train"]) (plain renders); cli.main([...]) again
+    (the re-entry run). Each phase method is wrapped here to time it (a
+    device sync at each end), read its peak allocated bytes and its kernel
+    launches; each run's launch counts are zeroed just before it and read
+    just after, and must equal the sum of its phases'. Checks every phase's
+    artifacts, checkpoint steps and launches, F's first 32,768-ray block
+    against the eager f32 stylized render (phase 7's bounds), and that the
+    re-entry run adds no checkpoint and no training log line. Returns the
+    launches of the four runs summed per kernel and the printed numbers."""
+    import functools
+    import json as _json
+
+    from PIL import Image
+
+    from tgtc_torch import cli
+    from tgtc_torch.config import load_config
+    from tgtc_torch.models.nerf import NerfConfig
+    from tgtc_torch.models.style_field import StyleFieldConfig
+    from tgtc_torch.render.fast_style import FusedStyleRenderer
+    from tgtc_torch.train import pipeline as P
+    from tgtc_torch.train.checkpoint import CheckpointManager
+    from tgtc_torch.train.style3d import load_style_field
+    from tgtc_torch.utils import video
+
+    work = os.path.join(root, "pipeline")
+    scene_dir = write_scene(os.path.join(work, "scene"), n=PIPE_VIEWS, factor=PIPE_FACTOR)
+    styles_dir = write_styles(os.path.join(work, "styles"), n=PIPE_STYLES)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--config", os.path.join(repo, "configs", "fern.txt"), "--datadir", scene_dir,
+            "--styledir", styles_dir, "--basedir", os.path.join(work, "logs"),
+            "--origin_step", str(PIPE_ORIGIN), "--total_step", str(PIPE_TOTAL),
+            "--i_print", str(PIPE_PRINT)]
+    cfg = load_config(argv)
+    counters = all_counters(ks, kg, kst, fa)
+    read = lambda: {k: c.launches for k, c in counters.items()}
+    zero = {k: 0 for k in counters}
+    phases, runs, run = {}, {}, ["A-E"]
+    first_block, turntables, streamed = {}, [], []
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held, before, t0 = torch.cuda.memory_allocated(), read(), time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                after = read()
+                phases[(run[0], name)] = dict(
+                    seconds=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
+                    held=held, launches={k: after[k] - before[k] for k in after})
+        return wrapper
+
+    def turntable(fn):
+        def wrapper(self, out_dir, pattern=None):
+            turntables.append(out_dir)
+            return fn(self, out_dir, pattern)
+        return wrapper
+
+    def counting(fn):
+        def add(self, frame):
+            streamed.append(self._out_path)
+            return fn(self, frame)
+        return add
+
+    def recording(fn):
+        def render(self, rays_o, rays_d, style_ids, frame_ids, u=None, generator=None):
+            if u is None:  # the draw FusedStyleRenderer.render makes
+                u = torch.rand((rays_o.shape[0], self.settings.n_samples), generator=generator,
+                               device=rays_o.device)
+            out = fn(self, rays_o, rays_d, style_ids, frame_ids, u=u)
+            if not first_block:
+                first_block.update(bo=rays_o.clone(), bd=rays_d.clone(), u=u.clone(),
+                                   sid=int(style_ids[0]), fid=int(frame_ids[0]),
+                                   rgb=out["rgb"].clone(), t_exp=out["t_exp"].clone(),
+                                   latent_state=self.latent_state, settings=self.settings)
+            return out
+        return render
+
+    def drive(name, fn):
+        run[0] = name
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0, launches=read())
+        summed = dict(zero)
+        for (r, _), rec in phases.items():
+            if r == name:
+                summed = {k: summed[k] + rec["launches"][k] for k in summed}
+        check(summed == runs[name]["launches"], f"the {name} run launched kernels outside its "
+              f"phases: {runs[name]['launches']} vs {summed}")
+
+    def run_a_to_e():
+        pipe = P.Pipeline(cfg)
+        pipe.vae_iters = PIPE_VAE
+        pipe.ensure_style2d = functools.partial(P.Pipeline.ensure_style2d, pipe,
+                                                c1_iters=PIPE_C1, c2_iters=PIPE_C2)
+        try:
+            pipe.train_nerf()
+            pipe._run_after_nerf()
+        finally:
+            pipe.close()
+
+    wrapped = {(P.Pipeline, "train_nerf"): "A", (P.Pipeline, "evaluate"): "evaluate",
+               (P.Pipeline, "ensure_geometry"): "B", (P, "train_transformer"): "C1",
+               (P, "run_temporal_finetune"): "C2", (P, "stylize_all"): "C3",
+               (P.Pipeline, "ensure_vae"): "D", (P, "run_style3d"): "E",
+               (P.Pipeline, "render_stylized"): "F", (P.Pipeline, "render_plain"): "plain"}
+    originals = {key: getattr(*key) for key in
+                 list(wrapped) + [(P.Pipeline, "_write_turntable"), (FusedStyleRenderer, "render"),
+                                  (video.StreamingGifWriter, "add")]}
+    try:
+        for (obj, name), phase in wrapped.items():
+            setattr(obj, name, timed(phase, originals[(obj, name)]))
+        P.Pipeline._write_turntable = turntable(originals[(P.Pipeline, "_write_turntable")])
+        video.StreamingGifWriter.add = counting(originals[(video.StreamingGifWriter, "add")])
+        drive("A-E", run_a_to_e)
+        FusedStyleRenderer.render = recording(originals[(FusedStyleRenderer, "render")])
+        drive("F", lambda: check(cli.main(argv + ["--render_train_style"]) == 0, "cli F"))
+        FusedStyleRenderer.render = originals[(FusedStyleRenderer, "render")]
+        drive("plain", lambda: check(cli.main(argv + ["--render_train"]) == 0, "cli plain"))
+        exp, logs = cfg.exp_dir, os.path.join(cfg.exp_dir, "logs")
+        ckpt_dirs = ("ckpt_nerf", "ckpt_trans", "ckpt_trans_c2", "ckpt_vae", "ckpt_style")
+        listing = lambda: {d: sorted(os.listdir(os.path.join(exp, d))) for d in ckpt_dirs}
+        lines = lambda: {f: len(open(os.path.join(logs, f)).read().splitlines())
+                         for f in sorted(os.listdir(logs)) if f.endswith(".jsonl")}
+        ckpts_before, lines_before = listing(), lines()
+        drive("reentry", lambda: check(cli.main(argv) == 0, "cli re-entry"))
+    finally:
+        for (obj, name), fn in originals.items():
+            setattr(obj, name, fn)
+
+    # ---- checks, phase by phase
+    blocks16 = math.ceil(H * W / BLOCK)          # FusedNerfRenderer.render_image's default
+    blocks_f = math.ceil(H * W / (1 << 15))      # Pipeline._render_block at chunk 32,768
+    want = {
+        "A": {"K1": 2 * PIPE_ORIGIN, "K3": 2 * PIPE_ORIGIN},
+        "evaluate": {"K1": blocks16, "K2": blocks16},
+        "B": {"K1": PIPE_VIEWS * blocks16, "K2": PIPE_VIEWS * blocks16},
+        "C1": {"K6": C1_SITES * PIPE_C1 + C3_SITES, "K7": C1_SITES * PIPE_C1,
+               "K8": C1_SITES * PIPE_C1},
+        "C2": {"K6": C1_SITES * PIPE_C2 + C1_SITES},
+        "C3": {"K6": C3_SITES * PIPE_STYLES * PIPE_VIEWS},
+        "D": {}, "E": {},
+        "F": {"K4": PIPE_STYLES * PIPE_VIEWS * blocks_f, "K5": PIPE_STYLES * PIPE_VIEWS * blocks_f},
+        "plain": {"K1": PIPE_VIEWS * blocks16, "K2": PIPE_VIEWS * blocks16}}
+    run_of = {"F": "F", "plain": "plain"}
+    for phase in PIPE_PHASES:
+        rec = phases.get((run_of.get(phase, "A-E"), phase))
+        check(rec is not None, f"pipeline phase {phase} did not run")
+        check(rec["launches"] == {**zero, **want[phase]},
+              f"pipeline phase {phase} launch counts {rec['launches']}, expected {want[phase]}")
+    print("[pipeline] launches by phase: " + "; ".join(
+        f"{p} " + ", ".join(f"{k} {v}" for k, v in want[p].items()) if want[p] else f"{p} none"
+        for p in PIPE_PHASES) + " (each held; every other kernel 0)", flush=True)
+
+    size_ok = lambda path: Image.open(path).size == (W, H)
+    check(CheckpointManager(os.path.join(exp, "ckpt_nerf")).steps()[-1] == PIPE_ORIGIN,
+          "ckpt_nerf's newest step")
+    evals = [_json.loads(x) for x in open(os.path.join(logs, "train.jsonl"))]
+    check(len(evals) == 2, f"{len(evals)} EVAL lines, not one from each training run")
+    ev = evals[0]
+    check(math.isfinite(ev["psnr"]) and ev["holdout_view"] >= 0, f"the EVAL line {ev}")
+    gen = os.path.join(exp, "nerf_gen_data2")
+    check(os.path.exists(os.path.join(gen, "geometry.npz")) and all(
+        size_ok(os.path.join(gen, f"rgb_{i:05d}.png")) for i in range(PIPE_VIEWS)),
+        "Phase B's artifacts")
+    check(listing()["ckpt_trans"] == [f"ckpt_{PIPE_C1:08d}.pt"]
+          and os.path.exists(os.path.join(exp, "test", f"{PIPE_C1}.png")), "C1's artifacts")
+    check(listing()["ckpt_trans_c2"] == [f"ckpt_{PIPE_C2:08d}.pt"] and all(
+        os.path.exists(os.path.join(exp, f"{n}_{b:03d}.png"))
+        for n in ("stylized_content", "warped_stylized_content", "warped_mask", "coor_dist_msk")
+        for b in range(4)) and os.path.exists(os.path.join(exp, "style_image.png")),
+        "C2's artifacts")
+    stylized = os.path.join(scene_dir, f"stylized_gen_{cfg.factor}")
+    npz = np.load(os.path.join(stylized, "stylized_data.npz"))
+    jpgs = [os.path.join(d, f"{i:03d}.jpg") for d in npz["style_paths"]
+            for i in range(1, PIPE_VIEWS + 1)]
+    check(npz["style_features"].shape == (PIPE_STYLES, 1024)
+          and bool(np.isfinite(npz["style_features"]).all())
+          and len(jpgs) == PIPE_STYLES * PIPE_VIEWS and all(size_ok(p) for p in jpgs),
+          "C3's artifacts ([S, F] = [2, 4])")
+    check(listing()["ckpt_vae"] == [f"ckpt_{PIPE_VAE:08d}.pt"], "ckpt_vae's step")
+    check(listing()["ckpt_style"][-1] == f"ckpt_{PIPE_TOTAL:08d}.pt", "ckpt_style's step")
+    style_lines = [_json.loads(x) for x in open(os.path.join(logs, "style.jsonl"))]
+    losses = [v for r in style_lines for k, v in r.items() if k.startswith("loss")]
+    check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+          "a Phase-E loss is not finite")
+    out_f = os.path.join(exp, "render_train_style")
+    frames = [os.path.join(out_f, f"style_{s:05d}_fine{k}_{f:05d}.png")
+              for s in range(PIPE_STYLES) for f in range(PIPE_VIEWS) for k in ("", "_depth")]
+    gif = os.path.join(out_f, "video.gif")
+    check(all(os.path.exists(p) and size_ok(p) for p in frames), "Phase F's frames")
+    # PIL merges equal consecutive frames into one, so the GIF's frame count
+    # is no witness: the frames handed to the streaming writer are
+    check(os.path.exists(gif) and streamed.count(gif) == PIPE_STYLES * PIPE_VIEWS
+          and out_f not in turntables,
+          f"Phase F's turntable was not streamed ({streamed.count(gif)} frames streamed, "
+          f"written after the fact: {out_f in turntables})")
+    out_p = os.path.join(exp, "render_train")
+    check(all(size_ok(os.path.join(out_p, f"{k}_{i:05d}.png"))
+              for k in ("rgb", "depth") for i in range(PIPE_VIEWS))
+          and out_p in turntables
+          and os.path.exists(os.path.join(out_p, "video.gif")), "the plain renders")
+    check(listing() == ckpts_before, f"the re-entry run changed the checkpoints: "
+          f"{ckpts_before} -> {listing()}")
+    after = lines()
+    check(after.pop("train.jsonl") == lines_before.pop("train.jsonl") + 1 and after == lines_before,
+          f"the re-entry run appended training log lines: {lines_before} -> {after}")
+    check(runs["reentry"]["launches"] == {**zero, "K1": blocks16, "K2": blocks16},
+          f"re-entry run launch counts {runs['reentry']['launches']}")
+    print(f"[pipeline] artifacts held: ckpt_nerf at {PIPE_ORIGIN}, EVAL psnr {ev['psnr']:.3f} "
+          f"dB (view {ev['holdout_view']}), geometry and {PIPE_VIEWS} renders, ckpt_trans at "
+          f"{PIPE_C1} and test/{PIPE_C1}.png, ckpt_trans_c2 at {PIPE_C2} and the debug PNGs, "
+          f"{len(jpgs)} stylized views, ckpt_vae at {PIPE_VAE}, ckpt_style at {PIPE_TOTAL} with "
+          f"{len(losses)} finite logged losses, {len(frames)} Phase-F PNGs and a streamed "
+          f"{PIPE_STYLES * PIPE_VIEWS}-frame GIF, {PIPE_VIEWS} plain renders; the re-entry run "
+          f"added no checkpoint or training line and launched K1 {blocks16} and K2 {blocks16} "
+          f"(evaluate) only", flush=True)
+
+    # F's first block (32,768 rays x 128 samples in one K4 launch) against the
+    # eager f32 stylized render of the same trunks, field and jitter
+    check(first_block["bo"].shape[0] == 1 << 15, "F's first block size")
+    sd = CheckpointManager(os.path.join(exp, "ckpt_nerf")).restore()
+    field = StyleFieldConfig(style_d=cfg.style_D, width=cfg.netwidth, latent_dim=cfg.vae_latent,
+                             embed_dim=NerfConfig().input_ch)
+    concat, style, _ = load_style_field(os.path.join(exp, "ckpt_style"), field, device="cuda")
+    b = first_block
+    stylized_rays_vs_eager({"coarse": sd["coarse"], "fine": sd["fine"]}, concat, style,
+                           b["latent_state"], b["settings"], b["bo"], b["bd"], b["sid"],
+                           b["fid"], b["u"], b["rgb"], b["t_exp"], "pipeline",
+                           "the pipeline's first Phase-F block")
+
+    # ---- the numbers
+    rec = lambda p: phases[(run_of.get(p, "A-E"), p)]
+    gb = lambda n: n / 2 ** 30
+    total = runs["A-E"]["seconds"]
+    f_per_frame = rec("F")["seconds"] / (PIPE_STYLES * PIPE_VIEWS)
+    print(f"[pipeline] {card}: wall seconds " + ", ".join(
+        f"{p} {rec(p)['seconds']:.3f}" for p in PIPE_PHASES) + f"; the A→E run {total:.3f} s "
+        f"(with the scene load and set-up; the re-entry run {runs['reentry']['seconds']:.3f} "
+        f"s); F {f_per_frame:.3f} s a frame ({PIPE_STYLES * PIPE_VIEWS} frames, with the "
+        f"PNG writes and the streamed GIF)", flush=True)
+    print(f"[pipeline] {card}: peak allocated GiB (held at the phase's start) " + ", ".join(
+        f"{p} {gb(rec(p)['peak']):.2f} ({gb(rec(p)['held']):.2f})" for p in PIPE_PHASES),
+        flush=True)
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
+    return launches, {"a_to_e_s": total, "f_s_per_frame": f_per_frame}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2561,6 +2868,7 @@ def main() -> int:
                                                         n_views, tmp)
         e_steps_per_s, e_launches, e_rays_per_s = phase_e(
             ks, kg, kst, fa, trained, tmp, os.path.join(tmp, "stylized_c2"), vae_ckpt)
+        pipe_launches, pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
                   launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
@@ -2575,6 +2883,8 @@ def main() -> int:
         if row["name"] in ("K4", "K5"):
             row["launches_d"] = d_launches[row["name"]]
             row["launches_e"] = e_launches[row["name"]]
+    for row in rows:  # phase 16's four pipeline runs
+        row["launches_pipeline"] = pipe_launches[row["name"]]
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
@@ -2582,7 +2892,8 @@ def main() -> int:
           f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views); C1 "
           f"{c1_steps_per_s:.3f} steps/s; C2 {c2_steps_per_s:.3f} steps/s; C3 after C2 "
           f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s; "
-          f"Phase E {e_steps_per_s:.3f} steps/s; trained-field frame {e_rays_per_s:.1f} rays/s",
+          f"Phase E {e_steps_per_s:.3f} steps/s; trained-field frame {e_rays_per_s:.1f} rays/s; "
+          f"pipeline A→E {pipe['a_to_e_s']:.3f} s, F {pipe['f_s_per_frame']:.3f} s a frame",
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,7 +38,8 @@ def test_submodule_list_covers_the_slice():
                  "train.pretrained", "train.stylize", "ops.style", "data.prefetch",
                  "train.transformer2d", "tools.train2d", "ops.rasterize", "train.temporal",
                  "models.vae", "train.vae_trainer", "config", "data.style_dataset",
-                 "train.style3d"):
+                 "train.style3d", "train.pipeline", "cli", "utils.video", "utils.io3d",
+                 "tools.jsonl2tb", "tools.import_reference"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -149,5 +150,15 @@ def test_entry_points_default_to_the_card():
                   lambda: s3.run_style3d(Config(), None, "unused", "unused", None, None, None,
                                          "unused", print_fn=None),
                   lambda: s3.load_style_field("unused", StyleFieldConfig())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    from tgtc_torch import cli
+    from tgtc_torch.tools import import_reference
+    from tgtc_torch.train.pipeline import Pipeline
+
+    for build in (lambda: Pipeline(Config(datadir="unused")),
+                  lambda: cli.main(["--datadir", "unused"]),
+                  lambda: import_reference.import_reference_checkpoints(Config(), "unused"),
+                  lambda: import_reference.main(["--ref_dir", "unused"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()

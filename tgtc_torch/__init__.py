@@ -9,10 +9,13 @@ trainers' crop prefetcher), ``train`` (Phase-A training, the Phase-B
 geometry dump, the Phase-C1 transformer pretraining, the Phase-C3 bulk
 stylization with its pretrained-asset loader, and the Phase-F stylized
 frames), ``utils`` (native PNG/resize shim, logging, uint8 images) and
-``tools`` (the 2D trainer CLI and measurement scripts run on the card), and
+``tools`` (the 2D trainer CLI, the JSONL → TensorBoard exporter, the
+reference-checkpoint importer and measurement scripts run on the card), and
 ``config`` (the run configuration of ``configs/*.txt``). ``train`` also
-holds Phase C2's decoder finetune, Phase D's VAE and Phase E's style-field
-distillation, and ``data`` Phase E's device-resident scene.
+holds Phase C2's decoder finetune, Phase D's VAE, Phase E's style-field
+distillation and ``pipeline``, the A→F phase machine that ``cli``
+(``python -m tgtc_torch.cli --config ...``) runs; ``data`` holds Phase E's
+device-resident scene, and ``utils`` the turntable writers and 3D IO.
 
 Submodules load lazily: ``import tgtc_torch`` imports nothing heavy, and
 no kernel is built until the first call that launches it. Entry points
@@ -24,7 +27,7 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("config", "convert", "data", "device", "models", "ops", "render",
+_SUBMODULES = ("cli", "config", "convert", "data", "device", "models", "ops", "render",
                "tools", "train", "utils")
 
 

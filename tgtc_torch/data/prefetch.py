@@ -15,9 +15,10 @@ the batches equal the JAX package's bit for bit for the same seed and files.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 import threading
 from collections import OrderedDict, deque
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -114,3 +115,26 @@ class CropBatchPrefetcher:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def list_images(d: str) -> List[str]:
+    """The images of directory ``d`` (jpg or png), sorted."""
+    exts = (".jpg", ".jpeg", ".png", ".JPG", ".PNG", ".JPEG")
+    return sorted(os.path.join(d, f) for f in os.listdir(d) if f.endswith(exts))
+
+
+def content_images(d: str) -> List[str]:
+    """Phase B's renders in ``d`` without its depth and geometry dumps,
+    filtered on the basename (a parent directory named ``depth`` must not
+    exclude everything)."""
+    return [p for p in list_images(d)
+            if "depth" not in os.path.basename(p) and "geometry" not in os.path.basename(p)]
+
+
+def upload(batch: np.ndarray, device):
+    """A host batch as a tensor on ``device`` (a ``torch.device``), pinned
+    on the way to a card so that the copy does not wait for it."""
+    import torch
+
+    t = torch.from_numpy(batch)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t

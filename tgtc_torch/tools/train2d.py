@@ -20,23 +20,10 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 from typing import List, Optional
 
+from tgtc_torch.data.prefetch import content_images, list_images
 from tgtc_torch.device import DeviceLike, resolve_device
-
-
-def _list_images(d: str) -> List[str]:
-    exts = (".jpg", ".jpeg", ".png", ".JPG", ".PNG", ".JPEG")
-    return sorted(os.path.join(d, f) for f in os.listdir(d) if f.endswith(exts))
-
-
-def _content_images(d: str) -> List[str]:
-    """NeRF-render content images without the Phase-B depth and geometry
-    dumps, filtered on the basename (a parent directory named ``depth``
-    must not exclude everything)."""
-    return [p for p in _list_images(d)
-            if "depth" not in os.path.basename(p) and "geometry" not in os.path.basename(p)]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,17 +98,14 @@ def _resolve_task_defaults(args) -> None:
 
 def run_transformer(args, device: DeviceLike = None) -> int:
     """Phase C1: StyTrans pretraining on content/style crops with the
-    four-term loss. Resumes from the newest checkpoint under
-    ``save_dir/transformer`` unless ``--no_reload``; logs every
-    ``print_interval`` steps to ``log_dir/transformer.jsonl`` (each line with
-    ``steps_per_s`` over the steps since the last, the window closed by the
-    log's fetch), writes the content/style/stylized collage
-    ``log_dir/<step>.png`` every 100 steps and at the end, and checkpoints
-    every ``save_model_interval`` steps and at the end (asynchronously; the
-    last save is waited for)."""
+    four-term loss, through :func:`tgtc_torch.train.transformer2d.train_transformer`.
+    Resumes from the newest checkpoint under ``save_dir/transformer`` unless
+    ``--no_reload``; logs every ``print_interval`` steps to
+    ``log_dir/transformer.jsonl``, writes the collage ``log_dir/<step>.png``
+    every 100 steps and at the end, and checkpoints every
+    ``save_model_interval`` steps and at the end."""
     import torch
 
-    from tgtc_torch.data.prefetch import CropBatchPrefetcher, ResizeCache
     from tgtc_torch.models.stytrans import make_stytrans
     from tgtc_torch.models.transformer import TransformerConfig
     from tgtc_torch.train.checkpoint import CheckpointManager
@@ -129,11 +113,8 @@ def run_transformer(args, device: DeviceLike = None) -> int:
     from tgtc_torch.train.transformer2d import (
         TransformerTrainConfig,
         init_transformer_train,
-        make_collage_fn,
-        make_transformer_train_step,
+        train_transformer,
     )
-    from tgtc_torch.utils import native
-    from tgtc_torch.utils.logging import MetricsLogger, fetch_scalars
 
     dev = resolve_device(device)
     tcfg = TransformerTrainConfig(
@@ -150,78 +131,36 @@ def run_transformer(args, device: DeviceLike = None) -> int:
     ckpt = CheckpointManager(os.path.join(args.save_dir, "transformer"), max_to_keep=args.ckp_num)
     if not args.no_reload and ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=dev))
-    c_paths = _content_images(args.nerf_content_dir)
-    s_paths = _list_images(args.style_dir)
+    c_paths = content_images(args.nerf_content_dir)
+    s_paths = list_images(args.style_dir)
     if not (c_paths and s_paths):
         raise ValueError(f"no images in {args.nerf_content_dir!r} or {args.style_dir!r}")
-    os.makedirs(args.log_dir, exist_ok=True)
-    logger = MetricsLogger(args.log_dir, name="transformer")
-    collage_fn = make_collage_fn(model)
-    step_fn = make_transformer_train_step(model, tcfg)
-    workers, cache = min(args.n_threads, 8), ResizeCache()
-
-    with CropBatchPrefetcher(c_paths, tcfg.batch_size, tcfg.patch, seed=args.seed,
-                             workers=workers, cache=cache) as cpf, \
-            CropBatchPrefetcher(s_paths, tcfg.batch_size, tcfg.patch, seed=args.seed + 1,
-                                workers=workers, cache=cache) as spf:
-        step = last_log = state.step
-        t_log = time.perf_counter()
-        try:
-            while step < tcfg.max_iter:
-                content, style = _upload(cpf.next(), dev), _upload(spf.next(), dev)
-                state, metrics = step_fn(state, content, style, seed=args.seed + 3)
-                step = state.step
-                if step % args.print_interval == 0:
-                    scalars = fetch_scalars(metrics)  # syncs: closes the window
-                    now = time.perf_counter()
-                    scalars["steps_per_s"] = (step - last_log) / (now - t_log)
-                    logger.log(step, scalars, prefix="TRANS TRAIN")
-                    last_log, t_log = step, time.perf_counter()
-                if step % 100 == 0 or step >= tcfg.max_iter:
-                    native.write_png_async(os.path.join(args.log_dir, f"{step}.png"),
-                                           collage_fn(content, style).cpu().numpy())
-                if step % args.save_model_interval == 0 or step >= tcfg.max_iter:
-                    ckpt.save_device_async(step, state.state_dict(), wait=step >= tcfg.max_iter)
-        finally:
-            logger.close()
-            ckpt.close()
-    native.wait_writes()
+    try:
+        train_transformer(state, tcfg, c_paths, s_paths, ckpt, log_dir=args.log_dir,
+                          collage_dir=args.log_dir, print_interval=args.print_interval,
+                          save_interval=args.save_model_interval, dropout_seed=args.seed + 3,
+                          data_seed=args.seed, workers=min(args.n_threads, 8))
+    finally:
+        ckpt.close()
     return 0
 
 
-def _upload(batch, dev):
-    """A host batch on ``dev``, pinned on the way to the card so that the
-    copy does not wait for it."""
-    import torch
-
-    t = torch.from_numpy(batch)
-    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
-
-
 def run_vae(args, device: DeviceLike = None) -> int:
-    """Phase D: the VAE on VGG relu4_1 ``[mean ‖ std]`` features of random
-    ``patch``² crops of the style images resized to ``2·patch``². Resumes
-    from the newest checkpoint under ``save_dir/vae`` unless
-    ``--no_reload``; logs every ``print_interval`` steps to
-    ``log_dir/vae.jsonl`` (with ``steps_per_s`` over the steps since the
-    last, the window closed by the log's fetch); checkpoints every
-    ``save_model_interval`` steps and at the end. The VGG carries
+    """Phase D: the VAE on VGG relu4_1 ``[mean ‖ std]`` features (1024-d)
+    of random ``patch``² crops of the style images resized to ``2·patch``²,
+    through :func:`tgtc_torch.train.vae_trainer.train_vae`. Resumes from the
+    newest checkpoint under ``save_dir/vae`` unless ``--no_reload``; logs
+    every ``print_interval`` steps to ``log_dir/vae.jsonl``; checkpoints
+    every ``save_model_interval`` steps and at the end. The VGG carries
     ``--vgg``'s ``vgg_normalised.pth`` where it exists."""
     import torch
 
-    from tgtc_torch.data.prefetch import CropBatchPrefetcher
     from tgtc_torch.models.vae import VaeConfig
     from tgtc_torch.models.vgg import make_vgg
     from tgtc_torch.train.checkpoint import CheckpointManager
     from tgtc_torch.train.pretrained import load_vgg_overlay
-    from tgtc_torch.train.vae_trainer import (
-        VaeTrainConfig,
-        init_vae_train,
-        make_vae_train_step,
-        vgg_style_feature,
-    )
-    from tgtc_torch.utils.img import from_uint8
-    from tgtc_torch.utils.logging import MetricsLogger, fetch_scalars
+    from tgtc_torch.train.vae_trainer import VaeTrainConfig, init_vae_train, train_vae
+    from tgtc_torch.utils.logging import MetricsLogger
 
     dev = resolve_device(device)
     vcfg = VaeConfig(data_dim=1024, latent_dim=args.vae_latent, width=args.vae_w,
@@ -235,33 +174,18 @@ def run_vae(args, device: DeviceLike = None) -> int:
     vgg = make_vgg(torch.Generator().manual_seed(0), device=dev)
     load_vgg_overlay(vgg, args.vgg)
     vgg.requires_grad_(False)
-    paths = _list_images(args.style_dir)
+    paths = list_images(args.style_dir)
     if not paths:
         raise ValueError(f"no images in {args.style_dir!r}")
-    os.makedirs(args.log_dir, exist_ok=True)
     logger = MetricsLogger(args.log_dir, name="vae")
-    step_fn = make_vae_train_step(state.model, tcfg)
-    with CropBatchPrefetcher(paths, tcfg.batch_size, args.patch, resize=2 * args.patch,
-                             seed=args.seed, workers=min(args.n_threads, 8)) as pf:
-        step = last_log = state.step
-        t_log = time.perf_counter()
-        try:
-            while step < tcfg.max_iter:
-                with torch.no_grad():
-                    x = vgg_style_feature(vgg, from_uint8(_upload(pf.next(), dev)))
-                state, metrics = step_fn(state, x, seed=args.seed + 1)
-                step = state.step
-                if step % args.print_interval == 0:
-                    scalars = fetch_scalars(metrics)  # syncs: closes the window
-                    now = time.perf_counter()
-                    scalars["steps_per_s"] = (step - last_log) / (now - t_log)
-                    logger.log(step, scalars, prefix="VAE")
-                    last_log, t_log = step, time.perf_counter()
-                if step % args.save_model_interval == 0 or step >= tcfg.max_iter:
-                    ckpt.save_device_async(step, state.state_dict(), wait=step >= tcfg.max_iter)
-        finally:
-            logger.close()
-            ckpt.close()
+    try:
+        train_vae(state, vgg, paths, tcfg, ckpt, logger, patch=args.patch,
+                  data_dim=vcfg.data_dim, data_seed=args.seed, eps_seed=args.seed + 1,
+                  print_interval=args.print_interval, save_interval=args.save_model_interval,
+                  workers=min(args.n_threads, 8))
+    finally:
+        logger.close()
+        ckpt.close()
     return 0
 
 

@@ -51,6 +51,7 @@ from tgtc_torch.utils.seeds import step_seed
 _BUDGET_NOT_PORTED = ("train_fine_budget is not ported yet (ROADMAP.md queue 1, 'Proposal "
                       "levers and sample budgets': select_sample_budget)")
 CKPT_EVERY = 500  # steps between Phase-A checkpoints (tgtc/train/pipeline.py:377)
+PROFILE_STEPS = 20  # steps traced under profile_dir (tgtc/train/pipeline.py:366)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -419,26 +420,34 @@ def train_nerf(
     pixel_alignment: bool = False,
     device: DeviceLike = None,
     print_fn=print,
+    ckpt_dir: str = "nerf_ckpt",
+    max_to_keep: int = 3,
+    fused: bool = True,
+    reload: bool = True,
+    profile_dir: str = "",
 ) -> Tuple[NerfTrainState, Dict[str, list]]:
     """Phase A on ``scene`` (an ``LlffScene``) up to ``steps`` steps,
-    resuming from the latest checkpoint under ``out_dir/nerf_ckpt``. A
+    resuming from the latest checkpoint under ``out_dir/ckpt_dir`` (unless
+    ``reload`` is False), which keeps the newest ``max_to_keep``. A
     ``train_cfg.train_fine_budget`` raises (not ported yet).
 
-    The step is fused (K1 + K3) exactly when the device is a card and
-    :func:`fused_train_supported` holds, else eager. The host syncs with the
-    device only at log steps (every ``i_print`` steps and the last; one
-    fetch of the window's losses and the metrics) and checkpoint steps
-    (every :data:`CKPT_EVERY` steps and the last, saved asynchronously; the last
-    save is waited for). Logs go to ``out_dir/logs/nerf.jsonl``. Returns the
-    state and ``{"loss": [every step's loss], "records": [logged lines]}``;
-    a record is its JSONL line, step included, and its ``steps_per_s`` covers
-    the steps since the previous record.
+    The step is fused (K1 + K3) exactly when ``fused`` is set, the device is
+    a card and :func:`fused_train_supported` holds, else eager. The host
+    syncs with the device only at log steps (every ``i_print`` steps and the
+    last; one fetch of the window's losses and the metrics) and checkpoint
+    steps (every :data:`CKPT_EVERY` steps and the last, saved asynchronously;
+    the last save is waited for). Logs go to ``out_dir/logs/nerf.jsonl``.
+    With ``profile_dir`` the first 20 steps of this run are traced by
+    ``torch.profiler`` into ``profile_dir/phase_a.json`` (a Chrome trace).
+    Returns the state and ``{"loss": [every step's loss], "records":
+    [logged lines]}``; a record is its JSONL line, step included, and its
+    ``steps_per_s`` covers the steps since the previous record.
     """
     dev = resolve_device(device)
     state = init_state(torch.Generator().manual_seed(seed), nerf_cfg, train_cfg, fine_cfg,
                        device=dev)
-    ckpt = CheckpointManager(os.path.join(out_dir, "nerf_ckpt"))
-    if ckpt.latest_step() is not None:
+    ckpt = CheckpointManager(os.path.join(out_dir, ckpt_dir), max_to_keep=max_to_keep)
+    if reload and ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=dev))
     history: Dict[str, list] = {"loss": [], "records": []}
     if state.step >= steps:
@@ -451,7 +460,7 @@ def train_nerf(
     rays_o, rays_d = ro.reshape(-1, 3), rd.reshape(-1, 3)
     rgb_gt = torch.as_tensor(scene.images, dtype=torch.float32).reshape(-1, 3).to(dev)
 
-    use_fused = dev.type == "cuda" and fused_train_supported(nerf_cfg, fine_cfg)
+    use_fused = fused and dev.type == "cuda" and fused_train_supported(nerf_cfg, fine_cfg)
     if print_fn is not None:
         print_fn(f"[train] {'fused trunk (K1 + K3)' if use_fused else 'eager'} step, "
                  f"{rays_o.shape[0]} rays on {dev}")
@@ -464,6 +473,8 @@ def train_nerf(
     step = last_log = last_ckpt = state.step
     window: List[torch.Tensor] = []
     t_log = time.perf_counter()
+    prof = _start_profile(dev) if profile_dir else None
+    first = step
     timer.start("model")
     try:
         while step < steps:
@@ -471,6 +482,9 @@ def train_nerf(
             state, metrics = step_fn(state, rays_o, rays_d, rgb_gt, generator=gen)
             step = state.step
             window.append(metrics["loss"])
+            if prof is not None and (step - first >= PROFILE_STEPS or step >= steps):
+                _stop_profile(prof, profile_dir)
+                prof = None
             if step // i_print > last_log // i_print or step >= steps:
                 timer.start("log")
                 keys = list(metrics)
@@ -489,7 +503,27 @@ def train_nerf(
                 ckpt.save_device_async(step, state.state_dict(), wait=step >= steps)
                 last_ckpt = step
     finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
         timer.stop()
         logger.close()
         ckpt.close()
     return state, history
+
+
+def _start_profile(dev: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str) -> None:
+    """End the trace (after a device sync) and write it as a Chrome trace."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile_dir, "phase_a.json"))

@@ -236,7 +236,7 @@ def run_temporal_finetune(model: StyTrans, renders: np.ndarray, coor_maps: np.nd
                           cps: np.ndarray, styles: np.ndarray, hwf: Sequence[float],
                           cfg: TemporalTrainConfig = TemporalTrainConfig(), seed: int = 0,
                           is_ndc: bool = True, out_dir: str = ".", device: DeviceLike = None,
-                          log_every: int = 20) -> StyTrans:
+                          log_every: int = 20, ckpt=None) -> StyTrans:
     """Phase C2 as the pipeline runs it: ``cfg.max_iter`` steps of the
     decoder finetune on ``model`` (which must live on ``device``, the card
     unless told otherwise), from Phase B's ``renders [V, H, W, 3]`` (f32 in
@@ -248,7 +248,10 @@ def run_temporal_finetune(model: StyTrans, renders: np.ndarray, coor_maps: np.nd
     ``out_dir/logs/temporal.jsonl`` with ``steps_per_s`` over the steps
     since the last, the window closed by the log's fetch. After the last
     step the debug PNGs ``<name>_<view>.png`` and ``style_image.png`` go to
-    ``out_dir``. Returns ``model``, finetuned in place."""
+    ``out_dir``, and ``ckpt`` (a
+    :class:`~tgtc_torch.train.checkpoint.CheckpointManager`), if given,
+    saves the final state (the pipeline's ``ckpt_trans_c2``). Returns
+    ``model``, finetuned in place."""
     dev = resolve_device(device)
     if next(model.parameters()).device.type != dev.type:
         raise ValueError(f"the model lives on {next(model.parameters()).device}, C2 was asked "
@@ -284,6 +287,8 @@ def run_temporal_finetune(model: StyTrans, renders: np.ndarray, coor_maps: np.nd
                                        args[3][0].cpu().numpy())
     finally:
         logger.close()
+    if ckpt is not None:
+        ckpt.save(state.step, state.state_dict())
     errors = native.wait_writes()
     if errors:
         raise IOError(f"{errors} C2 debug-image writes failed")

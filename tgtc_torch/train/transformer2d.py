@@ -20,11 +20,16 @@ the update count from 0 (optax's count).
 * Metrics are 0-d device tensors, fetched only when logged.
 * Phase C2 (:mod:`tgtc_torch.train.temporal`) trains the decoder alone
   with a step of its own on the same loss and optimizer.
+* :func:`train_transformer` is the C1 loop that both
+  ``tools/train2d --task transformer`` and ``Pipeline.ensure_style2d`` run,
+  each with its own checkpoint directory, intervals and seeds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -34,6 +39,7 @@ from tgtc_torch.utils.img import from_uint8, to_uint8
 from tgtc_torch.utils.seeds import step_seed
 
 TRAIN_KEYS = ("transformer", "embedding")
+COLLAGE_EVERY = 100  # steps between C1 collages (tgtc/train/pipeline.py:519)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,3 +191,63 @@ def make_collage_fn(model: StyTrans) -> Callable[[torch.Tensor, torch.Tensor], t
         return to_uint8(torch.cat([torch.cat(list(r), dim=1) for r in rows], dim=0))
 
     return collage
+
+
+def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
+                      content_paths: Sequence[str], style_paths: Sequence[str], ckpt, *,
+                      log_dir: str, collage_dir: str, print_interval: int = 100,
+                      save_interval: int = 1000, dropout_seed: int = 3, data_seed: int = 0,
+                      workers: int = 4
+                      ) -> TransformerTrainState:
+    """The C1 loop up to ``cfg.max_iter`` steps from ``state`` (its model on
+    the card or the CPU). Content and style crop batches come from two
+    prefetchers seeded ``data_seed`` and ``data_seed + 1``; dropout from
+    ``dropout_seed``. Every ``print_interval`` steps one line goes to
+    ``log_dir/transformer.jsonl`` (with ``steps_per_s`` over the steps since
+    the last, the window closed by the log's fetch); every
+    :data:`COLLAGE_EVERY` steps and at the end the content/style/stylized
+    collage (the reference's C1 verification artifact) is written to
+    ``collage_dir/<step>.png``; every ``save_interval`` steps and at the end
+    ``state`` is saved through ``ckpt`` (a
+    :class:`~tgtc_torch.train.checkpoint.CheckpointManager`, asynchronously;
+    the last save is waited for). Returns ``state``."""
+    from tgtc_torch.data.prefetch import CropBatchPrefetcher, ResizeCache, upload
+    from tgtc_torch.utils import native
+    from tgtc_torch.utils.logging import MetricsLogger, fetch_scalars
+
+    if not (content_paths and style_paths):
+        raise ValueError("C1 needs content and style images")
+    dev = next(state.model.parameters()).device
+    os.makedirs(collage_dir, exist_ok=True)
+    logger = MetricsLogger(log_dir, name="transformer")
+    collage_fn = make_collage_fn(state.model)
+    step_fn = make_transformer_train_step(state.model, cfg)
+    cache = ResizeCache()
+    with CropBatchPrefetcher(content_paths, cfg.batch_size, cfg.patch, seed=data_seed,
+                             workers=workers, cache=cache) as cpf, \
+            CropBatchPrefetcher(style_paths, cfg.batch_size, cfg.patch, seed=data_seed + 1,
+                                workers=workers, cache=cache) as spf:
+        step = last_log = state.step
+        t_log = time.perf_counter()
+        try:
+            while step < cfg.max_iter:
+                content, style = upload(cpf.next(), dev), upload(spf.next(), dev)
+                state, metrics = step_fn(state, content, style, seed=dropout_seed)
+                step = state.step
+                if step % print_interval == 0:
+                    scalars = fetch_scalars(metrics)  # syncs: closes the window
+                    now = time.perf_counter()
+                    scalars["steps_per_s"] = (step - last_log) / (now - t_log)
+                    logger.log(step, scalars, prefix="TRANS TRAIN")
+                    last_log, t_log = step, time.perf_counter()
+                if step % COLLAGE_EVERY == 0 or step >= cfg.max_iter:
+                    native.write_png_async(os.path.join(collage_dir, f"{step}.png"),
+                                           collage_fn(content, style).cpu().numpy())
+                if step % save_interval == 0 or step >= cfg.max_iter:
+                    ckpt.save_device_async(step, state.state_dict(), wait=step >= cfg.max_iter)
+        finally:
+            logger.close()
+    errors = native.wait_writes()
+    if errors:
+        raise IOError(f"{errors} C1 collage writes failed")
+    return state

@@ -13,12 +13,17 @@ by reparameterised sampling.
 Each step's ε is an explicit argument or is drawn from a generator seeded
 from (seed, step) by :func:`~tgtc_torch.utils.seeds.step_seed`, so a resumed
 run draws what an uninterrupted one would.
+
+:func:`train_vae` is the Phase-D loop that both ``tools/train2d --task vae``
+(1024-d features) and ``Pipeline.ensure_vae`` (features fitted to
+``style_feature_dim`` by :func:`fit_dim`) run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,6 +127,57 @@ class VaeTrainStep:
 
 def make_vae_train_step(model: Vae, tcfg: VaeTrainConfig) -> VaeTrainStep:
     return VaeTrainStep(model, tcfg)
+
+
+def fit_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Features ``[B, D]`` cropped or zero-padded to ``[B, dim]`` (the
+    pipeline's ``_fit_dim``: a no-op at the reference's 1024)."""
+    if x.shape[-1] >= dim:
+        return x[:, :dim]
+    return torch.nn.functional.pad(x, (0, dim - x.shape[-1]))
+
+
+def train_vae(state: VaeTrainState, vgg, style_paths: Sequence[str], tcfg: VaeTrainConfig,
+              ckpt, logger, *, patch: int = 256, data_dim: int = 1024, data_seed: int = 0,
+              eps_seed: int = 1, print_interval: int = 500, save_interval: Optional[int] = None,
+              workers: int = 4) -> VaeTrainState:
+    """The Phase-D loop up to ``tcfg.max_iter`` steps from ``state``: each
+    step's features are ``vgg_style_feature`` of a batch of random
+    ``patch``² crops of the style images resized to ``2·patch``² (the
+    prefetcher seeded ``data_seed``), fitted to ``data_dim`` by
+    :func:`fit_dim`; ε from ``eps_seed``. Every ``print_interval`` steps one
+    line goes to ``logger`` (with ``steps_per_s`` over the steps since the
+    last, the window closed by the log's fetch); ``ckpt`` saves every
+    ``save_interval`` steps (None: only the last) and at the end (the last
+    save is waited for). ``vgg`` lives on the VAE's device. Returns
+    ``state``."""
+    from tgtc_torch.data.prefetch import CropBatchPrefetcher, upload
+    from tgtc_torch.utils.img import from_uint8
+    from tgtc_torch.utils.logging import fetch_scalars
+
+    if not style_paths:
+        raise ValueError("Phase D needs style images")
+    dev = next(state.model.parameters()).device
+    step_fn = make_vae_train_step(state.model, tcfg)
+    with CropBatchPrefetcher(style_paths, tcfg.batch_size, patch, resize=2 * patch,
+                             seed=data_seed, workers=workers) as pf:
+        step = last_log = state.step
+        t_log = time.perf_counter()
+        while step < tcfg.max_iter:
+            with torch.no_grad():
+                x = fit_dim(vgg_style_feature(vgg, from_uint8(upload(pf.next(), dev))),
+                            data_dim)
+            state, metrics = step_fn(state, x, seed=eps_seed)
+            step = state.step
+            if step % print_interval == 0:
+                scalars = fetch_scalars(metrics)  # syncs: closes the window
+                now = time.perf_counter()
+                scalars["steps_per_s"] = (step - last_log) / (now - t_log)
+                logger.log(step, scalars, prefix="VAE")
+                last_log, t_log = step, time.perf_counter()
+            if (save_interval and step % save_interval == 0) or step >= tcfg.max_iter:
+                ckpt.save_device_async(step, state.state_dict(), wait=step >= tcfg.max_iter)
+    return state
 
 
 @torch.no_grad()
