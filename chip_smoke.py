@@ -216,7 +216,31 @@ started together), then:
    eager f32 render, and the re-entry run adding no checkpoint and no
    training line and launching K1/K2 for evaluate only; each phase's wall
    seconds and peak allocated memory printed beside the card;
-17. prints the kernels line (JSON, K1-K8), then the result line.
+17. the proposal levers (phase_levers): K2 at D2xW128 (the distilled
+   proposal's trunk, sigma_kernel<2, 4, 128>; He weights, numpy seed 17)
+   against its twin at P = 16,384 x 64 (+ 300) and the engine's tile-cutting
+   P, repeats bit for bit, its run-time-depth build at depth 3, and timed at
+   16,384 x 64 by events and device time beside the largest of its tensor,
+   FP32 and SFU floors (at the card's maximum SM clock) and HBM floor; render/distill.distill_proposal from phase 4's
+   fine trunk on its 4 training views (300 steps of 3,000, batch 65,536);
+   the fern frame (phase 4's scene, spiral pose 0) through FusedNerfRenderer
+   with the proposal as coarse net, fine_budget 80 and coarse_share 2 (K1
+   and K2-W128 one launch a block, nothing else), beside the exact frame of
+   the same trunks, with a device-time breakdown of one block; the same with
+   a 192^3 density grid (render/grid.build_sigma_grid: K2 at D8xW256 over
+   the lattice x 9 offsets) in place of the proposal (K1 only); a stylized
+   frame through FusedStyleRenderer with the proposal (K4 and K2-W128, no
+   K5); each lever frame's first 16,384 rays held to the same chain with
+   the plain twins on the card (rgb and t_exp within 5e-2 on all but 0.1%
+   of the rays); 300 fused Phase-A steps under train_fine_budget
+   "96@100,80@200" through train_nerf (K1 and K3 at 2048 x 64 every step and
+   at 2048 x 128, 96 and 80 in the three segments), steps/s per segment, and
+   a budget-80 step on the card against the CPU (loss within 1e-3 of its
+   size, phase 4's gradient cosine); phase
+   16's pipeline re-entered with --proposal_width 128 --fine_budget 80
+   --coarse_share 2 --proposal_steps 300 for --render_train and
+   --render_train_style (launches held, frames written);
+18. prints the kernels line (JSON, K1-K8 and K2-W128), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -224,6 +248,8 @@ It needs CUDA and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -265,6 +291,9 @@ BATCH = 2048
 P_K3 = {"coarse": BATCH * NC, "fine": BATCH * (NC + NF)}
 WARM_STEPS, TRAIN_STEPS, I_PRINT = 20, 300, 50
 TOL_STEP_LOSS, TOL_STEP_COS = 2e-2, 0.99
+# phase 17's budget step against the CPU, of the CPU's loss: a trained
+# state's loss (~3e-3) sits under TOL_STEP_LOSS, so the limit scales with it
+TOL_STEP_LOSS_REL = 1e-3
 LATENT, LATENT_FRAMES, F_VIEWS, F_SEED = 32, 20, 3, 10  # Phase F: fern's 20 training views
 C3_TOKENS, C3_HEADS, D_HEAD = 95 * 126, 8, 64  # 756x1008 padded to 760x1008, 8x8 patches
 K6_SCALE, TOL_K6_O, TOL_K6_LSE, TOL_C3 = 0.125, 3e-2, 1e-3, 5e-2
@@ -304,6 +333,24 @@ PIPE_VIEWS, PIPE_STYLES, PIPE_FACTOR = 4, 2, 4
 PIPE_ORIGIN, PIPE_TOTAL, PIPE_PRINT = 300, 500, 50
 PIPE_C1, PIPE_C2, PIPE_VAE = 50, 20, 200
 PIPE_PHASES = ("A", "evaluate", "B", "C1", "C2", "C3", "D", "E", "F", "plain")
+# Phase 17, the proposal levers: the JAX package's fast stack (README.md's
+# --proposal_width 128 --fine_budget 80 --coarse_share 2), the 192^3 grid,
+# and Phase A under --train_fine_budget "96@100,80@200"; the proposal
+# distilled in 300 steps (cut from the package's 3,000) at batch 65,536
+LEVER_BUDGET, LEVER_SHARE, LEVER_SEED = 80, 2, 7
+PROPOSAL_STEPS, PROPOSAL_BATCH, GRID_RES = 300, 65536, 192
+A_SCHEDULE, A_STEPS, A_PRINT = "96@100,80@200", 300, 50
+A_SEGMENTS = ((0, 100, None), (100, 200, 96), (200, 300, 80))  # (first, end, budget)
+# K2 at D2xW128, a point: the two layers' 2 x (63 x 128 + 128 x 128) FLOP
+# (enc(pts)'s 63 columns, as FLOP_PER_POINT counts K2's; the kernel pads
+# them to 64), the sigma head's 2 x 128, and the encoding's 60 sinf/cosf,
+# each counted as one SFU operation (a floor: the kernel's accurate
+# sinf/cosf take more)
+K2W128_TENSOR_FLOP, K2W128_HEAD_FLOP, ENC_SINCOS = 2 * (63 * 128 + 128 * 128), 2 * 128, 60
+# Per SM and clock on sm_90: dense bf16 on the tensor cores 4,096 FLOP (the
+# data sheet's 989 TFLOP/s is 132 SMs at 1,830 MHz), float32 FMA outside
+# them 256 FLOP (its 67 TFLOP/s is 132 SMs at 1,980 MHz)
+TENSOR_BF16_PER_CLK, FP32_PER_CLK = 4096, 256
 
 
 def check(ok: bool, what: str) -> None:
@@ -1013,7 +1060,8 @@ def phase_train(ks, kg):
               f"bitwise equal: {same}", flush=True)
         check(same, "checkpoint round trip changed the render")
     trained = {"coarse": state.coarse.state_dict(), "fine": state.fine.state_dict(),
-               "intrinsics": scene.intrinsics, "render_poses": scene.render_poses}
+               "intrinsics": scene.intrinsics, "render_poses": scene.render_poses,
+               "poses": scene.poses}
     renderer = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
                                              coarse_rgb=False, device="cuda")
     return renderer, launches, steps_per_s, trained
@@ -2331,8 +2379,25 @@ def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, 
     return steps_per_s, launches, ckpt
 
 
+class W128Launches:
+    """K2's launches on a 128-wide trunk (the wrapper's ``launches_w128``)
+    behind the ``launches`` attribute the other counters have."""
+
+    def __init__(self, k2):
+        self.k2 = k2
+
+    @property
+    def launches(self) -> int:
+        return self.k2.launches_w128
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.k2.launches_w128 = n
+
+
 def all_counters(ks, kg, kst, fa):
     return {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
+            "K2-W128": W128Launches(ks.fused_nerf_sigma_apply_t),
             "K3": kg.fused_nerf_bwd, "K4": kst.fused_style_apply_t,
             "K5": kst.fused_sigma_apply_t, "K6": fa.flash_attention_fwd,
             "K7": fa.flash_attention_bwd_dq, "K8": fa.flash_attention_bwd_dkv}
@@ -2799,7 +2864,398 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
         f"{p} {gb(rec(p)['peak']):.2f} ({gb(rec(p)['held']):.2f})" for p in PIPE_PHASES),
         flush=True)
     launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
-    return launches, {"a_to_e_s": total, "f_s_per_frame": f_per_frame}
+    return launches, {"a_to_e_s": total, "f_s_per_frame": f_per_frame, "argv": argv,
+                      "exp": exp}
+
+
+def k2w128_floors_ms(p: int, packed, clock_hz: float):
+    """K2 at D2xW128's floors in ms: tensor cores, the sigma head on FP32
+    units, the encoding's sinf/cosf on the SFUs, each at the SM clock
+    ``clock_hz``; HBM (points in, sigma out, f32, and the packed weights
+    once)."""
+    weights = packed.w.numel() * 2 + packed.b.numel() * 4
+    return {"tensor": 1e3 * K2W128_TENSOR_FLOP * p / (SMS * TENSOR_BF16_PER_CLK * clock_hz),
+            "fp32": 1e3 * K2W128_HEAD_FLOP * p / (SMS * FP32_PER_CLK * clock_hz),
+            "sfu": 1e3 * ENC_SINCOS * p / (SMS * SFU_PER_CLK * clock_hz),
+            "hbm": 1e3 * (16 * p + weights) / PEAK_BYTES}
+
+
+@contextlib.contextmanager
+def twins(module, **plain):
+    """``module``'s kernel wrappers swapped for their plain twins (a
+    comparison on the card), restored after."""
+    saved = {name: getattr(module, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def block_vs_twins(got, ref, tag: str, what: str) -> None:
+    """A lever render's block against the same chain on the plain twins:
+    rgb and t_exp within TOL_RENDER on all but 0.1% of the rays (the
+    sample selection may tie-break apart where the kernel's σ and the
+    twin's differ in their last bits)."""
+    err = torch.maximum((got["rgb"] - ref["rgb"]).abs().amax(-1),
+                        (got["t_exp"] - ref["t_exp"]).abs())
+    bad = int((err > TOL_RENDER).sum())
+    print(f"[{tag}] first {err.shape[0]} rays vs the same chain on the plain twins: max|err| "
+          f"over rgb and t_exp {float(err.max()):.3e}, median {float(err.median()):.3e}; "
+          f"{bad} rays above {TOL_RENDER}", flush=True)
+    check(bool(torch.isfinite(got["rgb"]).all()), f"{what} not finite")
+    check(bad <= err.shape[0] // 1000, f"{what} disagrees with the plain-twin chain")
+
+
+def agreement_db(a: torch.Tensor, b: torch.Tensor) -> float:
+    mse = float(torch.mean((a.clamp(0, 1) - b.clamp(0, 1)) ** 2))
+    return -10.0 * math.log10(max(mse, 1e-12))
+
+
+def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: float,
+                 pipe: dict, root: str, card: str):
+    """Phase 17 (see the module docstring). Returns the K2-W128 row of the
+    kernels line and the numbers of the result line."""
+    from PIL import Image
+
+    from tgtc_torch import cli
+    from tgtc_torch.convert import nerf_state_dict_from_flax
+    from tgtc_torch.data.llff import load_llff_data
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP
+    from tgtc_torch.models.style_field import init_latents
+    from tgtc_torch.render import fast as rf
+    from tgtc_torch.render import fast_style as rfs
+    from tgtc_torch.render.distill import distill_proposal
+    from tgtc_torch.render.fast import FusedNerfRenderer
+    from tgtc_torch.render.fast_style import FusedStyleRenderer, block_generator
+    from tgtc_torch.render.grid import GridSpec, build_sigma_grid, ray_bounds
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train import nerf_trainer as tt
+
+    counters = {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
+                "K2-W128": W128Launches(ks.fused_nerf_sigma_apply_t),
+                "K3": kg.fused_nerf_bwd, "K4": kst.fused_style_apply_t,
+                "K5": kst.fused_sigma_apply_t}
+    zero = {k: 0 for k in counters}
+    read = lambda: {k: c.launches for k, c in counters.items()}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    # ---- 1. K2 at D2xW128 against its twin, timed beside its floors
+    sd_p = nerf_state_dict_from_flax(he_params(np.random.default_rng(17), depth=2, width=128))
+    packed = ks.pack_nerf_params(sd_p, depth=2, width=128, device="cuda")
+    rng = np.random.default_rng(18)
+    pts = torch.from_numpy(rng.uniform(-1, 1, (3, P_K2 + RAGGED)).astype(np.float32)).cuda()
+    err = 0.0
+    for depth, pk, ps in ((2, packed, ENGINE_P + (P_K2, P_K2 + RAGGED)),
+                          (3, None, (ENGINE_TILE + 1, 132 * ENGINE_TILE + 17))):
+        if pk is None:  # the run-time-depth build at width 128
+            sd3 = nerf_state_dict_from_flax(he_params(np.random.default_rng(19), depth=3,
+                                                      width=128))
+            pk = ks.pack_nerf_params(sd3, depth=3, width=128, device="cuda")
+        for n in ps:
+            pt = pts[:, :n].contiguous()
+            s1 = ks.fused_nerf_sigma_apply_t(pk, pt)
+            s2 = ks.fused_nerf_sigma_apply_t(pk, pt)
+            torch.cuda.synchronize()
+            e = float((s1 - ks.fused_nerf_sigma_apply_t_plain(pk, pt)).abs().max())
+            print(f"[levers] K2-W128 depth {depth} P={n}: max|sigma err| {e:.3e}; repeat bit "
+                  f"for bit {torch.equal(s1, s2)}", flush=True)
+            check(bool(torch.isfinite(s1).all()) and e <= TOL_SIGMA,
+                  f"K2-W128 at depth {depth} disagrees with its twin at P={n}")
+            check(torch.equal(s1, s2), f"K2-W128 repeat not bitwise equal at P={n}")
+            if depth == 2:
+                err = max(err, e)
+    pt = pts[:, :P_K2].contiguous()
+    ms, dev = timed(lambda: ks.fused_nerf_sigma_apply_t(packed, pt), 20)
+    plain_ms = cuda_ms(lambda: ks.fused_nerf_sigma_apply_t_plain(packed, pt), 3)
+    clock = sm_clock_hz()
+    floors = k2w128_floors_ms(P_K2, packed, clock)
+    floor = max(floors, key=floors.get)
+    bound = floors[floor]
+    print(f"[levers] K2-W128 P={P_K2}: kernel {ms:.4f} ms ev, {dev:.4f} ms dev; floors "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
+          + f" (SM clock {clock * 1e-6:.0f} MHz): bound {bound:.4f} ms ({floor}), "
+          f"{100 * bound / dev:.2f}% of it by device time; plain twin {plain_ms:.3f} ms; "
+          f"{card}", flush=True)
+    row = {"name": "K2-W128", "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp.cu",
+           "replaces": "tgtc/ops/pallas/nerf_mlp.py:316",
+           "wrapper": "tgtc_torch.ops.kernels.nerf_mlp.fused_nerf_sigma_apply_t",
+           "design": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel<2, 4, 128> (trunk_tile "
+                     "at width 128, wgmma m64n128k16, a two-partial sigma head)",
+           "P": P_K2, "max_abs_err": err, "max_err": err, "max_abs_err_sigma": err,
+           "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if floor == "hbm" else "operations", "bound_floor": floor,
+           "floors_ms": floors, "sm_clock_mhz": clock * 1e-6, "bound_share": bound / dev,
+           "library_ms": None}
+    del pts
+
+    # ---- 2. the distilled proposal from phase 4's fine trunk
+    fine = NerfMLP(NerfConfig())
+    fine.load_state_dict(trained["fine"])
+    fine.cuda()
+    ro_t, rd_t = rays_for_poses(H, W, trained["intrinsics"], trained["poses"], use_ndc=True,
+                                device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prop_sd, stats = distill_proposal(LEVER_SEED, fine, ro_t.reshape(-1, 3), rd_t.reshape(-1, 3),
+                                      0.0, 1.0, steps=PROPOSAL_STEPS, batch=PROPOSAL_BATCH)
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    print(f"[levers] distilled D2xW128 proposal from phase 4's fine trunk on {ro_t.shape[0]} "
+          f"views: {PROPOSAL_STEPS} steps (of the package's 3,000) at batch {PROPOSAL_BATCH} in "
+          f"{distill_s:.2f} s; loss {stats['loss']:.5f}, relu-sigma bias "
+          f"{stats['relu_sigma_bias']:+.4f}", flush=True)
+    check(math.isfinite(stats["loss"]) and math.isfinite(stats["relu_sigma_bias"]),
+          "the distilled proposal's loss is not finite")
+    del fine, ro_t, rd_t
+
+    # ---- 3. the fast-stack frame, beside the exact frame of the same trunks
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    ro, rd = rays_for_poses(H, W, trained["intrinsics"], trained["render_poses"][:1],
+                            use_ndc=True, device="cuda")
+    fo, fd = ro[0].reshape(-1, 3), rd[0].reshape(-1, 3)
+    n, blocks = fo.shape[0], math.ceil(fo.shape[0] / BLOCK)
+    bo, bd = fo[:BLOCK], fd[:BLOCK]
+    levers = dict(coarse_rgb=False, fine_budget=LEVER_BUDGET, coarse_share=LEVER_SHARE,
+                  device="cuda")
+
+    def frames(render, want, tag):
+        render()  # warm-up frame
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(FRAMES):
+            reset()
+            t0 = time.perf_counter()
+            out = render()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = read()
+            check(got == {**zero, **want}, f"{tag} frame launch counts {got}, expected {want}")
+        dt = float(np.median(times))
+        check(out["rgb"].shape == (n, 3) and bool(torch.isfinite(out["rgb"]).all()),
+              f"{tag} frame shape or values")
+        print(f"[levers] {tag} frame {H}x{W} ({n} rays, block {BLOCK}): "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median {dt * 1e3:.1f} ms, "
+              f"{n / dt:.1f} rays/s; launches a frame "
+              + ", ".join(f"{k} {v}" for k, v in want.items()) + f"; {card}", flush=True)
+        return out, dt
+
+    exact = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
+                                          coarse_rgb=False, device="cuda")
+    out_exact, dt_exact = frames(lambda: exact.render_image(fo, fd, block=BLOCK),
+                                 {"K1": blocks, "K2": blocks}, "exact (same trunks and pose)")
+    del exact
+    fast = FusedNerfRenderer.from_params(prop_sd, trained["fine"], settings, depth=2, width=128,
+                                         depth_fine=8, width_fine=256, **levers)
+    want_fast = {"K1": blocks, "K2-W128": blocks}
+    out_fast, dt_fast = frames(lambda: fast.render_image(fo, fd, block=BLOCK), want_fast,
+                               "fast-stack (proposal, budget 80, share 2)")
+    agree_fast = agreement_db(out_fast["rgb"], out_exact["rgb"])
+    print(f"[levers] fast-stack frame: {dt_exact / dt_fast:.3f}x the exact frame's rays/s on "
+          f"the same rays (phase 2's exact frame {exact_rays_per_s:.1f} rays/s); rgb agreement "
+          f"with the exact frame {agree_fast:.2f} dB PSNR", flush=True)
+    block_dev, _, per = device_ms(lambda: fast.render(bo, bd), 5, per_kernel=True)
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    print(f"[levers] fast-stack block of {BLOCK} rays, device time by kernel ({block_dev:.3f} "
+          f"ms a block): " + "; ".join(f"{k} {v:.3f}" for k, v in top[:12]), flush=True)
+    got = fast.render(bo, bd)
+    with twins(rf, fused_nerf_apply_t=ks.fused_nerf_apply_t_plain,
+               fused_nerf_sigma_apply_t=ks.fused_nerf_sigma_apply_t_plain):
+        ref = fast.render(bo, bd)
+    block_vs_twins(got, ref, "levers", "the fast-stack frame")
+    del got, ref, out_fast
+
+    # ---- 4. the same frame with a 192^3 density grid in place of the proposal
+    poses = np.concatenate([trained["poses"], trained["render_poses"]], 0)
+    ro_all, rd_all = rays_for_poses(H, W, trained["intrinsics"], poses, use_ndc=True,
+                                    device="cuda")
+    spec = GridSpec(*ray_bounds(ro_all, rd_all, 0.0, 1.0))
+    del ro_all, rd_all
+    packed_f = ks.pack_nerf_params(trained["fine"], device="cuda")
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = build_sigma_grid(packed_f, spec, (GRID_RES,) * 3)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid_launches = read()
+    lattice = GRID_RES ** 3
+    print(f"[levers] {GRID_RES}^3 grid over {len(poses)} poses' bounds {spec.lo} .. {spec.hi}: "
+          f"built in {grid_s:.3f} s (K2 at D8xW256 over {lattice} lattice points x 9 offsets, "
+          f"{grid_launches['K2']} launches); sigma max {float(values.max()):.2f}, "
+          f"{100 * float((values > 0).float().mean()):.2f}% of voxels > 0; {card}", flush=True)
+    check(bool(torch.isfinite(values).all()), "the grid is not finite")
+    check(grid_launches == {**zero, "K2": 9 * math.ceil(lattice / (1 << 21))},
+          f"grid build launch counts {grid_launches}")
+    gridr = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
+                                          sigma_grid=(values, spec), **levers)
+    out_grid, dt_grid = frames(lambda: gridr.render_image(fo, fd, block=BLOCK),
+                               {"K1": blocks}, "grid (192^3, budget 80, share 2)")
+    print(f"[levers] grid frame: {dt_exact / dt_grid:.3f}x the exact frame's rays/s; rgb "
+          f"agreement with the exact frame {agreement_db(out_grid['rgb'], out_exact['rgb']):.2f} "
+          f"dB PSNR", flush=True)
+    got = gridr.render(bo, bd)
+    with twins(rf, fused_nerf_apply_t=ks.fused_nerf_apply_t_plain):
+        ref = gridr.render(bo, bd)
+    block_vs_twins(got, ref, "levers", "the grid frame")
+    del got, ref, out_grid, gridr, values
+
+    # ---- 5. a stylized frame with the proposal
+    concat, style = style_mlps()
+    lat = init_latents(torch.Generator().manual_seed(12), 1, LATENT_FRAMES, LATENT,
+                       device="cuda")
+    sr = FusedStyleRenderer.from_params(trained["coarse"], trained["fine"], concat.state_dict(),
+                                        style.state_dict(), lat, settings,
+                                        proposal=(prop_sd, 2, 128, 4), **levers)
+    want_style = {"K4": blocks, "K2-W128": blocks}
+    _, dt_style = frames(lambda: sr.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED),
+                         want_style, "stylized fast-stack (proposal, budget 80, share 2)")
+    print(f"[levers] stylized fast-stack frame {n / dt_style:.1f} rays/s beside phase 7's "
+          f"exact stylized frame {f_rays_per_s:.1f} rays/s", flush=True)
+    sid = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
+    u = torch.rand((BLOCK // LEVER_SHARE, NC), generator=block_generator(F_SEED, 0, 0, "cuda"),
+                   device="cuda")
+    got = sr.render(bo, bd, sid, sid, u=u)
+    with twins(rfs, fused_nerf_sigma_apply_t=ks.fused_nerf_sigma_apply_t_plain,
+               fused_style_apply_t=kst.fused_style_apply_t_plain,
+               fused_sigma_apply_t=kst.fused_sigma_apply_t_plain):
+        ref = sr.render(bo, bd, sid, sid, u=u)
+    block_vs_twins(got, ref, "levers", "the stylized fast-stack frame")
+    del got, ref, sr, concat, style
+
+    # ---- 6. Phase A under the budget schedule
+    cfg = NerfConfig()
+    tc = tt.NerfTrainConfig(batch_size=BATCH, n_samples=NC, n_samples_fine=NF,
+                            sigma_noise_std=1.0)
+    scene = load_llff_data(write_scene(os.path.join(root, "levers_scene"), n=4), factor=1)
+    points = {"K1": collections.Counter(), "K3": collections.Counter()}
+    k1, backward = kg.fused_nerf_apply_t, kg.FusedNerfApply.backward
+
+    def k1_rec(packed_, pts_t, dirs_t):  # the forward of the step's autograd node
+        points["K1"][pts_t.shape[1]] += 1
+        return k1(packed_, pts_t, dirs_t)
+
+    def k3_rec(ctx, g_rgb, g_sigma):  # its backward, K3's one launch
+        points["K3"][ctx.saved_tensors[2].shape[1]] += 1
+        return backward(ctx, g_rgb, g_sigma)
+
+    reset()
+    kg.fused_nerf_apply_t, kg.FusedNerfApply.backward = k1_rec, staticmethod(k3_rec)
+    try:
+        t0 = time.perf_counter()
+        state, hist = tt.train_nerf(scene, cfg, tc, A_STEPS, os.path.join(root, "levers_a"),
+                                    i_print=A_PRINT, device="cuda",
+                                    print_fn=lambda m: print(m, flush=True),
+                                    budget_schedule=A_SCHEDULE)
+        torch.cuda.synchronize()
+        a_s = time.perf_counter() - t0
+    finally:
+        kg.fused_nerf_apply_t, kg.FusedNerfApply.backward = k1, staticmethod(backward)
+    a_launches = read()
+    check(a_launches == {**zero, "K1": 2 * A_STEPS, "K3": 2 * A_STEPS},
+          f"budgeted Phase-A launch counts {a_launches}")
+    want_pts = collections.Counter({BATCH * NC: A_STEPS})
+    for first, end, budget in A_SEGMENTS:
+        want_pts[BATCH * (budget or NC + NF)] += end - first
+    check(points["K1"] == want_pts and points["K3"] == want_pts,
+          f"K1/K3 point counts {dict(points['K1'])} / {dict(points['K3'])}, expected "
+          f"{dict(want_pts)}")
+    losses = hist["loss"]
+    check(len(losses) == A_STEPS and all(math.isfinite(x) for x in losses),
+          "budgeted Phase-A loss not finite")
+    per_seg = {}
+    for first, end, budget in A_SEGMENTS:
+        recs = [r for r in hist["records"] if first < r["step"] <= end]
+        per_seg[budget] = (end - first) / sum(A_PRINT / r["steps_per_s"] for r in recs)
+    print(f"[levers] Phase A under train_fine_budget {A_SCHEDULE!r}: {A_STEPS} steps in "
+          f"{a_s:.2f} s (call, set-up and saves included); steps/s by segment (log windows, "
+          f"the first with the warm-up) " + ", ".join(
+              f"{'exact' if b is None else b} {v:.2f}" for b, v in per_seg.items())
+          + f"; K1 and K3 points a launch {dict(sorted(points['K1'].items()))}; mean loss of "
+          f"the first 20 steps {np.mean(losses[:20]):.5f}, of the last 20 "
+          f"{np.mean(losses[-20:]):.5f}; {card}", flush=True)
+
+    # the budget-80 step on the card against the same step on the CPU
+    h, w, _ = scene.hwf
+    ro_a, rd_a = rays_for_poses(h, w, scene.intrinsics, scene.poses, device="cuda")
+    ro_a, rd_a = ro_a.reshape(-1, 3), rd_a.reshape(-1, 3)
+    rgb_a = torch.as_tensor(scene.images, dtype=torch.float32).reshape(-1, 3).cuda()
+    tc80 = dataclasses.replace(tc, train_fine_budget=LEVER_BUDGET)
+    fused = tt.make_fused_train_step(cfg, tc80, device="cuda")
+    draws = fused.draw(ro_a.shape[0], torch.Generator(device="cuda").manual_seed(7))
+    check(draws.noise_fine.shape == (BATCH, LEVER_BUDGET), "the budget step's fine noise shape")
+    m_f, g_f = fused.loss_and_grad(state.coarse, state.fine, ro_a, rd_a, rgb_a, draws)
+    names = ([f"coarse.{nm}" for nm, _ in state.coarse.named_parameters()]
+             + [f"fine.{nm}" for nm, _ in state.fine.named_parameters()])
+    t0 = time.perf_counter()
+    cpu = tt.make_fused_train_step(cfg, tc80, device="cpu")
+    d_cpu = tt.StepDraws(*(None if t is None else t.cpu() for t in (
+        draws.idx, draws.perturb_u, draws.noise_coarse, draws.noise_fine)))
+    m_c, g_c = cpu.loss_and_grad(*trunks(cfg, state, "cpu"), ro_a.cpu(), rd_a.cpu(),
+                                 rgb_a.cpu(), d_cpu)
+    cpu_s = time.perf_counter() - t0
+    cos = {nm: grad_cos(a.cpu(), b) for nm, a, b in zip(names, g_f, g_c)}
+    worst, dl = min(cos, key=cos.get), abs(float(m_f["loss"]) - float(m_c["loss"]))
+    print(f"[levers] trained state, the budget-{LEVER_BUDGET} fused step on the card vs on the "
+          f"CPU (twins, {cpu_s:.1f} s): loss {float(m_f['loss']):.6f} vs "
+          f"{float(m_c['loss']):.6f} (|diff| {dl:.3e}, {dl / abs(float(m_c['loss'])):.3e} of "
+          f"it, limit {TOL_STEP_LOSS_REL:g}); gradient cosine >= {cos[worst]:.6f} "
+          f"({worst})", flush=True)
+    check(dl <= TOL_STEP_LOSS_REL * abs(float(m_c["loss"])),
+          "the budget step's loss on the card disagrees with the CPU")
+    check(cos[worst] >= TOL_STEP_COS, "the budget step's gradient on the card disagrees with "
+          "the CPU")
+    del g_f, g_c, state
+
+    # ---- 7. phase 16's pipeline re-entered with the fast stack
+    exp = pipe["exp"]
+    for d in ("render_train", "render_train_style"):  # keep the exact renders beside
+        os.rename(os.path.join(exp, d), os.path.join(exp, d + "_exact"))
+    argv = pipe["argv"] + ["--proposal_width", "128", "--fine_budget", str(LEVER_BUDGET),
+                           "--coarse_share", str(LEVER_SHARE), "--proposal_steps",
+                           str(PROPOSAL_STEPS)]
+    blocks16 = math.ceil(H * W / BLOCK)
+    blocks_f = math.ceil(H * W / (1 << 15))
+    pipe_launches, pipe_s = {}, {}
+    for flag, want in (("--render_train", {"K1": PIPE_VIEWS * blocks16,
+                                           "K2-W128": PIPE_VIEWS * blocks16}),
+                       ("--render_train_style", {"K4": PIPE_STYLES * PIPE_VIEWS * blocks_f,
+                                                 "K2-W128": PIPE_STYLES * PIPE_VIEWS * blocks_f})):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(cli.main(argv + [flag]) == 0, f"cli {flag} with the fast stack")
+        torch.cuda.synchronize()
+        pipe_s[flag] = time.perf_counter() - t0
+        pipe_launches[flag] = read()
+        check(pipe_launches[flag] == {**zero, **want},
+              f"pipeline {flag} with the fast stack: launch counts {pipe_launches[flag]}, "
+              f"expected {want}")
+    load = lambda p: torch.from_numpy(np.asarray(Image.open(p), np.float32) / 255.0)
+    plain = [agreement_db(load(os.path.join(exp, "render_train", f"rgb_{i:05d}.png")),
+                          load(os.path.join(exp, "render_train_exact", f"rgb_{i:05d}.png")))
+             for i in range(PIPE_VIEWS)]
+    styled = [os.path.join(exp, "render_train_style", f"style_{s:05d}_fine_{f:05d}.png")
+              for s in range(PIPE_STYLES) for f in range(PIPE_VIEWS)]
+    check(all(os.path.exists(p) for p in styled), "the fast-stack stylized frames")
+    print(f"[levers] pipeline re-entered with the fast stack (proposal distilled per run, "
+          f"{PROPOSAL_STEPS} steps): --render_train {pipe_s['--render_train']:.2f} s "
+          f"({PIPE_VIEWS} frames), --render_train_style {pipe_s['--render_train_style']:.2f} s "
+          f"({len(styled)} frames), each with its set-up; plain frames' agreement with phase "
+          f"16's exact renders " + ", ".join(f"{v:.2f}" for v in plain) + " dB PSNR", flush=True)
+
+    row["launches"] = want_fast["K2-W128"]
+    row["launches_stylized"] = want_style["K2-W128"]
+    row["launches_pipeline"] = sum(v["K2-W128"] for v in pipe_launches.values())
+    return row, {"fast_rays_per_s": n / dt_fast, "grid_rays_per_s": n / dt_grid,
+                 "grid_build_s": grid_s, "style_rays_per_s": n / dt_style,
+                 "distill_s": distill_s, "a_steps_per_s": per_seg}
 
 
 def main() -> int:
@@ -2869,6 +3325,8 @@ def main() -> int:
         e_steps_per_s, e_launches, e_rays_per_s = phase_e(
             ks, kg, kst, fa, trained, tmp, os.path.join(tmp, "stylized_c2"), vae_ckpt)
         pipe_launches, pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
+        w128_row, lev = phase_levers(ks, kg, kst, trained, rays_per_s, f_rays_per_s, pipe, tmp,
+                                     card)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
                   launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
@@ -2885,6 +3343,7 @@ def main() -> int:
             row["launches_e"] = e_launches[row["name"]]
     for row in rows:  # phase 16's four pipeline runs
         row["launches_pipeline"] = pipe_launches[row["name"]]
+    rows.append(w128_row)  # phase 17's (its pipeline runs are phase 17's re-entry)
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
@@ -2893,8 +3352,13 @@ def main() -> int:
           f"{c1_steps_per_s:.3f} steps/s; C2 {c2_steps_per_s:.3f} steps/s; C3 after C2 "
           f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s; "
           f"Phase E {e_steps_per_s:.3f} steps/s; trained-field frame {e_rays_per_s:.1f} rays/s; "
-          f"pipeline A→E {pipe['a_to_e_s']:.3f} s, F {pipe['f_s_per_frame']:.3f} s a frame",
-          flush=True)
+          f"pipeline A→E {pipe['a_to_e_s']:.3f} s, F {pipe['f_s_per_frame']:.3f} s a frame; "
+          f"fast-stack frame {lev['fast_rays_per_s']:.1f} rays/s, grid frame "
+          f"{lev['grid_rays_per_s']:.1f} rays/s (built in {lev['grid_build_s']:.3f} s), "
+          f"stylized fast-stack frame {lev['style_rays_per_s']:.1f} rays/s, proposal "
+          f"distilled in {lev['distill_s']:.2f} s; budgeted Phase A steps/s "
+          + ", ".join(f"{'exact' if b is None else b} {v:.2f}"
+                      for b, v in lev["a_steps_per_s"].items()), flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -112,6 +112,25 @@ def test_cuda_k2_engine_tiles_match_twin_and_repeat(cuda_device, p):
     assert torch.equal(sigma, sigma_k1)
 
 
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("p", ENGINE_P)
+def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth):
+    """K2 on the distilled proposal's 128-wide trunk (depth 2 compiled in,
+    3 at run time): its twin, a second launch bit for bit, and the
+    launches counted in ``launches_w128`` alone."""
+    sd = make_nerf(NerfConfig(depth=depth, width=128), torch.Generator().manual_seed(4),
+                   device="cpu").state_dict()
+    packed = tk.pack_nerf_params(sd, depth=depth, width=128, device=cuda_device)
+    pts, _ = _points(p, cuda_device)
+    k2 = tk.fused_nerf_sigma_apply_t
+    before = (k2.launches, k2.launches_w128)
+    sigma, sigma2 = k2(packed, pts), k2(packed, pts)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_w128) == (before[0], before[1] + 2)
+    assert sigma.shape == (1, p) and torch.equal(sigma, sigma2)
+    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
+
+
 @pytest.mark.parametrize("p", [ENGINE_TILE + 1, 132 * ENGINE_TILE + 17])
 def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
     """K1 at a depth and skip other than the configs' 8 and 4 (the kernel

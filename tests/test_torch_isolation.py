@@ -39,7 +39,7 @@ def test_submodule_list_covers_the_slice():
                  "train.transformer2d", "tools.train2d", "ops.rasterize", "train.temporal",
                  "models.vae", "train.vae_trainer", "config", "data.style_dataset",
                  "train.style3d", "train.pipeline", "cli", "utils.video", "utils.io3d",
-                 "tools.jsonl2tb", "tools.import_reference"):
+                 "tools.jsonl2tb", "tools.import_reference", "render.grid", "render.distill"):
         assert f"tgtc_torch.{name}" in mods
 
 

@@ -21,12 +21,26 @@ def _write_jsonl(path, rows):
             f.write(json.dumps(r) + "\n")
 
 
+def _written_order(name):
+    """An event file's (second, writer counter): ``events.out.tfevents.
+    <time>.<host>.<pid>.<counter>``. TensorBoard reads a directory's files
+    by name, so two files of one second whose counters cross a power of
+    ten (``.7``, ``.10``) would read out of the order they were written."""
+    parts = name.split(".")
+    return int(parts[3]), int(parts[-1])
+
+
 def _read_scalars(run_dir):
     from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
 
-    acc = EventAccumulator(run_dir)
-    acc.Reload()
-    return {tag: [(e.step, e.value) for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+    out = {}
+    names = [n for n in os.listdir(run_dir) if n.startswith("events.out.tfevents.")]
+    for name in sorted(names, key=_written_order):
+        acc = EventAccumulator(os.path.join(run_dir, name))
+        acc.Reload()
+        for tag in acc.Tags()["scalars"]:
+            out.setdefault(tag, []).extend((e.step, e.value) for e in acc.Scalars(tag))
+    return out
 
 
 def _runs(out):

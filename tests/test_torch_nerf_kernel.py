@@ -121,5 +121,5 @@ def test_wrappers_take_the_twin_only_on_cpu(full_width):
     narrow = tk.pack_nerf_params(
         nerf_state_dict_from_flax(_params(depth=2, width=64, skips=())),
         depth=2, width=64)
-    with pytest.raises(NotImplementedError, match="width 256"):
+    with pytest.raises(NotImplementedError, match="width 256 .* or 128 \\(K2\\)"):
         tk.fused_nerf_sigma_apply_t(narrow, meta)

@@ -15,8 +15,13 @@
   256² crops; to keep the file inside its time here the test swaps the
   pipeline module's ``TransformerTrainConfig`` and ``TemporalTrainConfig``
   for ones with batch 2 and 32² crops.
-* The options the port has not ported raise ``NotImplementedError`` naming
-  their ROADMAP item.
+* The proposal levers construct, reach their phases as in the JAX
+  pipeline, and exclude each other where JAX's do (``--proposal_width`` with
+  ``--sigma_grid``); a multi-process launch raises ``NotImplementedError``
+  naming 'Multi-GPU'.
+* ``render_plain`` with the fast stack (a distilled proposal, or a density
+  grid, with ``fine_budget`` and ``coarse_share``; the fused renderer's
+  twins forced on the CPU) writes its PNGs.
 """
 
 import dataclasses
@@ -286,12 +291,27 @@ def test_a_to_f_on_the_cpu_then_a_second_run_trains_nothing(private_llff_dir, st
 
 def test_unported_options_raise_naming_their_item(synthetic_llff_dir, style_dir, tmp_path,
                                                   monkeypatch):
+    """The proposal levers, once refused, construct and reach their phases;
+    the two frozen-density proposals exclude each other; a multi-process
+    launch still raises, naming 'Multi-GPU'."""
     base = dict(E2E, basedir=str(tmp_path), datadir=synthetic_llff_dir, styledir=style_dir)
-    levers = "'Proposal levers and sample budgets'"
-    for option, value in (("sigma_grid", 32), ("proposal_width", 128), ("fine_budget", 80),
-                          ("coarse_share", 2), ("train_fine_budget", "80")):
-        with pytest.raises(NotImplementedError, match=f"--{option} .*{levers}"):
-            P.Pipeline(Config(**base, **{option: value}), device="cpu")
+    for option, value in (("sigma_grid", 8), ("proposal_width", 128), ("fine_budget", 6),
+                          ("coarse_share", 2), ("train_fine_budget", "6@10")):
+        pipe = P.Pipeline(Config(**base, **{option: value}), device="cpu")
+        try:
+            assert getattr(pipe.cfg, option) == value
+            assert style_train_config(pipe.cfg, pipe.near, pipe.far).fine_budget == (
+                6 if option == "train_fine_budget" else None)
+        finally:
+            pipe.close()
+    monkeypatch.setattr(P.Pipeline, "_fused_render_ok", lambda self, levers=False: True)
+    both = P.Pipeline(Config(**base, sigma_grid=8, proposal_width=128), device="cpu")
+    try:
+        with pytest.raises(ValueError, match="pick one"):
+            both.render_plain("train")
+    finally:
+        both.close()
+    monkeypatch.undo()
     pipe = P.Pipeline(Config(**base), device="cpu")
     try:
         for env in ({"TGTC_COORDINATOR": "localhost:1234", "TGTC_NUM_PROCESSES": "2",
@@ -311,3 +331,36 @@ def test_unported_options_raise_naming_their_item(synthetic_llff_dir, style_dir,
     finally:
         pipe.close()
     assert not os.path.exists(os.path.join(pipe.exp_dir, "ckpt_nerf", "ckpt_00000025.pt"))
+
+
+@pytest.mark.parametrize("proposal", [dict(proposal_width=128, proposal_steps=5),
+                                      dict(sigma_grid=8)])
+def test_render_plain_with_the_fast_stack_writes_its_pngs(synthetic_llff_dir, style_dir,
+                                                          tmp_path, monkeypatch, capsys,
+                                                          proposal):
+    """``render_plain`` through the fused renderer (its kernels' twins: the
+    eligibility check forced, as on the card) with a distilled proposal or a
+    density grid, ``fine_budget`` 6 of 8 and ``coarse_share`` 2."""
+    monkeypatch.setattr(P.Pipeline, "_fused_render_ok", lambda self, levers=False: True)
+    cfg = Config(**E2E, basedir=str(tmp_path), datadir=synthetic_llff_dir, styledir=style_dir,
+                 fine_budget=6, coarse_share=2, **proposal)
+    pipe = P.Pipeline(cfg, device="cpu")
+    try:
+        out = pipe.render_plain("train")
+        again = pipe._nerf_renderer(*pipe._nerf_setup(), levers=True)
+    finally:
+        pipe.close()
+    n = pipe.scene.poses.shape[0]
+    names = sorted(os.listdir(out))
+    assert [f for f in names if f.startswith("rgb_")] == [f"rgb_{i:05d}.png" for i in range(n)]
+    assert len([f for f in names if f.startswith("depth_")]) == n
+    h, w, _ = pipe.scene.hwf
+    assert np.asarray(Image.open(os.path.join(out, "rgb_00000.png"))).shape == (h, w, 3)
+    printed = capsys.readouterr().out
+    what = "[proposal] distilled D2xW128" if "proposal_width" in proposal else "[grid] 8^3"
+    assert printed.count(what) == 1  # built once a process
+    assert (again.fine_budget, again.coarse_share) == (6, 2)
+    if "proposal_width" in proposal:
+        assert (again.packed_coarse.depth, again.packed_coarse.width) == (2, 128)
+    else:
+        assert again.sigma_grid[0].shape == (8, 8, 8)

@@ -89,13 +89,15 @@ def test_render_image_blocks_pad_the_tail(full_width_params):
         close(blocked[key].numpy(), whole[key].numpy(), atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [{"fine_budget": 80}, {"coarse_share": 2},
-                                {"sigma_grid": object()}])
+@pytest.mark.parametrize("kw", [{"fine_budget": 12}, {"coarse_share": 2}, {"grid": True}])
 def test_unported_options_raise(full_width_params, kw):
-    sd = nerf_state_dict_from_flax(full_width_params[0][1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedNerfRenderer.from_params(sd, sd, RenderSettings(), coarse_rgb=False,
-                                      device="cpu", **kw)
+    """The levers this renderer once refused now render as JAX's do, each
+    alone (tests/test_torch_render_levers.py: the same with a grid, the
+    budget and the share together, and the proposal as coarse net)."""
+    from test_torch_render_levers import plain_vs_jax
+
+    out = plain_vs_jax(full_width_params[0][1], full_width_params[1][1], kw)
+    assert out["rgb"].shape == (64, 3)
 
 
 @pytest.mark.parametrize("perturb,feature_major", [(False, False), (True, False),

@@ -155,14 +155,16 @@ def test_render_image_pads_the_tail_and_seeds_each_block(scene):
         close(blocked[k], whole[k][:40], atol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [{"fine_budget": 80}, {"coarse_share": 2},
-                                {"sigma_grid": object()}, {"proposal": object()}])
+@pytest.mark.parametrize("kw", [{"fine_budget": 12}, {"coarse_share": 2}, {"grid": True},
+                                {"proposal": True}])
 def test_unported_options_raise(scene, kw):
-    sd = nerf_state_dict_from_flax(scene["pc"])
-    sd_c, sd_s = style_state_dicts_from_flax(scene["style"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedStyleRenderer.from_params(sd, sd, sd_c, sd_s, {}, RenderSettings(),
-                                       coarse_rgb=False, device="cpu", **kw)
+    """The levers this renderer once refused now render as JAX's do, each
+    alone (tests/test_torch_render_levers.py combines them)."""
+    from test_torch_render_levers import style_vs_jax
+
+    out = style_vs_jax(dict(pc=scene["pc"], pf=scene["pf"], concat=scene["style"]["concat"],
+                            style=scene["style"]["style"], lat=scene["lat"]), kw)
+    assert out["rgb"].shape == (64, 3)
 
 
 @pytest.fixture(scope="module")

@@ -157,10 +157,12 @@ class Setup:
                                      int(jstate.block))
         pix = jax.random.randint(pix_key, (B,), 0, H * W)
 
+        nf = self.tcfg.fine_budget or NC + NF  # the fine pass's samples a ray
+
         def stream(k):
             ks, kn1, kn2 = jax.random.split(k, 3)
             return (t(jax.random.uniform(ks, (B, NC))),
-                    (t(jax.random.normal(kn1, (B, NC))), t(jax.random.normal(kn2, (B, NC + NF)))))
+                    (t(jax.random.normal(kn1, (B, NC))), t(jax.random.normal(kn2, (B, nf)))))
 
         (u1, n1), (u2, n2) = stream(k1), stream(k2)
         return ts.StyleStepDraws(t(main), t(pix), u1, u2, n1, n2)
@@ -384,10 +386,23 @@ def test_port_draws_repeat_and_depend_on_the_step(f32):
     assert torch.equal(d3.coh_pix, d1.coh_pix) and not torch.equal(d3.main_ids, d1.main_ids)
 
 
-def test_fine_budget_raises(f32):
-    su, _, _ = f32
-    with pytest.raises(NotImplementedError, match="Proposal levers"):
-        ts.make_style_train_step(su.jc[2], su.jf[2], dataclasses.replace(su.tcfg, fine_budget=4))
+def test_fine_budget_raises():
+    """``fine_budget``, once refused, now takes JAX's step: one step with
+    a budget of 12 of 16 from JAX's state after one step (the coherence loss
+    active), held as test_step_matches_jax_with_coherence holds it; a
+    budget outside (0, 16] is refused."""
+    su = Setup(fine_budget=12)
+    s1, _ = su.jax_step(_copy(su.state0))
+    port = su.port_state(s1)
+    draws = su.draws(s1)
+    assert draws.noise_main[1].shape == (B, 12)
+    s2, jm = su.jax_step(_copy(s1))
+    port, m = su.tstep(port, su.tdata, draws)
+    assert float(jm["loss_coh"]) > 0
+    _assert_step_matches("fine_budget 12", su, s1, s2, jm, port, m)
+    with pytest.raises(ValueError, match="fine_budget"):
+        ts.make_style_train_step(su.jc[2], su.jf[2],
+                                 dataclasses.replace(su.tcfg, fine_budget=NC + NF + 1))
 
 
 # ---------------------------------------------------------------- the loop

@@ -32,6 +32,10 @@
   above moves).
 * The budget-schedule grammar agrees with JAX's on tests/test_train_fine_budget.py's
   cases.
+* With ``train_fine_budget`` (12 of 16 eager, 16 of 32 fused): the eager
+  step to the bounds of the plain eager step over 3 steps, the fused step
+  to the fused bounds above, from the same states and draws (the fine
+  noise then ``[B, budget]``).
 """
 
 import dataclasses
@@ -73,7 +77,7 @@ def _jax_draws(key, step, n_rays, c):
     k_idx, k_render = jax.random.split(jax.random.fold_in(key, step))
     idx = jax.random.randint(k_idx, (c.batch_size,), 0, n_rays)
     k_u, k_nc, k_nf = jax.random.split(k_render, 3)
-    b, nc, nf = c.batch_size, c.n_samples, c.n_samples + c.n_samples_fine
+    b, nc, nf = c.batch_size, c.n_samples, c.n_fine_eval
     t = lambda a: torch.from_numpy(np.array(a))
     return tt.StepDraws(
         t(idx).long(), t(jax.random.uniform(k_u, (b, nc))),
@@ -308,11 +312,15 @@ def test_fused_step_supported_and_builders_refuse():
     assert not tt.fused_train_supported(cfg, dataclasses.replace(cfg, depth=6))
     with pytest.raises(ValueError, match="preconditions"):
         tt.make_fused_train_step(NerfConfig(**SMALL), tc, device="cpu")
+    # a training-time budget builds both steps (their parity with JAX's:
+    # test_budget_steps_match_jax); one outside (0, Nc + Nf] is refused
     budget = tt.NerfTrainConfig(train_fine_budget=80)
-    for build in (lambda: tt.make_train_step(budget, device="cpu"),
-                  lambda: tt.make_fused_train_step(cfg, budget, device="cpu")):
-        with pytest.raises(NotImplementedError, match="select_sample_budget"):
-            build()
+    assert budget.n_fine_eval == 80
+    for build in (lambda tc: tt.make_train_step(tc, device="cpu"),
+                  lambda tc: tt.make_fused_train_step(cfg, tc, device="cpu")):
+        assert isinstance(build(budget), tt.TrainStep)
+        with pytest.raises(ValueError, match="train_fine_budget"):
+            build(tt.NerfTrainConfig(train_fine_budget=129))
 
 
 def test_learning_rate_schedule_counts_updates():
@@ -350,3 +358,61 @@ def test_budget_at_step_matches_jax(step):
     seg = jt.parse_budget_schedule("96@100,80@200")
     assert tt.budget_at_step(seg, step) == jt.budget_at_step(seg, step)
     assert tt.budget_at_step(tt.parse_budget_schedule(""), step) == (None, None)
+
+
+@pytest.mark.parametrize("kind", ["eager", "fused"])
+def test_budget_steps_match_jax(kind):
+    """Training-time sample budgets: JAX's step and the port's with the same
+    budget, state and draws."""
+    ro, rd, rgb = _toy_rays(n=64 if kind == "fused" else 512, seed=4)
+    key = jax.random.PRNGKey(5)
+    if kind == "eager":
+        j_cfg = JNerfConfig(compute_dtype=jnp.float32, **SMALL)
+        j_tc = jt.NerfTrainConfig(train_fine_budget=12, **TCFG)
+        t_tc = tt.NerfTrainConfig(train_fine_budget=12, **TCFG)
+        cm, fm, j_state = jt.init_state(jax.random.PRNGKey(0), j_cfg, j_tc)
+        state = _port_state(j_state, NerfConfig(compute_dtype=torch.float32, **SMALL), t_tc)
+        j_step, step = jt.make_train_step(cm, fm, j_tc), tt.make_train_step(t_tc, device="cpu")
+        for s in range(3):
+            draws = _jax_draws(key, s, ro.shape[0], t_tc)
+            assert draws.noise_fine.shape == (TCFG["batch_size"], 12)
+            j_state, jm = j_step(j_state, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(rgb),
+                                 key)
+            state, m = step(state, torch.from_numpy(ro), torch.from_numpy(rd),
+                            torch.from_numpy(rgb), draws=draws)
+            for k in ("loss", "loss_coarse", "loss_fine"):
+                close(m[k], np.asarray(jm[k]), atol=1e-5 * max(1.0, abs(float(jm[k]))))
+        _assert_state_close(state, j_state, TOL_STATE[1], t_tc.lrate)
+        return
+
+    import tgtc.ops.pallas.nerf_mlp_grad as g
+
+    kw = dict(batch_size=8, n_samples=16, n_samples_fine=16, sigma_noise_std=1.0,
+              train_fine_budget=16)
+    j_tc, t_tc = jt.NerfTrainConfig(**kw), tt.NerfTrainConfig(**kw)
+    _, _, j_state = jt.init_state(jax.random.PRNGKey(0), JNerfConfig(), j_tc)
+    state = _port_state(j_state, NerfConfig(), t_tc)
+    orig = g.make_diff_apply
+    try:
+        g.make_diff_apply = lambda *a, **k: orig(*a, **{**k, "interpret": True})
+        j_step = jt.make_fused_train_step(JNerfConfig(), j_tc, tile=128)
+    finally:
+        g.make_diff_apply = orig
+    j_state, jm = j_step(j_state, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(rgb), key)
+    m, grads = tt.make_fused_train_step(NerfConfig(), t_tc, device="cpu").loss_and_grad(
+        state.coarse, state.fine, torch.from_numpy(ro), torch.from_numpy(rd),
+        torch.from_numpy(rgb), _jax_draws(key, 0, ro.shape[0], t_tc))
+    close(m["loss"], np.asarray(jm["loss"]), atol=2e-2)
+    adam = j_state.opt_state[0]
+    names = ([("coarse", n) for n, _ in state.coarse.named_parameters()]
+             + [("fine", n) for n, _ in state.fine.named_parameters()])
+    mu = {w: nerf_state_dict_from_flax(jax.tree.map(np.asarray, adam.mu[w]))
+          for w in ("coarse", "fine")}
+    worst = 1.0
+    for (which, name), got in zip(names, grads):
+        want, got = mu[which][name].double() / 0.1, got.double()
+        cos = float((got * want).sum() / (got.norm() * want.norm() + 1e-30))
+        worst = min(worst, cos)
+        assert cos >= 0.99, (which, name, cos)
+    print(f"[parity] fused step with budget 16 vs JAX: loss {float(m['loss']):.6f} vs "
+          f"{float(jm['loss']):.6f}, min grad cos {worst:.6f}")

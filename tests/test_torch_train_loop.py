@@ -3,6 +3,7 @@ metrics log (tgtc_torch.utils.logging) and ``train_nerf`` on the synthetic
 LLFF scene (tests/synthetic_scene.py), all on the CPU at a tiny width.
 """
 
+import dataclasses
 import json
 import os
 
@@ -127,6 +128,34 @@ def test_train_nerf_learns_checkpoints_and_resumes(scene, tmp_path, monkeypatch)
     # nothing left to do
     _, hist4 = tt.train_nerf(scene, TINY, TCFG, 50, str(tmp_path / "a"), **kw)
     assert hist4 == {"loss": [], "records": []}
+
+
+def test_train_nerf_switches_budget_at_segment_boundaries(scene, tmp_path, monkeypatch):
+    """``budget_schedule`` ("12@3" on 8+8 samples): steps 0-2 evaluate every
+    merged sample, steps 3-5 the budget, with one step function a budget,
+    as the JAX pipeline's Phase-A loop switches them; a resumed run picks
+    the segment of its step."""
+    seen = []
+    call = tt.TrainStep.__call__
+
+    def record(self, state, *a, **k):
+        seen.append((state.step, self.cfg.train_fine_budget))
+        return call(self, state, *a, **k)
+
+    monkeypatch.setattr(tt.TrainStep, "__call__", record)
+    kw = dict(i_print=10, device="cpu", print_fn=None, budget_schedule="12@3")
+    state, hist = tt.train_nerf(scene, TINY, TCFG, 6, str(tmp_path), **kw)
+    assert seen == [(0, None), (1, None), (2, None), (3, 12), (4, 12), (5, 12)]
+    assert all(np.isfinite(hist["loss"])) and state.step == 6
+    seen.clear()
+    tt.train_nerf(scene, TINY, TCFG, 8, str(tmp_path), **kw)
+    assert seen == [(6, 12), (7, 12)]
+    with pytest.raises(ValueError, match="tighten"):
+        tt.train_nerf(scene, TINY, TCFG, 9, str(tmp_path), **{**kw, "budget_schedule":
+                                                               "12@1,14@2"})
+    with pytest.raises(ValueError, match="budget_schedule"):  # one source of the budget
+        tt.train_nerf(scene, TINY, dataclasses.replace(TCFG, train_fine_budget=12), 9,
+                      str(tmp_path), **kw)
 
 
 def test_render_image_pads_the_tail_block():

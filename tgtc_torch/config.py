@@ -124,13 +124,14 @@ class Config:
     coh_lambda_auto: bool = False  # rescale loss_coh_lambda when the Phase-E
     #                                start diagnostic finds the coherence
     #                                gradient above COH_RATIO_WARN x rgb's
-    fine_budget: int = 0           # render-time sample budget: not ported
-    train_fine_budget: str = ""    # training-time budgets: not ported
-    coarse_share: int = 1          # shared coarse proposal: not ported
-    proposal_width: int = 0        # distilled proposal trunk: not ported
-    proposal_depth: int = 2
-    proposal_steps: int = 3000
-    sigma_grid: int = 0            # density-grid proposal: not ported
+    fine_budget: int = 0           # fused renders: fine samples a ray (0 = all)
+    train_fine_budget: str = ""    # Phase A's budget schedule, "96@60000,80@90000";
+    #                                Phase E takes its last segment's budget
+    coarse_share: int = 1          # fused renders: rays sharing one proposal ray
+    proposal_width: int = 0        # fused renders: distilled proposal trunk width
+    proposal_depth: int = 2        #   (0 = off), its depth
+    proposal_steps: int = 3000     #   and its regression steps
+    sigma_grid: int = 0            # fused renders: density-grid proposal, N^3 voxels
     depth_png: str = "full"        # "full", "half" or "off" (Phase F)
     mesh_devices: int = 0          # 0 = all local devices
     seed: int = 0

@@ -10,6 +10,9 @@
 // What bounds them: operations. 1,186,816 FLOP/point for K1 (982,528 for
 // K2) against ~40 bytes of point I/O, far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
+// K2 also runs the distilled proposal's D2xW128 trunk (49,408 FLOP/point,
+// tgtc/render/distill.py): there the 60 sinf/cosf of the encoding weigh as
+// much as the tensor-core work.
 //
 // Both run on the Hopper dense-layer engine (trunk_sm90.cuh): persistent
 // blocks over 128-point tiles, two consumer warpgroups of 64 rows with wgmma
@@ -23,7 +26,9 @@
 // engine's sigma-only kernel (sm90::sigma_kernel): the same trunk and sigma
 // head, nothing after them, so K2's sigma equals K1's bit for bit (phase 1
 // of chip_smoke.py holds it). Depth 8 with skip 4 is compiled in for both;
-// other depths run on a run-time-depth build of each.
+// other depths run on a run-time-depth build of each. K2 also takes a
+// 128-wide trunk (the proposal): depth 2 compiled in, other depths at run
+// time; K1 takes width 256 only (no path runs the proposal's rgb).
 //
 // K1's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
 // 128 KB, h 4 x 16 KB = 64 KB (for the heads), enc(pts) 16 KB, enc(dirs)
@@ -129,15 +134,22 @@ extern "C" int tgtc_nerf_mlp_fwd(const float* pts_t, const float* dirs_t,
 // K1's dynamic shared memory a block, in bytes.
 extern "C" int tgtc_nerf_mlp_fwd_smem() { return K1_SMEM; }
 
-// K2: as tgtc_nerf_mlp_fwd, sigma only. Returns cudaGetLastError() after
-// the launch.
+// K2: as tgtc_nerf_mlp_fwd, sigma only, on a trunk `width` (256 or 128)
+// wide. Returns cudaGetLastError() after the launch.
 extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
                                    const void* w, const float* b,
                                    const long long* offsets, int depth,
-                                   int skip, float* sigma, void* stream) {
+                                   int skip, int width, float* sigma, void* stream) {
   if (depth < 1 || depth + 4 > MAX_LAYERS) return (int)cudaErrorInvalidValue;
   const Layout L = make_layout(offsets, depth + 4);
-  auto launch = depth == 8 && skip == 4 ? sm90::launch_sigma<8, 4> : sm90::launch_sigma<0, 0>;
+  decltype(&sm90::launch_sigma<8, 4>) launch;
+  if (width == W)
+    launch = depth == 8 && skip == 4 ? sm90::launch_sigma<8, 4> : sm90::launch_sigma<0, 0>;
+  else if (width == 128)
+    launch = depth == 2 && skip == 4 ? sm90::launch_sigma<2, 4, 128>
+                                     : sm90::launch_sigma<0, 0, 128>;
+  else
+    return (int)cudaErrorInvalidValue;
   return launch(pts_t, P, w, b, L, depth, skip, sigma, (cudaStream_t)stream);
 }
 

@@ -55,8 +55,12 @@
 //   or a later layer read from shared memory are stored there (st.shared:
 //   the 1 KB alignment arithmetic hides the space from the compiler).
 // * Small heads run on CUDA cores in a fixed order: sigma (256 -> 1) in four
-//   64-column partials (two threads a point, one shuffle), rgb (128 or 256 ->
-//   3) one thread per point and channel.
+//   64-column partials (two threads a point, one shuffle; 128 -> 1 in two),
+//   rgb (128 or 256 -> 3) one thread per point and channel.
+// * The trunk's width is a template argument (TW, W = 256 by default): the
+//   sigma-only kernel also runs the distilled proposal's 128-wide trunk,
+//   whose layers are wgmma m64n128k16 with half the A fragments, the ring's
+//   slots then half filled (boxes of 128 rows).
 // * The sigma-only kernel streams the trunk's depth layers and nothing else
 //   (at D8: K = 64, 256 x 4, 320, 256 x 2, so 30 chunks, 983,040 B, a tile,
 //   half the first design's weight traffic). Its shared memory: the ring,
@@ -80,7 +84,7 @@ namespace tgtc {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int W = 256;   // trunk width (also base_remap width)
+constexpr int W = 256;   // trunk width by default (base_remap's width always)
 constexpr int HW = 128;  // rgb hidden width
 constexpr int FC = 10, FD = 4;
 constexpr int KC = 64;  // 3 + 6*FC = 63, padded
@@ -312,18 +316,21 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 w, float acc) {
   return acc;
 }
 
-// sigma = wsig . h + bsig for this consumer's 64 rows of the 256-wide h
-// (four blocks): two threads a point, each two 64-column partials summed in
-// column order, then (p0 + p1) + (p2 + p3), so that the same h gives the same
-// sigma bit for bit in every kernel.
+// sigma = wsig . h + bsig for this consumer's 64 rows of the TW-wide h
+// (TW / 64 blocks): two threads a point, each TW / 128 64-column partials
+// summed in column order, then (p0 + p1) + (p2 + p3) at TW = 256, so that
+// the same h gives the same sigma bit for bit in every kernel.
+template <int TW = W>
 __device__ __forceinline__ void sigma_head(const uint8_t* h, const bf16* __restrict__ wsig,
                                            float bsig, long long P, long long p0,
                                            float* __restrict__ sigma, int tid) {
+  constexpr int PER = TW / CK / 2;  // blocks a thread
+  static_assert(PER == 1 || PER == 2, "the sigma head takes widths 128 and 256");
   const int r = tid / 2, half = tid % 2;
-  float part[2];
+  float part[PER];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int blk = 2 * half + i;
+  for (int i = 0; i < PER; ++i) {
+    const int blk = PER * half + i;
     float acc = 0.0f;
 #pragma unroll
     for (int cb = 0; cb < 8; ++cb)
@@ -331,7 +338,7 @@ __device__ __forceinline__ void sigma_head(const uint8_t* h, const bf16* __restr
                  __ldg(reinterpret_cast<const uint4*>(wsig + blk * CK + cb * 8)), acc);
     part[i] = acc;
   }
-  float s = part[0] + part[1];
+  float s = PER == 2 ? part[0] + part[PER - 1] : part[0];
   s += __shfl_xor_sync(0xffffffffu, s, 1);
   if (half == 0 && p0 + r < P) sigma[p0 + r] = s + bsig;
 }
@@ -358,14 +365,15 @@ struct NoHook {
 // K4's latents), the depth tensor-core layers with h in registers ([enc(pts)
 // | h] at layer skip + 1), hook(i) after layer i's epilogue (K3 keeps each
 // layer's output and ReLU mask there), h into this consumer's rows of `hs`
-// (four blocks) and sigma on CUDA cores. Leaves act = h (wgmma A fragments)
+// (TW / 64 blocks) and sigma on CUDA cores. TW is the trunk's width. Leaves act = h (wgmma A fragments)
 // for a caller that goes on, and q past the trunk's chunks. DEPTH > 0 fixes
 // depth and skip at compile time (the configs' D8, skip 4), and ptxas then
 // keeps the wgmma pipeline (with run-time depth and skip it serializes it,
 // C7511). UNROLL unrolls the layer loop, as K1, K2 and K5 want; K4 and K3,
 // long kernels, leave it to the compiler. The barrier after the encodings also orders the
 // previous tile's reads of hs (its heads) before this tile's store into it.
-template <int DEPTH, int SKIP, int STAGES, bool UNROLL, class Extra, class Hook = NoHook>
+template <int DEPTH, int SKIP, int STAGES, bool UNROLL, int TW = W, class Extra,
+          class Hook = NoHook>
 __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64], int depth_rt,
                                            int skip_rt, const float* __restrict__ pts_t,
                                            long long P, long long p0, uint8_t* ec, uint8_t* hs,
@@ -383,12 +391,12 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
   bar_sync(bar, 128);
   auto layer = [&](int i) {
     if (i == 0)
-      mma_layer<W, STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, full, empty, q);
+      mma_layer<TW, STAGES, SMEM, KC>(acc, act, s_ec, 0, 0, ring, full, empty, q);
     else if (i == skip + 1)
-      mma_layer<W, STAGES, SMEM, KC, REGS, W>(acc, act, s_ec, 0, 0, ring, full, empty, q);
+      mma_layer<TW, STAGES, SMEM, KC, REGS, TW>(acc, act, s_ec, 0, 0, ring, full, empty, q);
     else
-      mma_layer<W, STAGES, REGS, W>(acc, act, 0, 0, 0, ring, full, empty, q);
-    epilogue<W, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
+      mma_layer<TW, STAGES, REGS, TW>(acc, act, 0, 0, 0, ring, full, empty, q);
+    epilogue<TW, false>(acc, act, b + L.b[i], nullptr, 0.0f, 0.0f, t);
     hook(i);
   };
   if constexpr (UNROLL) {
@@ -397,9 +405,9 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
   } else {
     for (int i = 0; i < depth; ++i) layer(i);
   }
-  store_act<W>(act, smem_u32(hs), warp, g, t);
+  store_act<TW>(act, smem_u32(hs), warp, g, t);
   bar_sync(bar, 128);
-  sigma_head(hs, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
+  sigma_head<TW>(hs, w + L.w[depth + 1], b[L.b[depth + 1]], P, p0, sigma, tid);
 }
 
 // K1's tail of a tile, after trunk_tile (act = h): base_remap, rgb_0 on
@@ -448,8 +456,8 @@ static_assert(SIGMA_KERNEL_SMEM <= 232448, "the sigma kernel's shared memory exc
 
 // K2 and K5: persistent blocks over 128-point tiles, each tile the trunk
 // and sigma (trunk_tile) and nothing after it. The maps and plan list the
-// depth trunk layers.
-template <int DEPTH, int SKIP>
+// depth trunk layers, TW wide.
+template <int DEPTH, int SKIP, int TW = W>
 __global__ void __launch_bounds__(THREADS, 1)
 sigma_kernel(const __grid_constant__ Maps maps, const Plan plan, const float* __restrict__ pts_t,
              long long P, const bf16* __restrict__ w, const float* __restrict__ b, Layout L,
@@ -475,7 +483,7 @@ sigma_kernel(const __grid_constant__ Maps maps, const Plan plan, const float* __
   uint32_t act[64];
   uint32_t q = 0;  // chunks consumed
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
-    trunk_tile<DEPTH, SKIP, SIGMA_KERNEL_STAGES, true>(
+    trunk_tile<DEPTH, SKIP, SIGMA_KERNEL_STAGES, true, TW>(
         acc, act, depth_rt, skip_rt, pts_t, P, tile * ROWS + wg * WG_ROWS, sm.ec + rows,
         sm.h[0] + rows, w, b, L, sigma, ring, sm.full, sm.empty, q, tid, 1 + wg, [] {});
 }
@@ -522,29 +530,30 @@ inline int persistent_grid(long long tiles) {
   return (int)(tiles < sms ? tiles : sms);
 }
 
-// Launches sigma_kernel<DEPTH, SKIP> (DEPTH 0: any depth and skip) on the
-// trunk of a packing whose matrices 0..depth-1 are the trunk layers and
-// depth + 1 the sigma head (pack_nerf_params's and pack_style_params's).
-// Returns cudaGetLastError() after the launch.
-template <int DEPTH, int SKIP>
+// Launches sigma_kernel<DEPTH, SKIP, TW> (DEPTH 0: any depth and skip) on
+// the TW-wide trunk of a packing whose matrices 0..depth-1 are the trunk
+// layers and depth + 1 the sigma head (pack_nerf_params's and
+// pack_style_params's). Returns cudaGetLastError() after the launch.
+template <int DEPTH, int SKIP, int TW = W>
 inline int launch_sigma(const float* pts_t, long long P, const void* w, const float* b,
                         const Layout& L, int depth, int skip, float* sigma,
                         cudaStream_t stream) {
   if (depth < 1 || depth > MAX_MMA) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sigma_kernel<DEPTH, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize, SIGMA_KERNEL_SMEM);
+      sigma_kernel<DEPTH, SKIP, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SIGMA_KERNEL_SMEM);
   if (err != cudaSuccess) return (int)err;
   if (P == 0) return 0;
   Maps maps;
   Plan plan = {};
   for (int i = 0; i < depth; ++i) {
-    plan.k[i] = i == 0 ? KC : (i == skip + 1 ? KC + W : W);
-    plan.n[i] = W;
-    if (!weight_map(&maps.m[i], w, L.w[i], W, plan.k[i])) return (int)cudaErrorInvalidValue;
+    plan.k[i] = i == 0 ? KC : (i == skip + 1 ? KC + TW : TW);
+    plan.n[i] = TW;
+    if (!weight_map(&maps.m[i], w, L.w[i], TW, plan.k[i])) return (int)cudaErrorInvalidValue;
   }
   const int grid = persistent_grid((P + ROWS - 1) / ROWS);
   if (grid <= 0) return (int)cudaErrorInvalidDevice;
-  sigma_kernel<DEPTH, SKIP><<<grid, THREADS, SIGMA_KERNEL_SMEM, stream>>>(
+  sigma_kernel<DEPTH, SKIP, TW><<<grid, THREADS, SIGMA_KERNEL_SMEM, stream>>>(
       maps, plan, pts_t, P, static_cast<const bf16*>(w), b, L, depth, skip, sigma);
   return (int)cudaGetLastError();
 }

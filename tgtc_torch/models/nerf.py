@@ -99,12 +99,11 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
-def _trunk(model: NerfMLP, e_c: torch.Tensor, e_d: torch.Tensor,
-           accum_f32: bool) -> Dict[str, torch.Tensor]:
+def _hidden_sigma(model: NerfMLP, e_c: torch.Tensor, accum_f32: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trunk's last hidden layer (``compute_dtype``) and σ ``[..., 1]``."""
     cfg = model.cfg
     act, cdt = cfg.activation, cfg.compute_dtype
-    f32 = torch.float32
-
     x = e_c.to(cdt)
     h = act(_dense(model.base_layers[0], x, cdt, accum_f32)).to(cdt)
     for i in range(cfg.depth - 1):
@@ -112,9 +111,25 @@ def _trunk(model: NerfMLP, e_c: torch.Tensor, e_d: torch.Tensor,
             h = torch.cat([x, h], dim=-1)
         h = act(_dense(model.base_layers[i + 1], h, cdt, accum_f32)).to(cdt)
 
-    sigma = _dense(model.sigma_layer, h.float(), f32, True)
+    sigma = _dense(model.sigma_layer, h.float(), torch.float32, True)
     if cfg.is_siren:
         sigma = sigma + torch.relu(sigma) * cfg.siren_sigma_mul
+    return h, sigma
+
+
+def nerf_sigma(model: NerfMLP, pts_embed: torch.Tensor) -> torch.Tensor:
+    """σ ``[...]`` of the point-major forward (``model(...)["sigma"]``)
+    without the heads it does not need."""
+    return _hidden_sigma(model, pts_embed, accum_f32=False)[1][..., 0]
+
+
+def _trunk(model: NerfMLP, e_c: torch.Tensor, e_d: torch.Tensor,
+           accum_f32: bool) -> Dict[str, torch.Tensor]:
+    cfg = model.cfg
+    act, cdt = cfg.activation, cfg.compute_dtype
+    f32 = torch.float32
+
+    h, sigma = _hidden_sigma(model, e_c, accum_f32)
 
     base_remap = act(_dense(model.base_remap_layer, h, cdt, accum_f32)).to(cdt)
     rgb_in = (torch.cat([base_remap, e_d.to(cdt)], dim=-1)

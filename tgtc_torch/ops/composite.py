@@ -2,13 +2,14 @@
 
 ``alpha = 1 - exp(-relu(sigma + noise) * delta)``, exclusive-transmittance
 cumprod with ``+1e-10``, a ``1e10`` last interval, expected RGB / depth /
-accumulation and an optional white background. σ noise is an explicit
-tensor of standard-normal draws instead of a PRNG key.
+accumulation and an optional white background; :func:`alpha_composite_wild`
+is the static + transient (NeRF-in-the-Wild) variant. σ noise is an
+explicit tensor of standard-normal draws instead of a PRNG key.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,17 +28,17 @@ def sigma_weights(
 ) -> torch.Tensor:
     """Per-sample compositing weights from (post-noise) density alone.
 
-    ``deltas`` overrides the consecutive-difference interval lengths."""
+    ``deltas`` overrides the consecutive-difference interval lengths: a
+    sample subset (:func:`~tgtc_torch.ops.sampling.select_sample_budget`)
+    keeps each sample's interval from the full set, so dropping a sample
+    equals setting its alpha to 0."""
     if deltas is None:
         delta = t_values[..., 1:] - t_values[..., :-1]
         delta = torch.cat([delta, torch.full_like(delta[..., :1], 1e10)], dim=-1)
     else:
         delta = deltas
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * delta)
-    # exclusive cumulative transmittance: T_i = prod_{j<i} (1 - alpha_j)
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
-    trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
-    return alpha * trans
+    return alpha * _exclusive_trans(alpha)
 
 
 def alpha_composite(
@@ -66,3 +67,50 @@ def alpha_composite(
     if white_bkgd:
         rgb_exp = rgb_exp + (1.0 - acc[..., None])
     return CompositeOutput(rgb=rgb_exp, t_exp=t_exp, weights=weights, acc=acc)
+
+
+def _exclusive_trans(alpha: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumulative transmittance: T_i = prod_{j<i} (1 - alpha_j + 1e-10)."""
+    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    return torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
+
+
+def alpha_composite_wild(
+    rgb: torch.Tensor,
+    sigma: torch.Tensor,
+    t_values: torch.Tensor,
+    transient_rgb: torch.Tensor,
+    transient_sigma: torch.Tensor,
+    transient_beta: torch.Tensor,
+    beta_min: float = 0.03,
+    noise_std: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
+    white_bkgd: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NeRF-in-the-Wild static + transient compositing with a β
+    uncertainty: ``rgb/transient_rgb [R, N, 3]``, ``sigma/transient_sigma
+    [R, N]``, ``transient_beta [R, N, 1]``. ``noise`` (standard normal,
+    shaped like ``sigma``) goes on the static σ only. Returns ``(rgb_exp,
+    t_exp, weights, beta_exp)``."""
+    delta = t_values[..., 1:] - t_values[..., :-1]
+    delta = torch.cat([delta, torch.full_like(delta[..., :1], 1e10)], dim=-1)
+    if noise is not None and noise_std > 0.0:
+        sigma = sigma + noise * noise_std
+
+    sigma_static = torch.relu(sigma)
+    alpha_static = 1.0 - torch.exp(-sigma_static * delta)
+    sigma_tr = torch.relu(transient_sigma)
+    alpha_tr = 1.0 - torch.exp(-sigma_tr * delta)
+    trans_tr = _exclusive_trans(alpha_tr)
+    beta_exp = torch.sum(trans_tr[..., None] * alpha_tr[..., None]
+                         * torch.relu(transient_beta), dim=-2) + beta_min
+
+    alpha_both = 1.0 - torch.exp(-(sigma_static + sigma_tr) * delta)
+    trans_both = _exclusive_trans(alpha_both)
+    rgb_exp = torch.sum(trans_both[..., None] * alpha_static[..., None] * rgb
+                        + trans_both[..., None] * alpha_tr[..., None] * transient_rgb, dim=-2)
+    weights = alpha_both * trans_both
+    t_exp = torch.sum(weights * t_values, dim=-1)
+    if white_bkgd:
+        rgb_exp = rgb_exp + (1.0 - torch.sum(weights, -1)[..., None])
+    return rgb_exp, t_exp, weights, beta_exp

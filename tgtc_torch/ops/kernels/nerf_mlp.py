@@ -9,14 +9,17 @@ use by :mod:`tgtc_torch.ops.kernels._build`):
 * K2 :func:`fused_nerf_sigma_apply_t` replaces the Pallas
   ``fused_nerf_sigma_apply_t`` — the trunk alone, ``pts_t [3, P]`` →
   ``sigma [1, P]``, bit for bit K1's σ (both run the trunk function of the
-  Hopper engine, ``csrc/trunk_sm90.cuh``).
+  Hopper engine, ``csrc/trunk_sm90.cuh``). K2 also takes the distilled
+  proposal's 128-wide trunk (``tgtc_torch.render.distill``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 twin (``*_plain``) only for CPU tensors. The twins follow the kernel's
 arithmetic step by step: the same encoding, bf16 operands (bf16 σ/rgb head
 weights and bf16-rounded biases included), f32 accumulation, bias + ReLU
 in f32 then a bf16 round. ``launches`` on each wrapper counts kernel
-launches and nothing else.
+launches and nothing else; K2's launches on a 128-wide trunk (its own
+instantiation, ``sigma_kernel<2, 4, 128>``) count in ``launches_w128``
+instead.
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 from tgtc_torch.ops.kernels import _build
 
 TRUNK_W = 256  # base_remap and the rgb head's input are 256 wide
-CUDA_WIDTH, CUDA_FREQS = 256, (10, 4)  # the only shape the CUDA kernels take
+CUDA_WIDTH, CUDA_FREQS = 256, (10, 4)  # the shape K1 (and K3) take
+SIGMA_WIDTHS = (CUDA_WIDTH, 128)  # K2's trunk widths: the NeRF's, the proposal's
 
 
 def _round16(n: int) -> int:
@@ -237,13 +241,14 @@ def fused_nerf_apply_t_plain(packed: PackedNerf, pts_t: torch.Tensor,
 # ---------------------------------------------------------------- kernels
 
 
-def _check_cuda(packed: PackedNerf, *points: torch.Tensor) -> int:
-    if (packed.width, (packed.num_freq_coor, packed.num_freq_dir)) != (
-            CUDA_WIDTH, CUDA_FREQS):
+def _check_cuda(packed: PackedNerf, *points: torch.Tensor,
+                widths: Tuple[int, ...] = (CUDA_WIDTH,)) -> int:
+    if packed.width not in widths or (packed.num_freq_coor,
+                                      packed.num_freq_dir) != CUDA_FREQS:
         raise NotImplementedError(
-            "the CUDA NeRF kernels take width 256 with 10/4 frequencies; got "
-            f"width {packed.width}, frequencies {packed.num_freq_coor}/"
-            f"{packed.num_freq_dir} (width 128 is a ROADMAP item)")
+            "the CUDA NeRF kernels take width 256 (K1, K2, K3) or 128 (K2) with "
+            f"10/4 frequencies; got width {packed.width}, frequencies "
+            f"{packed.num_freq_coor}/{packed.num_freq_dir}")
     return check_points(packed, *points)
 
 
@@ -276,7 +281,7 @@ def _nerf_lib() -> ctypes.CDLL:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.tgtc_nerf_mlp_fwd.argtypes = [vp, vp, ll, vp, vp, vp, i, i, vp, vp, vp]
     lib.tgtc_nerf_mlp_fwd.restype = i
-    lib.tgtc_nerf_mlp_sigma.argtypes = [vp, ll, vp, vp, vp, i, i, vp, vp]
+    lib.tgtc_nerf_mlp_sigma.argtypes = [vp, ll, vp, vp, vp, i, i, i, vp, vp]
     lib.tgtc_nerf_mlp_sigma.restype = i
     for smem in (lib.tgtc_nerf_mlp_fwd_smem, lib.tgtc_nerf_mlp_sigma_smem):
         smem.argtypes = []
@@ -310,20 +315,25 @@ def fused_nerf_apply_t(packed: PackedNerf, pts_t: torch.Tensor,
 
 def fused_nerf_sigma_apply_t(packed: PackedNerf, pts_t: torch.Tensor
                              ) -> torch.Tensor:
-    """K2: ``pts_t [3, P]`` f32 → ``sigma [1, P]`` (bitwise equal to K1's)."""
+    """K2: ``pts_t [3, P]`` f32 → ``sigma [1, P]`` (bitwise equal to K1's
+    at width 256); the trunk may be 256 or 128 wide."""
     if pts_t.device.type == "cpu":
         return fused_nerf_sigma_apply_t_plain(packed, pts_t)
-    p = _check_cuda(packed, pts_t)
+    p = _check_cuda(packed, pts_t, widths=SIGMA_WIDTHS)
     lib = _nerf_lib()
     sigma = torch.empty((1, p), dtype=torch.float32, device=pts_t.device)
     stream = torch.cuda.current_stream(pts_t.device).cuda_stream
     rc = lib.tgtc_nerf_mlp_sigma(
         pts_t.data_ptr(), p, packed.w.data_ptr(), packed.b.data_ptr(),
-        _offsets(packed), packed.depth, packed.skip, sigma.data_ptr(), stream)
+        _offsets(packed), packed.depth, packed.skip, packed.width, sigma.data_ptr(), stream)
     _raise_on(rc, "tgtc_nerf_mlp_sigma")
-    fused_nerf_sigma_apply_t.launches += 1
+    if packed.width == CUDA_WIDTH:
+        fused_nerf_sigma_apply_t.launches += 1
+    else:
+        fused_nerf_sigma_apply_t.launches_w128 += 1
     return sigma
 
 
 fused_nerf_apply_t.launches = 0
 fused_nerf_sigma_apply_t.launches = 0
+fused_nerf_sigma_apply_t.launches_w128 = 0

@@ -8,6 +8,12 @@
   this port calls, followed by ``gather``.
 * :func:`merge_and_resample_fine` — resample from coarse weights, merge
   with the coarse depths and sort.
+* :func:`merge_two_sorted` — merge two per-row sorted arrays by rank
+  (``searchsorted`` and a scatter; the JAX version places them with
+  one-hot matmuls).
+* :func:`select_sample_budget` — keep each ray's ``budget`` merged samples
+  of highest estimated weight (a stable descending sort, so ties resolve
+  as ``jax.lax.top_k`` resolves them: the lower index first).
 
 Random draws are explicit tensors (``u``) so callers choose the generator.
 """
@@ -17,6 +23,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from tgtc_torch.ops.composite import sigma_weights
 
 
 def sample_along_rays_uniform(
@@ -32,6 +40,21 @@ def sample_along_rays_uniform(
 
     ``u [R, N]`` in [0, 1): if given, jitter each depth uniformly within
     its bin. Returns ``pts [R, N, 3]``, ``ts [R, N]``."""
+    ts = stratified_depths(rays_o, n_samples, near, far, harmony, u)
+    pts = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
+    return pts, ts
+
+
+def stratified_depths(
+    rays_o: torch.Tensor,
+    n_samples: int,
+    near: float = 0.0,
+    far: float = 1.05,
+    harmony: bool = False,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The depths ``ts [R, N]`` of :func:`sample_along_rays_uniform`
+    without its points (``rays_o`` gives R, dtype and device)."""
     r = rays_o.shape[0]
     ts = torch.linspace(0.0, 1.0, n_samples, dtype=rays_o.dtype,
                         device=rays_o.device)
@@ -46,9 +69,7 @@ def sample_along_rays_uniform(
         upper = torch.cat([mid, ts[..., -1:]], dim=-1)
         lower = torch.cat([ts[..., :1], mid], dim=-1)
         ts = lower + (upper - lower) * u
-
-    pts = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
-    return pts, ts
+    return ts
 
 
 def sample_pdf(
@@ -107,3 +128,67 @@ def merge_and_resample_fine(
     t_all = t_all.detach()
     pts = rays_o[..., None, :] + rays_d[..., None, :] * t_all[..., None]
     return pts, t_all
+
+
+def merge_two_sorted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge per-row sorted ``a [R, Na]`` and ``b [R, Nb]`` into a sorted
+    ``[R, Na + Nb]``: each element's slot is its index plus the count of
+    smaller elements in the other array, ties placing ``a`` first."""
+    a, b = a.contiguous(), b.contiguous()
+    na, nb = a.shape[-1], b.shape[-1]
+    pos_a = torch.arange(na, device=a.device) + torch.searchsorted(b, a, right=False)
+    pos_b = torch.arange(nb, device=a.device) + torch.searchsorted(a, b, right=True)
+    out = a.new_empty(a.shape[:-1] + (na + nb,))
+    return out.scatter_(-1, pos_a, a).scatter_(-1, pos_b, b)
+
+
+def top_k_indices(score: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of each row's ``k`` largest scores in ``jax.lax.top_k``'s
+    order: descending, equal scores by ascending index (``torch.topk``
+    promises no order among ties, and empty space scores many samples
+    exactly 0)."""
+    return torch.sort(score, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def select_sample_budget(
+    ts_all: torch.Tensor,
+    ts_coarse: torch.Tensor,
+    sigma_coarse: torch.Tensor,
+    budget: int,
+    grid: Optional[Tuple[float, float]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Keep each ray's ``budget`` merged samples of highest estimated
+    compositing weight, in depth order.
+
+    Each merged depth ``ts_all [R, M]`` takes the σ of its coarse interval
+    (``sigma_coarse [R, Nc]`` at ``ts_coarse [R, Nc]``), the quadrature
+    (:func:`sigma_weights`) scores it, and the top ``budget`` are kept
+    (:func:`top_k_indices`). The score takes no gradient. Returns
+    ``(ts_kept, deltas_kept)``, both ``[R, budget]``: the deltas are each
+    kept sample's interval in the full set, so compositing the subset with
+    them equals the full composite with the dropped alphas set to 0.
+
+    ``grid=(near, far)``: only when ``ts_coarse`` is the unperturbed
+    linspace over that range; the coarse interval is then a floor instead
+    of a search (``+1e-4`` bin keeps a sample on a grid point in its own
+    bin)."""
+    r, m = ts_all.shape
+    nc = ts_coarse.shape[-1]
+    if not 0 < budget <= m:
+        raise ValueError(f"budget {budget} must be in (0, {m}]")
+    if grid is not None:
+        near, far = grid
+        step = (far - near) / (nc - 1)
+        idx_bin = torch.floor((ts_all - near) / step + 1e-4).long()
+    else:
+        # the coarse interval of each merged sample: count(ts_coarse <= t) - 1
+        idx_bin = torch.searchsorted(ts_coarse.contiguous(), ts_all.contiguous(),
+                                     right=True) - 1
+    idx_bin = idx_bin.clamp(0, nc - 1)
+    sigma_est = torch.gather(sigma_coarse, -1, idx_bin)
+    score = sigma_weights(sigma_est, ts_all).detach()
+    keep = torch.sort(top_k_indices(score, budget), dim=-1).values  # depth order
+
+    deltas = ts_all[..., 1:] - ts_all[..., :-1]
+    deltas = torch.cat([deltas, torch.full_like(deltas[..., :1], 1e10)], dim=-1)
+    return torch.gather(ts_all, -1, keep), torch.gather(deltas, -1, keep)

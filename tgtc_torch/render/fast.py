@@ -1,14 +1,25 @@
 """Fused bulk render: CUDA trunk kernels + PyTorch sampling/compositing.
 
-Port of tgtc/render/fast.py — the Phase-B geometry dump and bench path:
+Port of tgtc/render/fast.py — the plain renders, the Phase-B geometry dump
+and the bench path:
 
     stratified sample → K2 σ-only (or K1) coarse → composite weights →
     inverse-CDF resample → K1 fine → composite
 
 Points are built feature-major ``[3, R*S]`` straight from the ray tensors,
-the layout the kernels take. ``fine_budget``, ``coarse_share`` and
-``grid_spec`` are not ported yet and raise; the sharded renderer waits for
-the multi-GPU slice.
+the layout the kernels take. The proposal levers of the JAX package:
+
+* ``fine_budget`` — K1 evaluates only each ray's ``fine_budget`` merged
+  samples of highest estimated weight
+  (:func:`~tgtc_torch.ops.sampling.select_sample_budget`);
+* ``coarse_share`` — the proposal runs on every ``coarse_share``-th ray and
+  its depths serve each group of consecutive rays;
+* ``grid_spec`` — σ of the proposal is gathered from a voxel snapshot
+  (:mod:`tgtc_torch.render.grid`) and no coarse trunk runs;
+* a distilled proposal (:mod:`tgtc_torch.render.distill`) is the coarse
+  net: its packing carries its own depth and width (K2 at width 128).
+
+The sharded renderer waits for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -26,23 +37,9 @@ from tgtc_torch.ops.kernels.nerf_mlp import (
     fused_nerf_sigma_apply_t,
     pack_nerf_params,
 )
-from tgtc_torch.ops.sampling import sample_along_rays_uniform, sample_pdf
+from tgtc_torch.ops.sampling import sample_pdf, select_sample_budget, stratified_depths
+from tgtc_torch.render.grid import GridSpec, sample_sigma_grid
 from tgtc_torch.render.volume import RenderSettings
-
-_LEVERS = "ROADMAP.md queue 1, 'Proposal levers and sample budgets'"
-_NOT_PORTED = {
-    "fine_budget": f"{_LEVERS}: fine_budget / select_sample_budget",
-    "coarse_share": f"{_LEVERS}: coarse_share",
-    "grid_spec": f"{_LEVERS}: density-grid proposal",
-}
-
-
-def _reject_unported(fine_budget, coarse_share, grid_spec) -> None:
-    for name, given in (("fine_budget", fine_budget is not None),
-                        ("coarse_share", coarse_share != 1),
-                        ("grid_spec", grid_spec is not None)):
-        if given:
-            raise NotImplementedError(f"{name} is not ported yet ({_NOT_PORTED[name]})")
 
 
 def _points_t(rays_o: torch.Tensor, rays_d: torch.Tensor, ts: torch.Tensor,
@@ -58,46 +55,103 @@ def _points_t(rays_o: torch.Tensor, rays_d: torch.Tensor, ts: torch.Tensor,
     return pts, dirs
 
 
+def check_levers(settings: RenderSettings, coarse_rgb: bool, fine_budget: Optional[int],
+                 coarse_share: int, proposal: bool = False) -> Optional[int]:
+    """The JAX package's checks of the proposal levers; returns the budget,
+    None when it keeps every merged sample (the exact path). ``proposal``:
+    a frozen-density proposal (grid or distilled) is in use."""
+    nf = settings.n_samples + settings.n_samples_fine
+    if fine_budget is not None and not 0 < fine_budget <= nf:
+        raise ValueError(f"fine_budget {fine_budget} not in (0, {nf}]")
+    if coarse_share < 1:
+        raise ValueError(f"coarse_share {coarse_share} must be >= 1")
+    if coarse_share > 1 and coarse_rgb:
+        raise ValueError("coarse_share > 1 requires coarse_rgb=False: the shared coarse pass "
+                         "is a sampling proposal, not a per-ray coarse image")
+    if proposal and coarse_rgb:
+        raise ValueError("a frozen-density proposal (grid_spec, proposal) requires "
+                         "coarse_rgb=False: it has no coarse radiance")
+    return None if fine_budget == nf else fine_budget
+
+
+def coarse_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, coarse_share: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The proposal's rays: every ``coarse_share``-th ray, contiguous."""
+    if rays_o.shape[0] % coarse_share:
+        raise ValueError(f"ray count {rays_o.shape[0]} not divisible by coarse_share "
+                         f"{coarse_share}")
+    if coarse_share == 1:
+        return rays_o, rays_d
+    return rays_o[::coarse_share].contiguous(), rays_d[::coarse_share].contiguous()
+
+
+def share_depths(x: Optional[torch.Tensor], coarse_share: int) -> Optional[torch.Tensor]:
+    """A proposal ray's ``[Rc, K]`` row for each of its group's
+    ``coarse_share`` rays: ``[Rc * coarse_share, K]``."""
+    if x is None or coarse_share == 1:
+        return x
+    rc, k = x.shape
+    return x[:, None, :].expand(rc, coarse_share, k).reshape(rc * coarse_share, k)
+
+
 def make_fused_render_fn(
     settings: RenderSettings,
     coarse_rgb: bool = True,
     fine_budget: Optional[int] = None,
     coarse_share: int = 1,
-    grid_spec=None,
+    grid_spec: Optional[GridSpec] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """``(packed_coarse, packed_fine, rays_o, rays_d) -> outputs`` using the
-    fused trunk kernels for both passes. ``coarse_rgb=False`` runs the
-    σ-only kernel on the coarse pass (the fine image is identical)."""
-    _reject_unported(fine_budget, coarse_share, grid_spec)
+    """``(packed_coarse, packed_fine, rays_o, rays_d, grid_values=None) ->
+    outputs`` using the fused trunk kernels for both passes.
+    ``coarse_rgb=False`` runs the σ-only kernel on the coarse pass (the fine
+    image is identical). ``grid_spec``: the coarse σ is gathered from
+    ``grid_values [Gx, Gy, Gz]`` and ``packed_coarse`` is not read. The ray
+    count must divide by ``coarse_share``."""
+    budget = check_levers(settings, coarse_rgb, fine_budget, coarse_share,
+                          grid_spec is not None)
     nc, nf = settings.n_samples, settings.n_samples_fine
 
     @torch.no_grad()
-    def render(pc: PackedNerf, pf: PackedNerf, rays_o: torch.Tensor,
-               rays_d: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def render(pc: Optional[PackedNerf], pf: PackedNerf, rays_o: torch.Tensor,
+               rays_d: torch.Tensor,
+               grid_values: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         r = rays_o.shape[0]
-        _, ts = sample_along_rays_uniform(rays_o, rays_d, nc,
-                                          near=settings.near, far=settings.far)
-        pt, dt = _points_t(rays_o, rays_d, ts, with_dirs=coarse_rgb)
-        if coarse_rgb:
+        ro_c, rd_c = coarse_rays(rays_o, rays_d, coarse_share)
+        rc = ro_c.shape[0]
+        ts = stratified_depths(ro_c, nc, near=settings.near, far=settings.far)
+        if grid_spec is not None:
+            sigma_c = sample_sigma_grid(grid_values, grid_spec,
+                                        ro_c[:, None, :] + ts[..., None] * rd_c[:, None, :])
+            weights_c = sigma_weights(sigma_c, ts)
+        elif coarse_rgb:
+            pt, dt = _points_t(ro_c, rd_c, ts)
             rgb_t, sigma_t = fused_nerf_apply_t(pc, pt, dt)
-            comp_c = alpha_composite(rgb_t.reshape(3, r, nc).permute(1, 2, 0),
-                                     sigma_t.reshape(r, nc), ts,
+            sigma_c = sigma_t.reshape(rc, nc)
+            comp_c = alpha_composite(rgb_t.reshape(3, rc, nc).permute(1, 2, 0), sigma_c, ts,
                                      white_bkgd=settings.white_bkgd)
             weights_c = comp_c.weights
         else:
-            sigma_c = fused_nerf_sigma_apply_t(pc, pt).reshape(r, nc)
+            pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
+            sigma_c = fused_nerf_sigma_apply_t(pc, pt).reshape(rc, nc)
             weights_c = sigma_weights(sigma_c, ts)
 
         ts_mid = 0.5 * (ts[..., 1:] + ts[..., :-1])
         t_new = sample_pdf(ts_mid, weights_c[..., 1:-1], nf)
         ts_f = torch.sort(torch.cat([ts, t_new], dim=-1), dim=-1).values
+        deltas_f = None
+        if budget is not None:
+            # grid= holds: these coarse depths are the unperturbed linspace
+            ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, budget,
+                                                  grid=(settings.near, settings.far))
+        ts_f = share_depths(ts_f, coarse_share)
+        deltas_f = share_depths(deltas_f, coarse_share)
 
+        n_eval = ts_f.shape[1]
         ptf, dtf = _points_t(rays_o, rays_d, ts_f)
         rgb_t, sigma_t = fused_nerf_apply_t(pf, ptf, dtf)
-        n_eval = nc + nf
         comp_f = alpha_composite(rgb_t.reshape(3, r, n_eval).permute(1, 2, 0),
                                  sigma_t.reshape(r, n_eval), ts_f,
-                                 white_bkgd=settings.white_bkgd)
+                                 white_bkgd=settings.white_bkgd, deltas=deltas_f)
         out = {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp, "acc": comp_f.acc}
         if coarse_rgb:
             out["rgb_coarse"] = comp_c.rgb
@@ -109,21 +163,27 @@ def make_fused_render_fn(
 
 @dataclasses.dataclass
 class FusedNerfRenderer:
-    """Packed kernel weights for coarse+fine. Build from ``NerfMLP`` state
+    """Packed kernel weights for coarse+fine, the levers and the grid
+    (``sigma_grid``: ``(values, GridSpec)``). Build from ``NerfMLP`` state
     dicts with :meth:`from_params`; call :meth:`render` on flat ray blocks
     or :meth:`render_image` on any ray count."""
 
-    packed_coarse: PackedNerf
+    packed_coarse: Optional[PackedNerf]  # None with the grid
     packed_fine: PackedNerf
     settings: RenderSettings
     coarse_rgb: bool = True
+    fine_budget: Optional[int] = None
+    coarse_share: int = 1
+    sigma_grid: Optional[Tuple[torch.Tensor, GridSpec]] = None
 
     def __post_init__(self):
-        self._fn = make_fused_render_fn(self.settings, self.coarse_rgb)
+        self._fn = make_fused_render_fn(self.settings, self.coarse_rgb, self.fine_budget,
+                                        self.coarse_share,
+                                        self.sigma_grid[1] if self.sigma_grid else None)
 
     @property
     def device(self) -> torch.device:
-        return self.packed_coarse.w.device
+        return self.packed_fine.w.device
 
     @classmethod
     def from_params(
@@ -140,25 +200,29 @@ class FusedNerfRenderer:
         coarse_rgb: bool = True,
         fine_budget: Optional[int] = None,
         coarse_share: int = 1,
-        sigma_grid=None,
+        sigma_grid: Optional[Tuple[torch.Tensor, GridSpec]] = None,
         skip: int = 4,
         device: DeviceLike = None,
     ) -> "FusedNerfRenderer":
-        """``params_*``: ``NerfMLP`` state dicts (see tgtc_torch.convert)."""
-        _reject_unported(fine_budget, coarse_share, sigma_grid)
+        """``params_*``: ``NerfMLP`` state dicts (see tgtc_torch.convert);
+        the coarse net may be a distilled proposal (its ``depth`` and
+        ``width``); with ``sigma_grid`` it is not packed."""
         dev = resolve_device(device)
-        pc = pack_nerf_params(params_coarse, depth=depth, skip=skip,
-                              num_freq_coor=num_freq_coor,
-                              num_freq_dir=num_freq_dir, width=width, device=dev)
+        pc = None if sigma_grid is not None else pack_nerf_params(
+            params_coarse, depth=depth, skip=skip, num_freq_coor=num_freq_coor,
+            num_freq_dir=num_freq_dir, width=width, device=dev)
         pf = pack_nerf_params(params_fine, depth=depth_fine or depth, skip=skip,
                               num_freq_coor=num_freq_coor,
                               num_freq_dir=num_freq_dir,
                               width=width_fine or width, device=dev)
-        return cls(pc, pf, settings, coarse_rgb=coarse_rgb)
+        if sigma_grid is not None:
+            sigma_grid = (sigma_grid[0].to(dev), sigma_grid[1])
+        return cls(pc, pf, settings, coarse_rgb, fine_budget, coarse_share, sigma_grid)
 
     def render(self, rays_o: torch.Tensor, rays_d: torch.Tensor
                ) -> Dict[str, torch.Tensor]:
-        return self._fn(self.packed_coarse, self.packed_fine, rays_o, rays_d)
+        grid = self.sigma_grid[0] if self.sigma_grid else None
+        return self._fn(self.packed_coarse, self.packed_fine, rays_o, rays_d, grid)
 
     def render_image(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                      block: int = 16384) -> Dict[str, torch.Tensor]:

@@ -40,10 +40,13 @@ def style_forward(
     noise_std: float = 0.0,
     noise: Optional[torch.Tensor] = None,
     with_sigma: bool = False,
+    deltas: Optional[torch.Tensor] = None,
 ) -> Tuple[CompositeOutput, ...]:
     """Returns ``(composite, weights)``, plus the raw trunk σ ``[R, S]`` when
     ``with_sigma``. ``noise [R, S]``: standard-normal σ-noise draws, scaled
-    by ``noise_std``. The trunk is frozen: no gradient reaches it."""
+    by ``noise_std``; ``deltas``: the intervals of a sample subset
+    (``ops.sampling.select_sample_budget``). The trunk is frozen: no
+    gradient reaches it."""
     r, s = ts.shape
     pts = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
     dirs = rays_d[:, None, :].expand(pts.shape)
@@ -60,7 +63,7 @@ def style_forward(
     concated = torch.cat([base_remap, concat_features], dim=-1)
     rgb = style_model(pts_embed, concated, lat_scalar)
 
-    comp = alpha_composite(rgb, sigma, ts, noise_std=noise_std, noise=noise)
+    comp = alpha_composite(rgb, sigma, ts, noise_std=noise_std, noise=noise, deltas=deltas)
     if with_sigma:
         return comp, comp.weights, sigma
     return comp, comp.weights

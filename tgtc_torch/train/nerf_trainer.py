@@ -16,10 +16,12 @@ the Phase-A loop of ``Pipeline.train_nerf`` (tgtc/train/pipeline.py:263-385).
   update ``n`` counted from 0 (optax's count); ``steps_per_opt > 1``
   averages the micro-steps' gradients (Welford, as ``optax.MultiSteps``)
   and updates once.
-* Not ported: the K-step ``lax.scan`` dispatch (a TPU workaround) and
-  training-time ``train_fine_budget``, which raises until
-  ``select_sample_budget`` is ported (ROADMAP.md queue 1, 'Proposal
-  levers and sample budgets').
+* ``train_fine_budget``: the fine pass evaluates only each ray's budget of
+  merged samples (``ops.sampling.select_sample_budget``, scored from the
+  raw coarse σ without a gradient) and composites them with their
+  full-set intervals; :func:`train_nerf` switches budgets at the segment
+  boundaries of a schedule (:func:`parse_budget_schedule`).
+* Not ported: the K-step ``lax.scan`` dispatch (a TPU workaround).
 """
 
 from __future__ import annotations
@@ -41,15 +43,17 @@ from tgtc_torch.ops.kernels.nerf_mlp_grad import (
     pack_nerf_params_traceable,
 )
 from tgtc_torch.ops.losses import img2mse, mse2psnr
-from tgtc_torch.ops.sampling import merge_and_resample_fine, sample_along_rays_uniform
+from tgtc_torch.ops.sampling import (
+    merge_and_resample_fine,
+    sample_along_rays_uniform,
+    select_sample_budget,
+)
 from tgtc_torch.render.fast import _points_t
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer
 from tgtc_torch.utils.seeds import step_seed
 
-_BUDGET_NOT_PORTED = ("train_fine_budget is not ported yet (ROADMAP.md queue 1, 'Proposal "
-                      "levers and sample budgets': select_sample_budget)")
 CKPT_EVERY = 500  # steps between Phase-A checkpoints (tgtc/train/pipeline.py:377)
 PROFILE_STEPS = 20  # steps traced under profile_dir (tgtc/train/pipeline.py:366)
 
@@ -66,7 +70,17 @@ class NerfTrainConfig:
     far: float = 1.0
     white_bkgd: bool = False
     steps_per_opt: int = 1  # gradient accumulation over this many micro-steps
-    train_fine_budget: Optional[int] = None  # not ported yet: raises
+    train_fine_budget: Optional[int] = None  # fine samples a ray kept (None: all)
+
+    @property
+    def n_fine_eval(self) -> int:
+        """Samples a ray of the fine pass evaluates when training."""
+        m = self.n_samples + self.n_samples_fine
+        if self.train_fine_budget is None:
+            return m
+        if not 0 < self.train_fine_budget <= m:
+            raise ValueError(f"train_fine_budget {self.train_fine_budget} not in (0, {m}]")
+        return self.train_fine_budget
 
     def render_settings(self, perturb: bool) -> RenderSettings:
         return RenderSettings(
@@ -144,7 +158,8 @@ def init_state(generator: torch.Generator, nerf_cfg: NerfConfig,
 class StepDraws:
     """One step's random numbers: batch indices ``[B]``, coarse-depth
     jitter ``[B, Nc]`` in [0, 1), standard-normal σ noise ``[B, Nc]`` and
-    ``[B, Nc + Nf]`` (None when ``sigma_noise_std`` is 0)."""
+    ``[B, n_fine_eval]`` (``Nc + Nf``, or the budget; None when
+    ``sigma_noise_std`` is 0)."""
 
     idx: torch.Tensor
     perturb_u: torch.Tensor
@@ -168,7 +183,7 @@ class TrainStep:
 
     def draw(self, n_rays: int, generator: Optional[torch.Generator] = None) -> StepDraws:
         c = self.cfg
-        b, nc, nf = c.batch_size, c.n_samples, c.n_samples + c.n_samples_fine
+        b, nc, nf = c.batch_size, c.n_samples, c.n_fine_eval
         kw = dict(generator=generator, device=self.device)
         idx = torch.randint(0, n_rays, (b,), **kw)
         u = torch.rand((b, nc), **kw)
@@ -226,8 +241,7 @@ class TrainStep:
 def make_train_step(train_cfg: NerfTrainConfig, device: DeviceLike = None) -> TrainStep:
     """The eager Phase-A step on ``device`` (default the card): autograd
     through ``render_rays`` in each trunk's ``compute_dtype``."""
-    if train_cfg.train_fine_budget is not None:
-        raise NotImplementedError(_BUDGET_NOT_PORTED)
+    train_cfg.n_fine_eval  # checks the budget
     settings = train_cfg.render_settings(perturb=True)
 
     def loss_fn(coarse, fine, b_o, b_d, b_rgb, dr: StepDraws):
@@ -267,30 +281,35 @@ def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
             "make_fused_train_step preconditions not met (relu trunk, use_viewdir, "
             "skips=(4,), fine dims == coarse dims, width 256 with 10/4 frequencies) "
             "— check fused_train_supported() before calling, or use make_train_step()")
-    if train_cfg.train_fine_budget is not None:
-        raise NotImplementedError(_BUDGET_NOT_PORTED)
     s = train_cfg
+    s.n_fine_eval  # checks the budget
+    budget = s.train_fine_budget
     kw = dict(depth=nerf_cfg.depth, num_freq_coor=nerf_cfg.embed_freq_coor,
               num_freq_dir=nerf_cfg.embed_freq_dir, skip=nerf_cfg.skips[0],
               width=nerf_cfg.width)
 
-    def run_pass(model, b_o, b_d, ts, noise):
+    def run_pass(model, b_o, b_d, ts, noise, deltas=None):
         r, n = ts.shape
         packed = pack_nerf_params_traceable(dict(model.named_parameters()), **kw)
         pt, dt = _points_t(b_o, b_d, ts)
         rgb_t, sigma_t = fused_nerf_apply_diff(packed, pt, dt)
-        return alpha_composite(rgb_t.reshape(3, r, n).permute(1, 2, 0), sigma_t.reshape(r, n),
-                               ts, noise_std=s.sigma_noise_std, noise=noise,
-                               white_bkgd=s.white_bkgd)
+        sigma = sigma_t.reshape(r, n)
+        return alpha_composite(rgb_t.reshape(3, r, n).permute(1, 2, 0), sigma, ts,
+                               noise_std=s.sigma_noise_std, noise=noise,
+                               white_bkgd=s.white_bkgd, deltas=deltas), sigma
 
     def loss_fn(coarse, fine, b_o, b_d, b_rgb, dr: StepDraws):
         _, ts = sample_along_rays_uniform(b_o, b_d, s.n_samples, near=s.near, far=s.far,
                                           u=dr.perturb_u)
-        comp_c = run_pass(coarse, b_o, b_d, ts, dr.noise_coarse)
+        comp_c, sigma_c = run_pass(coarse, b_o, b_d, ts, dr.noise_coarse)
         # the fine depths are not differentiated (stop_gradient in JAX)
         _, ts_f = merge_and_resample_fine(b_o, b_d, ts, comp_c.weights.detach(),
                                           s.n_samples_fine)
-        comp_f = run_pass(fine, b_o, b_d, ts_f, dr.noise_fine)
+        deltas_f = None
+        if budget is not None:
+            # scored from the raw (pre-noise) coarse σ; no grid=: perturbed depths
+            ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c.detach(), budget)
+        comp_f, _ = run_pass(fine, b_o, b_d, ts_f, dr.noise_fine, deltas_f)
         return img2mse(comp_c.rgb, b_rgb), img2mse(comp_f.rgb, b_rgb)
 
     return TrainStep(loss_fn, train_cfg, device)
@@ -425,11 +444,15 @@ def train_nerf(
     fused: bool = True,
     reload: bool = True,
     profile_dir: str = "",
+    budget_schedule: str = "",
 ) -> Tuple[NerfTrainState, Dict[str, list]]:
     """Phase A on ``scene`` (an ``LlffScene``) up to ``steps`` steps,
     resuming from the latest checkpoint under ``out_dir/ckpt_dir`` (unless
-    ``reload`` is False), which keeps the newest ``max_to_keep``. A
-    ``train_cfg.train_fine_budget`` raises (not ported yet).
+    ``reload`` is False), which keeps the newest ``max_to_keep``. The fine
+    budget follows ``budget_schedule`` alone (the ``--train_fine_budget``
+    grammar of :func:`parse_budget_schedule`, a fixed budget being ``"N"``:
+    one step function a budget, switched at the segment boundaries);
+    ``train_cfg.train_fine_budget`` must be None.
 
     The step is fused (K1 + K3) exactly when ``fused`` is set, the device is
     a card and :func:`fused_train_supported` holds, else eager. The host
@@ -443,6 +466,10 @@ def train_nerf(
     [logged lines]}``; a record is its JSONL line, step included, and its
     ``steps_per_s`` covers the steps since the previous record.
     """
+    if train_cfg.train_fine_budget is not None:
+        raise ValueError("train_nerf takes its fine budget from budget_schedule "
+                         f"(e.g. '{train_cfg.train_fine_budget}'), not from train_cfg")
+    segments = parse_budget_schedule(budget_schedule)
     dev = resolve_device(device)
     state = init_state(torch.Generator().manual_seed(seed), nerf_cfg, train_cfg, fine_cfg,
                        device=dev)
@@ -463,9 +490,16 @@ def train_nerf(
     use_fused = fused and dev.type == "cuda" and fused_train_supported(nerf_cfg, fine_cfg)
     if print_fn is not None:
         print_fn(f"[train] {'fused trunk (K1 + K3)' if use_fused else 'eager'} step, "
-                 f"{rays_o.shape[0]} rays on {dev}")
-    step_fn = (make_fused_train_step(nerf_cfg, train_cfg, fine_cfg, dev) if use_fused
-               else make_train_step(train_cfg, dev))
+                 f"{rays_o.shape[0]} rays on {dev}"
+                 + (f"; fine-budget schedule {segments}" if budget_schedule else ""))
+    step_fns: Dict[Optional[int], TrainStep] = {}
+
+    def step_for(budget: Optional[int]) -> TrainStep:
+        if budget not in step_fns:
+            tc = dataclasses.replace(train_cfg, train_fine_budget=budget)
+            step_fns[budget] = (make_fused_train_step(nerf_cfg, tc, fine_cfg, dev)
+                                if use_fused else make_train_step(tc, dev))
+        return step_fns[budget]
 
     logger = MetricsLogger(os.path.join(out_dir, "logs"), name="nerf", print_fn=print_fn)
     timer = SegmentTimer()
@@ -479,6 +513,7 @@ def train_nerf(
     try:
         while step < steps:
             gen.manual_seed(step_seed(seed, step))
+            step_fn = step_for(budget_at_step(segments, step)[0])
             state, metrics = step_fn(state, rays_o, rays_d, rgb_gt, generator=gen)
             step = state.step
             window.append(metrics["loss"])

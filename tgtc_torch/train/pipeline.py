@@ -24,16 +24,22 @@ Which renderer runs is decided by the configuration and the device, never by
 a failure: :meth:`Pipeline._fused_render_ok` and
 :meth:`Pipeline._fused_style_ok` take the fused renderers (K1/K2, K4/K5) on
 the card when ``use_pallas`` is set and the architecture is one the CUDA
-kernels take; anything else runs the eager PyTorch path. Each phase's models
+kernels take; anything else runs the eager PyTorch path. The proposal levers
+act on the fused plain and stylized renders, as in the JAX package:
+``fine_budget``, ``coarse_share``, and in place of the coarse trunk either
+the density grid (``sigma_grid``, built once a process by
+:meth:`Pipeline._build_sigma_grid`) or the distilled proposal
+(``proposal_width``, fitted once a process by
+:meth:`Pipeline._build_proposal`, run by K2 at width 128); Phase A follows
+the ``train_fine_budget`` schedule and Phase E its last segment's budget.
+Phase B's geometry dump and ``evaluate`` render in full. Each phase's models
 and optimizer state are local to its method and are released when it
 returns. The JSONL logs go to ``<exp_dir>/logs``: ``nerf``, ``transformer``,
 ``temporal``, ``vae`` and ``style`` from the phases, ``train`` for the
 holdout PSNR (``EVAL``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-``sigma_grid``, ``proposal_width``, ``fine_budget``, ``coarse_share`` and
-``train_fine_budget`` (ROADMAP.md queue 1, 'Proposal levers and sample
-budgets'), and a multi-process launch (ROADMAP.md queue 1, 'Multi-GPU').
+Not ported yet, and raising ``NotImplementedError`` when asked for: a
+multi-process launch (ROADMAP.md queue 1, 'Multi-GPU').
 Not carried over: ``_snap``, ``_feed``, ``_sync_every`` and ``_png_bg``,
 devices of the TPU's dispatch and its slow device→host path. The port's
 loops sync only at their log steps,
@@ -45,6 +51,7 @@ already snapshots a state on the device, and images go to
 from __future__ import annotations
 
 import os
+import time
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -57,7 +64,7 @@ from tgtc_torch.data.rays import rays_for_poses
 from tgtc_torch.device import DeviceLike, resolve_device
 from tgtc_torch.models.nerf import NerfConfig
 from tgtc_torch.models.transformer import TransformerConfig
-from tgtc_torch.ops.kernels.nerf_mlp import CUDA_FREQS, CUDA_WIDTH
+from tgtc_torch.ops.kernels.nerf_mlp import CUDA_FREQS, CUDA_WIDTH, SIGMA_WIDTHS
 from tgtc_torch.ops.kernels.style_kernel import CUDA_SHAPE
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.train.nerf_trainer import NerfTrainConfig, NerfTrainState, train_nerf
@@ -71,24 +78,11 @@ from tgtc_torch.train.transformer2d import (
 )
 from tgtc_torch.utils.logging import MetricsLogger
 
-_LEVERS = "ROADMAP.md queue 1, 'Proposal levers and sample budgets'"
-_UNPORTED_LEVERS = {
-    "sigma_grid": "the density-grid proposal",
-    "proposal_width": "the distilled proposal",
-    "fine_budget": "render-time sample budgets",
-    "coarse_share": "the shared coarse proposal",
-    "train_fine_budget": "training-time sample budgets",
-}
 # the JAX package's cluster-environment cascade (tgtc/parallel/distributed.py):
 # the process-count key and the keys it needs beside it
 _CLUSTER_ENVS = (("TGTC_NUM_PROCESSES", ("TGTC_COORDINATOR", "TGTC_PROCESS_ID")),
                  ("WORLD_SIZE", ("MASTER_ADDR", "MASTER_PORT", "RANK")),
                  ("SLURM_NTASKS", ("SLURM_PROCID", "TGTC_COORDINATOR")))
-
-
-def _unported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"--{name} is not ported yet ({_LEVERS}: "
-                               f"{_UNPORTED_LEVERS[name]})")
 
 
 def multi_process_launch(env: Optional[Mapping[str, str]] = None) -> bool:
@@ -111,6 +105,13 @@ def _load_image(path: str, size=None) -> np.ndarray:
     if size is not None:
         img = img.resize(size, Image.BILINEAR)
     return np.asarray(img, np.float32) / 255.0
+
+
+def _kernel_trunk(c: NerfConfig, widths: Tuple[int, ...] = (CUDA_WIDTH,)) -> bool:
+    """A trunk the CUDA NeRF kernels take: its skip at 4, a width of
+    ``widths``, 10/4 frequencies."""
+    return (tuple(c.skips) == (4,) and c.width in widths
+            and (c.embed_freq_coor, c.embed_freq_dir) == CUDA_FREQS)
 
 
 class _EagerNerfRenderer:
@@ -141,11 +142,7 @@ class Pipeline:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        for name, off in (("fine_budget", 0), ("coarse_share", 1), ("train_fine_budget", "")):
-            if getattr(cfg, name) != off:
-                raise _unported(name)
-        self._build_sigma_grid()
-        self._build_proposal()
+        self._sigma_grid_cache = self._proposal_cache = None
         if cfg.dataset_type != "llff":
             # the reference exits on unknown dataset types
             raise ValueError(f"dataset_type {cfg.dataset_type!r} not supported (llff only)")
@@ -193,47 +190,116 @@ class Pipeline:
         c = max(4096, int(self.cfg.chunk))
         return ((c + 4095) // 4096) * 4096
 
-    def _build_sigma_grid(self):
-        """The density-grid proposal (``--sigma_grid N``): None when off; not
-        ported yet otherwise."""
-        if self.cfg.sigma_grid > 0:
-            raise _unported("sigma_grid")
-        return None
+    def _check_proposals(self) -> None:
+        if self.cfg.proposal_width > 0 and self.cfg.sigma_grid > 0:
+            raise ValueError("--proposal_width and --sigma_grid are both frozen-density "
+                             "proposals: pick one")
 
-    def _build_proposal(self):
-        """The distilled proposal (``--proposal_width N``): None when off; not
-        ported yet otherwise."""
-        if self.cfg.proposal_width > 0:
-            raise _unported("proposal_width")
-        return None
+    def _build_sigma_grid(self, state: NerfTrainState):
+        """The density-grid proposal (``--sigma_grid N``): the fine trunk's σ
+        on an N³ lattice over the bounds of the training and spiral poses'
+        rays (K2 at D8×W256), built once a process. ``(values, GridSpec)``,
+        or None when off."""
+        from tgtc_torch.ops.kernels.nerf_mlp import pack_nerf_params
+        from tgtc_torch.render.grid import GridSpec, build_sigma_grid, ray_bounds
+
+        cfg = self.cfg
+        if cfg.sigma_grid <= 0:
+            return None
+        if self._sigma_grid_cache is None:
+            t0 = time.perf_counter()
+            h, w, _ = self.scene.hwf
+            poses = np.concatenate([self.scene.poses, self.scene.render_poses], 0)
+            ro, rd = rays_for_poses(h, w, self.scene.intrinsics, poses, use_ndc=not cfg.no_ndc,
+                                    pixel_alignment=cfg.pixel_alignment, device=self.device)
+            lo, hi = ray_bounds(ro, rd, self.near, self.far)
+            del ro, rd
+            spec = GridSpec(lo=lo, hi=hi)
+            packed = pack_nerf_params(state.fine.state_dict(), depth=cfg.netdepth_fine,
+                                      num_freq_coor=cfg.embed_freq_coor,
+                                      num_freq_dir=cfg.embed_freq_dir, width=cfg.netwidth_fine,
+                                      device=self.device)
+            vals = build_sigma_grid(packed, spec, (cfg.sigma_grid,) * 3)
+            print(f"[grid] {cfg.sigma_grid}^3 density snapshot built in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            self._sigma_grid_cache = (vals, spec)
+        return self._sigma_grid_cache
+
+    def _build_proposal(self, state: NerfTrainState):
+        """The distilled proposal (``--proposal_width N``): a
+        ``proposal_depth`` x N trunk fitted to the fine trunk's σ on the
+        training rays (``render.distill``, seed ``seed + 7``), once a
+        process. ``(state dict, depth, width, num_freq_dir)`` for the
+        renderers, or None when off."""
+        from tgtc_torch.render.distill import distill_proposal
+
+        cfg = self.cfg
+        if cfg.proposal_width <= 0:
+            return None
+        if self._proposal_cache is None:
+            t0 = time.perf_counter()
+            h, w, _ = self.scene.hwf
+            ro, rd = rays_for_poses(h, w, self.scene.intrinsics, self.scene.poses,
+                                    use_ndc=not cfg.no_ndc, pixel_alignment=cfg.pixel_alignment,
+                                    device=self.device)
+            params, stats = distill_proposal(
+                cfg.seed + 7, state.fine, ro.reshape(-1, 3), rd.reshape(-1, 3), self.near,
+                self.far, depth=cfg.proposal_depth, width=cfg.proposal_width,
+                steps=cfg.proposal_steps, n_samples=cfg.N_samples)
+            print(f"[proposal] distilled D{cfg.proposal_depth}xW{cfg.proposal_width} in "
+                  f"{time.perf_counter() - t0:.1f}s (loss {stats['loss']:.4f}, relu-sigma bias "
+                  f"{stats['relu_sigma_bias']:+.3f})", flush=True)
+            self._proposal_cache = (params, cfg.proposal_depth, cfg.proposal_width,
+                                    cfg.embed_freq_dir)
+        return self._proposal_cache
 
     # ------------------------------------------------------------- phase A
 
-    def _fused_render_ok(self) -> bool:
+    def _proposal_side_ok(self) -> Optional[bool]:
+        """Whether the kernels take what replaces the coarse trunk in the
+        lever renders: the distilled proposal (K2 at its width), the grid (no
+        trunk); None when nothing replaces it."""
+        from tgtc_torch.render.distill import proposal_config
+
+        cfg = self.cfg
+        if cfg.proposal_width > 0:
+            p = proposal_config(self.nerf_cfg_fine, cfg.proposal_depth, cfg.proposal_width)
+            return cfg.use_viewdir and _kernel_trunk(p, SIGMA_WIDTHS)
+        return True if cfg.sigma_grid > 0 else None
+
+    def _fused_render_ok(self, levers: bool = False) -> bool:
         """FusedNerfRenderer (K2 coarse, K1 fine) eligibility: on the card
         with ``use_pallas``, the relu trunk with a viewdir rgb head and its
         skip at 4, and the width and frequencies the CUDA kernels take, for
-        both nets. Anything else runs the eager render."""
+        both nets. ``levers``: the render's coarse side may be the distilled
+        proposal or the grid instead (:meth:`_proposal_side_ok`). Anything
+        else runs the eager render."""
         cfg = self.cfg
+        side = self._proposal_side_ok() if levers else None
+        coarse = _kernel_trunk(self.nerf_cfg) if side is None else side
         return (cfg.use_pallas and self.device.type == "cuda" and cfg.act_type == "relu"
-                and cfg.use_viewdir
-                and all(tuple(c.skips) == (4,) and c.width == CUDA_WIDTH
-                        and (c.embed_freq_coor, c.embed_freq_dir) == CUDA_FREQS
-                        for c in (self.nerf_cfg, self.nerf_cfg_fine)))
+                and cfg.use_viewdir and coarse and _kernel_trunk(self.nerf_cfg_fine))
 
     def _fused_style_ok(self) -> bool:
         """FusedStyleRenderer (K5 coarse, K4 fine) eligibility: on the card
         with ``use_pallas``, the relu trunk, and the one shape the CUDA style
         kernels take (trunk D8/W256 with its skip at 4 and 10 frequencies,
-        ``style_D`` 8, style width 256, latent 32) for both nets. The
-        viewdir head does not matter: the style chain discards trunk rgb."""
+        ``style_D`` 8, style width 256, latent 32) for the fine net, and for
+        the coarse one unless the distilled proposal or the grid replaces it
+        (:meth:`_proposal_side_ok`). The viewdir head does not matter: the
+        style chain discards trunk rgb."""
         cfg = self.cfg
         depth, skip, width, freqs, style_d, style_width, latent = CUDA_SHAPE
+
+        def style_trunk(c: NerfConfig) -> bool:
+            return (c.depth, tuple(c.skips), c.width, c.embed_freq_coor) == (
+                depth, (skip,), width, freqs)
+
+        side = self._proposal_side_ok()
+        coarse = style_trunk(self.nerf_cfg) if side is None else side
         return (cfg.use_pallas and self.device.type == "cuda" and cfg.act_type == "relu"
                 and (cfg.style_D, cfg.netwidth, cfg.vae_latent) == (style_d, style_width, latent)
-                and all((c.depth, tuple(c.skips), c.width, c.embed_freq_coor)
-                        == (depth, (skip,), width, freqs)
-                        for c in (self.nerf_cfg, self.nerf_cfg_fine)))
+                and coarse and style_trunk(self.nerf_cfg_fine))
 
     def _nerf_train_cfg(self) -> NerfTrainConfig:
         cfg = self.cfg
@@ -254,11 +320,14 @@ class Pipeline:
             state.load_state_dict(self.nerf_ckpt.restore(map_location=self.device))
         return state, train_cfg
 
-    def _nerf_renderer(self, state: NerfTrainState, train_cfg: NerfTrainConfig):
+    def _nerf_renderer(self, state: NerfTrainState, train_cfg: NerfTrainConfig,
+                       levers: bool = False):
         """The plain renderer of :meth:`_fused_render_ok`'s choice: fused
         with a σ-only coarse pass (16,384-ray blocks by default), or eager
-        (``_render_block`` rays by default)."""
-        if not self._fused_render_ok():
+        (``_render_block`` rays by default). ``levers``: the fused renderer
+        takes the configuration's proposal levers (the eager one, as in the
+        JAX package, none)."""
+        if not self._fused_render_ok(levers):
             return _EagerNerfRenderer(state, train_cfg, self._render_block)
         from tgtc_torch.render.fast import FusedNerfRenderer
         from tgtc_torch.render.volume import RenderSettings
@@ -267,11 +336,21 @@ class Pipeline:
         settings = RenderSettings(n_samples=cfg.N_samples, n_samples_fine=cfg.N_samples_fine,
                                   near=self.near, far=self.far, sigma_noise_std=0.0,
                                   white_bkgd=cfg.white_bkgd)
+        kw = dict(num_freq_coor=cfg.embed_freq_coor, num_freq_dir=cfg.embed_freq_dir,
+                  depth_fine=cfg.netdepth_fine, width_fine=cfg.netwidth_fine,
+                  coarse_rgb=False, device=self.device)
+        if not levers:
+            return FusedNerfRenderer.from_params(
+                state.coarse.state_dict(), state.fine.state_dict(), settings,
+                depth=cfg.netdepth, width=cfg.netwidth, **kw)
+        self._check_proposals()
+        # the distilled proposal renders as the coarse net
+        prop = self._build_proposal(state)
         return FusedNerfRenderer.from_params(
-            state.coarse.state_dict(), state.fine.state_dict(), settings,
-            num_freq_coor=cfg.embed_freq_coor, num_freq_dir=cfg.embed_freq_dir,
-            depth=cfg.netdepth, width=cfg.netwidth, depth_fine=cfg.netdepth_fine,
-            width_fine=cfg.netwidth_fine, coarse_rgb=False, device=self.device)
+            prop[0] if prop else state.coarse.state_dict(), state.fine.state_dict(), settings,
+            depth=prop[1] if prop else cfg.netdepth, width=prop[2] if prop else cfg.netwidth,
+            fine_budget=cfg.fine_budget or None, coarse_share=cfg.coarse_share,
+            sigma_grid=self._build_sigma_grid(state), **kw)
 
     def train_nerf(self) -> None:
         """Phase A up to ``origin_step`` (the reference's ``Origin_train``):
@@ -284,7 +363,8 @@ class Pipeline:
                    i_print=cfg.i_print, use_ndc=not cfg.no_ndc,
                    pixel_alignment=cfg.pixel_alignment, device=self.device,
                    ckpt_dir="ckpt_nerf", max_to_keep=cfg.ckp_num, fused=cfg.use_pallas,
-                   reload=not cfg.no_reload, profile_dir=cfg.profile_dir)
+                   reload=not cfg.no_reload, profile_dir=cfg.profile_dir,
+                   budget_schedule=cfg.train_fine_budget)
 
     # ------------------------------------------------------------- phase B
 
@@ -473,8 +553,10 @@ class Pipeline:
     def _render_stylized_fused(self, state: NerfTrainState, concat, style, latent_state,
                                style_num: int, ro: torch.Tensor, rd: torch.Tensor,
                                out_dir: str) -> bool:
-        """Phase F on K5 (σ-only coarse pass) and K4 in ``_render_block``-ray
-        blocks, the turntable GIF streamed as the frames come. True when the
+        """Phase F on K5 (σ-only coarse pass; K2 on the distilled proposal,
+        or the grid, in its place) and K4 in ``_render_block``-ray blocks,
+        with the proposal levers, the turntable GIF streamed as the frames
+        come. True when the
         GIF was written that way; False when the caller must write it after
         the fact (a resumed run renders only the missing frames, which
         breaks the stream's playback order)."""
@@ -484,6 +566,7 @@ class Pipeline:
         from tgtc_torch.utils.video import StreamingGifWriter
 
         cfg = self.cfg
+        self._check_proposals()
         os.makedirs(out_dir, exist_ok=True)
         settings = RenderSettings(n_samples=cfg.N_samples, n_samples_fine=cfg.N_samples_fine,
                                   near=self.near, far=self.far, sigma_noise_std=0.0,
@@ -496,7 +579,9 @@ class Pipeline:
             llff_tile=cfg.dataset_type == "llff", trunk_width=cfg.netwidth,
             depth_fine=cfg.netdepth_fine, trunk_width_fine=cfg.netwidth_fine,
             # frames read only the fine rgb and depth: the coarse pass runs σ only
-            coarse_rgb=False, device=self.device)
+            coarse_rgb=False, fine_budget=cfg.fine_budget or None,
+            coarse_share=cfg.coarse_share, sigma_grid=self._build_sigma_grid(state),
+            proposal=self._build_proposal(state), device=self.device)
         n_frames = style_num * ro.shape[0]
         writer = StreamingGifWriter(os.path.join(out_dir, "video.gif"))
         try:
@@ -525,7 +610,7 @@ class Pipeline:
 
         cfg = self.cfg
         state, train_cfg = self._nerf_setup()
-        renderer = self._nerf_renderer(state, train_cfg)
+        renderer = self._nerf_renderer(state, train_cfg, levers=True)
         h, w, _ = self.scene.hwf
         pose_arr = self.scene.render_poses if poses == "valid" else self.scene.poses
         ro, rd = rays_for_poses(h, w, self.scene.intrinsics, pose_arr, use_ndc=not cfg.no_ndc,

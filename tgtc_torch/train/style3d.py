@@ -34,10 +34,14 @@ so a step never waits for the device. The step itself runs no hand-written
 kernel: the JAX step reaches no Pallas call either (it uses the XLA
 ``style_forward``); Phase F renders the trained field on K4/K5.
 
+``fine_budget``: the fine pass evaluates only each ray's budget of merged
+samples (``ops.sampling.select_sample_budget`` on the raw coarse σ of the
+frozen trunk; no ``grid=``, the coarse depths are perturbed), so the fine
+noise is ``[B, fine_budget]``.
+
 Not ported: ``k_steps > 1`` (a ``lax.scan`` that amortizes the TPU's
-dispatch: the port runs plain steps), ``mesh=`` (ROADMAP.md queue 1,
-'Multi-GPU') and ``fine_budget`` (ROADMAP.md queue 1, 'Proposal levers and
-sample budgets'), which raises.
+dispatch: the port runs plain steps) and ``mesh=`` (ROADMAP.md queue 1,
+'Multi-GPU').
 """
 
 from __future__ import annotations
@@ -70,14 +74,16 @@ from tgtc_torch.models.style_field import (
     make_style_mlps,
 )
 from tgtc_torch.ops.losses import cosine_similarity, img2mse, l2_norm
-from tgtc_torch.ops.sampling import merge_and_resample_fine, sample_along_rays_uniform
+from tgtc_torch.ops.sampling import (
+    merge_and_resample_fine,
+    sample_along_rays_uniform,
+    select_sample_budget,
+)
 from tgtc_torch.render.style import style_forward
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger
 from tgtc_torch.utils.seeds import step_seed
 
-_BUDGET_NOT_PORTED = ("fine_budget is not ported yet (ROADMAP.md queue 1, 'Proposal levers and "
-                      "sample budgets': select_sample_budget)")
 CKPT_EVERY = 500  # steps between Phase-E checkpoints (tgtc/train/pipeline.py:857)
 # ||grad(λ·coh)|| / ||grad(rgb)|| above this is the saturation regime: the
 # coherence term owns the update and the field's rgb quality dies
@@ -104,7 +110,7 @@ class StyleTrainConfig:
     origin_step: int = 120001
     coh_until_step: int = 122000    # the reference's hardcoded gate
     dataset_type: str = "llff"
-    fine_budget: Optional[int] = None  # not ported yet: raises
+    fine_budget: Optional[int] = None  # fine samples a ray kept (None: all)
 
     @property
     def tile(self) -> bool:
@@ -205,7 +211,8 @@ class StyleStepDraws:
     """One step's random numbers: the main stream's flat ids ``[B]``, the
     coherent stream's pixel ids ``[B]``, and per stream the coarse jitter
     ``[B, Nc]`` in [0, 1) and the standard-normal σ noise ``[B, Nc]`` and
-    ``[B, Nc + Nf]`` (None when ``sigma_noise_std`` is 0)."""
+    ``[B, Nc + Nf]`` or ``[B, fine_budget]`` (None when ``sigma_noise_std``
+    is 0)."""
 
     main_ids: torch.Tensor
     coh_pix: torch.Tensor
@@ -221,8 +228,9 @@ class StyleTrainStep:
     0-d device tensors (no sync)."""
 
     def __init__(self, nerf_coarse: NerfMLP, nerf_fine: NerfMLP, cfg: StyleTrainConfig):
-        if cfg.fine_budget is not None:
-            raise NotImplementedError(_BUDGET_NOT_PORTED)
+        m = cfg.n_samples + cfg.n_samples_fine
+        if cfg.fine_budget is not None and not 0 < cfg.fine_budget <= m:
+            raise ValueError(f"fine_budget {cfg.fine_budget} not in (0, {m}]")
         self.nerf_coarse, self.nerf_fine, self.cfg = nerf_coarse, nerf_fine, cfg
         self._generator: Optional[torch.Generator] = None
 
@@ -235,7 +243,8 @@ class StyleTrainStep:
         if self._generator is None or self._generator.device != dev:
             self._generator = torch.Generator(device=dev)
         gen = self._generator.manual_seed(step_seed(seed, state.step))
-        b, nc, nf = c.batch_size, c.n_samples, c.n_samples + c.n_samples_fine
+        b, nc = c.batch_size, c.n_samples
+        nf = c.fine_budget or c.n_samples + c.n_samples_fine
         h, w = data.hw
         kw = dict(generator=gen, device=dev)
         main_ids = torch.randint(0, data.style_num * data.frame_num * h * w, (b,), **kw)
@@ -254,11 +263,15 @@ class StyleTrainStep:
         ro, rd, sid, fid = batch["rays_o"], batch["rays_d"], batch["style_id"], batch["frame_id"]
         kw = dict(sigma_scale=c.sigma_scale, llff_tile=c.tile, noise_std=c.sigma_noise_std)
         _, ts = sample_along_rays_uniform(ro, rd, c.n_samples, near=c.near, far=c.far, u=u)
-        comp_c, weights = style_forward(self.nerf_coarse, state.concat, state.style, lat, ro, rd,
-                                        ts, sid, fid, noise=noise[0], **kw)
+        comp_c, weights, sigma_c = style_forward(self.nerf_coarse, state.concat, state.style,
+                                                 lat, ro, rd, ts, sid, fid, noise=noise[0],
+                                                 with_sigma=True, **kw)
         _, ts_f = merge_and_resample_fine(ro, rd, ts, weights, c.n_samples_fine)
+        deltas_f = None
+        if c.fine_budget is not None:
+            ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, c.fine_budget)
         comp_f, _ = style_forward(self.nerf_fine, state.concat, state.style, lat, ro, rd, ts_f,
-                                  sid, fid, noise=noise[1], **kw)
+                                  sid, fid, noise=noise[1], deltas=deltas_f, **kw)
         return comp_c.rgb, comp_f.rgb
 
     def losses(self, state: StyleTrainState, data: StyleSceneData, draws: StyleStepDraws
