@@ -130,11 +130,14 @@ started together), then:
    dropout 0.1, bf16, flash attention, torch seed 21, random VGG and
    decoder): tools/train2d.main(["--task", "transformer", ...]) on phase
    5's renders as content and 8 seeded 512x512 style PNGs, batch 8, 256x256
-   crops: 10 warm-up steps, then 100 counted steps resumed from the warm-
-   up's checkpoint, logged every 10 steps: 36 K7 and 36 K8 launches a step
+   crops, cuDNN's deterministic algorithms (restored after the phase): 10
+   warm-up steps, then 100 counted steps resumed from the warm-up's
+   checkpoint, logged every 10 steps: 36 K7 and 36 K8 launches a step
    and 36 K6 (plus 12 for each collage), finite losses, the collage PNGs
    and the checkpoint written, C1 steps/s over the counted loop's log
-   windows; on one fixed batch and generator seed, the step's losses and
+   windows; the fingerprint (sha256, sum) of the trained state the
+   witnesses read, and the kernel step taken twice there equal bit for bit;
+   on one fixed batch and generator seed, the step's losses and
    gradients against the same step with the attention through the twins on
    the card (36 K6, K7 and K8 launches in the step; loss within 1e-2
    relative, the cosine of all trained leaves' gradients together >= 0.999,
@@ -240,7 +243,27 @@ started together), then:
    16's pipeline re-entered with --proposal_width 128 --fine_budget 80
    --coarse_share 2 --proposal_steps 300 for --render_train and
    --render_train_style (launches held, frames written);
-18. prints the kernels line (JSON, K1-K8 and K2-W128), then the result line.
+18. multi-process (phase_multi): this process joins a NCCL group of one
+   (tgtc_torch.parallel.maybe_initialize_distributed with a TGTC_*
+   environment) and runs 3 fused Phase-A steps at fern width (batch 2048,
+   64+64 samples, sigma noise 1.0) through group= against the ungrouped
+   steps: losses, the first step's gradients and the parameters bit for
+   bit, 2 K1 and 2 K3 launches a step; then two worker processes
+   (multi_worker, started together with TGTC_COORDINATOR/_NUM_PROCESSES/
+   _PROCESS_ID) share the card over gloo, each with half of every global
+   batch, against this process's 1-process steps: the fused Phase-A step
+   (1024 rays a rank; the losses, the first step's averaged gradient and
+   the parameters after 3 steps within TOL_MP_A_*), the full-width C1 step
+   at dropout 0.1 (4 images a rank, bh_offset rank x 4 x 8; phase 11's
+   bounds; 36 K6, K7 and K8 launches a rank), the Phase-E step from phase
+   15's checkpoint at fern's settings with the coherence term on (128 rays
+   a rank; phase 15's bounds), then cli.main under the two-process launch
+   on phase 16's run: Phase A skipped, Phase E 20 more steps over both
+   ranks, only rank 0 writing ckpt_style, which load_style_field reads;
+   a worker's failure fails the phase; the phase's wall seconds printed
+   beside the card (two processes on one card: no scaling figure);
+19. prints the kernels line (JSON, K1-K8 and K2-W128; launches_multi for
+   K1, K3, K6, K7 and K8), then the result line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -351,6 +374,33 @@ K2W128_TENSOR_FLOP, K2W128_HEAD_FLOP, ENC_SINCOS = 2 * (63 * 128 + 128 * 128), 2
 # data sheet's 989 TFLOP/s is 132 SMs at 1,830 MHz), float32 FMA outside
 # them 256 FLOP (its 67 TFLOP/s is 132 SMs at 1,980 MHz)
 TENSOR_BF16_PER_CLK, FP32_PER_CLK = 4096, 256
+# Phase 18, multi-process on the card: the fused Phase-A step through a
+# DataGroup of one over NCCL in this process (bit for bit the ungrouped
+# step), then two worker processes sharing the card over gloo (NCCL takes
+# no two ranks on one device; gloo takes CUDA tensors for all-reduce and
+# broadcast, all DataGroup uses), each holding half of every global batch
+MP_WORLD, MP_A_STEPS, MP_SEED, MP_E_STEPS, MP_TIMEOUT = 2, 3, 41, 20, 900
+# Bounds of the 2-process runs against the 1-process step at the same global
+# batch (PERF.md §6). Phase A's fused step: every per-point value is the
+# same in both runs (K1 and the compositing are per ray; a rank's loss is the
+# mean of 1,024 rays, so its cotangents are exactly twice the global ones),
+# and K3 sums each weight's gradient over the same 8,192-point chunks, so the
+# f32 sums differ only in the association of the chunk sums; but each weight
+# gradient is then rounded to the packed weights' bf16 (unit roundoff 2^-8):
+# once in the 1-process step, once on each rank before the average. So each
+# element of the averaged gradient lies within 2^-8 (|g_0| + |g_1|) / 2 +
+# 2^-8 |g| of the 1-process g (g_r rank r's own bf16 gradient), widened by
+# (1 + 2^-7) and by 2^-20 of the leaf's largest |g| for the f32 sums.
+TOL_MP_A_LOSS, MP_BF16_U = 1e-5, 2.0 ** -8
+# after 3 steps a parameter differs by at most twice Adam's largest step
+# each step: |m^/sqrt(v^)| <= 1.0035 for t <= 3 at betas (0.9, 0.999), so
+# 2 x 3 x 1.0035 lr, reached only where a gradient element is itself f32
+# noise and its sign differs between the runs
+TOL_MP_A_PARAM = 2 * MP_A_STEPS * 1.0035 * 5e-4
+# C1 and E: cuBLAS and cuDNN pick their algorithms by the batch (4 vs 8
+# images, 128 vs 256 rays), so a row's result may round apart: phase 11's
+# and phase 15's bounds (TOL_C1_*, TOL_E_*), which hold steps whose
+# operations round apart by more (the twin attention, the CPU)
 
 
 def check(ok: bool, what: str) -> None:
@@ -1892,8 +1942,21 @@ def attn_leaf_errors(names, got, ref):
 
 def phase_c1(fa, geo_dir: str, root: str):
     """Phase C1 at full width through tools/train2d's transformer task,
-    then the fixed-batch witnesses. Returns the counted run's launches, its
-    steps/s and the collages it wrote."""
+    then the fixed-batch witnesses, all with cuDNN's deterministic
+    algorithms (``cudnn.deterministic`` on, ``benchmark`` off; both restored
+    after), so that the trained state the witnesses read repeats from run
+    to run. Returns the counted run's launches, its steps/s and the collages
+    it wrote."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _phase_c1(fa, geo_dir, root)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _phase_c1(fa, geo_dir: str, root: str):
+    import hashlib
     import shutil
 
     import tgtc_torch.models.transformer as tr
@@ -1937,7 +2000,8 @@ def phase_c1(fa, geo_dir: str, root: str):
     ckpt = os.path.join(save, "transformer", f"ckpt_{total:08d}.pt")
     pngs = [os.path.join(log, f"{s}.png") for s in (C1_WARM, 100, total)]
     print(f"[c1] StyTrans d_model 512, 8 heads, 3+3 layers, FFN 2048, dropout {C1_RATE}, bf16, "
-          f"flash, random VGG and decoder; batch {C1_BATCH} of 256x256 crops from "
+          f"flash, random VGG and decoder, cudnn.deterministic True and benchmark False; batch "
+          f"{C1_BATCH} of 256x256 crops from "
           f"{len(os.listdir(content))} renders and 8 styles: {C1_WARM} warm-up steps in "
           f"{warm_s:.2f} s (call, build and set-up included), then {C1_STEPS} steps in "
           f"{run_s:.2f} s (call, restore and the final save included), of which the loop "
@@ -1968,11 +2032,22 @@ def phase_c1(fa, geo_dir: str, root: str):
              .cuda() for _ in range(2)]
     step = t2.make_transformer_train_step(model, tcfg)
     names = [n for n, _ in t2.trained_parameters(model)]
+    trained_leaves = [p.detach() for _, p in t2.trained_parameters(model)]
+    digest = hashlib.sha256(b"".join(p.float().cpu().numpy().tobytes() for p in trained_leaves))
+    total_sum = float(sum(p.double().sum() for p in trained_leaves))
     for c in counters.values():
         c.launches = 0
     m_k, g_k = step.loss_and_grad(model, *batch, step.generator(5, 0))
     torch.cuda.synchronize()
     step_launches = {n: c.launches for n, c in counters.items()}
+    m_r, g_r = step.loss_and_grad(model, *batch, step.generator(5, 0))  # the witness again
+    repeats = float(m_r["loss"]) == float(m_k["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(g_k, g_r))
+    del g_r
+    print(f"[c1] the witnesses' state: step {state.step}, sha256 of the trained leaves "
+          f"{digest.hexdigest()[:16]}, their sum {total_sum:.9e}; the kernel step taken twice "
+          f"gives the same loss and gradients bit for bit: {repeats}", flush=True)
+    check(repeats, "the C1 witness step does not repeat at one state")
     kernel = tr.flash_attention
     tr.flash_attention = fa.flash_attention_plain
     try:
@@ -1997,6 +2072,21 @@ def phase_c1(fa, geo_dir: str, root: str):
           + ", ".join(f"{n} {e:.3e}" for e, n in attn[:4]), flush=True)
     check(step_launches == {"K6": C1_SITES, "K7": C1_SITES, "K8": C1_SITES},
           f"one C1 step launched {step_launches}")
+    if leaf[0] > TOL_C1_LEAF:  # a third reading at this state before the check fails
+        f32 = make_stytrans(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+        f32.load_state_dict(model.state_dict())
+        t2.init_transformer_train(f32, tcfg)
+        tr.flash_attention = fa.flash_attention_plain  # the twins take f32
+        try:
+            _, g_f = t2.make_transformer_train_step(f32, tcfg).loss_and_grad(
+                f32, *batch, step.generator(5, 0))
+        finally:
+            tr.flash_attention = kernel
+        for tag, g in (("kernel", g_k), ("twin", g_t)):
+            cos_f, leaf_f, _ = c1_grad_agreement(names, g, g_f)
+            print(f"[c1] the {tag} step vs the f32 twin-attention step at this state: cosine "
+                  f"{cos_f:.7f}, worst leaf {leaf_f[0]:.3e} ({leaf_f[1]})", flush=True)
+        del f32, g_f
     check(dl <= TOL_C1_LOSS, "C1 step loss disagrees with the twin-attention step")
     check(cos_all >= TOL_C1_COS and leaf[0] <= TOL_C1_LEAF,
           "C1 step gradient disagrees with the twin-attention step")
@@ -3258,6 +3348,373 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
                  "distill_s": distill_s, "a_steps_per_s": per_seg}
 
 
+def mp_rays(views):
+    """Phase 4's four training views (``intrinsics``, ``poses``) as rays on the
+    card, and seeded targets."""
+    from tgtc_torch.data.rays import rays_for_poses
+
+    ro, rd = rays_for_poses(H, W, views["intrinsics"], views["poses"], device="cuda")
+    rgb = np.random.default_rng(MP_SEED).uniform(0, 1, (ro.numel() // 3, 3)).astype(np.float32)
+    return ro.reshape(-1, 3), rd.reshape(-1, 3), torch.from_numpy(rgb).cuda()
+
+
+def mp_phase_a(group, ro, rd, rgb):
+    """MP_A_STEPS fused Phase-A steps at fern width from seeded weights, each
+    on its own draws of the global batch: the losses (averaged over the
+    ranks), the first step's averaged gradients and the trunks after."""
+    from tgtc_torch.models.nerf import NerfConfig
+    from tgtc_torch.train import nerf_trainer as tt
+    from tgtc_torch.utils.seeds import step_seed
+
+    cfg = NerfConfig()
+    tc = tt.NerfTrainConfig(batch_size=BATCH, n_samples=NC, n_samples_fine=NF,
+                            sigma_noise_std=1.0)
+    state = tt.init_state(torch.Generator().manual_seed(MP_SEED), cfg, tc, device="cuda")
+    step = tt.make_fused_train_step(cfg, tc, device="cuda", group=group)
+    gen = torch.Generator(device="cuda")
+    losses, local, grads = [], None, None
+    for s in range(MP_A_STEPS):
+        gen.manual_seed(step_seed(MP_SEED, s))
+        m, g = step.loss_and_grad(state.coarse, state.fine, ro, rd, rgb,
+                                  step.draw(ro.shape[0], gen))
+        local = local or [x.cpu() for x in g]  # this rank's own, before the average
+        step.apply(state, g)  # averages g over the ranks in place
+        state.step += 1
+        losses.append(group.mean_scalars({"loss": m["loss"]})["loss"].reshape(1))
+        grads = grads or [x.cpu() for x in g]
+    return {"loss": torch.cat(losses).cpu().tolist(), "grads": grads, "local": local,
+            "params": [p.detach().cpu() for p in state.parameters()]}
+
+
+def mp_c1(group):
+    """One full-width C1 step at dropout 0.1 from seeded weights on one fixed
+    batch of 8 (phase 11's witness batch): the loss, the averaged gradients
+    and the kernels' launches in the step."""
+    import tgtc_torch.ops.kernels.flash_attention as fa
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.models.transformer import TransformerConfig
+    from tgtc_torch.train import transformer2d as t2
+
+    model = make_stytrans(TransformerConfig(dtype=torch.bfloat16, attn_impl="flash"),
+                          torch.Generator().manual_seed(21), device="cuda")
+    tcfg = t2.TransformerTrainConfig()
+    state = t2.init_transformer_train(model, tcfg)
+    rng = np.random.default_rng(24)
+    batch = [torch.from_numpy(rng.integers(0, 256, (C1_BATCH, 256, 256, 3), dtype=np.uint8))
+             .cuda() for _ in range(2)]
+    step = t2.make_transformer_train_step(model, tcfg, group=group)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    for c in counters:
+        c.launches = 0
+    m, g = step.loss_and_grad(model, *batch, step.generator(5, 0))
+    group.all_reduce_mean_(g)
+    torch.cuda.synchronize()
+    launches = dict(zip(("K6", "K7", "K8"), (c.launches for c in counters)))
+    return {"loss": float(group.mean_scalars({"loss": m["loss"]})["loss"]),
+            "grads": [x.cpu() for x in g], "launches": launches,
+            "names": [n for n, _ in t2.trained_parameters(model)]}
+
+
+def mp_e(group, job):
+    """One Phase-E step at fern's settings from phase 15's checkpoint with the
+    coherence term on (cnt 1, fern's gate), on the draws of global batch
+    256: the losses (averaged) and the averaged gradients by group."""
+    from tgtc_torch.config import load_config
+    from tgtc_torch.data.llff import load_llff_data
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP
+    from tgtc_torch.train import style3d as s3
+    from tgtc_torch.train.checkpoint import CheckpointManager
+
+    cfg = load_config(["--config", job["fern"]])
+    trunks = []
+    for which in ("coarse", "fine"):
+        t = NerfMLP(NerfConfig())
+        t.load_state_dict(job["trunks"][which])
+        trunks.append(t.cuda())
+    scene = load_llff_data(job["scene"], factor=1)
+    data = s3.load_style_scene(scene, job["geo_dir"], job["styles_dir"], device="cuda")
+    field = s3.style_field_config(cfg, trunks[0])
+    scfg = s3.style_train_config(cfg, 0.0, 1.0)
+    state = s3.init_style_state(torch.Generator().manual_seed(0), field, scfg, data.style_num,
+                                data.frame_num, device="cuda", group=group)
+    mgr = CheckpointManager(job["e_ckpt"])
+    state.load_state_dict(mgr.restore(map_location="cuda"), group)
+    mgr.close()
+    state.cnt = 1  # the coherence term active, as after a cycle's reset
+    step = s3.make_style_train_step(*trunks, scfg, group)
+    m, g, _ = step.loss_and_grad(state, data, step.draw(data, state, seed=E_SEED))
+    group.all_reduce_mean_(g)
+    m = {k: float(v) for k, v in group.mean_scalars(m).items()}
+    return {"loss": m, "grads": [torch.cat([t.double().cpu().flatten() for t in grp])
+                                 for grp in step_groups(state, g)]}
+
+
+def multi_worker(job_path: str, out_path: str) -> None:
+    """One rank of phase 18(b): joins the two-process group (gloo, the card
+    shared), runs the Phase-A, C1 and Phase-E steps and the pipeline's
+    multi-process schedule, and saves what it read to ``out_path % rank``."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import tgtc_torch.train.checkpoint as ck
+    from tgtc_torch import cli
+    from tgtc_torch.ops.kernels import flash_attention as fa
+    from tgtc_torch.ops.kernels import nerf_mlp as ks
+    from tgtc_torch.ops.kernels import nerf_mlp_grad as kg
+    from tgtc_torch.parallel import DataGroup, maybe_initialize_distributed
+
+    check(maybe_initialize_distributed(device="cuda", backend="gloo"), "no process group")
+    group = DataGroup.world_group()
+    job = torch.load(job_path, weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = job["tf32"]
+    counters = {"K1": ks.fused_nerf_apply_t, "K3": kg.fused_nerf_bwd}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    a = mp_phase_a(group, *mp_rays(job["views"]))
+    torch.cuda.synchronize()
+    out = {"a": a, "a_s": time.perf_counter() - t0,
+           "launches": {k: c.launches for k, c in counters.items()},
+           "params_sha": hashlib.sha256(b"".join(p.numpy().tobytes() for p in a["params"]))
+           .hexdigest()}
+    t0 = time.perf_counter()
+    out["c1"] = mp_c1(group)
+    out["c1_s"] = time.perf_counter() - t0
+    out["launches"].update(out["c1"]["launches"])
+    t0 = time.perf_counter()
+    out["e"] = mp_e(group, job)
+    out["e_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    writes, original = [], ck.CheckpointManager._write
+
+    def counted(self, step, state, ready=None):
+        writes.append(f"{os.path.basename(self._dir)}/{step}")
+        return original(self, step, state, ready)
+
+    ck.CheckpointManager._write = counted
+    t0 = time.perf_counter()
+    try:
+        check(cli.main(job["pipe_argv"]) == 0, "cli under the two-process launch")
+    finally:
+        ck.CheckpointManager._write = original
+    torch.cuda.synchronize()
+    out.update(pipe_s=time.perf_counter() - t0, writes=writes)
+    if group.rank:  # rank 0's copy of what both ranks hold, and rank 1's own gradient
+        out = {**{k: v for k, v in out.items() if k not in ("a", "c1", "e")},
+               "a": {"local": a["local"]}}
+    torch.save(out, out_path % group.rank)
+    dist.destroy_process_group()
+
+
+def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
+    """Phase 18. (a) this process as a NCCL group of one: the fused Phase-A
+    step through ``group=`` equals the ungrouped step bit for bit (losses,
+    gradients, parameters), K1 and K3 launched 2 a step. (b) two worker
+    processes on the card over gloo against this process's 1-process steps
+    at the same global batch: the fused Phase-A step (batch 2048, 1024 a
+    rank; the first step's loss and gradient, the parameters after 3
+    steps), the full-width C1 step at dropout 0.1 (batch 8, 4 a rank; 36 K6,
+    K7 and K8 launches a rank), the Phase-E step at fern's settings (batch
+    256, 128 a rank, the coherence term on), then ``cli.main`` re-entering
+    phase 16's run under the two-process launch: Phase A skipped, Phase E
+    20 more steps over both ranks, rank 0 alone writing ``ckpt_style``,
+    which ``load_style_field`` reads. Returns each kernel's launches in the
+    workers' counted runs (both ranks) and the phase's wall seconds."""
+    import torch.distributed as dist
+
+    from tgtc_torch.parallel import DataGroup, maybe_initialize_distributed
+    from tgtc_torch.train.style3d import load_style_field, style_field_config
+    from tgtc_torch.config import load_config
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP
+
+    t_phase = time.perf_counter()
+    ro, rd, rgb = mp_rays(trained)
+    # ---- (a) a NCCL group of one in this process
+    env = {"TGTC_COORDINATOR": f"127.0.0.1:{free_port()}", "TGTC_NUM_PROCESSES": "1",
+           "TGTC_PROCESS_ID": "0"}
+    check(maybe_initialize_distributed(env, device="cuda"), "the group of one did not start")
+    runs, launches_a = {}, None
+    try:
+        group = DataGroup.world_group()
+        check(dist.get_backend() == "nccl" and group.world == 1 and group.active,
+              f"expected a NCCL group of one, got {dist.get_backend()} x {group.world}")
+        for name, g in (("plain", DataGroup()), ("group", group)):
+            ks.fused_nerf_apply_t.launches = kg.fused_nerf_bwd.launches = 0
+            runs[name] = mp_phase_a(g, ro, rd, rgb)
+            torch.cuda.synchronize()
+            launches_a = {"K1": ks.fused_nerf_apply_t.launches, "K3": kg.fused_nerf_bwd.launches}
+    finally:
+        dist.destroy_process_group()
+    plain, grouped = runs["plain"], runs["group"]
+    same = (plain["loss"] == grouped["loss"]
+            and all(torch.equal(a, b) for k in ("grads", "params")
+                    for a, b in zip(plain[k], grouped[k])))
+    print(f"[multi] (a) {card}: the fused Phase-A step at fern width (D8/W256, batch {BATCH}, "
+          f"{NC}+{NF} samples, sigma noise 1.0) through a NCCL DataGroup of one vs ungrouped, "
+          f"{MP_A_STEPS} steps: losses {grouped['loss']} vs {plain['loss']}, the first step's "
+          f"gradients and the parameters after bitwise equal: {same}; launches in the grouped "
+          f"run {launches_a}", flush=True)
+    check(same, "the grouped Phase-A step differs from the ungrouped one")
+    check(launches_a == {"K1": 2 * MP_A_STEPS, "K3": 2 * MP_A_STEPS},
+          f"the grouped Phase-A step launched {launches_a}")
+
+    # ---- (b) the 1-process references, then two workers sharing the card
+    ref_c1 = mp_c1(DataGroup())
+    e_job = {"fern": os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                  "fern.txt"),
+             "trunks": {k: {n: v.cpu() for n, v in trained[k].items()}
+                        for k in ("coarse", "fine")},
+             "scene": os.path.join(root, "scene"), "geo_dir": os.path.join(root, "geometry"),
+             "styles_dir": os.path.join(root, "stylized_c2"),
+             "e_ckpt": os.path.join(root, "e_run", "ckpt_style")}
+    ref_e = mp_e(DataGroup(), e_job)
+    torch.cuda.empty_cache()
+    total = PIPE_TOTAL + MP_E_STEPS
+    job = {"views": {k: trained[k] for k in ("intrinsics", "poses")},
+           "tf32": (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32),
+           "pipe_argv": pipe["argv"] + ["--total_step", str(total)], **e_job}
+    job_path, out_path = os.path.join(root, "multi_job.pt"), os.path.join(root, "multi_%d.pt")
+    torch.save(job, job_path)
+    logs, workers_s = run_workers(job_path, out_path)
+    outs = [torch.load(out_path % r, weights_only=False) for r in range(MP_WORLD)]
+    got = outs[0]
+
+    # Phase A
+    a = got["a"]
+    dl = [abs(x - y) / abs(y) for x, y in zip(a["loss"], plain["loss"])]
+    whole = grad_cos(torch.cat([g.flatten() for g in a["grads"]]),
+                     torch.cat([g.flatten() for g in plain["grads"]]))
+    leaf = max(grad_rel(x, y) for x, y in zip(a["grads"], plain["grads"]))
+    over, leaf_limit = 0.0, 0.0  # the worst |err| over its bf16 bound; the leaf bound
+    for g, ref, g0, g1 in zip(a["grads"], plain["grads"], a["local"], outs[1]["a"]["local"]):
+        g, ref, g0, g1 = (x.double() for x in (g, ref, g0, g1))
+        lim = (MP_BF16_U * (1 + 2 * MP_BF16_U) * ((g0.abs() + g1.abs()) / 2 + ref.abs())
+               + 2.0 ** -20 * float(ref.abs().max()))
+        over = max(over, float(((g - ref).abs() / lim).max()))
+        leaf_limit = max(leaf_limit, float(lim.max()) / max(float(ref.abs().max()), 1e-30))
+    dp = max(float((x.double() - y.double()).abs().max())
+             for x, y in zip(a["params"], plain["params"]))
+    moved = sum(int(((x.double() - y.double()).abs() > 1e-6).sum())
+                for x, y in zip(a["params"], plain["params"]))
+    n_params = sum(x.numel() for x in a["params"])
+    print(f"[multi] (b) {card}: two processes on the card over gloo vs this process, the "
+          f"fused Phase-A step at global batch {BATCH} ({BATCH // MP_WORLD} a rank): the first "
+          f"step's loss relative {dl[0]:.2e} (limit {TOL_MP_A_LOSS}), the next steps' "
+          + ", ".join(f"{x:.2e}" for x in dl[1:]) + " (read); the first step's averaged "
+          f"gradient: cosine {whole:.9f}, worst leaf max|err| / max|g| {leaf:.3e}, every "
+          f"element within {over:.3f} of its bf16 bound (limit 1; the bound reaches "
+          f"{leaf_limit:.3e} of its leaf's max|g|); after {MP_A_STEPS} steps max|dp| "
+          f"{dp:.3e} (limit {TOL_MP_A_PARAM:.3e}), {moved} of {n_params} elements apart by "
+          f"more than 1e-6; both ranks' parameters equal: "
+          f"{outs[0]['params_sha'] == outs[1]['params_sha']}; {got['a_s']:.2f} s", flush=True)
+    check(dl[0] <= TOL_MP_A_LOSS and over <= 1.0 and dp <= TOL_MP_A_PARAM,
+          "the 2-process Phase-A step disagrees with the 1-process")
+    check(outs[0]["params_sha"] == outs[1]["params_sha"], "the ranks' parameters differ")
+
+    # C1
+    c1 = got["c1"]
+    dl = abs(c1["loss"] - ref_c1["loss"]) / abs(ref_c1["loss"])
+    cos_all, leaf, lows = c1_grad_agreement(ref_c1["names"], c1["grads"], ref_c1["grads"])
+    print(f"[multi] (b) C1 step at full width, dropout {C1_RATE}, global batch {C1_BATCH} "
+          f"({C1_BATCH // MP_WORLD} a rank, bh_offset rank x {C1_BATCH // MP_WORLD} x 8): loss "
+          f"{c1['loss']:.6f} vs {ref_c1['loss']:.6f} (relative {dl:.3e}, limit {TOL_C1_LOSS}); "
+          f"cosine of the whole averaged gradient {cos_all:.7f} (limit {TOL_C1_COS}), worst "
+          f"leaf {leaf[0]:.3e} ({leaf[1]}, limit {TOL_C1_LEAF}); lowest leaf cosines {lows}; "
+          f"launches a rank " + "; ".join(f"rank {r} {o['launches']}" for r, o in enumerate(outs))
+          + f"; {got['c1_s']:.2f} s", flush=True)
+    check(dl <= TOL_C1_LOSS and cos_all >= TOL_C1_COS and leaf[0] <= TOL_C1_LEAF,
+          "the 2-process C1 step disagrees with the 1-process")
+    want = {"K1": 2 * MP_A_STEPS, "K3": 2 * MP_A_STEPS, "K6": C1_SITES, "K7": C1_SITES,
+            "K8": C1_SITES}
+    check(all(o["launches"] == want for o in outs),
+          f"worker launches {[o['launches'] for o in outs]}, expected {want} a rank")
+
+    # Phase E
+    e = got["e"]
+    rel = {k: abs(e["loss"][k] - ref_e["loss"][k]) / abs(ref_e["loss"][k]) for k in ref_e["loss"]}
+    cos = [grad_cos(x, y) for x, y in zip(e["grads"], ref_e["grads"])]
+    print(f"[multi] (b) Phase-E step at fern's settings, global batch 256 (128 a rank), the "
+          f"coherence term on: " + ", ".join(f"{k} {e['loss'][k]:.6f} vs {ref_e['loss'][k]:.6f} "
+                                              f"({rel[k]:.2e})" for k in ref_e["loss"])
+          + f"; gradient cosine concat {cos[0]:.7f}, style {cos[1]:.7f}, latents {cos[2]:.7f} "
+          f"(limits {TOL_E_LOSS}, {TOL_E_COS}); {got['e_s']:.2f} s", flush=True)
+    check(max(rel.values()) <= TOL_E_LOSS and min(cos) >= TOL_E_COS,
+          "the 2-process Phase-E step disagrees with the 1-process")
+
+    # the pipeline's multi-process schedule
+    cfg = load_config(pipe["argv"])
+    records = [json.loads(line) for line in open(os.path.join(pipe["exp"], "logs", "style.jsonl"))]
+    new = [r for r in records if r["step"] > PIPE_TOTAL]
+    ckpts = sorted(os.listdir(os.path.join(pipe["exp"], "ckpt_style")))
+    trunk = NerfMLP(NerfConfig(embed_freq_coor=cfg.embed_freq_coor,
+                               embed_freq_dir=cfg.embed_freq_dir))
+    concat, style, lat = load_style_field(os.path.join(pipe["exp"], "ckpt_style"),
+                                          style_field_config(cfg, trunk), device="cuda")
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [lat["latents"], *concat.parameters(), *style.parameters()])
+    print(f"[multi] (b) cli.main under the two-process launch on phase 16's run: checkpoint "
+          f"writes rank 0 {outs[0]['writes']}, rank 1 {outs[1]['writes']}; new style log lines "
+          f"{[(r['step'], round(r.get('steps_per_s', 0.0), 3)) for r in new]} (steps/s of two "
+          f"processes sharing one card: no scaling figure); ckpt_style {ckpts}; "
+          f"load_style_field: latents {tuple(lat['latents'].shape)} finite {finite}; "
+          f"{got['pipe_s']:.2f} s", flush=True)
+    check(outs[0]["writes"] == [f"ckpt_style/{total}"] and outs[1]["writes"] == [],
+          "the multi-process schedule's checkpoint writes")
+    check(bool(new) and new[-1]["step"] == total and f"ckpt_{total:08d}.pt" in ckpts and finite,
+          "the multi-process Phase E did not reach its total step")
+    check("[ORIGIN TRAIN]" not in logs[0] + logs[1], "Phase A ran again under the launch")
+    seconds = time.perf_counter() - t_phase
+    print(f"[multi] {card}: phase 18 wall {seconds:.2f} s, of which the workers "
+          f"{workers_s:.2f} s (start, kernel loads, (b)'s four parts)", flush=True)
+    return {k: sum(o["launches"][k] for o in outs) for k in want}, seconds
+
+
+def free_port() -> int:
+    """A localhost port free at the time of the call."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_workers(job_path: str, out_path: str):
+    """Both ranks of ``multi_worker``; their outputs and the seconds they took.
+    A rank that fails or outlives MP_TIMEOUT fails the phase, and both are
+    stopped."""
+    port = free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
+            f"chip_smoke.multi_worker({job_path!r}, {out_path!r})")
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(MP_WORLD):
+        env = dict(os.environ, TGTC_COORDINATOR=f"127.0.0.1:{port}",
+                   TGTC_NUM_PROCESSES=str(MP_WORLD), TGTC_PROCESS_ID=str(r),
+                   GLOO_SOCKET_IFNAME="lo")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=repo, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, MP_TIMEOUT - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, log in enumerate(logs):
+        print("\n".join(f"[multi rank {r}] {line}" for line in log.splitlines()[-60:]),
+              flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          f"a worker failed: exit codes {[p.returncode for p in procs]}")
+    return logs, time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3327,6 +3784,7 @@ def main() -> int:
         pipe_launches, pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
         w128_row, lev = phase_levers(ks, kg, kst, trained, rays_per_s, f_rays_per_s, pipe, tmp,
                                      card)
+        multi_launches, multi_s = phase_multi(ks, kg, fa, trained, pipe, tmp, card)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
                   launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
@@ -3344,6 +3802,9 @@ def main() -> int:
     for row in rows:  # phase 16's four pipeline runs
         row["launches_pipeline"] = pipe_launches[row["name"]]
     rows.append(w128_row)  # phase 17's (its pipeline runs are phase 17's re-entry)
+    for row in rows:  # phase 18's two workers' counted runs, both ranks
+        if row["name"] in multi_launches:
+            row["launches_multi"] = multi_launches[row["name"]]
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
@@ -3358,7 +3819,8 @@ def main() -> int:
           f"stylized fast-stack frame {lev['style_rays_per_s']:.1f} rays/s, proposal "
           f"distilled in {lev['distill_s']:.2f} s; budgeted Phase A steps/s "
           + ", ".join(f"{'exact' if b is None else b} {v:.2f}"
-                      for b, v in lev["a_steps_per_s"].items()), flush=True)
+                      for b, v in lev["a_steps_per_s"].items())
+          + f"; multi-process phase {multi_s:.2f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 """The CUDA kernels on a card: K1-K8 against their plain twins (K3's
-recompute against K1 bit for bit), their launch counters, the fused render, the fused stylized render, one fused
+recompute against K1 bit for bit; K6-K8 with ``bh_offset`` against the
+whole batch bit for bit), their launch counters, the reflection pad's
+repeatable gradient, the fused render, the fused stylized render, one fused
 training step, a narrow C3 stylization, a narrow C1 step, C2's splat, a
 narrow C2 step, a VAE step and a narrow Phase-E step on the card against the
 same on the CPU
@@ -526,6 +528,50 @@ def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate
               f"{e:.3e} (limit {lim:.3e})")
         assert e <= lim, name
     assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("b0", [1, 3])
+def test_cuda_k678_offset_rows_equal_the_whole_batch(cuda_device, b0):
+    """K6, K7 and K8 at dropout 0.1 on rows b0.. of a batch with ``bh_offset
+    = b0 · H`` give those rows' o, lse, dq, dk and dv of the whole batch bit
+    for bit (a process's share of the C1 batch)."""
+    q, k, v, do = _qkvdo(4, 2, 200, 130, cuda_device)
+    sl, off = slice(b0, b0 + 1), b0 * q.shape[1]
+
+    def run(q, k, v, do, **kw):
+        o, lse = fa.flash_attention_fwd(q, k, v, 0.125, 0.1, 13, **kw)
+        args = (q, k, v, do, lse, fa.attention_delta(o, do), 0.125, 0.1, 13)
+        return (o, lse, fa.flash_attention_bwd_dq(*args, **kw)) + fa.flash_attention_bwd_dkv(
+            *args, **kw)
+
+    whole = run(q, k, v, do)
+    rows = run(*(x[sl] for x in (q, k, v, do)), bh_offset=off)
+    other = run(*(x[sl] for x in (q, k, v, do)))
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"), rows, whole):
+        assert torch.equal(got, ref[sl]), name
+    assert not torch.equal(other[0], whole[0][sl])  # the offset is what matches them
+
+
+def test_cuda_reflect_pad_gradient_repeats(cuda_device):
+    """The VGG's and the decoder's reflection pad: its fixed-order backward
+    gives the same bf16 gradient on every call (the library's adds the
+    reflected bands by atomics), and the library's gradient to bf16 rounding."""
+    import torch.nn.functional as F
+
+    from tgtc_torch.models.vgg import reflect_pad
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((8, 64, 66, 66), generator=gen, device=cuda_device).to(torch.bfloat16)
+    g = torch.randn((8, 64, 68, 68), generator=gen, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_()
+    grads = [torch.autograd.grad(reflect_pad(x), x, g)[0] for _ in range(3)]
+    lib = torch.autograd.grad(F.pad(x, (1, 1, 1, 1), mode="reflect"), x, g)[0]
+    torch.cuda.synchronize()
+    assert all(torch.equal(grads[0], other) for other in grads[1:])
+    assert torch.equal(reflect_pad(x), F.pad(x, (1, 1, 1, 1), mode="reflect"))
+    assert float((grads[0].float() - lib.float()).abs().max()) <= 2 ** -7 * float(
+        lib.float().abs().max())
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.25])

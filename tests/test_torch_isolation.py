@@ -39,7 +39,8 @@ def test_submodule_list_covers_the_slice():
                  "train.transformer2d", "tools.train2d", "ops.rasterize", "train.temporal",
                  "models.vae", "train.vae_trainer", "config", "data.style_dataset",
                  "train.style3d", "train.pipeline", "cli", "utils.video", "utils.io3d",
-                 "tools.jsonl2tb", "tools.import_reference", "render.grid", "render.distill"):
+                 "tools.jsonl2tb", "tools.import_reference", "render.grid", "render.distill",
+                 "parallel", "parallel.mesh", "parallel.distributed"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -156,7 +157,12 @@ def test_entry_points_default_to_the_card():
     from tgtc_torch.tools import import_reference
     from tgtc_torch.train.pipeline import Pipeline
 
+    from tgtc_torch.parallel import maybe_initialize_distributed
+
+    launch = {"TGTC_COORDINATOR": "127.0.0.1:1", "TGTC_NUM_PROCESSES": "2",
+              "TGTC_PROCESS_ID": "1"}
     for build in (lambda: Pipeline(Config(datadir="unused")),
+                  lambda: maybe_initialize_distributed(launch),
                   lambda: cli.main(["--datadir", "unused"]),
                   lambda: import_reference.import_reference_checkpoints(Config(), "unused"),
                   lambda: import_reference.main(["--ref_dir", "unused"])):

@@ -17,8 +17,9 @@
   for ones with batch 2 and 32² crops.
 * The proposal levers construct, reach their phases as in the JAX
   pipeline, and exclude each other where JAX's do (``--proposal_width`` with
-  ``--sigma_grid``); a multi-process launch raises ``NotImplementedError``
-  naming 'Multi-GPU'.
+  ``--sigma_grid``); a multi-process launch reaches the multi-process
+  schedule (its group creation and Phase A stubbed here; the schedule itself
+  runs in tests/test_torch_multiprocess.py), where the render flags raise.
 * ``render_plain`` with the fast stack (a distilled proposal, or a density
   grid, with ``fine_budget`` and ``coarse_share``; the fused renderer's
   twins forced on the CPU) writes its PNGs.
@@ -290,10 +291,12 @@ def test_a_to_f_on_the_cpu_then_a_second_run_trains_nothing(private_llff_dir, st
 
 
 def test_unported_options_raise_naming_their_item(synthetic_llff_dir, style_dir, tmp_path,
-                                                  monkeypatch):
+                                                  monkeypatch, capsys):
     """The proposal levers, once refused, construct and reach their phases;
     the two frozen-density proposals exclude each other; a multi-process
-    launch still raises, naming 'Multi-GPU'."""
+    launch, once refused, reaches ``_run_multihost`` (which joins the group
+    and trains Phase A over it, both stubbed here), where a render flag
+    raises ``RuntimeError``."""
     base = dict(E2E, basedir=str(tmp_path), datadir=synthetic_llff_dir, styledir=style_dir)
     for option, value in (("sigma_grid", 8), ("proposal_width", 128), ("fine_budget", 6),
                           ("coarse_share", 2), ("train_fine_budget", "6@10")):
@@ -313,6 +316,7 @@ def test_unported_options_raise_naming_their_item(synthetic_llff_dir, style_dir,
         both.close()
     monkeypatch.undo()
     pipe = P.Pipeline(Config(**base), device="cpu")
+    joined, trained = [], []
     try:
         for env in ({"TGTC_COORDINATOR": "localhost:1234", "TGTC_NUM_PROCESSES": "2",
                      "TGTC_PROCESS_ID": "0"},
@@ -323,8 +327,20 @@ def test_unported_options_raise_naming_their_item(synthetic_llff_dir, style_dir,
             with monkeypatch.context() as m:
                 for k, v in env.items():
                     m.setenv(k, v)
-                with pytest.raises(NotImplementedError, match="'Multi-GPU'"):
-                    pipe.run()
+                m.setattr(P, "maybe_initialize_distributed",
+                          lambda device=None: joined.append(device))
+                m.setattr(P.DataGroup, "world_group", classmethod(lambda cls: cls()))
+                m.setattr(P.Pipeline, "train_nerf", lambda self: trained.append(self.group))
+                capsys.readouterr()
+                pipe.run()
+                assert "Run phases B-D single-process" in capsys.readouterr().out
+                cfg = pipe.cfg
+                for flag in ("render_valid", "render_train", "render_valid_style",
+                             "render_train_style"):
+                    m.setattr(pipe, "cfg", dataclasses.replace(cfg, **{flag: True}))
+                    with pytest.raises(RuntimeError, match="single-process"):
+                        pipe.run()
+        assert joined == [torch.device("cpu")] * 3 and len(trained) == 3
         assert not P.multi_process_launch({"WORLD_SIZE": "1", "MASTER_ADDR": "x",
                                            "MASTER_PORT": "1", "RANK": "0"})
         assert not P.multi_process_launch({"WORLD_SIZE": "4"})  # incomplete: no cluster

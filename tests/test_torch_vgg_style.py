@@ -7,6 +7,9 @@ same numpy-seeded inputs and the same weights.
 * Features against flax's VggEncoder with the same weights: f32 1e-4, bf16
   2e-2 of max|JAX|.
 * ``ceil_max_pool`` on odd sizes, exact.
+* ``reflect_pad``: JAX's ``jnp.pad(mode="reflect")`` bit for bit, and its
+  fixed-order gradient that of ``jax.vjp`` to f32 rounding (the library's
+  CUDA backward adds the reflected bands by atomics, which do not repeat).
 * A ``vgg_normalised.pth``-style state dict written by the test loads
   through ``train.pretrained.load_vgg_overlay`` (keys of the layers the
   truncated VGG does not build dropped) and gives JAX's features after its
@@ -22,7 +25,7 @@ import torch
 import tgtc.ops.style as js
 from tgtc.models.vgg import VggEncoder as JVgg, ceil_max_pool as j_ceil_max_pool, convert_torch_vgg
 from tgtc_torch.convert import stytrans_flax_from_state_dicts, stytrans_state_dicts_from_flax
-from tgtc_torch.models.vgg import VggEncoder, ceil_max_pool, make_vgg
+from tgtc_torch.models.vgg import VggEncoder, ceil_max_pool, make_vgg, reflect_pad
 from tgtc_torch.ops import style as ts
 from tgtc_torch.train.pretrained import load_vgg_overlay
 from test_torch_ops import close
@@ -85,6 +88,21 @@ def test_ceil_max_pool_odd_sizes_exact():
         assert got.shape == want.shape and np.array_equal(got.numpy(), want)
     x = torch.arange(25, dtype=torch.float32).reshape(1, 5, 5, 1)
     assert float(ceil_max_pool(x)[0, 2, 2, 0]) == 24.0
+
+
+@pytest.mark.parametrize("p", [1, 2, 3])
+def test_reflect_pad_and_its_gradient_match_jax(p):
+    rng = np.random.default_rng(p)
+    x = rng.standard_normal((2, 3, 5, 7)).astype(np.float32)
+    g = rng.standard_normal((2, 3, 5 + 2 * p, 7 + 2 * p)).astype(np.float32)
+    pad = lambda a: jnp.pad(a, ((0, 0), (0, 0), (p, p), (p, p)), mode="reflect")
+    want, vjp = jax.vjp(pad, jnp.asarray(x))
+    want_g = np.asarray(vjp(jnp.asarray(g))[0])
+    tx = torch.from_numpy(x).requires_grad_()
+    got = reflect_pad(tx, p)
+    assert np.array_equal(got.detach().numpy(), np.asarray(want))
+    got_g = torch.autograd.grad(got, tx, torch.from_numpy(g))[0].numpy()
+    np.testing.assert_allclose(got_g, want_g, rtol=0, atol=1e-6)  # f32 sums of <= 4 terms
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["truncated", "full"])

@@ -16,6 +16,8 @@ holds Phase C2's decoder finetune, Phase D's VAE, Phase E's style-field
 distillation and ``pipeline``, the A→F phase machine that ``cli``
 (``python -m tgtc_torch.cli --config ...``) runs; ``data`` holds Phase E's
 device-resident scene, and ``utils`` the turntable writers and 3D IO.
+``parallel`` steps Phases A and E (and the C1 step) over several processes,
+one per GPU, under ``torch.distributed``.
 
 Submodules load lazily: ``import tgtc_torch`` imports nothing heavy, and
 no kernel is built until the first call that launches it. Entry points
@@ -27,8 +29,8 @@ from __future__ import annotations
 
 import importlib
 
-_SUBMODULES = ("cli", "config", "convert", "data", "device", "models", "ops", "render",
-               "tools", "train", "utils")
+_SUBMODULES = ("cli", "config", "convert", "data", "device", "models", "ops", "parallel",
+               "render", "tools", "train", "utils")
 
 
 def __getattr__(name):

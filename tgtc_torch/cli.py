@@ -6,6 +6,11 @@
     python -m tgtc_torch.cli --config configs/fern.txt --render_valid
     python -m tgtc_torch.cli --config configs/fern.txt --render_train
 
+Over several GPUs, one process each (Phases A and E; see
+``Pipeline._run_multihost``)::
+
+    torchrun --nproc_per_node=N -m tgtc_torch.cli --config configs/fern.txt
+
 Every reference flag (:class:`tgtc_torch.config.Config`) is accepted, and
 config files in the reference's ``key = value`` format load unchanged. With
 no render flag the command runs the phase machine A → E
@@ -32,19 +37,28 @@ from tgtc_torch.device import DeviceLike
 
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> int:
     """Parse ``argv`` and run the pipeline on ``device`` (the card unless
-    the caller passes ``device="cpu"``, a Python argument, not a flag)."""
+    the caller passes ``device="cpu"``, a Python argument, not a flag). A
+    multi-process launch joins its process group first (binding the
+    process's card) and leaves it on exit."""
     import torch
+    import torch.distributed as dist
 
+    from tgtc_torch.parallel import maybe_initialize_distributed
     from tgtc_torch.train.pipeline import Pipeline
 
-    cfg = load_config(argv)
-    if cfg.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
-    pipe = Pipeline(cfg, device)
+    joined = maybe_initialize_distributed(device=device)
     try:
-        pipe.run()
+        cfg = load_config(argv)
+        if cfg.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+        pipe = Pipeline(cfg, device)
+        try:
+            pipe.run()
+        finally:
+            pipe.close()
     finally:
-        pipe.close()
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

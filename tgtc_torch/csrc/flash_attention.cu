@@ -14,7 +14,7 @@
 //   online softmax over key tiles: m_new = max(m, rowmax s),
 //   p = exp(s - m_new), alpha = exp(m - m_new), l = l alpha + rowsum p
 //   (l sums the UNDROPPED p); optional dropout: p = keep ? p / keep : 0,
-//   keep from the murmur3 counter hash of (seed, bh, row, col);
+//   keep from the murmur3 counter hash of (seed, bh + bh_offset, row, col);
 //   acc = acc alpha + bf16(p) v;
 //   o = bf16(acc / l), lse = m + log l (f32).
 // q is scaled inside the kernel, in the order of _prep: bf16(q * scale) with
@@ -155,7 +155,8 @@ __device__ __forceinline__ bool keep_hash(uint32_t x, uint32_t thr) {
 __device__ __forceinline__ uint32_t row_term(int row) { return (uint32_t)row * 0x9E3779B9u; }
 __device__ __forceinline__ uint32_t col_term(int col) { return (uint32_t)col * 0x85EBCA6Bu; }
 
-// The hash's per-(seed, batch*head) term. The seed is one int32 in device
+// The hash's per-(seed, batch*head) term, bh counted in the whole batch (the
+// block's bh plus the launch's bh_offset). The seed is one int32 in device
 // memory, so a caller can draw it on the device without a host sync.
 __device__ __forceinline__ uint32_t dropout_salt(const int* seed, int bh) {
   return (uint32_t)seed[0] + (uint32_t)bh * 0xC2B2AE35u;
@@ -280,7 +281,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
                  float* __restrict__ lse, int H, int Sq, int Sk, Strides os, float scale,
-                 const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+                 const int* __restrict__ seed, uint32_t thr, float inv_keep,
+                 int bh_offset) {
   extern __shared__ uint8_t smem_raw[];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(align_1k(smem_raw));
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -308,7 +310,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     setmaxnreg_inc<FWD_CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
-    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh + bh_offset) : 0u;
     const uint32_t rt[2] = {row_term(r_thr) ^ salt, row_term(r_thr + 8) ^ salt};
     if (wg == FWD_CONSUMERS - 1) turn_pass(wg);  // warpgroup 0 takes the first turn
 
@@ -432,7 +434,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int H, int Sq, int Sk, Strides dqs, float scale,
-                    const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+                    const int* __restrict__ seed, uint32_t thr, float inv_keep,
+                    int bh_offset) {
   extern __shared__ uint8_t smem_raw[];
   DqSmem& sm = *reinterpret_cast<DqSmem*>(align_1k(smem_raw));
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -459,7 +462,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     setmaxnreg_inc<CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int r_thr = row_blk + wg * 64 + warp * 16 + g;  // rows r_thr and r_thr + 8
-    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh + bh_offset) : 0u;
     float lr[2], dr[2];
     uint32_t rt[2];
 #pragma unroll
@@ -558,7 +561,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int H, int Sq, int Sk, Strides dks, Strides dvs,
-                     float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep) {
+                     float scale, const int* __restrict__ seed, uint32_t thr, float inv_keep,
+                     int bh_offset) {
   extern __shared__ uint8_t smem_raw[];
   DkvSmem& sm = *reinterpret_cast<DkvSmem*>(align_1k(smem_raw));
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -598,7 +602,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_consta
     setmaxnreg_inc<CONSUMER_REGS>();
     const int g = lane >> 2, t = lane & 3;
     const int k_thr = key_blk + wg * 64 + warp * 16 + g;  // keys k_thr and k_thr + 8
-    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh) : 0u;
+    const uint32_t salt = DROPOUT ? dropout_salt(seed, bh + bh_offset) : 0u;
     const uint32_t kt[2] = {col_term(k_thr) ^ salt, col_term(k_thr + 8) ^ salt};
     const bf16* kw = sm.k + wg * 64 * D;
     const bf16* vw = sm.v + wg * 64 * D;
@@ -719,12 +723,14 @@ bool pow2(float x) {
 // q, k and v (they are read by TMA). lse [B * H, Sq] f32. scale: sm_scale
 // rounded to bf16, any value. dropout != 0 drops where the hash draw is <
 // thr and scales the rest by inv_keep; seed points to the hash's int32 seed
-// in device memory (read only under dropout). Returns cudaGetLastError()
-// after the launch.
+// in device memory (read only under dropout). bh_offset is added to each
+// batch*head index the hash takes, so that a launch on rows b0.. of a batch
+// draws the masks those rows have in the whole batch (b0 * H; 0 for a whole
+// batch). Returns cudaGetLastError() after the launch.
 extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int B, int H, int Sq, int Sk, const long long* strides,
                               float scale, int dropout, const int* seed, unsigned int thr,
-                              float inv_keep, void* stream) {
+                              float inv_keep, int bh_offset, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Sk <= 0 || B * H > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -741,7 +747,7 @@ extern "C" int tgtc_flash_fwd(const void* q, const void* k, const void* v, void*
   const dim3 grid((unsigned)((Sq + FWD_ROWS - 1) / FWD_ROWS), (unsigned)(B * H));
   kernel<<<grid, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, static_cast<bf16*>(o), lse, H, Sq, Sk, strides_at(strides, 3), scale, seed,
-      thr, inv_keep);
+      thr, inv_keep, bh_offset);
   return (int)cudaGetLastError();
 }
 
@@ -754,7 +760,7 @@ extern "C" int tgtc_flash_bwd_dq(const void* q, const void* k, const void* v, co
                                  const float* lse, const float* delta, void* dq, int B, int H,
                                  int Sq, int Sk, const long long* strides, float scale,
                                  int dropout, const int* seed, unsigned int thr, float inv_keep,
-                                 void* stream) {
+                                 int bh_offset, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   if (Sk <= 0 || B * H > 65535 || !pow2(scale)) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
@@ -772,7 +778,7 @@ extern "C" int tgtc_flash_bwd_dq(const void* q, const void* k, const void* v, co
   const dim3 grid((unsigned)((Sq + BROWS - 1) / BROWS), (unsigned)(B * H));
   kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, strides_at(strides, 4),
-      scale, seed, thr, inv_keep);
+      scale, seed, thr, inv_keep, bh_offset);
   return (int)cudaGetLastError();
 }
 
@@ -782,7 +788,7 @@ extern "C" int tgtc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
                                   const float* lse, const float* delta, void* dk, void* dv,
                                   int B, int H, int Sq, int Sk, const long long* strides,
                                   float scale, int dropout, const int* seed, unsigned int thr,
-                                  float inv_keep, void* stream) {
+                                  float inv_keep, int bh_offset, void* stream) {
   if (B <= 0 || H <= 0 || Sk <= 0) return 0;
   if (Sq <= 0 || B * H > 65535 || !pow2(scale)) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
@@ -800,6 +806,7 @@ extern "C" int tgtc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   const dim3 grid((unsigned)((Sk + BROWS - 1) / BROWS), (unsigned)(B * H));
   kernel<<<grid, BWD_THREADS, smem, (cudaStream_t)stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
-      strides_at(strides, 4), strides_at(strides, 5), scale, seed, thr, inv_keep);
+      strides_at(strides, 4), strides_at(strides, 5), scale, seed, thr, inv_keep,
+      bh_offset);
   return (int)cudaGetLastError();
 }

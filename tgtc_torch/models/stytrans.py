@@ -33,6 +33,7 @@ from tgtc_torch.models.decoder import Decoder
 from tgtc_torch.models.transformer import (
     MultiHeadAttention,
     PatchEmbed,
+    Rows,
     StyleTransformer,
     TransformerConfig,
 )
@@ -76,11 +77,11 @@ class StyTrans(nn.Module):
                 m.in_proj_bias.zero_()
 
     def _transform(self, content: torch.Tensor, style: torch.Tensor, deterministic: bool = True,
-                   pos_mode: str = "ics", generator: Optional[torch.Generator] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   pos_mode: str = "ics", generator: Optional[torch.Generator] = None,
+                   rows: Rows = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(image, hs)`` in f32, whatever the compute type."""
         hs = self.transformer(self.embedding(style), self.embedding(content), pos_mode,
-                              deterministic, generator)
+                              deterministic, generator, rows)
         return self.decode(hs).float(), hs.float()
 
     @torch.no_grad()
@@ -95,17 +96,21 @@ class StyTrans(nn.Module):
 
     def compute_losses(self, content: torch.Tensor, style: torch.Tensor,
                        deterministic: bool = False,
-                       generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                       generator: Optional[torch.Generator] = None,
+                       rows: Rows = None) -> Dict[str, torch.Tensor]:
         """The C1 losses of ``content``/``style`` batches ``[B, P, P, 3]`` in
         [0, 1]: ``{"ics", "loss_c", "loss_s", "l_id1", "l_id2"}``. Dropout,
         where not ``deterministic``, draws from ``generator`` in the order
-        Ics, Icc, Iss."""
+        Ics, Icc, Iss; under ``rows=(first, total)`` the batches are rows
+        ``first…`` of a ``total``-row batch and draw its masks
+        (:mod:`tgtc_torch.models.transformer`). Every loss is a mean over
+        the batch's images."""
         def f32(feats):
             return [f.float() for f in feats]
 
         content_feats = f32(self.vgg(content))
         style_feats = f32(self.vgg(style))
-        ics, _ = self._transform(content, style, deterministic, "ics", generator)
+        ics, _ = self._transform(content, style, deterministic, "ics", generator, rows)
         ics_feats = f32(self.vgg(ics))
 
         loss_c = (mse(mean_variance_norm(ics_feats[-1]),
@@ -119,8 +124,8 @@ class StyTrans(nn.Module):
             loss_s = loss_s + mse(im, tm) + mse(istd, tstd)
 
         # the identity calls' positional patterns differ from the main call's
-        icc, _ = self._transform(content, content, deterministic, "icc", generator)
-        iss, _ = self._transform(style, style, deterministic, "iss", generator)
+        icc, _ = self._transform(content, content, deterministic, "icc", generator, rows)
+        iss, _ = self._transform(style, style, deterministic, "iss", generator, rows)
         l_id1 = mse(icc, content) + mse(iss, style)
         icc_feats, iss_feats = f32(self.vgg(icc)), f32(self.vgg(iss))
         l_id2 = torch.zeros((), device=content.device)

@@ -38,13 +38,20 @@ as in the JAX package, drawn from the caller's ``torch.Generator``:
 
 JAX's random streams cannot be reproduced, so only the rate-0 path is
 held to JAX value for value; the masks are held by their statistics.
+
+``rows=(first, total)`` says that the batch is rows ``first…`` of a
+``total``-row batch (one process's share under
+:class:`tgtc_torch.parallel.DataGroup`): every dropout then draws the whole
+batch's mask and keeps its rows, and the flash kernels hash the batch·head
+index counted in the whole batch (``bh_offset``), so the rows see the masks
+they have in the whole batch and the generator advances as it would there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -74,16 +81,28 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+Rows = Optional[Tuple[int, int]]  # (first row, rows of the whole batch)
+
+
+def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: tuple, rows: Rows) -> torch.Tensor:
+    """``draw(shape)``, or under ``rows`` the whole batch's draw cut to this
+    batch's rows."""
+    if rows is None:
+        return draw(tuple(shape))
+    first, total = rows
+    return draw((total, *shape[1:]))[first: first + shape[0]]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None,
+            rows: Rows = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in training: keep each element with probability
     ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)`` in x's type;
     the identity at rate 0."""
     if rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device), x.shape, rows)
+    return torch.where(u < keep, x / keep, 0.0)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -124,7 +143,7 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(d_model, d_model)
 
     def _eager(self, qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, rate: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator], rows: Rows = None) -> torch.Tensor:
         """The JAX package's einsum branches, one head at a time (the
         logits of a head at full C3 size take 573 MB in f32)."""
         d_head = qh.shape[-1]
@@ -137,20 +156,21 @@ class MultiHeadAttention(nn.Module):
                 p = torch.softmax(s.float(), dim=-1).to(torch.bfloat16)
                 if rate > 0.0:  # uint8 draws, keep quantized to 1/256 (JAX's bf16 branch)
                     thr = int(round(rate * 256.0))
-                    bits = torch.randint(256, p.shape, generator=generator, device=p.device,
-                                         dtype=torch.uint8)
+                    bits = draw_rows(lambda s: torch.randint(
+                        256, s, generator=generator, device=p.device, dtype=torch.uint8),
+                        p.shape, rows)
                     scale = torch.tensor(1.0 / (1.0 - thr / 256.0), dtype=torch.bfloat16)
                     p = torch.where(bits >= thr, p * scale, 0.0)
             else:
                 s = torch.matmul(q.float(), k.float().transpose(-1, -2))
                 p = dropout(torch.softmax(s / torch.tensor(float(d_head)).sqrt(), dim=-1),
-                            rate, generator)
+                            rate, generator, rows)
             out[:, h] = torch.matmul(p.to(v.dtype), v)
         return out
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                rows: Rows = None) -> torch.Tensor:
         d, dt = self.d_model, self.dtype
         w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         bsz, n, _ = q.shape
@@ -168,9 +188,10 @@ class MultiHeadAttention(nn.Module):
                 seed = torch.randint(2 ** 31 - 1, (1,), generator=generator, device=qh.device,
                                      dtype=torch.int32)
             out = flash_attention(qh, kh, vh, sm_scale=1.0 / math.sqrt(d_head),
-                                  dropout_rate=rate, dropout_seed=seed)
+                                  dropout_rate=rate, dropout_seed=seed,
+                                  bh_offset=rows[0] * self.nhead if rows else 0)
         else:
-            out = self._eager(qh, kh, vh, rate, generator)
+            out = self._eager(qh, kh, vh, rate, generator, rows)
         out = out.transpose(1, 2).reshape(bsz, n, d)
         return dense(out, self.out_proj, dt)
 
@@ -189,19 +210,19 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d, eps=LN_EPS)
 
     def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None,
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                rows: Rows = None) -> torch.Tensor:
         dt = self.cfg.dtype
         rate = 0.0 if deterministic else self.cfg.dropout
         if pos is None:  # v replaces src in the residual stream
             q, k, src = dense(src, self.qkv, dt).chunk(3, dim=-1)
         else:
             q, k = dense(src, self.qk, dt).chunk(2, dim=-1)
-        a = self.self_attn(q, k, src, deterministic, generator)
-        src = layer_norm(src + dropout(a, rate, generator), self.norm1)
-        ff = dropout(torch.relu(dense(src, self.linear1, dt)), rate, generator)
+        a = self.self_attn(q, k, src, deterministic, generator, rows)
+        src = layer_norm(src + dropout(a, rate, generator, rows), self.norm1)
+        ff = dropout(torch.relu(dense(src, self.linear1, dt)), rate, generator, rows)
         ff = dense(ff, self.linear2, dt)
-        return layer_norm(src + dropout(ff, rate, generator), self.norm2)
+        return layer_norm(src + dropout(ff, rate, generator, rows), self.norm2)
 
 
 class DecoderLayer(nn.Module):
@@ -220,7 +241,8 @@ class DecoderLayer(nn.Module):
 
     def forward(self, tgt: torch.Tensor, memory: torch.Tensor, pos: Optional[torch.Tensor] = None,
                 query_pos: Optional[torch.Tensor] = None, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows: Rows = None
+                ) -> torch.Tensor:
         def with_pos(x, p):
             return x if p is None else x + p
 
@@ -230,11 +252,11 @@ class DecoderLayer(nn.Module):
         # DETR-modified "self"-attention)
         for attn, norm in ((self.self_attn, self.norm1), (self.multihead_attn, self.norm2)):
             a = attn(with_pos(tgt, query_pos), with_pos(memory, pos), memory, deterministic,
-                     generator)
-            tgt = layer_norm(tgt + dropout(a, rate, generator), norm)
-        ff = dropout(torch.relu(dense(tgt, self.linear1, dt)), rate, generator)
+                     generator, rows)
+            tgt = layer_norm(tgt + dropout(a, rate, generator, rows), norm)
+        ff = dropout(torch.relu(dense(tgt, self.linear1, dt)), rate, generator, rows)
         ff = dense(ff, self.linear2, dt)
-        return layer_norm(tgt + dropout(ff, rate, generator), self.norm3)
+        return layer_norm(tgt + dropout(ff, rate, generator, rows), self.norm3)
 
 
 class TransformerEncoder(nn.Module):
@@ -243,9 +265,9 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_encoder_layers))
 
     def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor], deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows: Rows = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, pos, deterministic, generator)
+            x = layer(x, pos, deterministic, generator, rows)
         return x
 
 
@@ -256,9 +278,9 @@ class TransformerDecoder(nn.Module):
         self.norm = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
 
     def forward(self, tgt, memory, pos, query_pos, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, rows: Rows = None) -> torch.Tensor:
         for layer in self.layers:
-            tgt = layer(tgt, memory, pos, query_pos, deterministic, generator)
+            tgt = layer(tgt, memory, pos, query_pos, deterministic, generator, rows)
         return layer_norm(tgt, self.norm)
 
 
@@ -272,7 +294,8 @@ class StyleTransformer(nn.Module):
     encoder the ``qk`` branch, the decoder adds the content tokens as query
     position), ``"icc"`` (pos on both encoders; the decoder adds the raw
     style tokens to the memory too) or ``"iss"`` (no pos anywhere).
-    ``deterministic=False`` turns dropout on, drawn from ``generator``."""
+    ``deterministic=False`` turns dropout on, drawn from ``generator``;
+    ``rows`` as in the module's docstring."""
 
     def __init__(self, cfg: TransformerConfig = TransformerConfig()):
         super().__init__()
@@ -282,8 +305,8 @@ class StyleTransformer(nn.Module):
         self.decoder = TransformerDecoder(cfg)
 
     def forward(self, style: torch.Tensor, content: torch.Tensor, pos_mode: str = "ics",
-                deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                deterministic: bool = True, generator: Optional[torch.Generator] = None,
+                rows: Rows = None) -> torch.Tensor:
         b, hs, ws, c = style.shape
         _, hc, wc, _ = content.shape
         s = style.reshape(b, hs * ws, c)
@@ -296,7 +319,7 @@ class StyleTransformer(nn.Module):
             pos_s, pos_c = None, None
         else:
             raise ValueError(f"unknown pos_mode {pos_mode!r}")
-        s = self.encoder_s(s, pos_s, deterministic, generator)
-        ct = self.encoder_c(ct, pos_c, deterministic, generator)
-        out = self.decoder(ct, s, pos_s, pos_c, deterministic, generator)
+        s = self.encoder_s(s, pos_s, deterministic, generator, rows)
+        ct = self.encoder_c(ct, pos_c, deterministic, generator, rows)
+        out = self.decoder(ct, s, pos_s, pos_c, deterministic, generator, rows)
         return out.reshape(b, hc, wc, c)

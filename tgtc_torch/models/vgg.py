@@ -48,10 +48,39 @@ _TORCH_IDX_TO_NAME = {
 TRUNCATED_LAYERS = 31  # the reference's vgg[:31]: through relu4_1
 
 
+def _fold_reflected(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The gradient of a ``p``-wide reflection pad along ``dim``: the middle
+    of ``g`` plus each padded band added onto the rows it copied, in a fixed
+    order."""
+    n = g.shape[dim] - 2 * p
+    out = g.narrow(dim, p, n).clone()
+    rev = lambda t: t.flip(dim) if p > 1 else t
+    out.narrow(dim, 1, p).add_(rev(g.narrow(dim, 0, p)))
+    out.narrow(dim, n - 1 - p, p).add_(rev(g.narrow(dim, p + n, p)))
+    return out
+
+
+class _ReflectPad2d(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` with a backward that adds in a fixed order:
+    the library's CUDA backward adds the reflected bands with atomics, so
+    a step through it does not repeat bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, p: int) -> torch.Tensor:
+        ctx.p = p
+        return F.pad(x, (p, p, p, p), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        p = ctx.p
+        return _fold_reflected(_fold_reflected(g, p, 3), p, 2), None
+
+
 def reflect_pad(x: torch.Tensor, p: int = 1) -> torch.Tensor:
     """Reflection padding of the two spatial axes of an NCHW tensor (the
-    JAX function pads NHWC; the port's convolutions run NCHW)."""
-    return F.pad(x, (p, p, p, p), mode="reflect")
+    JAX function pads NHWC; the port's convolutions run NCHW), whose
+    gradient repeats bit for bit."""
+    return _ReflectPad2d.apply(x, p)
 
 
 def _ceil_pool_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ first use by :mod:`tgtc_torch.ops.kernels._build`):
 * K6 :func:`flash_attention_fwd` replaces the Pallas ``_fwd_call`` —
   ``softmax(sm_scale · q kᵀ) v`` with q scaled first in q's type, an online
   softmax over key tiles, optional attention-probs dropout from a counter
-  hash of (seed, batch·head, row, col), and the logsumexp of every row.
+  hash of (seed, batch·head, row, col), and the logsumexp of every row;
+  ``bh_offset`` shifts the batch·head index, so that one process's rows of
+  a batch draw the masks they have in the whole batch.
 * K7 :func:`flash_attention_bwd_dq` and K8 :func:`flash_attention_bwd_dkv`
   replace the two calls of ``_bwd_call``: dQ, and dK with dV, from dO, the
   logsumexp and Δ = rowsum(dO·O), regenerating the same dropout mask.
@@ -117,11 +119,12 @@ def _scaled(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               sm_scale: float = 1.0, dropout_rate: float = 0.0,
-                              dropout_seed: Optional[int] = None, rows: int = 2048
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              dropout_seed: Optional[int] = None, rows: int = 2048,
+                              bh_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K6: ``(o [B, H, Sq, D]`` in q's type, ``lse [B, H, Sq]``
     f32). One head and ``rows`` query rows at a time, so the logits never
-    take more than ``rows x Sk`` floats."""
+    take more than ``rows x Sk`` floats. ``bh_offset`` is added to the
+    batch·head index of the dropout hash (see :func:`flash_attention`)."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
     b, h, sq, _ = q.shape
     sk = k.shape[2]
@@ -142,7 +145,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 l = p.sum(dim=-1, keepdim=True)
                 if dropout_rate > 0.0:
                     r = torch.arange(r0, r0 + s.shape[0], device=q.device)
-                    mask = dropout_keep_mask(seed, bi * h + hi, r, cols, thr)
+                    mask = dropout_keep_mask(seed, bh_offset + bi * h + hi, r, cols, thr)
                     p = torch.where(mask, p * (1.0 / keep), 0.0)
                 acc = p.to(vf.dtype).float() @ vf.float()
                 o[bi, hi, r0: r0 + rows] = (acc / l).to(q.dtype)
@@ -152,7 +155,7 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale: float = 1.0,
                                  dropout_rate: float = 0.0, dropout_seed=None,
-                                 rows: int = 2048) -> torch.Tensor:
+                                 rows: int = 2048, bh_offset: int = 0) -> torch.Tensor:
     """Plain twin of K7: ``dq [B, H, Sq, D]`` in q's type from ``do`` (the
     shape of q), ``lse`` and ``delta [B, H, Sq]`` f32."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
@@ -171,7 +174,7 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale: float = 1.0,
                 dpt = do[bi, hi, sl].float() @ vt
                 if dropout_rate > 0.0:
                     r = torch.arange(r0, r0 + p.shape[0], device=q.device)
-                    mask = dropout_keep_mask(seed, bi * h + hi, r, cols, thr)
+                    mask = dropout_keep_mask(seed, bh_offset + bi * h + hi, r, cols, thr)
                     dpt = torch.where(mask, dpt * (1.0 / keep), 0.0)
                 ds = (p * (dpt - delta[bi, hi, sl, None])).to(k.dtype)
                 dq[bi, hi, sl] = (ds.float() @ kf).to(q.dtype) * scale
@@ -180,7 +183,8 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale: float = 1.0,
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale: float = 1.0,
                                   dropout_rate: float = 0.0, dropout_seed=None,
-                                  rows: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+                                  rows: int = 2048, bh_offset: int = 0
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of K8: ``(dk, dv)`` in k's and v's types, the shape of k."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
     b, h, sq, d = q.shape
@@ -203,7 +207,7 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale: float = 1.0
                 dpt, pd = dob.float() @ vf.T, p
                 if dropout_rate > 0.0:
                     r = torch.arange(r0, r0 + p.shape[0], device=q.device)
-                    mask = dropout_keep_mask(seed, bi * h + hi, r, cols, thr)
+                    mask = dropout_keep_mask(seed, bh_offset + bi * h + hi, r, cols, thr)
                     pd = torch.where(mask, p * (1.0 / keep), 0.0)
                     dpt = torch.where(mask, dpt * (1.0 / keep), 0.0)
                 dv_acc += pd.to(do.dtype).float().T @ dob.float()
@@ -219,15 +223,15 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, sm_scale: float = 1.0,
-                              dropout_rate: float = 0.0, dropout_seed=None
+                              dropout_rate: float = 0.0, dropout_seed=None, bh_offset: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The twins' backward: ``(dq, dk, dv)`` from the forward's ``o`` and
     ``lse`` and the cotangent ``do``."""
     delta = attention_delta(o, do)
     dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
-                                      dropout_seed)
+                                      dropout_seed, bh_offset=bh_offset)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
-                                           dropout_seed)
+                                           dropout_seed, bh_offset=bh_offset)
     return dq, dk, dv
 
 
@@ -282,6 +286,14 @@ def _dropout_args(q: torch.Tensor, dropout_rate: float, dropout_seed):
     return 1, seed, thr, 1.0 / keep
 
 
+def _bh_offset(bh_offset: int, bh: int) -> int:
+    """The launch's batch·head offset, checked to keep every hashed index
+    an int32."""
+    if bh_offset < 0 or bh_offset + bh > 2 ** 31 - 1:
+        raise ValueError(f"bh_offset {bh_offset} with {bh} batch x heads leaves int32")
+    return int(bh_offset)
+
+
 def _bf16_scale(sm_scale: float) -> float:
     return float(torch.tensor(sm_scale, dtype=torch.bfloat16))
 
@@ -303,11 +315,11 @@ def _lib() -> ctypes.CDLL:
     """The kernels' library, built and bound on the first launch."""
     lib = _build.load("flash_attention")
     vp, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    lib.tgtc_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, f, i, vp, u, f, vp]
+    lib.tgtc_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp, f, i, vp, u, f, i, vp]
     lib.tgtc_flash_bwd_dq.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp, f, i, vp, u,
-                                      f, vp]
+                                      f, i, vp]
     lib.tgtc_flash_bwd_dkv.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp, f, i, vp,
-                                       u, f, vp]
+                                       u, f, i, vp]
     for fn in (lib.tgtc_flash_fwd, lib.tgtc_flash_bwd_dq, lib.tgtc_flash_bwd_dkv):
         fn.restype = i
     return lib
@@ -326,13 +338,15 @@ def _launch_shape(q: torch.Tensor, k: torch.Tensor, what: str):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: float = 1.0, dropout_rate: float = 0.0,
-                        dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                        dropout_seed=None, bh_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: ``q [B, H, Sq, D]``, ``k``/``v [B, H, Sk, D]`` → ``(o [B, H, Sq,
     D]``, ``lse [B, H, Sq]`` f32). On the card ``o`` is a ``[B, Sq, H, D]``
     tensor seen through a transpose, so that merging the heads is free."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, sm_scale, dropout_rate, dropout_seed)
+        return flash_attention_fwd_plain(q, k, v, sm_scale, dropout_rate, dropout_seed,
+                                         bh_offset=bh_offset)
     _check_cuda(q=q, k=k, v=v)
     b, h, sq, sk, d = _launch_shape(q, k, "K6")
     q, k, v = (_aligned(x) for x in (q, k, v))
@@ -342,20 +356,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().tgtc_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                lse.data_ptr(), b, h, sq, sk, _strides(q, k, v, o),
-                               _bf16_scale(sm_scale), drop, _ptr(seed), thr, inv_keep, stream)
+                               _bf16_scale(sm_scale), drop, _ptr(seed), thr, inv_keep,
+                               _bh_offset(bh_offset, b * h), stream)
     _raise_on(rc, "tgtc_flash_fwd")
     flash_attention_fwd.launches += 1
     return o, lse
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float = 1.0,
-                           dropout_rate: float = 0.0, dropout_seed=None) -> torch.Tensor:
+                           dropout_rate: float = 0.0, dropout_seed=None,
+                           bh_offset: int = 0) -> torch.Tensor:
     """K7: ``dq`` (the shape of q; on the card a ``[B, Sq, H, D]`` tensor
     seen through a transpose) from ``do``, ``lse`` and ``delta``."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
-                                            dropout_seed)
+                                            dropout_seed, bh_offset=bh_offset)
     _check_cuda(q=q, k=k, v=v, do=do)
     scale = _pow2_scale(sm_scale, "K7")
     b, h, sq, sk, d = _launch_shape(q, k, "K7")
@@ -367,21 +383,21 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale: float = 1.0,
     rc = _lib().tgtc_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
                                   _strides(q, k, v, do, dq), scale, drop, _ptr(seed), thr,
-                                  inv_keep, stream)
+                                  inv_keep, _bh_offset(bh_offset, b * h), stream)
     _raise_on(rc, "tgtc_flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float = 1.0,
-                            dropout_rate: float = 0.0, dropout_seed=None
+                            dropout_rate: float = 0.0, dropout_seed=None, bh_offset: int = 0
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8: ``(dk, dv)`` (the shape of k; on the card ``[B, Sk, H, D]``
     tensors seen through a transpose) from ``do``, ``lse`` and ``delta``."""
     _check_args(q, k, v, dropout_rate, dropout_seed)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, sm_scale, dropout_rate,
-                                             dropout_seed)
+                                             dropout_seed, bh_offset=bh_offset)
     _check_cuda(q=q, k=k, v=v, do=do)
     scale = _pow2_scale(sm_scale, "K8")
     b, h, sq, sk, d = _launch_shape(q, k, "K8")
@@ -394,20 +410,23 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale: float = 1.0,
     rc = _lib().tgtc_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                                    dv.data_ptr(), b, h, sq, sk, _strides(q, k, v, do, dk, dv),
-                                   scale, drop, _ptr(seed), thr, inv_keep, stream)
+                                   scale, drop, _ptr(seed), thr, inv_keep,
+                                   _bh_offset(bh_offset, b * h), stream)
     _raise_on(rc, "tgtc_flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, sm_scale: float = 1.0, dropout_rate: float = 0.0,
-                        dropout_seed=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                        dropout_seed=None, bh_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``_flash_bwd``: Δ = rowsum(dO·O) in f32, then K7 and K8 (their twins
     for CPU tensors)."""
     delta = attention_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale, dropout_rate, dropout_seed)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, sm_scale, dropout_rate, dropout_seed,
+                                bh_offset)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, sm_scale, dropout_rate,
-                                     dropout_seed)
+                                     dropout_seed, bh_offset)
     return dq, dk, dv
 
 
@@ -417,44 +436,49 @@ class FlashAttention(torch.autograd.Function):
     K6 and the backward K7 + K8 (the twins for CPU tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale: float, dropout_rate: float, dropout_seed, plain: bool):
+    def forward(ctx, q, k, v, sm_scale: float, dropout_rate: float, dropout_seed, plain: bool,
+                bh_offset: int):
         fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
-        o, lse = fwd(q, k, v, sm_scale, dropout_rate, dropout_seed)
+        o, lse = fwd(q, k, v, sm_scale, dropout_rate, dropout_seed, bh_offset=bh_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (sm_scale, dropout_rate, dropout_seed, plain)
+        ctx.args = (sm_scale, dropout_rate, dropout_seed, plain, bh_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        sm_scale, dropout_rate, dropout_seed, plain = ctx.args
+        sm_scale, dropout_rate, dropout_seed, plain, bh_offset = ctx.args
         bwd = flash_attention_bwd_plain if plain else flash_attention_bwd
-        dq, dk, dv = bwd(q, k, v, o, do, lse, sm_scale, dropout_rate, dropout_seed)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = bwd(q, k, v, o, do, lse, sm_scale, dropout_rate, dropout_seed,
+                         bh_offset=bh_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float = 1.0, dropout_rate: float = 0.0,
-                    dropout_seed=None) -> torch.Tensor:
+                    dropout_seed=None, bh_offset: int = 0) -> torch.Tensor:
     """Fused attention ``softmax(sm_scale · q kᵀ) v`` with optional
     in-kernel attention-probs dropout, differentiable in q, k and v (K6
     forward, K7 + K8 backward). ``dropout_seed`` (an int or int32 tensor)
     is required when ``dropout_rate > 0``; the same seed gives the same
-    mask in the forward and the backward. On the card a call that will be
-    differentiated refuses a scale K7/K8 do not take before K6 runs."""
+    mask in the forward and the backward. ``bh_offset`` is added to every
+    batch·head index the dropout hash takes: a call on rows ``b0…`` of a
+    batch with ``bh_offset = b0 · H`` draws the masks those rows have in the
+    whole batch (0, the default, for a whole batch). On the card a call that
+    will be differentiated refuses a scale K7/K8 do not take before K6 runs."""
     if (q.device.type == "cuda" and torch.is_grad_enabled()
             and any(x.requires_grad for x in (q, k, v))):
         _pow2_scale(sm_scale, "K7/K8")
     return FlashAttention.apply(q, k, v, float(sm_scale), float(dropout_rate), dropout_seed,
-                                False)
+                                False, int(bh_offset))
 
 
 def flash_attention_plain(q, k, v, sm_scale: float = 1.0, dropout_rate: float = 0.0,
-                          dropout_seed=None) -> torch.Tensor:
+                          dropout_seed=None, bh_offset: int = 0) -> torch.Tensor:
     """:func:`flash_attention` through the twins on any device (a card's
     tensors included): the comparison path for the kernels."""
     return FlashAttention.apply(q, k, v, float(sm_scale), float(dropout_rate), dropout_seed,
-                                True)
+                                True, int(bh_offset))
 
 
 flash_attention_fwd.launches = 0

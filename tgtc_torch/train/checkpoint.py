@@ -6,7 +6,9 @@ then ``os.replace``), the newest ``max_to_keep`` are kept, and
 :meth:`CheckpointManager.save_device_async` saves a device-resident state
 without stalling the caller: it takes an on-device ``clone`` snapshot and
 leaves the device→host copy and the write to one background thread, with at
-most 2 saves pending.
+most 2 saves pending. Under a process group only rank 0 writes (the states
+are replicated, so its copy is the whole truth); every rank restores from the
+shared directory.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, List, Optional
 
 import torch
+
+from tgtc_torch.parallel.distributed import is_main_process
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -57,7 +61,10 @@ class CheckpointManager:
             os.remove(self.path(old))
 
     def save(self, step: int, state: Any) -> None:
-        """Write ``state`` at ``step`` now (after any pending async saves)."""
+        """Write ``state`` at ``step`` now (after any pending async saves);
+        a no-op off rank 0."""
+        if not is_main_process():
+            return
         self.wait()
         self._write(step, state)
 
@@ -65,7 +72,10 @@ class CheckpointManager:
         """Save ``state`` (device tensors) without blocking: snapshot it on the
         device now (``clone``, ordered on the current stream before any later
         in-place update), fetch and write it on the background thread.
-        Saves stay in step order; a third pending save waits for the oldest."""
+        Saves stay in step order; a third pending save waits for the oldest.
+        A no-op off rank 0."""
+        if not is_main_process():
+            return
         self._drain_done()
         if self._writer is None:
             self._writer = ThreadPoolExecutor(max_workers=1,

@@ -21,6 +21,12 @@ the Phase-A loop of ``Pipeline.train_nerf`` (tgtc/train/pipeline.py:263-385).
   raw coarse σ without a gradient) and composites them with their
   full-set intervals; :func:`train_nerf` switches budgets at the segment
   boundaries of a schedule (:func:`parse_budget_schedule`).
+* ``group=`` (a :class:`~tgtc_torch.parallel.DataGroup`) steps over
+  several processes, as the JAX step shards its batch over the mesh: every
+  rank draws the global :class:`StepDraws`, keeps its rows, and the
+  gradients are all-reduced (averaged) once per optimizer update, so the
+  W-process step is the 1-process step at the same global batch. Rank 0
+  alone writes the checkpoints and the log.
 * Not ported: the K-step ``lax.scan`` dispatch (a TPU workaround).
 """
 
@@ -48,6 +54,7 @@ from tgtc_torch.ops.sampling import (
     sample_along_rays_uniform,
     select_sample_budget,
 )
+from tgtc_torch.parallel import DataGroup, is_main_process
 from tgtc_torch.render.fast import _points_t
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
@@ -175,11 +182,18 @@ class TrainStep:
     """``step(state, rays_o, rays_d, rgb_gt, generator=None, draws=None) ->
     (state, metrics)``: gathers the batch, renders, backpropagates and
     updates ``state`` in place. Metrics are device scalars (no sync). The
-    state, the rays and the draws live on ``device``."""
+    state, the rays and the draws live on ``device``.
 
-    def __init__(self, loss_fn: LossFn, cfg: NerfTrainConfig, device: DeviceLike = None):
-        self.loss_fn, self.cfg = loss_fn, cfg
+    Under ``group`` the draws are the global batch's (``batch_size`` rays);
+    :meth:`loss_and_grad` runs on this rank's rows of them and its metrics
+    and gradients are this rank's, and :meth:`apply` averages the gradients
+    over the ranks before the update."""
+
+    def __init__(self, loss_fn: LossFn, cfg: NerfTrainConfig, device: DeviceLike = None,
+                 group: DataGroup = DataGroup()):
+        self.loss_fn, self.cfg, self.group = loss_fn, cfg, group
         self.device = resolve_device(device)
+        group.local_size(cfg.batch_size)  # refuses a batch the group does not split
 
     def draw(self, n_rays: int, generator: Optional[torch.Generator] = None) -> StepDraws:
         c = self.cfg
@@ -195,7 +209,10 @@ class TrainStep:
                       rays_d: torch.Tensor, rgb_gt: torch.Tensor, draws: StepDraws
                       ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """Loss, metrics and the gradients of both trunks' parameters
-        (coarse then fine, in ``parameters()`` order), before any update."""
+        (coarse then fine, in ``parameters()`` order), before any update;
+        under a group, of this rank's rows of ``draws``."""
+        draws = StepDraws(*(self.group.rows(getattr(draws, f.name))
+                            for f in dataclasses.fields(draws)))
         idx = draws.idx
         loss_c, loss_f = self.loss_fn(coarse, fine, rays_o[idx], rays_d[idx], rgb_gt[idx],
                                       draws)
@@ -207,7 +224,9 @@ class TrainStep:
         return metrics, list(grads)
 
     def apply(self, state: NerfTrainState, grads: List[torch.Tensor]) -> None:
-        """One optimizer update, or one micro-step of ``steps_per_opt``."""
+        """One optimizer update, or one micro-step of ``steps_per_opt``; the
+        gradients (the micro-steps' mean) are averaged over the group's
+        ranks once per update."""
         k = self.cfg.steps_per_opt
         if k > 1:
             if state.grad_acc is None:
@@ -219,6 +238,7 @@ class TrainStep:
             if state.mini_step:
                 return
             grads, state.grad_acc = state.grad_acc, None
+        self.group.all_reduce_mean_(grads)
         for p, g in zip(state.parameters(), grads):
             p.grad = g
         state.optimizer.step()
@@ -238,9 +258,11 @@ class TrainStep:
         return state, metrics
 
 
-def make_train_step(train_cfg: NerfTrainConfig, device: DeviceLike = None) -> TrainStep:
+def make_train_step(train_cfg: NerfTrainConfig, device: DeviceLike = None,
+                    group: DataGroup = DataGroup()) -> TrainStep:
     """The eager Phase-A step on ``device`` (default the card): autograd
-    through ``render_rays`` in each trunk's ``compute_dtype``."""
+    through ``render_rays`` in each trunk's ``compute_dtype``; over
+    ``group``'s processes (see :class:`TrainStep`)."""
     train_cfg.n_fine_eval  # checks the budget
     settings = train_cfg.render_settings(perturb=True)
 
@@ -249,7 +271,7 @@ def make_train_step(train_cfg: NerfTrainConfig, device: DeviceLike = None) -> Tr
                           noise_coarse=dr.noise_coarse, noise_fine=dr.noise_fine)
         return img2mse(out["coarse"].rgb, b_rgb), img2mse(out["fine"].rgb, b_rgb)
 
-    return TrainStep(loss_fn, train_cfg, device)
+    return TrainStep(loss_fn, train_cfg, device, group)
 
 
 def fused_train_supported(nerf_cfg: NerfConfig, fine_cfg: Optional[NerfConfig] = None
@@ -272,10 +294,12 @@ def fused_train_supported(nerf_cfg: NerfConfig, fine_cfg: Optional[NerfConfig] =
 
 def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
                           fine_cfg: Optional[NerfConfig] = None,
-                          device: DeviceLike = None) -> TrainStep:
+                          device: DeviceLike = None,
+                          group: DataGroup = DataGroup()) -> TrainStep:
     """The Phase-A step on the fused trunk, on ``device`` (default the
     card): both passes run K1 forward under autograd and K3 backward (their
-    plain twins for CPU tensors)."""
+    plain twins for CPU tensors); over ``group``'s processes (see
+    :class:`TrainStep`)."""
     if not fused_train_supported(nerf_cfg, fine_cfg):
         raise ValueError(
             "make_fused_train_step preconditions not met (relu trunk, use_viewdir, "
@@ -312,7 +336,7 @@ def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
         comp_f, _ = run_pass(fine, b_o, b_d, ts_f, dr.noise_fine, deltas_f)
         return img2mse(comp_c.rgb, b_rgb), img2mse(comp_f.rgb, b_rgb)
 
-    return TrainStep(loss_fn, train_cfg, device)
+    return TrainStep(loss_fn, train_cfg, device, group)
 
 
 # ---------------------------------------------------------------- rendering
@@ -445,6 +469,7 @@ def train_nerf(
     reload: bool = True,
     profile_dir: str = "",
     budget_schedule: str = "",
+    group: DataGroup = DataGroup(),
 ) -> Tuple[NerfTrainState, Dict[str, list]]:
     """Phase A on ``scene`` (an ``LlffScene``) up to ``steps`` steps,
     resuming from the latest checkpoint under ``out_dir/ckpt_dir`` (unless
@@ -465,17 +490,28 @@ def train_nerf(
     Returns the state and ``{"loss": [every step's loss], "records":
     [logged lines]}``; a record is its JSONL line, step included, and its
     ``steps_per_s`` covers the steps since the previous record.
+
+    Over ``group``'s processes every rank calls this with the same
+    arguments: rank 0's parameters are broadcast once, each step runs on
+    the rank's rows of the global batch (:class:`TrainStep`), the logged
+    losses are averaged over the ranks at log steps (the PSNRs taken from
+    the averaged losses), rank 0 alone writes the checkpoints, the log and
+    the trace, and every rank waits at the end until the last checkpoint is
+    on disk.
     """
     if train_cfg.train_fine_budget is not None:
         raise ValueError("train_nerf takes its fine budget from budget_schedule "
                          f"(e.g. '{train_cfg.train_fine_budget}'), not from train_cfg")
     segments = parse_budget_schedule(budget_schedule)
     dev = resolve_device(device)
+    if not is_main_process():
+        print_fn = None
     state = init_state(torch.Generator().manual_seed(seed), nerf_cfg, train_cfg, fine_cfg,
                        device=dev)
     ckpt = CheckpointManager(os.path.join(out_dir, ckpt_dir), max_to_keep=max_to_keep)
     if reload and ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=dev))
+    group.broadcast_([p.detach() for p in state.parameters()])
     history: Dict[str, list] = {"loss": [], "records": []}
     if state.step >= steps:
         ckpt.close()
@@ -497,8 +533,8 @@ def train_nerf(
     def step_for(budget: Optional[int]) -> TrainStep:
         if budget not in step_fns:
             tc = dataclasses.replace(train_cfg, train_fine_budget=budget)
-            step_fns[budget] = (make_fused_train_step(nerf_cfg, tc, fine_cfg, dev)
-                                if use_fused else make_train_step(tc, dev))
+            step_fns[budget] = (make_fused_train_step(nerf_cfg, tc, fine_cfg, dev, group)
+                                if use_fused else make_train_step(tc, dev, group))
         return step_fns[budget]
 
     logger = MetricsLogger(os.path.join(out_dir, "logs"), name="nerf", print_fn=print_fn)
@@ -507,7 +543,7 @@ def train_nerf(
     step = last_log = last_ckpt = state.step
     window: List[torch.Tensor] = []
     t_log = time.perf_counter()
-    prof = _start_profile(dev) if profile_dir else None
+    prof = _start_profile(dev) if profile_dir and is_main_process() else None
     first = step
     timer.start("model")
     try:
@@ -523,10 +559,13 @@ def train_nerf(
             if step // i_print > last_log // i_print or step >= steps:
                 timer.start("log")
                 keys = list(metrics)
-                vals = torch.stack(window + [metrics[k].float().reshape(()) for k in keys]
-                                   ).cpu().tolist()
+                vals = torch.stack(window + [metrics[k].float().reshape(()) for k in keys])
+                vals = group.all_reduce_mean_([vals])[0].cpu().tolist()
                 history["loss"] += vals[:len(window)]
                 m = dict(zip(keys, vals[len(window):]))
+                if group.world > 1:  # the PSNRs of the averaged losses
+                    m["psnr"], m["psnr_fine"] = (float(mse2psnr(torch.tensor(m[k])))
+                                                 for k in ("loss_coarse", "loss_fine"))
                 now = time.perf_counter()
                 m["steps_per_s"] = (step - last_log) / (now - t_log)
                 m.update(timer.report_and_reset())
@@ -543,6 +582,7 @@ def train_nerf(
         timer.stop()
         logger.close()
         ckpt.close()
+    group.barrier()  # the last checkpoint is on disk for every rank
     return state, history
 
 

@@ -38,8 +38,13 @@ returns. The JSONL logs go to ``<exp_dir>/logs``: ``nerf``, ``transformer``,
 ``temporal``, ``vae`` and ``style`` from the phases, ``train`` for the
 holdout PSNR (``EVAL``).
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: a
-multi-process launch (ROADMAP.md queue 1, 'Multi-GPU').
+A multi-process launch (``torchrun --nproc_per_node=N -m tgtc_torch.cli
+...``, or the ``TGTC_*`` / SLURM environments of
+:mod:`tgtc_torch.parallel.distributed`) takes :meth:`Pipeline._run_multihost`,
+the JAX package's schedule: Phase A over every process, then Phase E over
+every process once the 2D artifacts exist; B-D and the renders run in one
+process, on the same ``basedir``. Rank 0 alone writes the checkpoints and
+the logs.
 Not carried over: ``_snap``, ``_feed``, ``_sync_every`` and ``_png_bg``,
 devices of the TPU's dispatch and its slow device→host path. The port's
 loops sync only at their log steps,
@@ -52,7 +57,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Mapping, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +71,12 @@ from tgtc_torch.models.nerf import NerfConfig
 from tgtc_torch.models.transformer import TransformerConfig
 from tgtc_torch.ops.kernels.nerf_mlp import CUDA_FREQS, CUDA_WIDTH, SIGMA_WIDTHS
 from tgtc_torch.ops.kernels.style_kernel import CUDA_SHAPE
+from tgtc_torch.parallel import (
+    DataGroup,
+    is_main_process,
+    maybe_initialize_distributed,
+    multi_process_launch,
+)
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.train.nerf_trainer import NerfTrainConfig, NerfTrainState, train_nerf
 from tgtc_torch.train.style3d import run_style3d
@@ -77,26 +88,6 @@ from tgtc_torch.train.transformer2d import (
     train_transformer,
 )
 from tgtc_torch.utils.logging import MetricsLogger
-
-# the JAX package's cluster-environment cascade (tgtc/parallel/distributed.py):
-# the process-count key and the keys it needs beside it
-_CLUSTER_ENVS = (("TGTC_NUM_PROCESSES", ("TGTC_COORDINATOR", "TGTC_PROCESS_ID")),
-                 ("WORLD_SIZE", ("MASTER_ADDR", "MASTER_PORT", "RANK")),
-                 ("SLURM_NTASKS", ("SLURM_PROCID", "TGTC_COORDINATOR")))
-
-
-def multi_process_launch(env: Optional[Mapping[str, str]] = None) -> bool:
-    """Whether the launch environment names more than one process, read as
-    the JAX package reads it: ``TGTC_COORDINATOR``/``TGTC_NUM_PROCESSES``/
-    ``TGTC_PROCESS_ID``, then torchrun's ``MASTER_ADDR``/``MASTER_PORT``/
-    ``WORLD_SIZE``/``RANK``, then SLURM's ``SLURM_NTASKS``/``SLURM_PROCID``
-    with ``TGTC_COORDINATOR``; ``TGTC_DISTRIBUTED=1`` alone asks for it too."""
-    e = os.environ if env is None else env
-    for count, needs in _CLUSTER_ENVS:
-        if count in e and all(k in e for k in needs):
-            return int(e[count]) > 1
-    return e.get("TGTC_DISTRIBUTED") == "1"
-
 
 def _load_image(path: str, size=None) -> np.ndarray:
     from PIL import Image
@@ -142,6 +133,7 @@ class Pipeline:
     def __init__(self, cfg: Config, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = DataGroup()  # every process under _run_multihost
         self._sigma_grid_cache = self._proposal_cache = None
         if cfg.dataset_type != "llff":
             # the reference exits on unknown dataset types
@@ -364,7 +356,7 @@ class Pipeline:
                    pixel_alignment=cfg.pixel_alignment, device=self.device,
                    ckpt_dir="ckpt_nerf", max_to_keep=cfg.ckp_num, fused=cfg.use_pallas,
                    reload=not cfg.no_reload, profile_dir=cfg.profile_dir,
-                   budget_schedule=cfg.train_fine_budget)
+                   budget_schedule=cfg.train_fine_budget, group=self.group)
 
     # ------------------------------------------------------------- phase B
 
@@ -497,7 +489,8 @@ class Pipeline:
         state, _ = self._nerf_setup()
         vstate = self.ensure_vae()
         run_style3d(self.cfg, self.scene, self.gen_dir, self.stylized_dir, state.coarse,
-                    state.fine, vstate.model, self.exp_dir, device=self.device)
+                    state.fine, vstate.model, self.exp_dir, device=self.device,
+                    group=self.group)
 
     # ------------------------------------------------------------- phase F
 
@@ -658,6 +651,7 @@ class Pipeline:
         cfg = self.cfg
         if multi_process_launch():
             self._run_multihost()
+            return
         if cfg.render_valid_style:
             self.render_stylized("valid")
             return
@@ -675,11 +669,32 @@ class Pipeline:
         self._run_after_nerf()
 
     def _run_multihost(self) -> None:
-        """The multi-process schedule (Phases A and E over every process):
-        not ported yet."""
-        raise NotImplementedError(
-            "a multi-process launch is not ported yet (ROADMAP.md queue 1, 'Multi-GPU'); "
-            "run one process")
+        """The multi-process schedule (tgtc/train/pipeline.py:1241-1280):
+        the two training loops, Phase A and Phase E, run over every process
+        (one per GPU); B-D and the renders are IO loops that run in one
+        process. The phase machine resumes from the shared checkpoints, so
+        the production recipe is A over N processes → B-D in one → E over N
+        → F in one, every launch on the same ``basedir`` (rank 0 writes,
+        every rank reads). Phase E runs here once ``geometry.npz``,
+        ``stylized_data.npz`` and a VAE checkpoint exist; otherwise rank 0
+        prints what to run next."""
+        cfg = self.cfg
+        if cfg.render_valid_style or cfg.render_train_style or cfg.render_valid \
+                or cfg.render_train:
+            raise RuntimeError(
+                "the render phases are single-process IO loops: run them without a "
+                "multi-process launch (the phase machine resumes from the shared checkpoints)")
+        maybe_initialize_distributed(device=self.device)
+        self.group = DataGroup.world_group()
+        self.train_nerf()
+        have_2d = (os.path.exists(os.path.join(self.gen_dir, "geometry.npz"))
+                   and os.path.exists(os.path.join(self.stylized_dir, "stylized_data.npz"))
+                   and self.vae_ckpt.latest_step() is not None)
+        if have_2d:
+            self.train_style3d()
+        elif is_main_process():
+            print("[multihost] Phase A done. Run phases B-D single-process (same basedir), "
+                  "then re-launch over several processes for Phase E.", flush=True)
 
     def _run_after_nerf(self) -> None:
         try:

@@ -39,9 +39,23 @@ samples (``ops.sampling.select_sample_budget`` on the raw coarse σ of the
 frozen trunk; no ``grid=``, the coarse depths are perturbed), so the fine
 noise is ``[B, fine_budget]``.
 
+Over several processes (``group=``, a :class:`~tgtc_torch.parallel.DataGroup`,
+the counterpart of the JAX step's ``mesh=``, which shards both streams):
+every rank draws the global :class:`StyleStepDraws` and keeps its rows of
+both streams, the coherence buffers hold the rank's rows, and the gradients
+are averaged over the ranks before the update. ``loss_rgb`` and
+``loss_logp`` are means over the rays, so the mean of the ranks' gradients
+is the global one. The coherence loss is not: ``l2_norm`` is the root of a
+sum over the **whole** batch, which XLA computes globally under the mesh.
+Each rank reduces its partial sums of squares ``S_r`` before the root and
+takes the detached global ``√S`` as the term's value, with the local
+gradient ``W · ∂S_r / (2√S)``: the mean all-reduce then sums the ranks'
+parts into ``∂√S``. The W-process step is the 1-process step at the same
+global batch; rank 0 alone writes the checkpoints (with the buffers gathered
+to the global batch) and the log.
+
 Not ported: ``k_steps > 1`` (a ``lax.scan`` that amortizes the TPU's
-dispatch: the port runs plain steps) and ``mesh=`` (ROADMAP.md queue 1,
-'Multi-GPU').
+dispatch: the port runs plain steps).
 """
 
 from __future__ import annotations
@@ -79,6 +93,7 @@ from tgtc_torch.ops.sampling import (
     sample_along_rays_uniform,
     select_sample_budget,
 )
+from tgtc_torch.parallel import DataGroup, is_main_process
 from tgtc_torch.render.style import style_forward
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger
@@ -123,7 +138,8 @@ class StyleTrainState:
     stream counters (host ints), both style MLPs, the latent table (a leaf
     tensor) with the frozen per-style ``mu``/``logvar``, the optimizer and
     the coherence buffers (the previous step's coherent coarse and fine
-    styled rgb and its origin rgb, ``[B, 3]``)."""
+    styled rgb and its origin rgb, ``[B, 3]``, or a process's rows of them
+    under a group; the state dict holds the whole batch's)."""
 
     step: int
     concat: StyleMLPBeforeConcat
@@ -151,23 +167,30 @@ class StyleTrainState:
         lat = self.latents.detach() if detach else self.latents
         return {"latents": lat, "mu": self.mu, "logvar": self.logvar}
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, group: DataGroup = DataGroup()) -> Dict[str, Any]:
+        """The state, with the coherence buffers gathered from ``group``'s
+        ranks (a collective: every rank calls it)."""
+        g = group.gather_rows
         return {"step": self.step, "concat": self.concat.state_dict(),
                 "style": self.style.state_dict(), "latents": self.latents.detach(),
                 "mu": self.mu, "logvar": self.logvar, "optimizer": self.optimizer.state_dict(),
-                "coh_x": self.coh_x, "coh_y": self.coh_y, "coh_x_origin": self.coh_x_origin,
-                "cnt": self.cnt, "style_start": self.style_start,
-                "frame_start": self.frame_start, "block": self.block, "start": self.start}
+                "coh_x": g(self.coh_x), "coh_y": g(self.coh_y),
+                "coh_x_origin": g(self.coh_x_origin), "cnt": self.cnt,
+                "style_start": self.style_start, "frame_start": self.frame_start,
+                "block": self.block, "start": self.start}
 
-    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+    def load_state_dict(self, sd: Dict[str, Any], group: DataGroup = DataGroup()) -> None:
+        """Load ``sd``, keeping ``group``'s rank's rows of the buffers."""
         dev = self.latents.device
         self.concat.load_state_dict(sd["concat"])
         self.style.load_state_dict(sd["style"])
         with torch.no_grad():
             self.latents.copy_(sd["latents"])
         self.optimizer.load_state_dict(sd["optimizer"])
-        for k in ("mu", "logvar", "coh_x", "coh_y", "coh_x_origin"):
+        for k in ("mu", "logvar"):
             setattr(self, k, sd[k].to(dev))
+        for k in ("coh_x", "coh_y", "coh_x_origin"):
+            setattr(self, k, group.rows(sd[k].to(dev)))
         for k in ("step", "cnt", "style_start", "frame_start", "block", "start"):
             setattr(self, k, int(sd[k]))
 
@@ -184,16 +207,18 @@ def make_style_optimizer(cfg: StyleTrainConfig, style_params, latents: torch.Ten
 def init_style_state(generator: Optional[torch.Generator], field_cfg: StyleFieldConfig,
                      train_cfg: StyleTrainConfig, style_num: int, frame_num: int,
                      latents_init: Optional[Dict[str, torch.Tensor]] = None,
-                     device: DeviceLike = None) -> StyleTrainState:
+                     device: DeviceLike = None, group: DataGroup = DataGroup()
+                     ) -> StyleTrainState:
     """Both style MLPs drawn from ``generator`` on ``device`` (the card
     unless told otherwise), the latent table from ``latents_init`` (Phase
-    D's seeding) or drawn after them, the step at ``origin_step``."""
+    D's seeding) or drawn after them, the step at ``origin_step``; the
+    coherence buffers are ``group``'s rank's rows."""
     dev = resolve_device(device)
     concat, style = make_style_mlps(field_cfg, generator, device=dev)
     lat = latents_init or init_latents(generator, style_num, frame_num, field_cfg.latent_dim,
                                        device=dev)
     latents = lat["latents"].detach().to(dev).clone().requires_grad_(True)
-    b = train_cfg.batch_size
+    b = group.local_size(train_cfg.batch_size)
     zeros = lambda: torch.zeros((b, 3), device=dev)
     return StyleTrainState(
         step=train_cfg.origin_step, concat=concat, style=style, latents=latents,
@@ -225,13 +250,21 @@ class StyleStepDraws:
 class StyleTrainStep:
     """``step(state, data, draws=None, seed=0) -> (state, metrics)``: one
     Phase-E update of ``state`` in place on the scene ``data``. Metrics are
-    0-d device tensors (no sync)."""
+    0-d device tensors (no sync).
 
-    def __init__(self, nerf_coarse: NerfMLP, nerf_fine: NerfMLP, cfg: StyleTrainConfig):
+    Under ``group`` the draws are the global batch's; :meth:`losses` and
+    :meth:`loss_and_grad` run on this rank's rows of them (their metrics and
+    gradients are this rank's; the coherence loss is the global one) and
+    :meth:`apply` averages the gradients over the ranks."""
+
+    def __init__(self, nerf_coarse: NerfMLP, nerf_fine: NerfMLP, cfg: StyleTrainConfig,
+                 group: DataGroup = DataGroup()):
         m = cfg.n_samples + cfg.n_samples_fine
         if cfg.fine_budget is not None and not 0 < cfg.fine_budget <= m:
             raise ValueError(f"fine_budget {cfg.fine_budget} not in (0, {m}]")
+        group.local_size(cfg.batch_size)  # refuses a batch the group does not split
         self.nerf_coarse, self.nerf_fine, self.cfg = nerf_coarse, nerf_fine, cfg
+        self.group = group
         self._generator: Optional[torch.Generator] = None
 
     def draw(self, data: StyleSceneData, state: StyleTrainState, seed: int = 0
@@ -274,15 +307,35 @@ class StyleTrainStep:
                                   sid, fid, noise=noise[1], deltas=deltas_f, **kw)
         return comp_c.rgb, comp_f.rgb
 
+    def local_draws(self, draws: StyleStepDraws) -> StyleStepDraws:
+        """This rank's rows of the global ``draws``."""
+        r = self.group.rows
+        return StyleStepDraws(r(draws.main_ids), r(draws.coh_pix), r(draws.u_main),
+                              r(draws.u_coh), tuple(map(r, draws.noise_main)),
+                              tuple(map(r, draws.noise_coh)))
+
+    def coherence_norms(self, diffs: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """``l2_norm`` of each of the two ``diffs`` over the global batch,
+        summed (a rank's rows of them under a group: see the module's
+        docstring)."""
+        g = self.group
+        if not g.active:
+            return l2_norm(diffs[0]) + l2_norm(diffs[1])
+        part = torch.stack([torch.sum(d ** 2) for d in diffs])
+        root = torch.sqrt(g.all_reduce_sum(part.detach()) + 1e-8)
+        return (root + g.world * (part - part.detach()) / (2.0 * root)).sum()
+
     def losses(self, state: StyleTrainState, data: StyleSceneData, draws: StyleStepDraws
                ) -> Dict[str, torch.Tensor]:
         """The step's loss terms (differentiable), the coherence scale it
         applies (``coh_scale``: λ_coh before ``coh_until_step``, else 0),
-        the coherent stream's rgb and its origin rgb."""
+        the coherent stream's rgb and its origin rgb; under a group, on this
+        rank's rows of ``draws``."""
         c = self.cfg
-        main = gather_main_batch(data, c.batch_size, idx=draws.main_ids)
+        draws = self.local_draws(draws)
+        main = gather_main_batch(data, len(draws.main_ids), idx=draws.main_ids)
         coh = gather_coh_batch(data, state.style_start, state.frame_start, state.block,
-                               c.batch_size, pix=draws.coh_pix)
+                               len(draws.coh_pix), pix=draws.coh_pix)
         rgb_c, rgb_f = self.two_pass(state, main, draws.u_main, draws.noise_main, False)
         gt = main["rgb_gt"]
         loss_rgb = c.rgb_loss_lambda * (img2mse(rgb_c, gt) + img2mse(rgb_f, gt))
@@ -294,8 +347,8 @@ class StyleTrainStep:
         rgb_c2, rgb_f2 = self.two_pass(state, coh, draws.u_coh, draws.noise_coh, True)
         if state.cnt != 0 and state.cnt != data.frame_num:
             origin = cosine_similarity(coh["rgb_origin"], state.coh_x_origin)
-            loss_coh = (l2_norm(cosine_similarity(rgb_c2, state.coh_x) - origin)
-                        + l2_norm(cosine_similarity(rgb_f2, state.coh_y) - origin))
+            loss_coh = self.coherence_norms((cosine_similarity(rgb_c2, state.coh_x) - origin,
+                                             cosine_similarity(rgb_f2, state.coh_y) - origin))
         else:
             loss_coh = rgb_c2.new_zeros(())
         coh_scale = c.loss_coh_lambda if state.step <= c.coh_until_step else 0.0
@@ -321,19 +374,23 @@ class StyleTrainStep:
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(‖∇ loss_rgb‖, coh_scale · ‖∇ loss_coh‖)`` over every trained
         parameter, each from its own ``torch.autograd.grad`` (the coherence
-        diagnostic)."""
+        diagnostic), the gradients averaged over the group's ranks first."""
         t = self.losses(state, data, draws)
         params = state.parameters()
         norm = lambda gs: torch.sqrt(sum((g.double() ** 2).sum() for g in gs if g is not None))
         g_rgb = torch.autograd.grad(t["loss_rgb"], params, retain_graph=True, allow_unused=True)
+        g_rgb = self.group.all_reduce_mean_(g_rgb)
         if not t["loss_coh"].requires_grad:  # inactive at this step: zero gradient
             return norm(g_rgb), torch.zeros((), dtype=torch.float64, device=t["loss_coh"].device)
-        g_coh = torch.autograd.grad(t["loss_coh"], params, allow_unused=True)
+        g_coh = self.group.all_reduce_mean_(
+            torch.autograd.grad(t["loss_coh"], params, allow_unused=True))
         return norm(g_rgb), t["coh_scale"] * norm(g_coh)
 
     def apply(self, state: StyleTrainState, data: StyleSceneData, grads: List[torch.Tensor],
               terms: Dict[str, torch.Tensor]) -> None:
-        """The update, the coherence buffers and the counters."""
+        """The update (the gradients averaged over the group's ranks), the
+        coherence buffers and the counters."""
+        self.group.all_reduce_mean_(grads)
         for p, g in zip(state.parameters(), grads):
             p.grad = g
         state.optimizer.step()
@@ -358,10 +415,10 @@ class StyleTrainStep:
         return state, metrics
 
 
-def make_style_train_step(nerf_coarse: NerfMLP, nerf_fine: NerfMLP, cfg: StyleTrainConfig
-                          ) -> StyleTrainStep:
-    """The Phase-E step on the trunks' device."""
-    return StyleTrainStep(nerf_coarse, nerf_fine, cfg)
+def make_style_train_step(nerf_coarse: NerfMLP, nerf_fine: NerfMLP, cfg: StyleTrainConfig,
+                          group: DataGroup = DataGroup()) -> StyleTrainStep:
+    """The Phase-E step on the trunks' device, over ``group``'s processes."""
+    return StyleTrainStep(nerf_coarse, nerf_fine, cfg, group)
 
 
 def coherence_grad_ratio(step_fn: StyleTrainStep, state: StyleTrainState,
@@ -373,7 +430,9 @@ def coherence_grad_ratio(step_fn: StyleTrainStep, state: StyleTrainState,
     coherence stream needs one step of buffers), then the two terms'
     gradient norms at the next step, with the draws the real steps take
     (or ``draws``, one per step). ``state`` and its trajectory do not
-    change. Returns ``(ratio, grad_norm_coh, grad_norm_rgb)``."""
+    change. Under a grouped ``step_fn`` every rank calls it and reads the
+    same norms (of the averaged gradients). Returns ``(ratio,
+    grad_norm_coh, grad_norm_rgb)``."""
     scratch = copy.deepcopy(state)
     first, second = draws or (None, None)
     step_fn(scratch, data, first, seed=seed)
@@ -419,7 +478,8 @@ def scene_near_far(cfg: Config, scene) -> Tuple[float, float]:
 
 def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse: NerfMLP,
                 nerf_fine: NerfMLP, vae, out_dir: str, device: DeviceLike = None,
-                print_fn=print) -> Tuple[StyleTrainState, Dict[str, list]]:
+                print_fn=print, group: DataGroup = DataGroup()
+                ) -> Tuple[StyleTrainState, Dict[str, list]]:
     """Phase E as the pipeline runs it, up to ``cfg.total_step``, on
     ``device`` (the card unless told otherwise; the trunks and ``vae``, Phase
     D's trained VAE, must live there): the scene from Phase B's renders in
@@ -436,8 +496,17 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
     asynchronously; the last save is waited for). Logs go to
     ``out_dir/logs/style.jsonl``. Returns the state and ``{name: [every
     step's value]}`` for the four losses plus ``"records"``, the logged
-    lines (``steps_per_s`` covers the steps since the previous record)."""
+    lines (``steps_per_s`` covers the steps since the previous record).
+
+    Over ``group``'s processes every rank calls this with the same
+    arguments: rank 0's style MLPs and latent table are broadcast once, each
+    step runs on the rank's rows of both streams (:class:`StyleTrainStep`),
+    the logged losses are averaged over the ranks at log steps, rank 0
+    alone writes the checkpoints and the log, and every rank waits at the
+    end until the last checkpoint is on disk."""
     dev = resolve_device(device)
+    if not is_main_process():
+        print_fn = None
     for model in (nerf_coarse, nerf_fine, vae):
         if next(model.parameters()).device.type != dev.type:
             raise ValueError(f"a model lives on {next(model.parameters()).device}, Phase E was "
@@ -454,10 +523,11 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
     scfg = style_train_config(cfg, near, far)
     state = init_style_state(torch.Generator().manual_seed(cfg.seed + 8),
                              style_field_config(cfg, nerf_coarse), scfg, data.style_num,
-                             data.frame_num, latents_init=lat_init, device=dev)
+                             data.frame_num, latents_init=lat_init, device=dev, group=group)
     ckpt = CheckpointManager(os.path.join(out_dir, "ckpt_style"), max_to_keep=cfg.ckp_num)
     if ckpt.latest_step() is not None and not cfg.no_reload:
-        state.load_state_dict(ckpt.restore(map_location=dev))
+        state.load_state_dict(ckpt.restore(map_location=dev), group)
+    group.broadcast_([p.detach() for p in state.parameters()])
     history: Dict[str, list] = {**{k: [] for k in LOSSES}, "records": []}
     if state.step >= cfg.total_step:
         ckpt.close()
@@ -465,7 +535,7 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
 
     seed = cfg.seed + 9
     logger = MetricsLogger(os.path.join(out_dir, "logs"), name="style", print_fn=print_fn)
-    step_fn = make_style_train_step(nerf_coarse, nerf_fine, scfg)
+    step_fn = make_style_train_step(nerf_coarse, nerf_fine, scfg, group)
     if scfg.loss_coh_lambda > 0 and state.step == cfg.origin_step:
         ratio, g_coh, g_rgb = coherence_grad_ratio(step_fn, state, data, seed)
         logger.log(state.step, {"coh_grad_ratio": ratio, "grad_norm_coh": g_coh,
@@ -474,7 +544,7 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
             suggested = scfg.loss_coh_lambda * COH_RATIO_WARN / ratio
             if cfg.coh_lambda_auto:
                 scfg = dataclasses.replace(scfg, loss_coh_lambda=suggested)
-                step_fn = make_style_train_step(nerf_coarse, nerf_fine, scfg)
+                step_fn = make_style_train_step(nerf_coarse, nerf_fine, scfg, group)
                 msg = (f"[coh-diag] coherence gradient dominates rgb {ratio:.0f}x; "
                        f"coh_lambda_auto rescaled loss_coh_lambda {cfg.loss_coh_lambda:g} -> "
                        f"{suggested:.3g}")
@@ -495,7 +565,8 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
             step = state.step
             window.append(metrics)
             if step // cfg.i_print > last_log // cfg.i_print or step >= cfg.total_step:
-                vals = torch.stack([m[k].float() for m in window for k in LOSSES]).cpu()
+                vals = torch.stack([m[k].float() for m in window for k in LOSSES])
+                vals = group.all_reduce_mean_([vals])[0].cpu()
                 vals = vals.reshape(len(window), len(LOSSES)).T.tolist()
                 for k, v in zip(LOSSES, vals):
                     history[k] += v
@@ -505,11 +576,13 @@ def run_style3d(cfg: Config, scene, gen_dir: str, stylized_dir: str, nerf_coarse
                     {"step": step, **logger.log(step, m, prefix="STYLE TRAIN")})
                 window, last_log, t_log = [], step, time.perf_counter()
             if step // CKPT_EVERY > last_ckpt // CKPT_EVERY or step >= cfg.total_step:
-                ckpt.save_device_async(step, state.state_dict(), wait=step >= cfg.total_step)
+                ckpt.save_device_async(step, state.state_dict(group),
+                                       wait=step >= cfg.total_step)
                 last_ckpt = step
     finally:
         logger.close()
         ckpt.close()
+    group.barrier()  # the last checkpoint is on disk for every rank
     return state, history
 
 

@@ -18,6 +18,15 @@ the update count from 0 (optax's count).
   one would. It replaces the JAX package's ``dropout_key`` (an rbg/threefry
   choice made for the TPU).
 * Metrics are 0-d device tensors, fetched only when logged.
+* ``group=`` (a :class:`~tgtc_torch.parallel.DataGroup`) steps over several
+  processes, as the JAX step shards its batches over the mesh: each rank
+  keeps its rows of the global content and style batches, draws the whole
+  batch's dropout masks for them (``rows=`` of
+  :meth:`~tgtc_torch.models.stytrans.StyTrans.compute_losses`: the flash
+  kernels' ``bh_offset`` is ``rank · B/W · heads``), and the gradients are
+  averaged over the ranks before the update. Every loss is a mean over the
+  images, so the W-process step is the 1-process step at the same global
+  batch.
 * Phase C2 (:mod:`tgtc_torch.train.temporal`) trains the decoder alone
   with a step of its own on the same loss and optimizer.
 * :func:`train_transformer` is the C1 loop that both
@@ -35,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from tgtc_torch.models.stytrans import StyTrans
+from tgtc_torch.parallel import DataGroup
 from tgtc_torch.utils.img import from_uint8, to_uint8
 from tgtc_torch.utils.seeds import step_seed
 
@@ -117,11 +127,14 @@ class TransformerTrainStep:
     metrics)``: one C1 update of ``state`` in place. ``content``/``style``
     are ``[B, P, P, 3]`` batches, uint8 or [0, 1] floats, on the model's
     device; dropout draws from ``generator``, by default one seeded from
-    ``(seed, state.step)``."""
+    ``(seed, state.step)``. Under ``group`` the batches are the global ones:
+    :meth:`loss_and_grad` runs on this rank's rows (its metrics and
+    gradients are this rank's) and :meth:`apply` averages the gradients
+    over the ranks."""
 
     def __init__(self, model: StyTrans, cfg: TransformerTrainConfig,
-                 train_keys: Sequence[str] = TRAIN_KEYS):
-        self.model, self.cfg, self.train_keys = model, cfg, train_keys
+                 train_keys: Sequence[str] = TRAIN_KEYS, group: DataGroup = DataGroup()):
+        self.model, self.cfg, self.train_keys, self.group = model, cfg, train_keys, group
         self._generator: Optional[torch.Generator] = None
 
     def generator(self, seed: int, step: int) -> torch.Generator:
@@ -135,9 +148,12 @@ class TransformerTrainStep:
                       generator: Optional[torch.Generator]
                       ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
         """The metrics and the gradients of ``model``'s trained parameters
-        (in :func:`trained_parameters` order), before any update."""
-        out = model.compute_losses(from_uint8(content), from_uint8(style), deterministic=False,
-                                   generator=generator)
+        (in :func:`trained_parameters` order), before any update; under a
+        group, of this rank's rows of the batches."""
+        g, b = self.group, content.shape[0]
+        rows = (g.row_offset(b), b) if g.world > 1 or g.active else None
+        out = model.compute_losses(from_uint8(g.rows(content)), from_uint8(g.rows(style)),
+                                   deterministic=False, generator=generator, rows=rows)
         loss = self.weighted_loss(out)
         metrics = {k: v.detach() for k, v in out.items() if k != "ics"}
         return {"loss": loss.detach(), **metrics}, self.grads(model, loss)
@@ -154,6 +170,7 @@ class TransformerTrainStep:
         return list(torch.autograd.grad(loss, params))
 
     def apply(self, state: TransformerTrainState, grads: List[torch.Tensor]) -> None:
+        self.group.all_reduce_mean_(grads)
         for (_, p), g in zip(trained_parameters(state.model, self.train_keys), grads):
             p.grad = g
         state.optimizer.step()
@@ -173,9 +190,11 @@ class TransformerTrainStep:
 
 
 def make_transformer_train_step(model: StyTrans, cfg: TransformerTrainConfig,
-                                train_keys: Sequence[str] = TRAIN_KEYS) -> TransformerTrainStep:
-    """The C1 step for ``model``, on the model's device."""
-    return TransformerTrainStep(model, cfg, train_keys)
+                                train_keys: Sequence[str] = TRAIN_KEYS,
+                                group: DataGroup = DataGroup()) -> TransformerTrainStep:
+    """The C1 step for ``model``, on the model's device, over ``group``'s
+    processes."""
+    return TransformerTrainStep(model, cfg, train_keys, group)
 
 
 def make_collage_fn(model: StyTrans) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:

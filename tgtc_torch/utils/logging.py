@@ -3,7 +3,8 @@
 One line ``{"step": step, **scalars}`` per log step in ``<log_dir>/<name>.jsonl``
 (the schema ``tgtc/tools/jsonl2tb.py`` reads) and a console line. Scalars
 that are device tensors are fetched in one ``torch.stack(...).cpu()``: one
-device→host copy (and one sync) per log line, not one per metric.
+device→host copy (and one sync) per log line, not one per metric. Under a
+process group only rank 0 creates the file, writes and prints.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from collections import defaultdict
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from tgtc_torch.parallel.distributed import is_main_process
 
 
 def fetch_scalars(metrics: Mapping[str, Any]) -> Dict[str, float]:
@@ -34,13 +37,15 @@ class MetricsLogger:
     def __init__(self, log_dir: Optional[str] = None, name: str = "train", print_fn=print):
         self._fh = None
         self._print = print_fn
-        if log_dir:
+        if log_dir and is_main_process():
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{name}.jsonl"), "a")
 
     def log(self, step: int, metrics: Mapping[str, Any], prefix: str = "") -> Dict[str, float]:
-        """Write one line; returns the scalars written."""
+        """Write one line (on rank 0); returns the scalars, on every rank."""
         scalars = fetch_scalars(metrics)
+        if not is_main_process():
+            return scalars
         if self._fh:
             self._fh.write(json.dumps({"step": step, **scalars}) + "\n")
             self._fh.flush()
