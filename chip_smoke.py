@@ -260,10 +260,42 @@ started together), then:
    a rank; phase 15's bounds), then cli.main under the two-process launch
    on phase 16's run: Phase A skipped, Phase E 20 more steps over both
    ranks, only rank 0 writing ckpt_style, which load_style_field reads;
-   a worker's failure fails the phase; the phase's wall seconds printed
-   beside the card (two processes on one card: no scaling figure);
-19. prints the kernels line (JSON, K1-K8 and K2-W128; launches_multi for
-   K1, K3, K6, K7 and K8), then the result line.
+   then, on the same two workers: (e) phase 2's 756x1008 frame from phase
+   4's trunks through make_sharded_fused_render_fn (16,384-ray blocks, 47,
+   split 24 / 23 over the ranks), exact and with phase 17's fast stack
+   (proposal, fine_budget 80, coarse_share 2), each bit for bit the
+   1-process frame of the same trunks and block size, each rank launching K1
+   and K2 (K1 and K2-W128) exactly once a block of its share; (f)
+   make_render_fn(group=) and make_stylized_render_fn(group=) (phase 15's
+   trained field) on the frame's first two blocks, bit for bit their
+   1-process renders; (g) train_transformer(group=) for 3 steps of phase 11's
+   full-width C1 (batch 8, 4 a rank) against the 1-process loop: the first
+   step's loss within 1e-5 relative (the C1 bound of
+   tests/test_torch_multiprocess.py), the later losses within phase 11's 1e-2,
+   every trained parameter within twice Adam's largest steps (the trained
+   parameters' sum read), 36 K6, K7 and K8 launches a step a rank (+12 K6 for
+   rank 0's collage), rank 0 alone writing the checkpoint and the collage; a worker's failure fails the phase; the phase's wall seconds
+   and the sharded frames' seconds printed beside the card (two processes on
+   one card: no scaling figure);
+19. AdaIN (phase_adain), f32, PyTorch's TF32 defaults (cuDNN's on, the
+   matmuls' off; printed): (a) tools/train2d.main(["--task",
+   "finetune_decoder", ...]) at the task's defaults (batch 8, patch 256, lr
+   1e-4, decay 5e-5, style 2, content 1) on phase 5's renders and phase 11's 8
+   styles with a seeded VGG and decoder: 20 warm-up steps, then 100 counted
+   steps resumed, logged every step, steps/s over the counted windows; the
+   VGG bitwise unchanged, every decoder leaf moved, every loss finite, the
+   last 20 losses' mean below the first 20's, the checkpoint round-trips bit
+   for bit; (b) one finetune step from that checkpoint on one fixed batch on
+   the card against the CPU, TF32 off (loss within 1e-4 relative, decoder
+   gradient cosine >= 0.9999); (c) --task temporal_decoder on phase 5's
+   geometry dir (2 views, 756x1008) at batch 8 of full frames, 10 steps,
+   steps/s, the peak allocated memory, loss_t finite and > 0 at every step,
+   the adain_temporal checkpoint written; (d) one temporal step from it on
+   the card against the CPU at batch 2 (ids [0, 1]), TF32 off, (b)'s bounds,
+   the CPU step's seconds;
+20. prints the kernels line (JSON, K1-K8 and K2-W128; launches_multi for
+   K1, K3, K6, K7 and K8; launches_sharded, a rank, for K1, K2 and K2-W128),
+   then the result line with the whole script's seconds.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -285,6 +317,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 H, W, FOCAL = 756, 1008, 815.0  # fern at factor 4 (configs/fern.txt)
 BLOCK = 1 << 14
 NC = NF = 64
@@ -397,6 +430,25 @@ TOL_MP_A_LOSS, MP_BF16_U = 1e-5, 2.0 ** -8
 # 2 x 3 x 1.0035 lr, reached only where a gradient element is itself f32
 # noise and its sign differs between the runs
 TOL_MP_A_PARAM = 2 * MP_A_STEPS * 1.0035 * 5e-4
+# Phase 18(e)-(g): the sharded renders (bit for bit: each rank renders whole
+# blocks of the 1-process block grid, so every kernel and library call sees
+# the 1-process shapes) and the grouped C1 loop, 3 steps. The first step
+# starts from the same parameters, so its loss is held at
+# tests/test_torch_multiprocess.py's C1 bound (1e-5 relative); from there the
+# bf16 rows that round apart by the batch (4 vs 8 images) move Adam's
+# noise-sized gradient elements by up to lr either way (PERF.md §6),
+# so the later losses take phase 11's bound (TOL_C1_LOSS) and each trained
+# parameter after the 3 steps lies within twice Adam's largest step a step,
+# 2 x 1.0035 x (the 3 steps' learning rates summed), as phase 18(b)'s
+# TOL_MP_A_PARAM; the parameters' sum is read
+MP_EAGER_BLOCKS, MP_C1_STEPS, TOL_MP_C1_FIRST = 2, 3, 1e-5
+# Phase 19, AdaIN: the finetune task at its defaults (batch 8, patch 256, lr
+# 1e-4, decay 5e-5, style 2, content 1), 20 warm-up and 100 counted steps;
+# the temporal task at batch 8 of full 756x1008 frames, 10 steps; the card's
+# step against the CPU's (f32 on both, TF32 off): the loss relative and the
+# decoder gradient's cosine
+ADAIN_WARM, ADAIN_STEPS, ADAIN_T_STEPS, ADAIN_SEED = 20, 100, 10, 21
+TOL_ADAIN_LOSS, TOL_ADAIN_COS = 1e-4, 0.9999
 # C1 and E: cuBLAS and cuDNN pick their algorithms by the batch (4 vs 8
 # images, 128 vs 256 rays), so a row's result may round apart: phase 11's
 # and phase 15's bounds (TOL_C1_*, TOL_E_*), which hold steps whose
@@ -3343,7 +3395,8 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     row["launches"] = want_fast["K2-W128"]
     row["launches_stylized"] = want_style["K2-W128"]
     row["launches_pipeline"] = sum(v["K2-W128"] for v in pipe_launches.values())
-    return row, {"fast_rays_per_s": n / dt_fast, "grid_rays_per_s": n / dt_grid,
+    return row, {"proposal": {k: v.detach().cpu() for k, v in prop_sd.items()},
+                 "fast_rays_per_s": n / dt_fast, "grid_rays_per_s": n / dt_grid,
                  "grid_build_s": grid_s, "style_rays_per_s": n / dt_style,
                  "distill_s": distill_s, "a_steps_per_s": per_seg}
 
@@ -3449,6 +3502,223 @@ def mp_e(group, job):
                                  for grp in step_groups(state, g)]}
 
 
+def mp_frames(group, job):
+    """Phase 18(e)-(f) over ``group``: phase 2's 756x1008 frame through
+    ``make_sharded_fused_render_fn`` with phase 4's trunks (exact, then with
+    phase 17's fast stack), a warm-up frame and a counted one each, with the
+    K1, K2 and K2-W128 launches of the counted frame; then the first
+    MP_EAGER_BLOCKS blocks through ``make_render_fn(group=)`` (phase 4's
+    trunks) and ``make_stylized_render_fn(group=)`` (phase 15's field, style 0,
+    frame 0, jitter from a seeded generator on the card)."""
+    import tgtc_torch.ops.kernels.nerf_mlp as ks
+    from tgtc_torch.config import load_config
+    from tgtc_torch.data.rays import rays_for_poses
+    from tgtc_torch.models.nerf import NerfConfig, NerfMLP
+    from tgtc_torch.render.fast import FusedNerfRenderer, make_sharded_fused_render_fn
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train.nerf_trainer import NerfTrainConfig, make_render_fn
+    from tgtc_torch.train.render_style import make_stylized_render_fn
+    from tgtc_torch.train.style3d import load_style_field, style_field_config
+
+    settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
+    intr, pose = fern_camera()
+    ro, rd = rays_for_poses(H, W, intr, pose, use_ndc=True, device="cuda")
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    tr = job["trunks"]
+    levers = dict(coarse_rgb=False, fine_budget=LEVER_BUDGET, coarse_share=LEVER_SHARE)
+    stacks = {"exact": (FusedNerfRenderer.from_params(tr["coarse"], tr["fine"], settings,
+                                                      coarse_rgb=False, device="cuda"),
+                        dict(coarse_rgb=False)),
+              "fast": (FusedNerfRenderer.from_params(job["proposal"], tr["fine"], settings,
+                                                     depth=2, width=128, depth_fine=8,
+                                                     width_fine=256, device="cuda", **levers),
+                       levers)}
+    k2 = ks.fused_nerf_sigma_apply_t
+    out = {}
+    for name, (r, kw) in stacks.items():
+        fn = make_sharded_fused_render_fn(settings, group, BLOCK, **kw)
+        fn(r.packed_coarse, r.packed_fine, ro, rd)  # warm-up frame
+        torch.cuda.synchronize()
+        ks.fused_nerf_apply_t.launches = k2.launches = k2.launches_w128 = 0
+        t0 = time.perf_counter()
+        frame = fn(r.packed_coarse, r.packed_fine, ro, rd)
+        torch.cuda.synchronize()
+        out[name] = {"frame": {k: v.cpu() for k, v in frame.items()},
+                     "s": time.perf_counter() - t0,
+                     "launches": {"K1": ks.fused_nerf_apply_t.launches, "K2": k2.launches,
+                                  "K2-W128": k2.launches_w128}}
+    del stacks
+    trunks = []
+    for which in ("coarse", "fine"):
+        t = NerfMLP(NerfConfig())
+        t.load_state_dict(tr[which])
+        trunks.append(t.cuda())
+    bo, bd = ro[:MP_EAGER_BLOCKS * BLOCK], rd[:MP_EAGER_BLOCKS * BLOCK]
+    tc = NerfTrainConfig(n_samples=NC, n_samples_fine=NF)
+    out["render_fn"] = {k: v.cpu() for k, v in
+                        make_render_fn(tc, group=group, block=BLOCK)(*trunks, bo, bd).items()}
+    cfg = load_config(["--config", job["fern"]])
+    concat, style, lat = load_style_field(job["e_ckpt"], style_field_config(cfg, trunks[0]),
+                                          device="cuda")
+    fn = make_stylized_render_fn(*trunks, concat, style, NC, NF, 0.0, 1.0, group=group,
+                                 block=BLOCK)
+    ids = torch.zeros(bo.shape[0], dtype=torch.long, device="cuda")
+    frame = fn(lat, bo, bd, ids, ids, generator=torch.Generator(device="cuda").manual_seed(F_SEED))
+    out["stylized_fn"] = {k: v.cpu() for k, v in frame.items()}
+    return out
+
+
+def mp_c1_loop(group, job, name: str):
+    """Phase 18(g) over ``group``: ``train_transformer`` at phase 11's full
+    width (dropout 0.1, bf16, flash), batch 8 of 256x256 crops of phase 11's
+    content and styles, MP_C1_STEPS steps logged every step, into
+    ``job["root"]/name``: the logged lines, the sum of the trained
+    parameters and the K6-K8 launches."""
+    import tgtc_torch.ops.kernels.flash_attention as fa
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.models.transformer import TransformerConfig
+    from tgtc_torch.train import transformer2d as t2
+    from tgtc_torch.train.checkpoint import CheckpointManager
+
+    model = make_stytrans(TransformerConfig(dtype=torch.bfloat16, attn_impl="flash"),
+                          torch.Generator().manual_seed(21), device="cuda")
+    tcfg = t2.TransformerTrainConfig(max_iter=MP_C1_STEPS)
+    state = t2.init_transformer_train(model, tcfg)
+    root = os.path.join(job["root"], name)
+    ckpt = CheckpointManager(os.path.join(root, "ckpt"))
+    counters = {"K6": fa.flash_attention_fwd, "K7": fa.flash_attention_bwd_dq,
+                "K8": fa.flash_attention_bwd_dkv}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        t2.train_transformer(state, tcfg, job["c1_content"], job["c1_styles"], ckpt,
+                             log_dir=os.path.join(root, "log"),
+                             collage_dir=os.path.join(root, "collage"), print_interval=1,
+                             save_interval=MP_C1_STEPS, dropout_seed=5, data_seed=21,
+                             workers=4, group=group)
+    finally:
+        ckpt.close()
+    torch.cuda.synchronize()
+    with open(os.path.join(root, "log", "transformer.jsonl")) as fh:
+        lines = [json.loads(line) for line in fh]
+    params = [p.detach() for _, p in t2.trained_parameters(model)]
+    return {"lines": lines, "fingerprint": float(sum(p.double().sum() for p in params)),
+            "params": [p.cpu() for p in params],
+            "lr_sum": sum(t2.lr_schedule(tcfg)(k) for k in range(MP_C1_STEPS)),
+            "launches": {k: c.launches for k, c in counters.items()},
+            "ckpts": sorted(os.listdir(os.path.join(root, "ckpt"))),
+            "collages": sorted(os.listdir(os.path.join(root, "collage")))
+            if os.path.isdir(os.path.join(root, "collage")) else [],
+            "s": time.perf_counter() - t0}
+
+
+def tensors_sha(tree) -> str:
+    """sha256 over the bytes of every tensor of a dict of dicts, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            h.update(tensors_sha(v).encode())
+        elif isinstance(v, torch.Tensor):
+            h.update(v.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mp_sharded(group, job):
+    """Phase 18(e)-(g) in a worker (or, on ``DataGroup()``, the 1-process
+    references): the frames and grouped renders, a sha256 of each, and the
+    grouped C1 loop."""
+    torch.cuda.empty_cache()
+    frames = mp_frames(group, job)
+    return {"frames": frames,
+            "frames_sha": {k: tensors_sha(v["frame"] if "frame" in v else v)
+                           for k, v in frames.items()},
+            "loop": mp_c1_loop(group, job, "c1_loop_group" if group.active else "c1_loop_single")}
+
+
+def check_sharded(outs, ref_frames, ref_loop, card: str):
+    """Phase 18(e)-(g)'s checks of both workers' outputs ``outs`` against the
+    1-process references. Returns the sharded frames' K1, K2 and K2-W128
+    launches a rank and rank 0's counted frames' seconds."""
+    got = outs[0]
+    # (e) the sharded frames, (f) the grouped eager renders
+    n_blocks = math.ceil(H * W / BLOCK)
+    shares = [n_blocks // MP_WORLD + (r < n_blocks % MP_WORLD) for r in range(MP_WORLD)]
+    frames = got["frames"]
+    same_ranks = outs[0]["frames_sha"] == outs[1]["frames_sha"]
+    for name, kernels in (("exact", ("K1", "K2")), ("fast", ("K1", "K2-W128"))):
+        want = [{k: (n if k in kernels else 0) for k in ("K1", "K2", "K2-W128")} for n in shares]
+        launches = [o["frames"][name]["launches"] for o in outs]
+        equal = all(torch.equal(frames[name]["frame"][k], v)
+                    for k, v in ref_frames[name]["frame"].items())
+        print(f"[multi] (e) {card}: phase 2's {H}x{W} frame, phase 4's trunks, "
+              f"{'exact' if name == 'exact' else 'fast stack (proposal, budget 80, share 2)'}, "
+              f"through make_sharded_fused_render_fn over two processes sharing the card: "
+              f"{n_blocks} blocks of {BLOCK}, launches rank 0 {launches[0]}, rank 1 "
+              f"{launches[1]} (expected {want}); bit for bit the 1-process frame: {equal} "
+              f"(keys {sorted(ref_frames[name]['frame'])}); seconds of the counted frame rank 0 "
+              f"{frames[name]['s']:.3f}, rank 1 {outs[1]['frames'][name]['s']:.3f}, 1-process "
+              f"{ref_frames[name]['s']:.3f} (two processes on one card: no scaling figure)",
+              flush=True)
+        check(equal, f"the sharded {name} frame differs from the 1-process frame")
+        check(launches == want, f"sharded {name} frame launches {launches}, expected {want}")
+    for name in ("render_fn", "stylized_fn"):
+        equal = all(torch.equal(frames[name][k], v) for k, v in ref_frames[name].items())
+        print(f"[multi] (f) {name.replace('_fn', '')} render of the frame's first "
+              f"{MP_EAGER_BLOCKS} blocks (group=, block {BLOCK}) over two processes: bit for "
+              f"bit the 1-process render: {equal} (keys {sorted(ref_frames[name])})", flush=True)
+        check(equal, f"the grouped {name} render differs from the 1-process render")
+    print(f"[multi] (e)-(f) both ranks' outputs bitwise equal: {same_ranks}", flush=True)
+    check(same_ranks, "the ranks' sharded renders differ")
+
+    # (g) the grouped C1 loop
+    loop = got["loop"]
+    keys = ("loss", "loss_c", "loss_s", "l_id1", "l_id2")
+    rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(loop["lines"], ref_loop["lines"])
+              for k in keys)
+    first = abs(loop["lines"][0]["loss"] - ref_loop["lines"][0]["loss"]) / abs(
+        ref_loop["lines"][0]["loss"])
+    first5 = max(abs(loop["lines"][0][k] - ref_loop["lines"][0][k]) / abs(ref_loop["lines"][0][k])
+                 for k in keys)
+    fp = [abs(o["loop"]["fingerprint"] - ref_loop["fingerprint"]) / abs(ref_loop["fingerprint"])
+          for o in outs]
+    dp = max(float((a.double() - b.double()).abs().max())
+             for a, b in zip(loop["params"], ref_loop["params"]))
+    moved = sum(int(((a.double() - b.double()).abs() > 1e-6).sum())
+                for a, b in zip(loop["params"], ref_loop["params"]))
+    n_params = sum(a.numel() for a in loop["params"])
+    tol_dp = 2 * 1.0035 * ref_loop["lr_sum"]
+    want_k6 = [C1_SITES * MP_C1_STEPS + C3_SITES * (r == 0) for r in range(MP_WORLD)]
+    print(f"[multi] (g) train_transformer over two processes, {MP_C1_STEPS} steps of phase 11's "
+          f"C1 (global batch {C1_BATCH}, {C1_BATCH // MP_WORLD} a rank): logged steps "
+          f"{[g['step'] for g in loop['lines']]}, losses "
+          + ", ".join(f"{g['loss']:.6f} vs {w['loss']:.6f}"
+                      for g, w in zip(loop["lines"], ref_loop["lines"]))
+          + f"; the first step's loss relative {first:.3e} (limit {TOL_MP_C1_FIRST}; the five "
+          f"losses' worst {first5:.3e}), the worst of the five losses over the steps {rel:.3e} "
+          f"(limit {TOL_C1_LOSS}); after {MP_C1_STEPS} steps max|dp| {dp:.3e} (limit "
+          f"{tol_dp:.3e}), {moved} of {n_params} elements apart by more than 1e-6; "
+          f"trained-parameter sums relative {', '.join(f'{x:.3e}' for x in fp)} (read); launches "
+          f"rank 0 {outs[0]['loop']['launches']}, rank 1 {outs[1]['loop']['launches']}; "
+          f"checkpoints {loop['ckpts']}, collages {loop['collages']}; "
+          f"{loop['s']:.2f} s (1-process {ref_loop['s']:.2f} s)", flush=True)
+    check([g["step"] for g in loop["lines"]] == list(range(1, MP_C1_STEPS + 1))
+          and first <= TOL_MP_C1_FIRST and rel <= TOL_C1_LOSS and dp <= tol_dp,
+          "the grouped C1 loop disagrees with the 1-process loop")
+    check([o["loop"]["launches"]["K6"] for o in outs] == want_k6
+          and all(o["loop"]["launches"]["K7"] == o["loop"]["launches"]["K8"]
+                  == C1_SITES * MP_C1_STEPS for o in outs),
+          f"grouped C1 loop launches {[o['loop']['launches'] for o in outs]}")
+    check(loop["ckpts"] == [f"ckpt_{MP_C1_STEPS:08d}.pt"]
+          and loop["collages"] == [f"{MP_C1_STEPS}.png"], "the grouped C1 loop's files")
+    sharded = {k: [o["frames"][name]["launches"][k] for o in outs]
+               for name, k in (("exact", "K1"), ("exact", "K2"), ("fast", "K2-W128"))}
+    return sharded, {"exact_s": frames["exact"]["s"], "fast_s": frames["fast"]["s"]}
+
+
 def multi_worker(job_path: str, out_path: str) -> None:
     """One rank of phase 18(b): joins the two-process group (gloo, the card
     shared), runs the Phase-A, C1 and Phase-E steps and the pipeline's
@@ -3501,14 +3771,18 @@ def multi_worker(job_path: str, out_path: str) -> None:
         ck.CheckpointManager._write = original
     torch.cuda.synchronize()
     out.update(pipe_s=time.perf_counter() - t0, writes=writes)
+    out.update(mp_sharded(group, job))
     if group.rank:  # rank 0's copy of what both ranks hold, and rank 1's own gradient
         out = {**{k: v for k, v in out.items() if k not in ("a", "c1", "e")},
-               "a": {"local": a["local"]}}
+               "a": {"local": a["local"]},
+               "loop": {k: v for k, v in out["loop"].items() if k != "params"},
+               "frames": {k: {kk: vv for kk, vv in v.items() if kk != "frame"}
+                          for k, v in out["frames"].items() if "frame" in v}}
     torch.save(out, out_path % group.rank)
     dist.destroy_process_group()
 
 
-def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
+def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, card: str):
     """Phase 18. (a) this process as a NCCL group of one: the fused Phase-A
     step through ``group=`` equals the ungrouped step bit for bit (losses,
     gradients, parameters), K1 and K3 launched 2 a step. (b) two worker
@@ -3520,8 +3794,17 @@ def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
     256, 128 a rank, the coherence term on), then ``cli.main`` re-entering
     phase 16's run under the two-process launch: Phase A skipped, Phase E
     20 more steps over both ranks, rank 0 alone writing ``ckpt_style``,
-    which ``load_style_field`` reads. Returns each kernel's launches in the
-    workers' counted runs (both ranks) and the phase's wall seconds."""
+    which ``load_style_field`` reads; (e) phase 2's frame through
+    ``make_sharded_fused_render_fn`` with phase 4's trunks, exact and with
+    phase 17's fast stack (``proposal``), bit for bit the 1-process frame,
+    each rank launching K1 and K2 (K2-W128) once a block of its share of
+    the 47; (f) ``make_render_fn(group=)`` and ``make_stylized_render_fn(group=)``
+    on the frame's first two blocks, bit for bit; (g) ``train_transformer``
+    over both ranks, 3 steps of phase 11's C1 on its content and
+    ``c1_styles``, held to the 1-process loop. Returns each kernel's
+    launches in the workers' counted runs (both ranks), K1's, K2's and
+    K2-W128's launches a rank in the sharded frames, and the phase's wall
+    seconds."""
     import torch.distributed as dist
 
     from tgtc_torch.parallel import DataGroup, maybe_initialize_distributed
@@ -3572,9 +3855,18 @@ def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
     ref_e = mp_e(DataGroup(), e_job)
     torch.cuda.empty_cache()
     total = PIPE_TOTAL + MP_E_STEPS
+    content = os.path.join(root, "c1_content")
     job = {"views": {k: trained[k] for k in ("intrinsics", "poses")},
            "tf32": (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32),
-           "pipe_argv": pipe["argv"] + ["--total_step", str(total)], **e_job}
+           "pipe_argv": pipe["argv"] + ["--total_step", str(total)], "root": root,
+           "proposal": proposal,
+           "c1_content": [os.path.join(content, f) for f in sorted(os.listdir(content))],
+           "c1_styles": [os.path.join(c1_styles, f) for f in sorted(os.listdir(c1_styles))],
+           **e_job}
+    ref = mp_sharded(DataGroup(), job)
+    ref_frames, ref_loop = ref["frames"], ref["loop"]
+    del ref
+    torch.cuda.empty_cache()
     job_path, out_path = os.path.join(root, "multi_job.pt"), os.path.join(root, "multi_%d.pt")
     torch.save(job, job_path)
     logs, workers_s = run_workers(job_path, out_path)
@@ -3626,10 +3918,10 @@ def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
           + f"; {got['c1_s']:.2f} s", flush=True)
     check(dl <= TOL_C1_LOSS and cos_all >= TOL_C1_COS and leaf[0] <= TOL_C1_LEAF,
           "the 2-process C1 step disagrees with the 1-process")
-    want = {"K1": 2 * MP_A_STEPS, "K3": 2 * MP_A_STEPS, "K6": C1_SITES, "K7": C1_SITES,
-            "K8": C1_SITES}
-    check(all(o["launches"] == want for o in outs),
-          f"worker launches {[o['launches'] for o in outs]}, expected {want} a rank")
+    want_all = {"K1": 2 * MP_A_STEPS, "K3": 2 * MP_A_STEPS, "K6": C1_SITES, "K7": C1_SITES,
+                "K8": C1_SITES}
+    check(all(o["launches"] == want_all for o in outs),
+          f"worker launches {[o['launches'] for o in outs]}, expected {want_all} a rank")
 
     # Phase E
     e = got["e"]
@@ -3665,10 +3957,205 @@ def phase_multi(ks, kg, fa, trained, pipe, root: str, card: str):
     check(bool(new) and new[-1]["step"] == total and f"ckpt_{total:08d}.pt" in ckpts and finite,
           "the multi-process Phase E did not reach its total step")
     check("[ORIGIN TRAIN]" not in logs[0] + logs[1], "Phase A ran again under the launch")
+
+    sharded, frame_s = check_sharded(outs, ref_frames, ref_loop, card)
     seconds = time.perf_counter() - t_phase
     print(f"[multi] {card}: phase 18 wall {seconds:.2f} s, of which the workers "
           f"{workers_s:.2f} s (start, kernel loads, (b)'s four parts)", flush=True)
-    return {k: sum(o["launches"][k] for o in outs) for k in want}, seconds
+    return ({k: sum(o["launches"][k] for o in outs) for k in want_all}, sharded, frame_s,
+            seconds)
+
+
+def adain_frames(geo_dir: str, styles_dir: str):
+    """The temporal task's inputs as tools/train2d loads them: phase 5's
+    renders, coor maps, poses and focal, and the styles resized to the
+    frame."""
+    from PIL import Image
+
+    from tgtc_torch.data.prefetch import content_images, list_images
+
+    geo = np.load(os.path.join(geo_dir, "geometry.npz"))
+    renders = np.stack([np.asarray(Image.open(p).convert("RGB"), np.float32) / 255.0
+                        for p in content_images(geo_dir)])
+    h, w = renders.shape[1:3]
+    styles = np.stack([np.asarray(Image.open(p).convert("RGB").resize((w, h), Image.BILINEAR),
+                                  np.float32) / 255.0 for p in list_images(styles_dir)])
+    return renders, geo["coor_maps"], geo["cps"], float(geo["hwf"][2]), styles
+
+
+def adain_step_on(dev: str, ckpt: str, batch, temporal=None):
+    """One AdaIN step's loss and decoder gradients on ``dev`` from the
+    checkpoint ``ckpt``; ``temporal`` = ``(h, w, focal)`` makes it the
+    temporal step."""
+    from tgtc_torch.models.adain_net import make_adain_net
+    from tgtc_torch.ops.rasterize import llff_projection_matrix
+    from tgtc_torch.train import adain_trainer as ta
+
+    model = make_adain_net(torch.Generator().manual_seed(0), device=dev)
+    cfg = ta.AdainTrainConfig(lr=1e-4, lr_decay=5e-5, content_weight=1.0, style_weight=2.0,
+                              temporal_weight=50.0)
+    state = ta.init_adain_train(model, cfg)
+    state.load_state_dict(torch.load(ckpt, map_location=dev, weights_only=False))
+    if temporal is None:
+        step = ta.make_adain_finetune_step(model, cfg)
+    else:
+        h, w, focal = temporal
+        proj = torch.from_numpy(llff_projection_matrix(h, w, focal)).to(dev)
+        step = ta.make_adain_temporal_step(model, cfg, proj, h, w, focal=focal)
+    t0 = time.perf_counter()
+    m, g = step.loss_and_grad(model, *(torch.as_tensor(x).to(dev) for x in batch))
+    g = [x.cpu() for x in g]
+    return {k: float(v) for k, v in m.items()}, g, time.perf_counter() - t0
+
+
+def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
+    """Phase 19 (see the module docstring). Returns the finetune's and the
+    temporal loop's steps/s and the temporal loop's peak allocated GiB."""
+    import contextlib
+
+    from tgtc_torch.data.prefetch import load_crop
+    from tgtc_torch.models.adain_net import make_adain_net
+    from tgtc_torch.tools import train2d
+    from tgtc_torch.train import adain_trainer as ta
+    from tgtc_torch.train.checkpoint import CheckpointManager
+
+    # PyTorch's defaults: f32 matmuls, cuDNN's convolutions on TF32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    content = os.path.join(root, "c1_content")
+    save, log = os.path.join(root, "adain_save"), os.path.join(root, "adain_log")
+    common = ["--style_dir", styles_dir, "--save_dir", save, "--log_dir", log,
+              "--print_interval", "1", "--save_model_interval", "1000", "--vgg", "",
+              "--decoder", "", "--seed", str(ADAIN_SEED), "--n_threads", "8"]
+    argv = ["--task", "finetune_decoder", "--content_dir", content] + common
+    init = make_adain_net(torch.Generator().manual_seed(ADAIN_SEED), device="cpu").state_dict()
+
+    # (a) the finetune loop
+    quiet = open(os.path.join(root, "adain_stdout.txt"), "w")
+    with quiet, contextlib.redirect_stdout(quiet):  # one log line a step
+        t0 = time.perf_counter()
+        check(train2d.main(argv + ["--max_iter", str(ADAIN_WARM)], device="cuda") == 0,
+              "AdaIN finetune warm-up")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        total = ADAIN_WARM + ADAIN_STEPS
+        check(train2d.main(argv + ["--max_iter", str(total)], device="cuda") == 0,
+              "AdaIN finetune counted run")
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    with open(os.path.join(log, "finetune_decoder.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    counted = [r for r in records if r["step"] > ADAIN_WARM]
+    loop_s = float(sum(1 / r["steps_per_s"] for r in counted))
+    ft_steps_per_s = len(counted) / loop_s
+    losses = [r["loss"] for r in records]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    ckpt = os.path.join(save, "adain_decoder", f"ckpt_{total:08d}.pt")
+    sd = torch.load(ckpt, map_location="cpu", weights_only=False)
+    vgg_same = all(torch.equal(v, init[k]) for k, v in sd["model"].items()
+                   if k.startswith("vgg."))
+    moved = [k for k, v in sd["model"].items() if k.startswith("decode.")
+             and not torch.equal(v, init[k])]
+    n_decode = len([k for k in init if k.startswith("decode.")])
+    # the checkpoint restored into a fresh state, saved and read back
+    state = ta.init_adain_train(make_adain_net(device="cpu"), ta.AdainTrainConfig())
+    state.load_state_dict(sd)
+    mgr = CheckpointManager(os.path.join(root, "adain_roundtrip"))
+    mgr.save(state.step, state.state_dict())
+    back = mgr.restore()
+    mgr.close()
+    same = (back["step"] == sd["step"] == total
+            and all(torch.equal(v, sd["model"][k]) for k, v in back["model"].items())
+            and all(torch.equal(v, sd["optimizer"]["state"][i][n])
+                    for i, st in back["optimizer"]["state"].items() for n, v in st.items()
+                    if isinstance(v, torch.Tensor)))
+    print(f"[adain] {card}: finetune_decoder at the task's defaults (VGG to relu4_1 and the "
+          f"full decoder, f32; TF32 matmul {tf32[0]}, cuDNN TF32 {tf32[1]}), batch 8 of "
+          f"256x256 crops of phase 5's renders and phase 11's 8 styles: {ADAIN_WARM} warm-up "
+          f"steps in {warm_s:.2f} s, then {ADAIN_STEPS} steps in {run_s:.2f} s (call, restore "
+          f"and the final save included), of which the loop {loop_s:.3f} s: "
+          f"{ft_steps_per_s:.3f} steps/s ({1e3 / ft_steps_per_s:.2f} ms a step, one log fetch "
+          f"a step); mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
+          f"VGG bitwise unchanged {vgg_same}, decoder leaves moved {len(moved)} of {n_decode}; "
+          f"checkpoint round trip bitwise {same}", flush=True)
+    check(len(records) == total and all(math.isfinite(x) for x in losses),
+          "the AdaIN finetune log does not hold every step or a loss is not finite")
+    check(last < first, "the AdaIN finetune loss did not fall")
+    check(vgg_same and len(moved) == n_decode, "the AdaIN finetune moved the VGG or not the "
+                                               "decoder")
+    check(same, "the AdaIN checkpoint does not round-trip")
+
+    # (b) one finetune step, card against CPU, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(ADAIN_SEED + 1)
+    c_paths = sorted(os.path.join(content, f) for f in os.listdir(content))
+    s_paths = sorted(os.path.join(styles_dir, f) for f in os.listdir(styles_dir))
+    batch = [np.stack([load_crop(paths[i % len(paths)], rng, 256, 512) for i in range(8)])
+             for paths in (c_paths, s_paths)]
+    (m_card, g_card, _), (m_cpu, g_cpu, cpu_s) = (adain_step_on(d, ckpt, batch)
+                                                  for d in ("cuda", "cpu"))
+    dl = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    cos = grad_cos(*(torch.cat([g.flatten() for g in gs]) for gs in (g_card, g_cpu)))
+    print(f"[adain] one finetune step, card vs CPU (same state and batch, TF32 off): loss "
+          f"{m_card['loss']:.7f} vs {m_cpu['loss']:.7f} (relative {dl:.3e}, limit "
+          f"{TOL_ADAIN_LOSS}); decoder gradient cosine {cos:.7f} (limit {TOL_ADAIN_COS}), "
+          f"lowest leaf {min(grad_cosines(g_card, g_cpu)):.7f}; the CPU step {cpu_s:.2f} s",
+          flush=True)
+    check(dl <= TOL_ADAIN_LOSS and cos >= TOL_ADAIN_COS,
+          "the AdaIN finetune step on the card disagrees with the CPU's")
+
+    # (c) the temporal loop: batch 8 of full frames
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tsave, tlog = os.path.join(root, "adain_t_save"), os.path.join(root, "adain_t_log")
+    targv = ["--task", "temporal_decoder", "--nerf_content_dir", geo_dir, "--style_dir",
+             styles_dir, "--save_dir", tsave, "--log_dir", tlog, "--max_iter",
+             str(ADAIN_T_STEPS), "--print_interval", "1", "--save_model_interval", "1000",
+             "--vgg", "", "--decoder", "", "--seed", str(ADAIN_SEED)]
+    t0 = time.perf_counter()
+    quiet = open(os.path.join(root, "adain_t_stdout.txt"), "w")
+    with quiet, contextlib.redirect_stdout(quiet):
+        check(train2d.main(targv, device="cuda") == 0, "AdaIN temporal run")
+    torch.cuda.synchronize()
+    t_run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(tlog, "temporal_decoder.jsonl")) as fh:
+        trec = [json.loads(line) for line in fh]
+    later = trec[1:]  # the first window holds cuDNN's first calls at these shapes
+    t_steps_per_s = len(later) / float(sum(1 / r["steps_per_s"] for r in later))
+    tckpt = os.path.join(tsave, "adain_temporal", f"ckpt_{ADAIN_T_STEPS:08d}.pt")
+    renders, coor, cps, focal, styles = adain_frames(geo_dir, styles_dir)
+    h, w = renders.shape[1:3]
+    print(f"[adain] {card}: temporal_decoder on phase 5's {len(renders)} views ({h}x{w}, "
+          f"geometry.npz), batch 8 of full frames, {ADAIN_T_STEPS} steps in {t_run_s:.2f} s "
+          f"(call and set-up included); steps 2-{ADAIN_T_STEPS} {t_steps_per_s:.3f} steps/s "
+          f"(first window {trec[0]['steps_per_s']:.3f}); loss_t "
+          + ", ".join(f"{r['loss_t']:.4g}" for r in trec)
+          + f"; peak allocated {peak:.2f} GiB (cuDNN TF32 {tf32[1]})", flush=True)
+    check(len(trec) == ADAIN_T_STEPS and all(math.isfinite(r["loss_t"]) and r["loss_t"] > 0
+                                             for r in trec),
+          "AdaIN temporal loss_t not finite and positive at every step")
+    check(os.path.exists(tckpt), "the adain_temporal checkpoint is missing")
+
+    # (d) one temporal step, card against CPU: batch 2, ids [0, 1], TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    ids = np.array([0, 1])
+    batch = (renders[ids], coor[ids], cps[ids], np.broadcast_to(styles[0], (2, h, w, 3)).copy())
+    (m_card, g_card, _), (m_cpu, g_cpu, cpu_s) = (adain_step_on(d, tckpt, batch, (h, w, focal))
+                                                  for d in ("cuda", "cpu"))
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    cos = grad_cos(*(torch.cat([g.flatten() for g in gs]) for gs in (g_card, g_cpu)))
+    print(f"[adain] one temporal step, card vs CPU (batch 2, ids [0, 1], style 0, TF32 off): "
+          + ", ".join(f"{k} {m_card[k]:.6g} vs {m_cpu[k]:.6g} ({rel[k]:.2e})" for k in m_cpu)
+          + f" (limit {TOL_ADAIN_LOSS} on loss); decoder gradient cosine {cos:.7f} (limit "
+          f"{TOL_ADAIN_COS}); the CPU step {cpu_s:.2f} s", flush=True)
+    check(rel["loss"] <= TOL_ADAIN_LOSS and cos >= TOL_ADAIN_COS and m_cpu["loss_t"] > 0,
+          "the AdaIN temporal step on the card disagrees with the CPU's")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return {"ft_steps_per_s": ft_steps_per_s, "t_steps_per_s": t_steps_per_s, "peak_gib": peak}
 
 
 def free_port() -> int:
@@ -3784,7 +4271,9 @@ def main() -> int:
         pipe_launches, pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
         w128_row, lev = phase_levers(ks, kg, kst, trained, rays_per_s, f_rays_per_s, pipe, tmp,
                                      card)
-        multi_launches, multi_s = phase_multi(ks, kg, fa, trained, pipe, tmp, card)
+        multi_launches, sharded, mp_frame_s, multi_s = phase_multi(
+            ks, kg, fa, trained, pipe, lev["proposal"], styles, tmp, card)
+        adain = phase_adain(tmp, geo_dir, styles, card)
     # per C1 step of the counted run; K6 also ran once per site for each collage
     k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
                   launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
@@ -3805,6 +4294,8 @@ def main() -> int:
     for row in rows:  # phase 18's two workers' counted runs, both ranks
         if row["name"] in multi_launches:
             row["launches_multi"] = multi_launches[row["name"]]
+        if row["name"] in sharded:  # phase 18(e)'s sharded frames, a rank
+            row["launches_sharded"] = sharded[row["name"]]
 
     print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
           f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
@@ -3820,7 +4311,11 @@ def main() -> int:
           f"distilled in {lev['distill_s']:.2f} s; budgeted Phase A steps/s "
           + ", ".join(f"{'exact' if b is None else b} {v:.2f}"
                       for b, v in lev["a_steps_per_s"].items())
-          + f"; multi-process phase {multi_s:.2f} s", flush=True)
+          + f"; multi-process phase {multi_s:.2f} s (sharded frame over two processes on one "
+          f"card {mp_frame_s['exact_s']:.3f} s exact, {mp_frame_s['fast_s']:.3f} s fast stack: "
+          f"no scaling figure); AdaIN finetune {adain['ft_steps_per_s']:.3f} steps/s, temporal "
+          f"{adain['t_steps_per_s']:.3f} steps/s at {adain['peak_gib']:.2f} GiB peak; whole "
+          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

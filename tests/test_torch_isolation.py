@@ -40,7 +40,8 @@ def test_submodule_list_covers_the_slice():
                  "models.vae", "train.vae_trainer", "config", "data.style_dataset",
                  "train.style3d", "train.pipeline", "cli", "utils.video", "utils.io3d",
                  "tools.jsonl2tb", "tools.import_reference", "render.grid", "render.distill",
-                 "parallel", "parallel.mesh", "parallel.distributed"):
+                 "parallel", "parallel.mesh", "parallel.distributed", "data.poses",
+                 "models.adain_net", "train.adain_trainer"):
         assert f"tgtc_torch.{name}" in mods
 
 
@@ -123,6 +124,7 @@ def test_entry_points_default_to_the_card():
                   lambda: stylize_all(model, "unused", [], [], "unused")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+    from tgtc_torch.models.adain_net import make_adain_net
     from tgtc_torch.models.vgg import make_vgg
     from tgtc_torch.tools import train2d
 
@@ -136,6 +138,9 @@ def test_entry_points_default_to_the_card():
     for build in (lambda: make_vgg(),
                   lambda: train2d.main(["--task", "transformer", "--save_dir", "unused"]),
                   lambda: train2d.main(["--task", "vae", "--save_dir", "unused"]),
+                  lambda: train2d.main(["--task", "finetune_decoder", "--save_dir", "unused"]),
+                  lambda: train2d.main(["--task", "temporal_decoder", "--save_dir", "unused"]),
+                  lambda: make_adain_net(),
                   lambda: make_vae(VaeConfig()),
                   lambda: init_vae_train(torch.Generator(), VaeConfig(), VaeTrainConfig()),
                   lambda: SplatCamera.llff(8, 8, 10.0),

@@ -38,6 +38,22 @@ from 0 has no scale of its own).
     with the 2D artifacts in place (written here, copied in by rank 0
     between the launches) runs Phase E over both ranks, and rank 0 alone
     writes ``ckpt_style``.
+(e) The sharded renders, at tests/test_pallas_kernel.py:147-180's narrow
+    trunks (D2/W16, L 2/1, 4+4 samples, JAX's initial weights) on 293 rays
+    in blocks of 48 (7 blocks, 4 + 3 over the ranks, the tail 5 rays: not a
+    multiple of 2 x 48): ``make_sharded_fused_render_fn`` (the plain twins;
+    also with σ-only coarse, ``fine_budget`` 6 and ``coarse_share`` 2),
+    ``make_render_fn(group=)`` (eager f32 trunks) and
+    ``make_stylized_render_fn(group=)`` (a narrow style field, jitter from a
+    seeded generator) each equal their 1-process render bit for bit on both
+    ranks; the 1-process fused render is within 1e-5 of JAX's
+    ``make_sharded_fused_render_fn`` over ``cpu_mesh8`` (interpret mode) on
+    the 256 rays JAX's test draws.
+(f) ``train_transformer(group=)``: C1's loop at (c)'s network and dropout,
+    2 steps of batch 4 (2 a rank) of 32² crops from two image directories,
+    held to the 1-process loop at (c)'s bounds (each logged loss, the sum of
+    the trained parameters); rank 0 alone writes the log, the collage and
+    the checkpoints.
 """
 
 import json
@@ -70,6 +86,10 @@ PIPE = dict(expname="mp", factor=1.0, use_viewdir=True, netdepth=2, netwidth=32,
             origin_step=20, total_step=25, style_D=4, vae_latent=8, vae_w=16, vae_d=2,
             style_feature_dim=64, i_print=10, sigma_noise_std=0.0, use_pallas=False)
 GUIDANCE = "Run phases B-D single-process"
+# (e): tests/test_pallas_kernel.py:147-180's trunks and samples; the port's rays
+RENDER_CFG = dict(depth=2, width=16, embed_freq_coor=2, embed_freq_dir=1, use_viewdir=True)
+RENDER_BLOCK, RENDER_RAYS, JAX_RAYS = 48, 293, 8 * 16 * 2
+TOL_JAX_RENDER = 1e-5
 
 
 # ---------------------------------------------------------------- workloads
@@ -188,6 +208,73 @@ def pipeline_workload(job, group):
     return out
 
 
+def render_workload(group, job):
+    """(e): the three renders, each through ``group``, on ``job``'s trunks and
+    rays."""
+    from tgtc_torch.models.nerf import NerfConfig, make_nerf
+    from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
+    from tgtc_torch.ops.kernels.nerf_mlp import pack_nerf_params
+    from tgtc_torch.render.fast import make_sharded_fused_render_fn
+    from tgtc_torch.render.volume import RenderSettings
+    from tgtc_torch.train.nerf_trainer import NerfTrainConfig, make_render_fn
+    from tgtc_torch.train.render_style import make_stylized_render_fn
+
+    ro, rd = job["ro"], job["rd"]
+    settings = RenderSettings(n_samples=4, n_samples_fine=4, sigma_noise_std=0.0)
+    c = RENDER_CFG
+    pack = lambda sd: pack_nerf_params(sd, depth=c["depth"], num_freq_coor=c["embed_freq_coor"],
+                                       num_freq_dir=c["embed_freq_dir"], width=c["width"])
+    pc, pf = pack(job["coarse"]), pack(job["fine"])
+    out = {"fused": make_sharded_fused_render_fn(settings, group, RENDER_BLOCK)(pc, pf, ro, rd),
+           "fast": make_sharded_fused_render_fn(
+               settings, group, RENDER_BLOCK, coarse_rgb=False, fine_budget=6,
+               coarse_share=2)(pc, pf, ro, rd)}
+    gen = torch.Generator().manual_seed(9)
+    trunks = []
+    for which in ("coarse", "fine"):
+        t = make_nerf(NerfConfig(compute_dtype=torch.float32, **c), gen, device="cpu")
+        t.load_state_dict(job[which])
+        trunks.append(t)
+    tc = NerfTrainConfig(n_samples=4, n_samples_fine=4)
+    out["eager"] = make_render_fn(tc, group=group, block=RENDER_BLOCK)(*trunks, ro, rd)
+    field = StyleFieldConfig(style_d=2, width=16, latent_dim=4, embed_dim=trunks[0].cfg.input_ch)
+    concat, style = make_style_mlps(field, gen, device="cpu")
+    latents = init_latents(gen, 1, 2, field.latent_dim, device="cpu")
+    n = ro.shape[0]
+    fn = make_stylized_render_fn(*trunks, concat, style, 4, 4, 0.0, 1.0, group=group,
+                                 block=RENDER_BLOCK)
+    out["stylized"] = fn(latents, ro, rd, torch.zeros(n, dtype=torch.long),
+                         torch.arange(n) % 2, generator=torch.Generator().manual_seed(3))
+    return out
+
+
+def c1_loop_workload(group, job, name):
+    """(f): ``train_transformer`` over ``group`` into ``job["root"]/name``;
+    the logged lines and the sum of the trained parameters."""
+    from tgtc_torch.models.stytrans import make_stytrans
+    from tgtc_torch.models.transformer import TransformerConfig
+    from tgtc_torch.train import transformer2d as t2
+    from tgtc_torch.train.checkpoint import CheckpointManager
+
+    cfg = TransformerConfig(d_model=32, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                            dim_feedforward=32, dropout=0.1, attn_impl="flash")
+    model = make_stytrans(cfg, torch.Generator().manual_seed(21), device="cpu")
+    tcfg = t2.TransformerTrainConfig(batch_size=4, patch=32, max_iter=C1_STEPS)
+    state = t2.init_transformer_train(model, tcfg)
+    root = os.path.join(job["root"], name)
+    ckpt = CheckpointManager(os.path.join(root, "ckpt"))
+    try:
+        t2.train_transformer(state, tcfg, job["content"], job["style"], ckpt,
+                             log_dir=os.path.join(root, "log"),
+                             collage_dir=os.path.join(root, "collage"), print_interval=1,
+                             save_interval=1, dropout_seed=5, data_seed=3, workers=1,
+                             group=group)
+    finally:
+        ckpt.close()
+    params = [p.detach() for _, p in t2.trained_parameters(model)]
+    return {"fingerprint": float(sum(p.double().sum() for p in params)), "root": root}
+
+
 def worker(job_path: str, out_path: str) -> None:
     """One rank of the spawn: join the group from the launch environment,
     run (a)-(d), save what it saw to ``out_path % rank``."""
@@ -201,7 +288,8 @@ def worker(job_path: str, out_path: str) -> None:
     assert group.world == WORLD
     job = torch.load(job_path, weights_only=False)
     out = {"a": phase_a_workload(group, job["a"]), "b": phase_e_workload(group),
-           "c": c1_workload(group), "d": pipeline_workload(job["d"], group)}
+           "c": c1_workload(group), "d": pipeline_workload(job["d"], group),
+           "e": render_workload(group, job["e"]), "f": c1_loop_workload(group, job["f"], "group")}
     torch.save(out, out_path % group.rank)
     print(f"[worker {group.rank}] done", flush=True)
     dist.destroy_process_group()
@@ -318,6 +406,58 @@ def _pipeline_job(root: str, scene: str, styles: str):
     return {"cfg": cfg, "root": root, "artifacts": art}, c
 
 
+def _render_job():
+    """tests/test_pallas_kernel.py:147-180's trunks (JAX's initial weights)
+    and rays, with ``RENDER_RAYS - JAX_RAYS`` more drawn from numpy; and
+    JAX's ``make_sharded_fused_render_fn`` over ``cpu_mesh8`` on its rays."""
+    import jax
+    import jax.numpy as jnp
+
+    from tgtc.models.nerf import NerfConfig as JNerfConfig
+    from tgtc.ops.pallas.nerf_mlp import pack_nerf_params
+    from tgtc.parallel import get_mesh
+    from tgtc.render.fast import make_sharded_fused_render_fn
+    from tgtc.render.volume import RenderSettings
+    from tgtc.train.nerf_trainer import NerfTrainConfig, init_state
+    from tgtc_torch.convert import nerf_state_dict_from_flax
+
+    _, _, state = init_state(jax.random.PRNGKey(0), JNerfConfig(**RENDER_CFG), NerfTrainConfig())
+    kw = dict(depth=2, num_freq_coor=2, num_freq_dir=1, width=16)
+    pc, pf = (pack_nerf_params(p, **kw) for p in (state.params_coarse, state.params_fine))
+    key = jax.random.PRNGKey(1)
+    ro = jax.random.uniform(key, (JAX_RAYS, 3), minval=-1, maxval=1)
+    rd = jax.random.normal(jax.random.fold_in(key, 1), (JAX_RAYS, 3))
+    rd = rd / jnp.linalg.norm(rd, axis=-1, keepdims=True)
+    settings = RenderSettings(n_samples=4, n_samples_fine=4, sigma_noise_std=0.0)
+    want = make_sharded_fused_render_fn(settings, get_mesh(), tile=16, interpret=True, **kw)(
+        *pc, *pf, ro, rd)
+    rng = np.random.default_rng(11)
+    extra_d = rng.standard_normal((RENDER_RAYS - JAX_RAYS, 3))
+    extra_d /= np.linalg.norm(extra_d, axis=-1, keepdims=True)
+    cat = lambda a, b: torch.from_numpy(np.concatenate([np.asarray(a), b]).astype(np.float32))
+    job = {"ro": cat(ro, rng.uniform(-1, 1, (RENDER_RAYS - JAX_RAYS, 3))),
+           "rd": cat(rd, extra_d),
+           "coarse": nerf_state_dict_from_flax(jax.tree.map(np.asarray, state.params_coarse)),
+           "fine": nerf_state_dict_from_flax(jax.tree.map(np.asarray, state.params_fine))}
+    return job, {k: np.asarray(v) for k, v in want.items()}
+
+
+def _c1_loop_job(root):
+    """Two directories of seeded images for (f)."""
+    from PIL import Image
+
+    job = {"root": root}
+    for name, seed in (("content", 12), ("style", 13)):
+        d = os.path.join(root, f"c1_{name}")
+        os.makedirs(d)
+        rng = np.random.default_rng(seed)
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 255, (40, 40, 3), np.uint8)).save(
+                os.path.join(d, f"{i}.png"))
+        job[name] = sorted(os.path.join(d, f) for f in os.listdir(d))
+    return job
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory, cpu_mesh8):
     """The spawn's per-rank outputs and logs, the 1-process results, JAX's."""
@@ -334,15 +474,18 @@ def runs(tmp_path_factory, cpu_mesh8):
         os.path.join(styles, "style0.png"))
     a_job, jax_a = _phase_a_job()
     d_job, cfg = _pipeline_job(root, scene, styles)
+    e_job, jax_e = _render_job()
+    f_job = _c1_loop_job(root)
     job_path = os.path.join(root, "job.pt")
-    torch.save({"a": a_job, "d": d_job}, job_path)
+    torch.save({"a": a_job, "d": d_job, "e": e_job, "f": f_job}, job_path)
     out_path = os.path.join(root, "rank%d.pt")
     logs = _spawn(job_path, out_path)
     ranks = [torch.load(out_path % r, weights_only=False) for r in range(WORLD)]
     one = DataGroup()
     single = {"a": phase_a_workload(one, a_job), "b": phase_e_workload(one),
-              "c": c1_workload(one)}
-    return dict(ranks=ranks, logs=logs, single=single, jax_a=jax_a, cfg=cfg)
+              "c": c1_workload(one), "e": render_workload(one, e_job),
+              "f": c1_loop_workload(one, f_job, "single")}
+    return dict(ranks=ranks, logs=logs, single=single, jax_a=jax_a, jax_e=jax_e, cfg=cfg)
 
 
 def _leaf_rel(got, want, floor):
@@ -430,3 +573,46 @@ def test_pipeline_writes_from_rank_zero_and_runs_e_when_the_2d_artifacts_exist(r
     assert "coh_grad_ratio" in style[0] and style[1]["steps_per_s"] > 0
     assert sorted(os.listdir(os.path.join(cfg.exp_dir, "ckpt_style"))) == [
         f"ckpt_{cfg.total_step:08d}.pt"]
+
+
+@pytest.mark.parametrize("render", ["fused", "fast", "eager", "stylized"])
+def test_sharded_render_two_processes_equal_one_bit_for_bit(runs, render):
+    want = runs["single"]["e"][render]
+    for r, out in enumerate(runs["ranks"]):
+        got = out["e"][render]
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert v.shape[0] == RENDER_RAYS and torch.equal(got[k], v), (render, r, k)
+    print(f"[parity] sharded {render} render over {WORLD} processes ({RENDER_RAYS} rays in "
+          f"blocks of {RENDER_BLOCK}): bit for bit on every rank, keys {sorted(want)}")
+
+
+def test_one_process_fused_render_matches_jax_sharded_render(runs):
+    got, want = runs["single"]["e"]["fused"], runs["jax_e"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        err = float(np.abs(got[k][:JAX_RAYS].numpy() - v).max())
+        print(f"[parity] fused render {k} vs JAX's make_sharded_fused_render_fn over "
+              f"cpu_mesh8: max|err| {err:.3e} (tol {TOL_JAX_RENDER})")
+        assert err <= TOL_JAX_RENDER, (k, err)
+
+
+def test_grouped_c1_loop_equals_one_process_loop(runs):
+    want = runs["single"]["f"]
+    read = lambda root: [json.loads(line) for line in open(os.path.join(root, "log",
+                                                                       "transformer.jsonl"))]
+    want_lines = read(want["root"])
+    root = runs["ranks"][0]["f"]["root"]
+    assert runs["ranks"][1]["f"]["root"] == root
+    got_lines = read(root)  # rank 0's alone: one line a step
+    assert [g["step"] for g in got_lines] == [w["step"] for w in want_lines] == [1, 2]
+    for k in ("loss", "loss_c", "loss_s", "l_id1", "l_id2"):
+        _assert_losses([g[k] for g in got_lines], [w[k] for w in want_lines], RTOL,
+                       f"grouped C1 loop {k}")
+    for r, out in enumerate(runs["ranks"]):
+        _assert_losses([out["f"]["fingerprint"]], [want["fingerprint"]], RTOL,
+                       f"grouped C1 loop rank {r} parameter sum after {C1_STEPS} steps")
+    assert sorted(os.listdir(os.path.join(root, "ckpt"))) == sorted(
+        os.listdir(os.path.join(want["root"], "ckpt"))) == ["ckpt_00000001.pt",
+                                                            "ckpt_00000002.pt"]
+    assert os.listdir(os.path.join(root, "collage")) == [f"{C1_STEPS}.png"]

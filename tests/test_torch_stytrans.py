@@ -231,18 +231,24 @@ def test_pretrained_overlay_loads_newest_and_refuses_wrong_shapes(params, tmp_pa
     assert all(torch.equal(v, before[k]) for k, v in model.decode.state_dict().items())
 
 
-def test_training_path_is_not_ported_yet(params):
-    """C1's losses and the VGG pyramid are ported; AdaIN's two decoder
-    trainers raise, naming ROADMAP."""
+def test_training_path_is_not_ported_yet(params, monkeypatch, tmp_path):
+    """C1's losses and the VGG pyramid are ported, and ``train2d.main``
+    routes AdaIN's two decoder trainers to their runners (which
+    tests/test_torch_adain.py runs)."""
     from tgtc_torch.tools import train2d
 
     model = port_model(params)
     x = torch.zeros(1, 16, 16, 3)
     assert set(model.compute_losses(x, x)) == {"ics", "loss_c", "loss_s", "l_id1", "l_id2"}
     assert [tuple(f.shape) for f in model.encode_pyramid(x)][-1] == (1, 2, 2, 512)
+    routed = []
     for task in ("finetune_decoder", "temporal_decoder"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train2d.main(["--task", task], device="cpu")
+        monkeypatch.setattr(train2d, f"run_{task}",
+                            lambda args, dev, task=task: routed.append((task, args.task, dev)))
+    for task in ("finetune_decoder", "temporal_decoder"):
+        train2d.main(["--task", task, "--save_dir", str(tmp_path)], device="cpu")
+    assert routed == [(t, t, torch.device("cpu")) for t in ("finetune_decoder",
+                                                          "temporal_decoder")]
 
 
 def test_make_stytrans_is_seeded():

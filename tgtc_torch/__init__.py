@@ -16,8 +16,11 @@ holds Phase C2's decoder finetune, Phase D's VAE, Phase E's style-field
 distillation and ``pipeline``, the A→F phase machine that ``cli``
 (``python -m tgtc_torch.cli --config ...``) runs; ``data`` holds Phase E's
 device-resident scene, and ``utils`` the turntable writers and 3D IO.
-``parallel`` steps Phases A and E (and the C1 step) over several processes,
-one per GPU, under ``torch.distributed``.
+``parallel`` steps Phases A and E (and C1) over several processes, one per
+GPU, under ``torch.distributed``, and the sharded renders split a frame's
+blocks over them. AdaIN's alternate 2D path (``models.adain_net``,
+``train.adain_trainer``) and the pose helpers (``data.poses``) are ported
+too.
 
 Submodules load lazily: ``import tgtc_torch`` imports nothing heavy, and
 no kernel is built until the first call that launches it. Entry points

@@ -6,7 +6,7 @@ The flax modules use the reference's layer order under flax names
 names (the style MLPs' ``layers.{i}``). A Dense ``kernel [in, out]`` is a
 Linear ``weight [out, in]`` transposed; biases carry over as they are. A
 JAX latent table and JAX Phase-A, C1 and Phase-E train states convert to
-tensors too, and so do the VAE's parameters.
+tensors too, and so do the VAE's and the AdaIN network's parameters.
 """
 
 from __future__ import annotations
@@ -278,6 +278,20 @@ def stytrans_flax_from_state_dicts(sds: Dict[str, Dict[str, torch.Tensor]]) -> D
     if "vgg" in sds:
         p["vgg"] = _conv_flax(sds["vgg"], VGG_INDEX)
     return {"params": p}
+
+
+def adain_state_dicts_from_flax(params: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A flax AdainNet param tree (``{"params": {"vgg", "decode"}}``) →
+    ``{"vgg", "decoder"}`` state dicts under the reference's torch names,
+    for ``AdainNet.vgg`` and ``AdainNet.decode``: the same two subtrees as
+    :func:`stytrans_state_dicts_from_flax` converts."""
+    p = params["params"]
+    return stytrans_state_dicts_from_flax({"params": {"vgg": p["vgg"], "decode": p["decode"]}})
+
+
+def adain_flax_from_state_dicts(sds: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """The inverse of :func:`adain_state_dicts_from_flax`."""
+    return stytrans_flax_from_state_dicts({"vgg": sds["vgg"], "decoder": sds["decoder"]})
 
 
 def _transformer_flax(t: Dict[str, torch.Tensor]) -> Dict[str, Any]:

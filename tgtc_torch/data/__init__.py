@@ -1,1 +1,1 @@
-"""Scene loading and ray generation — port of tgtc/data."""
+"""Scene loading, ray generation and camera paths — port of tgtc/data."""

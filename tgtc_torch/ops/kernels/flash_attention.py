@@ -247,8 +247,9 @@ def _check_cuda(**tensors: torch.Tensor) -> None:
         if x.shape[3] != CUDA_HEAD_DIM or x.stride(3) != 1:
             raise NotImplementedError(
                 f"the CUDA flash kernels take head width {CUDA_HEAD_DIM} with a contiguous "
-                f"last axis; got {name} {tuple(x.shape)} with strides {x.stride()} (other "
-                "widths are a ROADMAP item; the twins take them on the CPU)")
+                f"last axis; got {name} {tuple(x.shape)} with strides {x.stride()} (no "
+                "tgtc path or configs/*.txt reaches other widths; the plain twins take them "
+                "on the CPU)")
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

@@ -263,8 +263,8 @@ def _check_cuda(packed: PackedStyle, pts_t: torch.Tensor) -> int:
     if shape != CUDA_SHAPE:
         raise NotImplementedError(
             "the CUDA style kernels take trunk D8/W256 with skip 4 and 10 frequencies, "
-            f"style_d 8, style width 256 and latent 32; got {shape} (other widths are "
-            "a ROADMAP item)")
+            f"style_d 8, style width 256 and latent 32; got {shape} (no tgtc path or "
+            "configs/*.txt reaches other widths; the plain twins take them on the CPU)")
     return check_points(packed, pts_t)
 
 

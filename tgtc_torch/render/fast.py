@@ -19,7 +19,10 @@ the layout the kernels take. The proposal levers of the JAX package:
 * a distilled proposal (:mod:`tgtc_torch.render.distill`) is the coarse
   net: its packing carries its own depth and width (K2 at width 128).
 
-The sharded renderer waits for the multi-GPU slice.
+:func:`make_sharded_fused_render_fn` splits a frame's ray blocks over the
+processes of a :class:`~tgtc_torch.parallel.DataGroup` (the JAX package's
+``shard_map`` over a mesh), on the 1-process block grid of
+:func:`render_in_blocks`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from tgtc_torch.ops.kernels.nerf_mlp import (
     pack_nerf_params,
 )
 from tgtc_torch.ops.sampling import sample_pdf, select_sample_budget, stratified_depths
+from tgtc_torch.parallel.mesh import DataGroup
 from tgtc_torch.render.grid import GridSpec, sample_sigma_grid
 from tgtc_torch.render.volume import RenderSettings
 
@@ -231,22 +235,79 @@ class FusedNerfRenderer:
                                 block)
 
 
+def make_sharded_fused_render_fn(settings: RenderSettings, group: DataGroup, block: int = 16384,
+                                 **kw) -> Callable[..., Dict[str, torch.Tensor]]:
+    """The fused render of a frame over ``group``'s processes (one per GPU):
+    ``(packed_coarse, packed_fine, rays_o, rays_d, grid_values=None) ->
+    outputs`` of every ray on every rank. ``kw`` are
+    :func:`make_fused_render_fn`'s (the levers, ``grid_spec``,
+    ``coarse_rgb``), as the JAX package's ``make_sharded_fused_render_fn``
+    (tgtc/render/fast.py:307-350) takes them.
+
+    Each rank renders whole ``block``-ray blocks of the 1-process block grid
+    (:func:`render_in_blocks`): the same block starts and the same tail
+    padding, so the composition of each block, any per-block draw and the
+    kernels' shapes are the 1-process render's, and the frame equals it bit
+    for bit. JAX asks for a ray count divisible by mesh × tile, because
+    ``shard_map`` splits the ray axis evenly; splitting whole blocks has no
+    such condition, so any ray count renders."""
+    inner = make_fused_render_fn(settings, **kw)
+
+    def render(pc: Optional[PackedNerf], pf: PackedNerf, rays_o: torch.Tensor,
+               rays_d: torch.Tensor, grid_values: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        return render_in_blocks(lambda bo, bd, start: inner(pc, pf, bo, bd, grid_values),
+                                rays_o, rays_d, block, group)
+
+    return render
+
+
+def block_range(n_blocks: int, group: DataGroup) -> Tuple[int, int]:
+    """``(first, count)`` of the blocks this rank renders: contiguous, the
+    first ``n_blocks % world`` ranks one more than the rest."""
+    base, extra = divmod(n_blocks, group.world)
+    return group.rank * base + min(group.rank, extra), base + (group.rank < extra)
+
+
 def render_in_blocks(render_block: Callable[[torch.Tensor, torch.Tensor, int],
                                             Dict[str, torch.Tensor]],
                      rays_o: torch.Tensor, rays_d: torch.Tensor,
-                     block: int = 16384) -> Dict[str, torch.Tensor]:
+                     block: int = 16384, group: DataGroup = DataGroup()
+                     ) -> Dict[str, torch.Tensor]:
     """Rays ``[N, 3]`` through ``render_block(bo, bd, start)`` in fixed
     blocks of ``block`` rays, ``start`` being the block's first ray; the
-    tail block is padded with zero origins and unit directions."""
+    tail block is padded with zero origins and unit directions.
+
+    Over ``group``'s processes (world W > 1) each rank renders its
+    :func:`block_range` of the ``ceil(N / block)`` blocks, and the rows are
+    gathered (:meth:`DataGroup.gather_rows`, every rank's blocks padded to
+    the largest share), so every rank returns all N rows. A rank with no
+    block renders a padded block to learn the outputs' shapes and keeps
+    none of it."""
     n = rays_o.shape[0]
+    n_blocks = -(-n // block)
+    first, count = block_range(n_blocks, group)
     outs = []
-    for start in range(0, n, block):
+    for b in range(first, first + count) if count else [n_blocks]:
+        start = b * block
         end = min(start + block, n)
         bo, bd = rays_o[start:end], rays_d[start:end]
         if end - start < block:
-            pad = block - (end - start)
+            pad = block - max(end - start, 0)
             bo = torch.cat([bo, bo.new_zeros((pad, 3))], 0)
             bd = torch.cat([bd, bd.new_ones((pad, 3))], 0)
         out = render_block(bo, bd, start)
-        outs.append({k: v[: end - start] for k, v in out.items()})
-    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+        outs.append({k: v[: max(end - start, 0)] for k, v in out.items()})
+    local = {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+    if group.world == 1:
+        return local
+    share = -(-n_blocks // group.world) * block  # the largest rank's rows
+    frame = {}
+    for k, v in local.items():
+        rows = group.gather_rows(torch.cat([v, v.new_zeros((share - v.shape[0], *v.shape[1:]))]))
+        parts = []
+        for r in range(group.world):
+            f, c = block_range(n_blocks, DataGroup(None, r, group.world))
+            parts.append(rows[r * share: r * share + min(c * block, n - f * block)])
+        frame[k] = torch.cat(parts, 0)
+    return frame

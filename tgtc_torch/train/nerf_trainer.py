@@ -55,7 +55,7 @@ from tgtc_torch.ops.sampling import (
     select_sample_budget,
 )
 from tgtc_torch.parallel import DataGroup, is_main_process
-from tgtc_torch.render.fast import _points_t
+from tgtc_torch.render.fast import _points_t, render_in_blocks
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
 from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer
@@ -342,9 +342,17 @@ def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
 # ---------------------------------------------------------------- rendering
 
 
-def make_render_fn(train_cfg: NerfTrainConfig):
+def make_render_fn(train_cfg: NerfTrainConfig, group: Optional[DataGroup] = None,
+                   block: int = 65536):
     """Eager full-precision render of a flat ray block (no noise, no jitter):
-    ``(coarse, fine, rays_o, rays_d) -> {rgb, rgb_coarse, t_exp, acc}``."""
+    ``(coarse, fine, rays_o, rays_d) -> {rgb, rgb_coarse, t_exp, acc}``.
+
+    With ``group`` (the JAX package's ``mesh=``, tgtc/train/nerf_trainer.py:209)
+    the call's rays are rendered in ``block``-ray blocks over the group's
+    processes by :func:`~tgtc_torch.render.fast.render_in_blocks`: whole
+    blocks of the 1-process block grid on each rank, so the rows equal
+    :func:`render_image`'s at the same ``block`` bit for bit, on every
+    rank."""
     settings = train_cfg.render_settings(perturb=False)
 
     @torch.no_grad()
@@ -354,25 +362,18 @@ def make_render_fn(train_cfg: NerfTrainConfig):
         return {"rgb": out["fine"].rgb, "rgb_coarse": out["coarse"].rgb,
                 "t_exp": out["fine"].t_exp, "acc": out["fine"].acc}
 
-    return render_fn
+    if group is None:
+        return render_fn
+    return lambda coarse, fine, rays_o, rays_d: render_in_blocks(
+        lambda bo, bd, start: render_fn(coarse, fine, bo, bd), rays_o, rays_d, block, group)
 
 
 def render_image(render_fn, coarse: NerfMLP, fine: NerfMLP, rays_o: torch.Tensor,
                  rays_d: torch.Tensor, block: int = 65536) -> Dict[str, torch.Tensor]:
     """Any ray count by fixed-size blocks; the tail block is padded with zero
-    origins and unit directions."""
-    n = rays_o.shape[0]
-    outs = []
-    for start in range(0, n, block):
-        end = min(start + block, n)
-        bo, bd = rays_o[start:end], rays_d[start:end]
-        if end - start < block:
-            pad = block - (end - start)
-            bo = torch.cat([bo, bo.new_zeros((pad, 3))], 0)
-            bd = torch.cat([bd, bd.new_ones((pad, 3))], 0)
-        out = render_fn(coarse, fine, bo, bd)
-        outs.append({k: v[: end - start] for k, v in out.items()})
-    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+    origins and unit directions (:func:`~tgtc_torch.render.fast.render_in_blocks`)."""
+    return render_in_blocks(lambda bo, bd, start: render_fn(coarse, fine, bo, bd), rays_o,
+                            rays_d, block)
 
 
 # ---------------------------------------------------------------- budgets

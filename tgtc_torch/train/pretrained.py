@@ -1,5 +1,6 @@
-"""Load the reference's pretrained 2D assets into a StyTrans — port of the
-VGG, decoder, transformer and embedding overlays of tgtc/train/pretrained.py.
+"""Load the reference's pretrained 2D assets into a StyTrans or an AdainNet —
+port of the VGG, decoder, transformer and embedding overlays of
+tgtc/train/pretrained.py (``load_decoder_overlay`` :52).
 
 The reference's assets are torch state dicts under its own names
 (``vgg_normalised.pth``, ``decoder.pth``, and ``transformer_iter_*.pth`` /
@@ -94,6 +95,13 @@ def load_vgg_overlay(vgg, vgg_pth_path: str) -> bool:
                     missing_note=" (style losses will be meaningless)")
 
 
+def load_decoder_overlay(decoder, decoder_pth_path: str) -> bool:
+    """Overlay ``decoder.pth`` onto ``decoder`` (a
+    :class:`~tgtc_torch.models.decoder.Decoder`) in place; False (and a loud
+    message) if the file is missing or does not fit."""
+    return _overlay(decoder, decoder_pth_path, "decoder")
+
+
 def overlay_stytrans(model, decoder_pth_path: str = "", pretrained_dir: str = "",
                      vgg_pth_path: str = "") -> Dict[str, bool]:
     """Overlay ``vgg_normalised.pth``, ``decoder.pth`` and, if
@@ -102,7 +110,7 @@ def overlay_stytrans(model, decoder_pth_path: str = "", pretrained_dir: str = ""
     :class:`~tgtc_torch.models.stytrans.StyTrans`) in place, in the
     reference's order. Returns ``{asset: loaded?}``."""
     loaded = {"vgg": load_vgg_overlay(model.vgg, vgg_pth_path),
-              "decoder": _overlay(model.decode, decoder_pth_path, "decoder")}
+              "decoder": load_decoder_overlay(model.decode, decoder_pth_path)}
     tpth = latest_with("transformer", pretrained_dir)
     loaded["transformer"] = bool(tpth) and _overlay(model.transformer, tpth, "transformer",
                                                    drop_prefix="new_ps.")

@@ -31,6 +31,8 @@ import torch
 from tgtc_torch.models.nerf import NerfMLP
 from tgtc_torch.models.style_field import StyleMLPBeforeConcat, StyleMLPWildMultilayers
 from tgtc_torch.ops.sampling import merge_and_resample_fine, sample_along_rays_uniform
+from tgtc_torch.parallel.mesh import DataGroup
+from tgtc_torch.render.fast import render_in_blocks
 from tgtc_torch.render.fast_style import render_blocks
 from tgtc_torch.render.style import style_forward
 from tgtc_torch.utils import native
@@ -55,12 +57,23 @@ def make_stylized_render_fn(
     far: float,
     sigma_scale: float = 1.0,
     llff_tile: bool = True,
+    group: Optional[DataGroup] = None,
+    block: int = 16384,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Eager block renderer: ``(latent_state, rays_o [B, 3], rays_d,
     style_ids [B], frame_ids [B], u=None, generator=None) -> {"rgb",
     "t_exp", "rgb_coarse", "ts_fine"}`` (fine outputs; ``ts_fine`` the fine
     depths). The coarse depths are jittered by ``u [B, Nc]``, drawn from
-    ``generator`` when not given; no σ noise, as the reference renders."""
+    ``generator`` when not given; no σ noise, as the reference renders.
+
+    With ``group`` (the JAX package's ``mesh=``,
+    tgtc/train/render_style.py:28-56) the call's rays are rendered in
+    ``block``-ray blocks over the group's processes by
+    :func:`~tgtc_torch.render.fast.render_in_blocks`: every rank draws the
+    call's whole ``u`` (as the 1-process call does) and renders its whole
+    blocks of the 1-process block grid with their rows of ``u`` and of the
+    ids, so every rank returns the rows of the same call with
+    ``DataGroup()``, bit for bit."""
 
     @torch.no_grad()
     def render(latent_state, rays_o, rays_d, style_ids, frame_ids, u=None, generator=None):
@@ -77,7 +90,23 @@ def make_stylized_render_fn(
         return {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp, "rgb_coarse": comp_c.rgb,
                 "ts_fine": ts_f}
 
-    return render
+    if group is None:
+        return render
+
+    def render_grouped(latent_state, rays_o, rays_d, style_ids, frame_ids, u=None,
+                       generator=None):
+        n = rays_o.shape[0]
+        if u is None:
+            u = torch.rand((n, n_samples), generator=generator, device=rays_o.device)
+        pad = -n % block  # the tail block's rows: ids of ray 0, zero jitter
+        rows = lambda x: torch.cat([x, x[:1].expand(pad, *x.shape[1:])]) if pad else x
+        sid, fid = rows(style_ids), rows(frame_ids)
+        u = torch.cat([u, u.new_zeros((pad, n_samples))]) if pad else u
+        return render_in_blocks(
+            lambda bo, bd, s: render(latent_state, bo, bd, sid[s: s + block], fid[s: s + block],
+                                     u=u[s: s + block]), rays_o, rays_d, block, group)
+
+    return render_grouped
 
 
 def _normalised_depth(t: torch.Tensor) -> torch.Tensor:

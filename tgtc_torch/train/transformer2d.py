@@ -31,7 +31,9 @@ the update count from 0 (optax's count).
   with a step of its own on the same loss and optimizer.
 * :func:`train_transformer` is the C1 loop that both
   ``tools/train2d --task transformer`` and ``Pipeline.ensure_style2d`` run,
-  each with its own checkpoint directory, intervals and seeds.
+  each with its own checkpoint directory, intervals and seeds; it takes
+  ``group=`` too, and ``tools/train2d`` passes the launch's group under a
+  multi-process launch.
 """
 
 from __future__ import annotations
@@ -216,7 +218,7 @@ def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
                       content_paths: Sequence[str], style_paths: Sequence[str], ckpt, *,
                       log_dir: str, collage_dir: str, print_interval: int = 100,
                       save_interval: int = 1000, dropout_seed: int = 3, data_seed: int = 0,
-                      workers: int = 4
+                      workers: int = 4, group: DataGroup = DataGroup()
                       ) -> TransformerTrainState:
     """The C1 loop up to ``cfg.max_iter`` steps from ``state`` (its model on
     the card or the CPU). Content and style crop batches come from two
@@ -229,7 +231,15 @@ def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
     ``collage_dir/<step>.png``; every ``save_interval`` steps and at the end
     ``state`` is saved through ``ckpt`` (a
     :class:`~tgtc_torch.train.checkpoint.CheckpointManager`, asynchronously;
-    the last save is waited for). Returns ``state``."""
+    the last save is waited for). Returns ``state``.
+
+    Over ``group``'s processes every rank calls this with the same
+    arguments: rank 0's parameters are broadcast once, every rank draws the
+    same global crop batches and steps on its rows of them
+    (:class:`TransformerTrainStep`), the logged metrics are averaged over
+    the ranks, rank 0 alone writes the log, the collages and the
+    checkpoints, and every rank waits at the end until the last checkpoint
+    is on disk."""
     from tgtc_torch.data.prefetch import CropBatchPrefetcher, ResizeCache, upload
     from tgtc_torch.utils import native
     from tgtc_torch.utils.logging import MetricsLogger, fetch_scalars
@@ -237,10 +247,13 @@ def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
     if not (content_paths and style_paths):
         raise ValueError("C1 needs content and style images")
     dev = next(state.model.parameters()).device
-    os.makedirs(collage_dir, exist_ok=True)
+    main = group.rank == 0
+    if main:
+        os.makedirs(collage_dir, exist_ok=True)
     logger = MetricsLogger(log_dir, name="transformer")
     collage_fn = make_collage_fn(state.model)
-    step_fn = make_transformer_train_step(state.model, cfg)
+    group.broadcast_([p.detach() for p in state.model.parameters()])
+    step_fn = make_transformer_train_step(state.model, cfg, group=group)
     cache = ResizeCache()
     with CropBatchPrefetcher(content_paths, cfg.batch_size, cfg.patch, seed=data_seed,
                              workers=workers, cache=cache) as cpf, \
@@ -254,12 +267,13 @@ def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
                 state, metrics = step_fn(state, content, style, seed=dropout_seed)
                 step = state.step
                 if step % print_interval == 0:
-                    scalars = fetch_scalars(metrics)  # syncs: closes the window
+                    # the fetch syncs: it closes the window
+                    scalars = fetch_scalars(group.mean_scalars(metrics))
                     now = time.perf_counter()
                     scalars["steps_per_s"] = (step - last_log) / (now - t_log)
                     logger.log(step, scalars, prefix="TRANS TRAIN")
                     last_log, t_log = step, time.perf_counter()
-                if step % COLLAGE_EVERY == 0 or step >= cfg.max_iter:
+                if main and (step % COLLAGE_EVERY == 0 or step >= cfg.max_iter):
                     native.write_png_async(os.path.join(collage_dir, f"{step}.png"),
                                            collage_fn(content, style).cpu().numpy())
                 if step % save_interval == 0 or step >= cfg.max_iter:
@@ -269,4 +283,5 @@ def train_transformer(state: TransformerTrainState, cfg: TransformerTrainConfig,
     errors = native.wait_writes()
     if errors:
         raise IOError(f"{errors} C1 collage writes failed")
+    group.barrier()  # the last checkpoint is on disk for every rank
     return state
