@@ -219,13 +219,24 @@ started together), then:
    eager f32 render, and the re-entry run adding no checkpoint and no
    training line and launching K1/K2 for evaluate only; each phase's wall
    seconds and peak allocated memory printed beside the card;
-17. the proposal levers (phase_levers): K2 at D2xW128 (the distilled
-   proposal's trunk, sigma_kernel<2, 4, 128>; He weights, numpy seed 17)
-   against its twin at P = 16,384 x 64 (+ 300) and the engine's tile-cutting
-   P, repeats bit for bit, its run-time-depth build at depth 3, and timed at
-   16,384 x 64 by events and device time beside the largest of its tensor,
-   FP32 and SFU floors (at the card's maximum SM clock) and HBM floor; render/distill.distill_proposal from phase 4's
-   fine trunk on its 4 training views (300 steps of 3,000, batch 65,536);
+17. the proposal levers (phase_levers): K2 at D2xW128, K2-W128 (the
+   distilled proposal's trunk, proposal::sigma_kernel<2> of
+   csrc/proposal_sm90.cuh; He weights and bf16 biases of either sign on
+   every layer, numpy seed 17 + depth), against its twin within
+   TOL_SIGMA_W128 at P = 16,384 x 64 (+ 300), 8,192 x 64 and the P that cut
+   its 64-point tiles, its four warpgroups and its persistent loop and the
+   engine's tiles, repeating bit for bit, its run-time-depth build at
+   depths 1, 3 (also at 16,384 x 64 (+ 300)) and 6 (a skip layer), depth 8
+   on the engine (past its depth cut-off, which is held), each bias path
+   (layer 0's and the skip layer's in the encoding's pad column, the
+   epilogue's, sigma's) shown to move the twin's sigma by more than
+   BIAS_MARGIN x the limit, and timed
+   at 16,384 x 64 and at the fast-stack block's 8,192 x 64 by events and
+   device time beside the largest of its tensor, FP32 and SFU floors (at
+   the card's maximum SM clock) and HBM floor; render/distill.distill_proposal from phase 4's
+   fine trunk on its 4 training views (300 steps of 3,000, batch 65,536),
+   and K2-W128 on that proposal's own packing against its twin at
+   8,192 x 64 points, the same way;
    the fern frame (phase 4's scene, spiral pose 0) through FusedNerfRenderer
    with the proposal as coarse net, fine_budget 80 and coarse_share 2 (K1
    and K2-W128 one launch a block, nothing else), beside the exact frame of
@@ -484,6 +495,45 @@ def he_params(rng: np.random.Generator, depth=8, width=256, fc=10, fd=4, skip=4)
     return {"params": layers}
 
 
+def with_biases(params, rng: np.random.Generator, scale: float = 0.5):
+    """``params`` with every layer's bias drawn anew, of magnitude in
+    [scale / 2, scale] and either sign, rounded to bf16 (the values the
+    packing keeps), so that each bias moves the result."""
+    def bias(shape):
+        mag = scale * rng.uniform(0.5, 1.0, shape) * rng.choice((-1.0, 1.0), shape)
+        return torch.from_numpy(mag.astype(np.float32)).bfloat16().float().numpy()
+
+    return {"params": {name: {"kernel": layer["kernel"], "bias": bias(layer["bias"].shape)}
+                       for name, layer in params["params"].items()}}
+
+
+def w128_state_dict(depth: int, seed: int):
+    """A 128-wide trunk of ``depth`` layers (skip 4), He-normal kernels and
+    bf16 biases (with_biases), from numpy seed ``seed``."""
+    from tgtc_torch.convert import nerf_state_dict_from_flax
+
+    rng = np.random.default_rng(seed)
+    return nerf_state_dict_from_flax(with_biases(he_params(rng, depth=depth, width=128), rng))
+
+
+def bias_groups(packed):
+    """K2-W128's bias paths at ``packed``'s depth, as (name, packed
+    layers): layer 0's and a skip layer's go in the encoding's pad column,
+    the other trunk layers' in the epilogue, sigma's at the store."""
+    d, skip = packed.depth, packed.skip
+    rest = [i for i in range(1, d) if i != skip + 1]
+    return ([("layer 0", [0])] + ([("skip layer", [skip + 1])] if skip + 1 < d else [])
+            + ([("epilogue layers", rest)] if rest else []) + [("sigma", [d + 1])])
+
+
+def without_biases(packed, layers):
+    """``packed`` with the biases of ``layers`` set to 0 (a copy)."""
+    out = dataclasses.replace(packed, b=packed.b.clone())
+    for i in layers:
+        out.bias(i).zero_()
+    return out
+
+
 def he_style_params(rng: np.random.Generator, style_d=8, width=256, latent=LATENT,
                     embed=63, skip=4):
     """Random flax-layout style MLPs at fern width (``concat``: 5 layers,
@@ -525,6 +575,25 @@ ENGINE_DESIGN = {
           "(trunk_tile and rgb_tail, K1's forward, then the input-gradient products); a "
           "split-K weight-gradient kernel on wgmma; an in-order reduce",
 }
+
+
+# K2 at width 128 (K2-W128, csrc/proposal_sm90.cuh): 64-point tiles, four
+# warpgroups a block, one block per SM; point counts that cut its tiles,
+# leave warpgroups of a block idle and wrap its persistent loop (132 blocks
+# of 256 points, + 17). Its weights stay in shared memory, which takes the
+# trunk up to depth 7; deeper 128-wide trunks run on the engine.
+W128_TILE, W128_WARPGROUPS, W128_MAX_DEPTH, SMEM_PER_BLOCK = 64, 4, 7, 232448
+W128_P = (1, W128_TILE - 1, W128_TILE + 1, 3 * W128_TILE + 1,
+          132 * W128_WARPGROUPS * W128_TILE + 17)
+# K2-W128 against its twin, every bias seeded (with_biases): the largest
+# reading over the sizes and depths below was 1.399e-02 (depth 3, 1,048,576
+# points) on an H100, the shared TOL_SIGMA 14 times it. Each bias path
+# moves sigma by more than BIAS_MARGIN times the limit.
+TOL_SIGMA_W128, BIAS_MARGIN = 2e-2, 10
+W128_DESIGN = ("csrc/proposal_sm90.cuh: proposal::sigma_kernel<2> (weights resident in shared "
+               "memory, four independent consumer warpgroups of 64-point tiles, the encoding as "
+               "30 sincosf a point into layer 0's wgmma A fragments, wgmma m64n128k16 from "
+               "registers, the sigma head as wgmma m64n8k16)")
 
 
 def timed(fn, iters: int):
@@ -3022,6 +3091,59 @@ def k2w128_floors_ms(p: int, packed, clock_hz: float):
             "hbm": 1e3 * (16 * p + weights) / PEAK_BYTES}
 
 
+def w128_case(ks, packed, pts, tag: str) -> float:
+    """K2 on a 128-wide packing against its twin on the card at ``pts``,
+    launched twice: max|sigma err| within TOL_SIGMA_W128, the second launch
+    bit for bit the first."""
+    s1 = ks.fused_nerf_sigma_apply_t(packed, pts)
+    s2 = ks.fused_nerf_sigma_apply_t(packed, pts)
+    torch.cuda.synchronize()
+    e = float((s1 - ks.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max())
+    print(f"[levers] K2-W128 {tag} P={pts.shape[1]}: max|sigma err| {e:.3e}; repeat bit for bit "
+          f"{torch.equal(s1, s2)}", flush=True)
+    check(bool(torch.isfinite(s1).all()) and e <= TOL_SIGMA_W128,
+          f"K2-W128 {tag} disagrees with its twin at P={pts.shape[1]}")
+    check(torch.equal(s1, s2), f"K2-W128 {tag} repeat not bitwise equal at P={pts.shape[1]}")
+    return e
+
+
+def w128_vs_twin(ks, pts):
+    """Phase 17's K2-W128 checks: the depth cut-off, then K2-W128 against
+    its twin at the sizes that cut its tiles, warpgroups and loop (and the
+    engine's) and the frames' sizes, at depth 2 (compiled in), 1, 3 and 6
+    (run time; 6's layer 5 is the skip layer) and 8 (the engine, past the
+    cut-off), every trunk and sigma bias seeded; at each depth's largest
+    size, the twin with each of its bias paths set to 0 moves sigma by more
+    than BIAS_MARGIN x TOL_SIGMA_W128, so no bias can be lost unseen.
+    Returns the depth-2 packing and its largest error."""
+    smem = {d: ks.w128_smem_bytes(d, 4) for d in range(1, 10)}
+    print(f"[levers] K2-W128 shared memory a block by depth (skip 4): {smem}; the kernel takes "
+          f"depths up to {W128_MAX_DEPTH}, the engine's sigma-only kernel the rest", flush=True)
+    check(all((b <= SMEM_PER_BLOCK) == (d <= W128_MAX_DEPTH) for d, b in smem.items()),
+          "K2-W128's depth cut-off moved")
+    sizes = tuple(sorted(set(ENGINE_P + W128_P)))
+    frames = (P_K2 // LEVER_SHARE, P_K2, P_K2 + RAGGED)
+    packs, err = {}, 0.0
+    for depth, ps in ((2, sizes + frames), (1, W128_P), (3, sizes + frames[1:]),
+                      (6, (W128_TILE + 1, W128_P[-1])),
+                      (W128_MAX_DEPTH + 1, (ENGINE_TILE + 1, ENGINE_P[-1]))):
+        pk = packs[depth] = ks.pack_nerf_params(w128_state_dict(depth, 17 + depth), depth=depth,
+                                                width=128, device="cuda")
+        for n in ps:
+            e = w128_case(ks, pk, pts[:, :n].contiguous(), f"depth {depth}")
+            err = max(err, e) if depth == 2 else err
+        pt = pts[:, :ps[-1]].contiguous()
+        ref = ks.fused_nerf_sigma_apply_t_plain(pk, pt)
+        for name, layers in bias_groups(pk):
+            moved = float((ks.fused_nerf_sigma_apply_t_plain(without_biases(pk, layers), pt)
+                           - ref).abs().max())
+            print(f"[levers] K2-W128 depth {depth}: the twin without the {name}'s biases moves "
+                  f"sigma by {moved:.3e}", flush=True)
+            check(moved > BIAS_MARGIN * TOL_SIGMA_W128,
+                  f"K2-W128 depth {depth}: the {name}'s biases would go unseen")
+    return packs[2], err
+
+
 @contextlib.contextmanager
 def twins(module, **plain):
     """``module``'s kernel wrappers swapped for their plain twins (a
@@ -3063,7 +3185,6 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     from PIL import Image
 
     from tgtc_torch import cli
-    from tgtc_torch.convert import nerf_state_dict_from_flax
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.data.rays import rays_for_poses
     from tgtc_torch.models.nerf import NerfConfig, NerfMLP
@@ -3088,53 +3209,38 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
         for c in counters.values():
             c.launches = 0
 
-    # ---- 1. K2 at D2xW128 against its twin, timed beside its floors
-    sd_p = nerf_state_dict_from_flax(he_params(np.random.default_rng(17), depth=2, width=128))
-    packed = ks.pack_nerf_params(sd_p, depth=2, width=128, device="cuda")
+    # ---- 1. K2 at D2xW128 (K2-W128) against its twin, timed beside its floors
     rng = np.random.default_rng(18)
     pts = torch.from_numpy(rng.uniform(-1, 1, (3, P_K2 + RAGGED)).astype(np.float32)).cuda()
-    err = 0.0
-    for depth, pk, ps in ((2, packed, ENGINE_P + (P_K2, P_K2 + RAGGED)),
-                          (3, None, (ENGINE_TILE + 1, 132 * ENGINE_TILE + 17))):
-        if pk is None:  # the run-time-depth build at width 128
-            sd3 = nerf_state_dict_from_flax(he_params(np.random.default_rng(19), depth=3,
-                                                      width=128))
-            pk = ks.pack_nerf_params(sd3, depth=3, width=128, device="cuda")
-        for n in ps:
-            pt = pts[:, :n].contiguous()
-            s1 = ks.fused_nerf_sigma_apply_t(pk, pt)
-            s2 = ks.fused_nerf_sigma_apply_t(pk, pt)
-            torch.cuda.synchronize()
-            e = float((s1 - ks.fused_nerf_sigma_apply_t_plain(pk, pt)).abs().max())
-            print(f"[levers] K2-W128 depth {depth} P={n}: max|sigma err| {e:.3e}; repeat bit "
-                  f"for bit {torch.equal(s1, s2)}", flush=True)
-            check(bool(torch.isfinite(s1).all()) and e <= TOL_SIGMA,
-                  f"K2-W128 at depth {depth} disagrees with its twin at P={n}")
-            check(torch.equal(s1, s2), f"K2-W128 repeat not bitwise equal at P={n}")
-            if depth == 2:
-                err = max(err, e)
-    pt = pts[:, :P_K2].contiguous()
-    ms, dev = timed(lambda: ks.fused_nerf_sigma_apply_t(packed, pt), 20)
-    plain_ms = cuda_ms(lambda: ks.fused_nerf_sigma_apply_t_plain(packed, pt), 3)
+    packed, err = w128_vs_twin(ks, pts)
     clock = sm_clock_hz()
-    floors = k2w128_floors_ms(P_K2, packed, clock)
-    floor = max(floors, key=floors.get)
+    times = {}
+    for n in (P_K2, P_K2 // LEVER_SHARE):  # 16,384 x 64 points; the fast-stack block's
+        pt = pts[:, :n].contiguous()
+        ms, dev = timed(lambda: ks.fused_nerf_sigma_apply_t(packed, pt), 20)
+        plain_ms = cuda_ms(lambda: ks.fused_nerf_sigma_apply_t_plain(packed, pt), 3)
+        floors = k2w128_floors_ms(n, packed, clock)
+        floor = max(floors, key=floors.get)
+        times[n] = (ms, dev, plain_ms, floors, floor)
+        print(f"[levers] K2-W128 P={n}: kernel {ms:.4f} ms ev, {dev:.4f} ms dev; floors "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
+              + f" (SM clock {clock * 1e-6:.0f} MHz): bound {floors[floor]:.4f} ms ({floor}), "
+              f"{100 * floors[floor] / dev:.2f}% of it by device time; plain twin "
+              f"{plain_ms:.3f} ms; {card}", flush=True)
+    ms, dev, plain_ms, floors, floor = times[P_K2]
     bound = floors[floor]
-    print(f"[levers] K2-W128 P={P_K2}: kernel {ms:.4f} ms ev, {dev:.4f} ms dev; floors "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
-          + f" (SM clock {clock * 1e-6:.0f} MHz): bound {bound:.4f} ms ({floor}), "
-          f"{100 * bound / dev:.2f}% of it by device time; plain twin {plain_ms:.3f} ms; "
-          f"{card}", flush=True)
-    row = {"name": "K2-W128", "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp.cu",
+    block = times[P_K2 // LEVER_SHARE]
+    row = {"name": "K2-W128", "route": "cuda", "source": "tgtc_torch/csrc/proposal_sm90.cuh",
            "replaces": "tgtc/ops/pallas/nerf_mlp.py:316",
            "wrapper": "tgtc_torch.ops.kernels.nerf_mlp.fused_nerf_sigma_apply_t",
-           "design": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel<2, 4, 128> (trunk_tile "
-                     "at width 128, wgmma m64n128k16, a two-partial sigma head)",
+           "design": W128_DESIGN,
            "P": P_K2, "max_abs_err": err, "max_err": err, "max_abs_err_sigma": err,
            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": "bytes" if floor == "hbm" else "operations", "bound_floor": floor,
            "floors_ms": floors, "sm_clock_mhz": clock * 1e-6, "bound_share": bound / dev,
-           "library_ms": None}
+           "library_ms": None, "P_block": P_K2 // LEVER_SHARE, "ms_block": block[0],
+           "device_ms_block": block[1], "plain_ms_block": block[2],
+           "bound_ms_block": block[3][block[4]], "floors_ms_block": block[3]}
     del pts
 
     # ---- 2. the distilled proposal from phase 4's fine trunk
@@ -3156,6 +3262,13 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     check(math.isfinite(stats["loss"]) and math.isfinite(stats["relu_sigma_bias"]),
           "the distilled proposal's loss is not finite")
     del fine, ro_t, rd_t
+    # its own packing (trained biases) against its twin, at a fast-stack block's points
+    pt = torch.from_numpy(np.random.default_rng(19).uniform(
+        -1, 1, (3, P_K2 // LEVER_SHARE)).astype(np.float32)).cuda()
+    row["max_abs_err_distilled"] = w128_case(
+        ks, ks.pack_nerf_params(prop_sd, depth=2, width=128, device="cuda"), pt,
+        "distilled proposal")
+    del pt
 
     # ---- 3. the fast-stack frame, beside the exact frame of the same trunks
     settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)

@@ -114,14 +114,41 @@ def test_cuda_k2_engine_tiles_match_twin_and_repeat(cuda_device, p):
     assert torch.equal(sigma, sigma_k1)
 
 
-@pytest.mark.parametrize("depth", [2, 3])
-@pytest.mark.parametrize("p", ENGINE_P)
+# Point counts that cut K2-W128's 64-point tiles (csrc/proposal_sm90.cuh),
+# leave warpgroups of its four a block idle, and wrap its persistent loop
+# (132 blocks of 4 x 64 points).
+W128_TILE = 64
+W128_P = [W128_TILE - 1, W128_TILE + 1, 3 * W128_TILE + 1, 132 * 4 * W128_TILE + 17]
+# K2 at width 128 against its twin, with every bias seeded (_with_biases):
+# chip_smoke.py phase 17's limit.
+TOL_SIGMA_W128 = 2e-2
+
+
+def _with_biases(sd, seed):
+    """``sd`` with every bias drawn anew, of magnitude in [0.25, 0.5] and
+    either sign, rounded to bf16 (the values the packing keeps): K2-W128
+    adds layer 0's and a skip layer's bias through the encoding's pad
+    column, the others' in its epilogue, sigma's at the store."""
+    g = torch.Generator().manual_seed(seed)
+    out = dict(sd)
+    for name, v in sd.items():
+        if name.endswith(".bias"):
+            mag = 0.25 * (1 + torch.rand(v.shape, generator=g))
+            sign = torch.randint(0, 2, v.shape, generator=g) * 2 - 1
+            out[name] = (mag * sign).bfloat16().float()
+    return out
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 6, 8])
+@pytest.mark.parametrize("p", ENGINE_P + W128_P)
 def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth):
-    """K2 on the distilled proposal's 128-wide trunk (depth 2 compiled in,
-    3 at run time): its twin, a second launch bit for bit, and the
+    """K2 on the distilled proposal's 128-wide trunk: K2-W128 (depth 2
+    compiled in; 1, 3 and 6, whose layer 5 is the skip layer, at run time)
+    and, past its depth cut-off, the engine's sigma-only kernel (depth 8):
+    its twin with every bias seeded, a second launch bit for bit, and the
     launches counted in ``launches_w128`` alone."""
-    sd = make_nerf(NerfConfig(depth=depth, width=128), torch.Generator().manual_seed(4),
-                   device="cpu").state_dict()
+    sd = _with_biases(make_nerf(NerfConfig(depth=depth, width=128),
+                                torch.Generator().manual_seed(4), device="cpu").state_dict(), 5)
     packed = tk.pack_nerf_params(sd, depth=depth, width=128, device=cuda_device)
     pts, _ = _points(p, cuda_device)
     k2 = tk.fused_nerf_sigma_apply_t
@@ -130,7 +157,16 @@ def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth):
     torch.cuda.synchronize()
     assert (k2.launches, k2.launches_w128) == (before[0], before[1] + 2)
     assert sigma.shape == (1, p) and torch.equal(sigma, sigma2)
-    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
+    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA_W128
+
+
+def test_cuda_k2_proposal_width_depth_cut_off(cuda_device):
+    """K2-W128 keeps the trunk's weights in shared memory: every depth up to
+    7 fits a block's 232,448 bytes whatever the skip, depth 8 does not (it
+    runs on the engine); depth 2 takes 51 KB."""
+    sizes = {(d, s): tk.w128_smem_bytes(d, s) for d in range(1, 10) for s in (0, 4, 8)}
+    assert all((b <= 232448) == (d <= 7) for (d, _), b in sizes.items())
+    assert sizes[(2, 4)] == 2048 + 3 * 16384 + 1024
 
 
 @pytest.mark.parametrize("p", [ENGINE_TILE + 1, 132 * ENGINE_TILE + 17])

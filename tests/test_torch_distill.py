@@ -6,10 +6,12 @@
   ``nerf_state_dict_from_flax``) and JAX's draws: every parameter within
   1e-5 of JAX's relative to its leaf's largest value (floored at the
   learning rate), the reported loss and bias within 1e-5 relative.
-* K2's plain twin at D2xW128, the proposal's shape on the card, against
-  JAX's ``fused_nerf_sigma_apply_t(width=128)`` in interpret mode: σ within
-  the bf16 kernel tolerance, 1e-1 (ROADMAP.md, Tolerances); the wrapper
-  takes width 128 for K2 only.
+* K2's plain twin at width 128 and depths 1-3 and 6 (D2 is the proposal's
+  shape on the card; K2-W128 takes the others at run time; 6 reaches the
+  skip layer), every bias seeded, against JAX's
+  ``fused_nerf_sigma_apply_t(width=128)`` in interpret mode: σ within the
+  bf16 kernel tolerance, 1e-1 (ROADMAP.md, Tolerances); the wrapper takes
+  width 128 for K2 only.
 """
 
 import jax
@@ -106,20 +108,26 @@ def test_distill_proposal_draws_from_its_seed():
         td.distill_proposal(0, fine, ro, rd, 0.0, 1.0, tau=0.3, steps=1)
 
 
-def test_k2_twin_at_the_proposal_width_matches_pallas():
+@pytest.mark.parametrize("depth", [1, 2, 3, 6])
+def test_k2_twin_at_the_proposal_width_matches_pallas(depth):
     from tgtc.ops.pallas.nerf_mlp import fused_nerf_sigma_apply_t, pack_nerf_params
 
-    cfg = JNerfConfig(depth=2, width=128)
+    cfg = JNerfConfig(depth=depth, width=128)
     _, params = j_make_nerf(cfg, jax.random.PRNGKey(3))
     params = jax.tree.map(np.asarray, params)
-    params["params"]["sigma"]["bias"] = params["params"]["sigma"]["bias"] + 0.5
+    brng = np.random.default_rng(5)
+    for layer in params["params"].values():  # every bias seeded, of bf16 values
+        shape = layer["bias"].shape
+        mag = brng.uniform(0.25, 0.5, shape) * brng.choice((-1.0, 1.0), shape)
+        layer["bias"] = torch.from_numpy(mag.astype(np.float32)).bfloat16().float().numpy()
     rng = np.random.default_rng(4)
     pts = rng.uniform(-1, 1, (3, 384)).astype(np.float32)
-    want = fused_nerf_sigma_apply_t(*pack_nerf_params(params, depth=2, width=128),
-                                    jnp.asarray(pts), depth=2, width=128, tile=128,
+    want = fused_nerf_sigma_apply_t(*pack_nerf_params(params, depth=depth, width=128),
+                                    jnp.asarray(pts), depth=depth, width=128, tile=128,
                                     interpret=True)
-    packed = tk.pack_nerf_params(nerf_state_dict_from_flax(params), depth=2, width=128)
-    assert packed.layers()[:4] == [(128, 64), (128, 128), (256, 128), (1, 128)]
+    packed = tk.pack_nerf_params(nerf_state_dict_from_flax(params), depth=depth, width=128)
+    assert packed.layers()[:depth + 2] == [(128, 64)] + [
+        (128, 192 if i == 5 else 128) for i in range(1, depth)] + [(256, 128), (1, 128)]
     got = tk.fused_nerf_sigma_apply_t(packed, torch.from_numpy(pts))  # the twin on the CPU
     assert got.shape == (1, 384)
     close(got, np.asarray(want), atol=1e-1)

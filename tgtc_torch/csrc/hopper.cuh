@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's hand-written kernels:
 // mbarriers, TMA loads, wgmma shared-memory descriptors, the wgmma forms the
 // kernels use (m64n64k16 for flash_attention.cu and K3's weight gradient;
-// m64n256k16 and m64n128k16 for the dense-layer engine of trunk_sm90.cuh),
+// m64n256k16 and m64n128k16 for the dense-layer engine of trunk_sm90.cuh;
+// m64n128k16 and m64n8k16 for K2-W128, proposal_sm90.cuh),
 // setmaxnreg, the async-proxy fence and named barriers; on the host, the
 // driver's cuTensorMapEncodeTiled fetched from the runtime (no -lcuda).
 //
@@ -383,9 +384,11 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], uint32_t a0, uint
 }
 
 // As wgmma_rs_n256 for a 64 x 128 tile, in the first 64 registers of d.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[128], uint32_t a0, uint32_t a1,
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N], uint32_t a0, uint32_t a1,
                                               uint32_t a2, uint32_t a3, uint64_t db,
                                               int accumulate) {
+  static_assert(N >= 64, "a 64 x 128 tile takes 64 registers a thread");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -408,6 +411,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[128], uint32_t a0, uint
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B, a 64 x 8 f32 tile (register e at row 16 warp + g + 8 (e >> 1),
+// column 2 t + (e & 1)), A in registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t* a, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // ------------------------------------------------------------ host side

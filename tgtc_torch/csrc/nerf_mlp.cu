@@ -11,8 +11,9 @@
 // K2) against ~40 bytes of point I/O, far above the card's
 // operations-per-byte balance, so the bound is the bf16 tensor-core rate.
 // K2 also runs the distilled proposal's D2xW128 trunk (49,408 FLOP/point,
-// tgtc/render/distill.py): there the 60 sinf/cosf of the encoding weigh as
-// much as the tensor-core work.
+// tgtc/render/distill.py) on a kernel of its own, K2-W128
+// (proposal_sm90.cuh): there the encoding and the epilogues on CUDA cores
+// weigh as much as the tensor-core work.
 //
 // Both run on the Hopper dense-layer engine (trunk_sm90.cuh): persistent
 // blocks over 128-point tiles, two consumer warpgroups of 64 rows with wgmma
@@ -26,9 +27,15 @@
 // engine's sigma-only kernel (sm90::sigma_kernel): the same trunk and sigma
 // head, nothing after them, so K2's sigma equals K1's bit for bit (phase 1
 // of chip_smoke.py holds it). Depth 8 with skip 4 is compiled in for both;
-// other depths run on a run-time-depth build of each. K2 also takes a
-// 128-wide trunk (the proposal): depth 2 compiled in, other depths at run
-// time; K1 takes width 256 only (no path runs the proposal's rgb).
+// other depths run on a run-time-depth build of each. K1 takes width 256
+// only (no path runs the proposal's rgb). A 128-wide trunk (the proposal)
+// goes to K2-W128, proposal::sigma_kernel (weights resident in shared
+// memory, four independent consumer warpgroups of 64-point tiles, the
+// encoding in registers, the sigma head on the tensor cores): depth 2
+// compiled in, any depth up to 7 at run time (proposal::smem_bytes); a
+// deeper 128-wide trunk, whose weights do not fit in a block's shared
+// memory, stays on the engine's sigma_kernel<0, 0, 128>. The choice is made
+// by shape before the launch.
 //
 // K1's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
 // 128 KB, h 4 x 16 KB = 64 KB (for the heads), enc(pts) 16 KB, enc(dirs)
@@ -36,6 +43,7 @@
 // block may have. K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers
 // 64 B: 213,056 B (sm90::SIGMA_KERNEL_SMEM).
 
+#include "proposal_sm90.cuh"
 #include "trunk_sm90.cuh"
 
 namespace {
@@ -135,7 +143,9 @@ extern "C" int tgtc_nerf_mlp_fwd(const float* pts_t, const float* dirs_t,
 extern "C" int tgtc_nerf_mlp_fwd_smem() { return K1_SMEM; }
 
 // K2: as tgtc_nerf_mlp_fwd, sigma only, on a trunk `width` (256 or 128)
-// wide. Returns cudaGetLastError() after the launch.
+// wide: K2 at 256, K2-W128 at 128 while its weights fit (depth <= 7), the
+// engine's sigma-only kernel beyond. Returns cudaGetLastError() after the
+// launch.
 extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
                                    const void* w, const float* b,
                                    const long long* offsets, int depth,
@@ -145,9 +155,10 @@ extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
   decltype(&sm90::launch_sigma<8, 4>) launch;
   if (width == W)
     launch = depth == 8 && skip == 4 ? sm90::launch_sigma<8, 4> : sm90::launch_sigma<0, 0>;
-  else if (width == 128)
-    launch = depth == 2 && skip == 4 ? sm90::launch_sigma<2, 4, 128>
-                                     : sm90::launch_sigma<0, 0, 128>;
+  else if (width == proposal::PW && proposal::smem_bytes(depth, skip) <= proposal::SMEM_LIMIT)
+    launch = depth == 2 && skip != 0 ? proposal::launch_sigma<2> : proposal::launch_sigma<0>;
+  else if (width == proposal::PW)
+    launch = sm90::launch_sigma<0, 0, proposal::PW>;
   else
     return (int)cudaErrorInvalidValue;
   return launch(pts_t, P, w, b, L, depth, skip, sigma, (cudaStream_t)stream);
@@ -155,3 +166,9 @@ extern "C" int tgtc_nerf_mlp_sigma(const float* pts_t, long long P,
 
 // K2's dynamic shared memory a block, in bytes.
 extern "C" int tgtc_nerf_mlp_sigma_smem() { return sm90::SIGMA_KERNEL_SMEM; }
+
+// K2-W128's dynamic shared memory a block at this depth and skip, in bytes;
+// above 232,448 the trunk runs on the engine instead.
+extern "C" int tgtc_nerf_mlp_sigma_w128_smem(int depth, int skip) {
+  return proposal::smem_bytes(depth, skip);
+}

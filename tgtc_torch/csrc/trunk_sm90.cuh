@@ -58,9 +58,11 @@
 //   64-column partials (two threads a point, one shuffle; 128 -> 1 in two),
 //   rgb (128 or 256 -> 3) one thread per point and channel.
 // * The trunk's width is a template argument (TW, W = 256 by default): the
-//   sigma-only kernel also runs the distilled proposal's 128-wide trunk,
-//   whose layers are wgmma m64n128k16 with half the A fragments, the ring's
-//   slots then half filled (boxes of 128 rows).
+//   sigma-only kernel also runs a 128-wide trunk too deep for K2-W128's
+//   resident weights (depth 8 and beyond; the distilled proposal's D2 runs
+//   on K2-W128, proposal_sm90.cuh), whose layers are wgmma m64n128k16 with
+//   half the A fragments, the ring's slots then half filled (boxes of 128
+//   rows).
 // * The sigma-only kernel streams the trunk's depth layers and nothing else
 //   (at D8: K = 64, 256 x 4, 320, 256 x 2, so 30 chunks, 983,040 B, a tile,
 //   half the first design's weight traffic). Its shared memory: the ring,

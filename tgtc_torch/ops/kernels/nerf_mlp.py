@@ -10,16 +10,20 @@ use by :mod:`tgtc_torch.ops.kernels._build`):
   ``fused_nerf_sigma_apply_t`` — the trunk alone, ``pts_t [3, P]`` →
   ``sigma [1, P]``, bit for bit K1's σ (both run the trunk function of the
   Hopper engine, ``csrc/trunk_sm90.cuh``). K2 also takes the distilled
-  proposal's 128-wide trunk (``tgtc_torch.render.distill``).
+  proposal's 128-wide trunk (``tgtc_torch.render.distill``): that is
+  K2-W128, a kernel of its own (``csrc/proposal_sm90.cuh``: the weights
+  resident in shared memory, the encoding and the σ head in registers and
+  on the tensor cores) for every depth up to 7, whose weights fit in a
+  block's shared memory (``w128_smem_bytes``); a deeper 128-wide trunk runs
+  on the engine's σ-only kernel. The choice is made by shape at launch.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 twin (``*_plain``) only for CPU tensors. The twins follow the kernel's
 arithmetic step by step: the same encoding, bf16 operands (bf16 σ/rgb head
 weights and bf16-rounded biases included), f32 accumulation, bias + ReLU
 in f32 then a bf16 round. ``launches`` on each wrapper counts kernel
-launches and nothing else; K2's launches on a 128-wide trunk (its own
-instantiation, ``sigma_kernel<2, 4, 128>``) count in ``launches_w128``
-instead.
+launches and nothing else; K2's launches on a 128-wide trunk (K2-W128, or
+the engine beyond depth 7) count in ``launches_w128`` instead.
 """
 
 from __future__ import annotations
@@ -286,7 +290,17 @@ def _nerf_lib() -> ctypes.CDLL:
     for smem in (lib.tgtc_nerf_mlp_fwd_smem, lib.tgtc_nerf_mlp_sigma_smem):
         smem.argtypes = []
         smem.restype = i
+    lib.tgtc_nerf_mlp_sigma_w128_smem.argtypes = [i, i]
+    lib.tgtc_nerf_mlp_sigma_w128_smem.restype = i
     return lib
+
+
+def w128_smem_bytes(depth: int, skip: int) -> int:
+    """K2-W128's dynamic shared memory a block for a 128-wide trunk of
+    this depth and skip (the resident weights and the padded σ row), from
+    the built library. Above 232,448 bytes (depth 8 and deeper) the trunk
+    runs on the engine's σ-only kernel instead."""
+    return _nerf_lib().tgtc_nerf_mlp_sigma_w128_smem(depth, skip)
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -316,7 +330,8 @@ def fused_nerf_apply_t(packed: PackedNerf, pts_t: torch.Tensor,
 def fused_nerf_sigma_apply_t(packed: PackedNerf, pts_t: torch.Tensor
                              ) -> torch.Tensor:
     """K2: ``pts_t [3, P]`` f32 → ``sigma [1, P]`` (bitwise equal to K1's
-    at width 256); the trunk may be 256 or 128 wide."""
+    at width 256); the trunk may be 256 or 128 wide (K2-W128 up to depth
+    7, the engine's σ-only kernel deeper: see the module docstring)."""
     if pts_t.device.type == "cpu":
         return fused_nerf_sigma_apply_t_plain(packed, pts_t)
     p = _check_cuda(packed, pts_t, widths=SIGMA_WIDTHS)
