@@ -64,7 +64,11 @@ def test_train_nerf_profile_dir_traces_the_first_steps(scene, tmp_path):
                              print_fn=None, profile_dir=str(prof))
     assert state.step == 3
     trace = json.loads((prof / "phase_a.json").read_text())
-    assert any("aten::" in e.get("name", "") for e in trace["traceEvents"])
+    names = [e.get("name", "") for e in trace["traceEvents"]]
+    assert any("aten::" in n for n in names)
+    # each step's phases by name, the step drawing its own randoms
+    for phase in ("draw", "forward", "backward", "optimizer"):
+        assert names.count(f"tgtc.step.{phase}") == 3, phase
 
 
 def _images(d, n, size, seed):

@@ -44,6 +44,7 @@ from tgtc_torch.ops.sampling import sample_pdf, select_sample_budget, stratified
 from tgtc_torch.parallel.mesh import DataGroup
 from tgtc_torch.render.grid import GridSpec, sample_sigma_grid
 from tgtc_torch.render.volume import RenderSettings
+from tgtc_torch.utils.logging import span
 
 
 def _points_t(rays_o: torch.Tensor, rays_d: torch.Tensor, ts: torch.Tensor,
@@ -120,46 +121,47 @@ def make_fused_render_fn(
                rays_d: torch.Tensor,
                grid_values: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         r = rays_o.shape[0]
-        ro_c, rd_c = coarse_rays(rays_o, rays_d, coarse_share)
-        rc = ro_c.shape[0]
-        ts = stratified_depths(ro_c, nc, near=settings.near, far=settings.far)
-        if grid_spec is not None:
-            sigma_c = sample_sigma_grid(grid_values, grid_spec,
-                                        ro_c[:, None, :] + ts[..., None] * rd_c[:, None, :])
-            weights_c = sigma_weights(sigma_c, ts)
-        elif coarse_rgb:
-            pt, dt = _points_t(ro_c, rd_c, ts)
-            rgb_t, sigma_t = fused_nerf_apply_t(pc, pt, dt)
-            sigma_c = sigma_t.reshape(rc, nc)
-            comp_c = alpha_composite(rgb_t.reshape(3, rc, nc).permute(1, 2, 0), sigma_c, ts,
-                                     white_bkgd=settings.white_bkgd)
-            weights_c = comp_c.weights
-        else:
-            pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
-            sigma_c = fused_nerf_sigma_apply_t(pc, pt).reshape(rc, nc)
-            weights_c = sigma_weights(sigma_c, ts)
-
-        ts_mid = 0.5 * (ts[..., 1:] + ts[..., :-1])
-        t_new = sample_pdf(ts_mid, weights_c[..., 1:-1], nf)
-        ts_f = torch.sort(torch.cat([ts, t_new], dim=-1), dim=-1).values
-        deltas_f = None
-        if budget is not None:
-            # grid= holds: these coarse depths are the unperturbed linspace
-            ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, budget,
-                                                  grid=(settings.near, settings.far))
-        ts_f = share_depths(ts_f, coarse_share)
-        deltas_f = share_depths(deltas_f, coarse_share)
-
-        n_eval = ts_f.shape[1]
-        ptf, dtf = _points_t(rays_o, rays_d, ts_f)
-        rgb_t, sigma_t = fused_nerf_apply_t(pf, ptf, dtf)
-        comp_f = alpha_composite(rgb_t.reshape(3, r, n_eval).permute(1, 2, 0),
-                                 sigma_t.reshape(r, n_eval), ts_f,
-                                 white_bkgd=settings.white_bkgd, deltas=deltas_f)
-        out = {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp, "acc": comp_f.acc}
-        if coarse_rgb:
-            out["rgb_coarse"] = comp_c.rgb
-            out["t_exp_coarse"] = comp_c.t_exp
+        with span("tgtc.render.coarse"):
+            ro_c, rd_c = coarse_rays(rays_o, rays_d, coarse_share)
+            rc = ro_c.shape[0]
+            ts = stratified_depths(ro_c, nc, near=settings.near, far=settings.far)
+            if grid_spec is not None:
+                sigma_c = sample_sigma_grid(grid_values, grid_spec,
+                                            ro_c[:, None, :] + ts[..., None] * rd_c[:, None, :])
+                weights_c = sigma_weights(sigma_c, ts)
+            elif coarse_rgb:
+                pt, dt = _points_t(ro_c, rd_c, ts)
+                rgb_t, sigma_t = fused_nerf_apply_t(pc, pt, dt)
+                sigma_c = sigma_t.reshape(rc, nc)
+                comp_c = alpha_composite(rgb_t.reshape(3, rc, nc).permute(1, 2, 0), sigma_c, ts,
+                                         white_bkgd=settings.white_bkgd)
+                weights_c = comp_c.weights
+            else:
+                pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
+                sigma_c = fused_nerf_sigma_apply_t(pc, pt).reshape(rc, nc)
+                weights_c = sigma_weights(sigma_c, ts)
+        with span("tgtc.render.resample"):
+            ts_mid = 0.5 * (ts[..., 1:] + ts[..., :-1])
+            t_new = sample_pdf(ts_mid, weights_c[..., 1:-1], nf)
+            ts_f = torch.sort(torch.cat([ts, t_new], dim=-1), dim=-1).values
+            deltas_f = None
+            if budget is not None:
+                # grid= holds: these coarse depths are the unperturbed linspace
+                ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, budget,
+                                                      grid=(settings.near, settings.far))
+            ts_f = share_depths(ts_f, coarse_share)
+            deltas_f = share_depths(deltas_f, coarse_share)
+        with span("tgtc.render.fine"):
+            n_eval = ts_f.shape[1]
+            ptf, dtf = _points_t(rays_o, rays_d, ts_f)
+            rgb_t, sigma_t = fused_nerf_apply_t(pf, ptf, dtf)
+            comp_f = alpha_composite(rgb_t.reshape(3, r, n_eval).permute(1, 2, 0),
+                                     sigma_t.reshape(r, n_eval), ts_f,
+                                     white_bkgd=settings.white_bkgd, deltas=deltas_f)
+            out = {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp, "acc": comp_f.acc}
+            if coarse_rgb:
+                out["rgb_coarse"] = comp_c.rgb
+                out["t_exp_coarse"] = comp_c.t_exp
         return out
 
     return render

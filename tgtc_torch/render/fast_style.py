@@ -48,6 +48,7 @@ from tgtc_torch.render.fast import (
 )
 from tgtc_torch.render.grid import GridSpec, sample_sigma_grid
 from tgtc_torch.render.volume import RenderSettings
+from tgtc_torch.utils.logging import span
 
 
 def make_fused_style_render_fn(
@@ -83,8 +84,6 @@ def make_fused_style_render_fn(
                grid_values: Optional[torch.Tensor] = None,
                packed_proposal: Optional[PackedNerf] = None) -> Dict[str, torch.Tensor]:
         r = rays_o.shape[0]
-        lat = lookup_latents(latent_state, style_ids, frame_ids, sigma_scale,
-                             llff_tile).float().contiguous()  # [R, D]
 
         def run(packed: PackedStyle, ts: torch.Tensor, deltas=None):
             s = ts.shape[1]
@@ -94,34 +93,39 @@ def make_fused_style_render_fn(
             return alpha_composite(rgb_t.reshape(3, r, s).permute(1, 2, 0), sigma, ts,
                                    white_bkgd=settings.white_bkgd, deltas=deltas), sigma
 
-        ro_c, rd_c = coarse_rays(rays_o, rays_d, coarse_share)
-        rc = ro_c.shape[0]
-        ts = stratified_depths(ro_c, nc, near=settings.near, far=settings.far, u=u)
-        if proposal:
-            pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
-            sigma_c = fused_nerf_sigma_apply_t(packed_proposal, pt).reshape(rc, nc)
-        elif grid_spec is not None:
-            sigma_c = sample_sigma_grid(grid_values, grid_spec,
-                                        ro_c[:, None, :] + ts[..., None] * rd_c[:, None, :])
-        elif coarse_rgb:
-            comp_c, sigma_c = run(pc, ts)
-        else:
-            pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
-            sigma_c = fused_sigma_apply_t(pc, pt).reshape(rc, nc)
-        weights_c = comp_c.weights if coarse_rgb else sigma_weights(sigma_c, ts)
-
-        ts_mid = 0.5 * (ts[..., 1:] + ts[..., :-1])
-        t_new = sample_pdf(ts_mid, weights_c[..., 1:-1], nf)
-        ts_f = torch.sort(torch.cat([ts, t_new], dim=-1), dim=-1).values
-        deltas_f = None
-        if budget is not None:
-            # no grid=: these coarse depths are perturbed per ray
-            ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, budget)
-        comp_f, _ = run(pf, share_depths(ts_f, coarse_share),
-                        deltas=share_depths(deltas_f, coarse_share))
-        out = {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp}
-        if coarse_rgb:
-            out["rgb_coarse"] = comp_c.rgb
+        with span("tgtc.render.coarse"):
+            lat = lookup_latents(latent_state, style_ids, frame_ids, sigma_scale,
+                                 llff_tile).float().contiguous()  # [R, D]
+            ro_c, rd_c = coarse_rays(rays_o, rays_d, coarse_share)
+            rc = ro_c.shape[0]
+            ts = stratified_depths(ro_c, nc, near=settings.near, far=settings.far, u=u)
+            if proposal:
+                pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
+                sigma_c = fused_nerf_sigma_apply_t(packed_proposal, pt).reshape(rc, nc)
+            elif grid_spec is not None:
+                sigma_c = sample_sigma_grid(grid_values, grid_spec,
+                                            ro_c[:, None, :] + ts[..., None] * rd_c[:, None, :])
+            elif coarse_rgb:
+                comp_c, sigma_c = run(pc, ts)
+            else:
+                pt, _ = _points_t(ro_c, rd_c, ts, with_dirs=False)
+                sigma_c = fused_sigma_apply_t(pc, pt).reshape(rc, nc)
+            weights_c = comp_c.weights if coarse_rgb else sigma_weights(sigma_c, ts)
+        with span("tgtc.render.resample"):
+            ts_mid = 0.5 * (ts[..., 1:] + ts[..., :-1])
+            t_new = sample_pdf(ts_mid, weights_c[..., 1:-1], nf)
+            ts_f = torch.sort(torch.cat([ts, t_new], dim=-1), dim=-1).values
+            deltas_f = None
+            if budget is not None:
+                # no grid=: these coarse depths are perturbed per ray
+                ts_f, deltas_f = select_sample_budget(ts_f, ts, sigma_c, budget)
+            ts_f = share_depths(ts_f, coarse_share)
+            deltas_f = share_depths(deltas_f, coarse_share)
+        with span("tgtc.render.fine"):
+            comp_f, _ = run(pf, ts_f, deltas=deltas_f)
+            out = {"rgb": comp_f.rgb, "t_exp": comp_f.t_exp}
+            if coarse_rgb:
+                out["rgb_coarse"] = comp_c.rgb
         return out
 
     return render

@@ -58,7 +58,7 @@ from tgtc_torch.parallel import DataGroup, is_main_process
 from tgtc_torch.render.fast import _points_t, render_in_blocks
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
-from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer
+from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer, span
 from tgtc_torch.utils.seeds import step_seed
 
 CKPT_EVERY = 500  # steps between Phase-A checkpoints (tgtc/train/pipeline.py:377)
@@ -211,16 +211,19 @@ class TrainStep:
         """Loss, metrics and the gradients of both trunks' parameters
         (coarse then fine, in ``parameters()`` order), before any update;
         under a group, of this rank's rows of ``draws``."""
-        draws = StepDraws(*(self.group.rows(getattr(draws, f.name))
-                            for f in dataclasses.fields(draws)))
-        idx = draws.idx
-        loss_c, loss_f = self.loss_fn(coarse, fine, rays_o[idx], rays_d[idx], rgb_gt[idx],
-                                      draws)
-        loss = loss_c + loss_f
-        grads = torch.autograd.grad(loss, list(coarse.parameters()) + list(fine.parameters()))
-        loss_c, loss_f = loss_c.detach(), loss_f.detach()
-        metrics = {"loss": loss.detach(), "loss_coarse": loss_c, "loss_fine": loss_f,
-                   "psnr": mse2psnr(loss_c), "psnr_fine": mse2psnr(loss_f)}
+        with span("tgtc.step.forward"):
+            draws = StepDraws(*(self.group.rows(getattr(draws, f.name))
+                                for f in dataclasses.fields(draws)))
+            idx = draws.idx
+            loss_c, loss_f = self.loss_fn(coarse, fine, rays_o[idx], rays_d[idx], rgb_gt[idx],
+                                          draws)
+            loss = loss_c + loss_f
+            loss_c, loss_f = loss_c.detach(), loss_f.detach()
+            metrics = {"loss": loss.detach(), "loss_coarse": loss_c, "loss_fine": loss_f,
+                       "psnr": mse2psnr(loss_c), "psnr_fine": mse2psnr(loss_f)}
+        with span("tgtc.step.backward"):
+            grads = torch.autograd.grad(loss, list(coarse.parameters())
+                                        + list(fine.parameters()))
         return metrics, list(grads)
 
     def apply(self, state: NerfTrainState, grads: List[torch.Tensor]) -> None:
@@ -250,11 +253,13 @@ class TrainStep:
                  draws: Optional[StepDraws] = None
                  ) -> Tuple[NerfTrainState, Dict[str, torch.Tensor]]:
         if draws is None:
-            draws = self.draw(rays_o.shape[0], generator)
+            with span("tgtc.step.draw"):
+                draws = self.draw(rays_o.shape[0], generator)
         metrics, grads = self.loss_and_grad(state.coarse, state.fine, rays_o, rays_d,
                                             rgb_gt, draws)
-        self.apply(state, grads)
-        state.step += 1
+        with span("tgtc.step.optimizer"):
+            self.apply(state, grads)
+            state.step += 1
         return state, metrics
 
 
@@ -487,7 +492,9 @@ def train_nerf(
     steps (every :data:`CKPT_EVERY` steps and the last, saved asynchronously;
     the last save is waited for). Logs go to ``out_dir/logs/nerf.jsonl``.
     With ``profile_dir`` the first 20 steps of this run are traced by
-    ``torch.profiler`` into ``profile_dir/phase_a.json`` (a Chrome trace).
+    ``torch.profiler`` into ``profile_dir/phase_a.json`` (a Chrome trace),
+    each step's phases named by the spans ``tgtc.step.draw``, ``.forward``,
+    ``.backward`` and ``.optimizer`` (:data:`~tgtc_torch.utils.logging.SPANS`).
     Returns the state and ``{"loss": [every step's loss], "records":
     [logged lines]}``; a record is its JSONL line, step included, and its
     ``steps_per_s`` covers the steps since the previous record.

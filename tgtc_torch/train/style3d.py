@@ -96,7 +96,7 @@ from tgtc_torch.ops.sampling import (
 from tgtc_torch.parallel import DataGroup, is_main_process
 from tgtc_torch.render.style import style_forward
 from tgtc_torch.train.checkpoint import CheckpointManager
-from tgtc_torch.utils.logging import MetricsLogger
+from tgtc_torch.utils.logging import MetricsLogger, span
 from tgtc_torch.utils.seeds import step_seed
 
 CKPT_EVERY = 500  # steps between Phase-E checkpoints (tgtc/train/pipeline.py:857)
@@ -362,12 +362,14 @@ class StyleTrainStep:
         """Metrics, the gradients of ``state.parameters()`` (the style MLPs,
         then the latent table) before any update, and the terms of
         :meth:`losses`."""
-        t = self.losses(state, data, draws)
-        total = t["loss_rgb"] + t["loss_logp"]
-        if t["coh_scale"]:
-            total = total + t["coh_scale"] * t["loss_coh"]
-        grads = torch.autograd.grad(total, state.parameters())
-        metrics = {"loss": total.detach(), **{k: t[k].detach() for k in LOSSES[1:]}}
+        with span("tgtc.step.forward"):
+            t = self.losses(state, data, draws)
+            total = t["loss_rgb"] + t["loss_logp"]
+            if t["coh_scale"]:
+                total = total + t["coh_scale"] * t["loss_coh"]
+            metrics = {"loss": total.detach(), **{k: t[k].detach() for k in LOSSES[1:]}}
+        with span("tgtc.step.backward"):
+            grads = torch.autograd.grad(total, state.parameters())
         return metrics, list(grads), t
 
     def grad_norms(self, state: StyleTrainState, data: StyleSceneData, draws: StyleStepDraws
@@ -409,9 +411,11 @@ class StyleTrainStep:
                  draws: Optional[StyleStepDraws] = None, seed: int = 0
                  ) -> Tuple[StyleTrainState, Dict[str, torch.Tensor]]:
         if draws is None:
-            draws = self.draw(data, state, seed)
+            with span("tgtc.step.draw"):
+                draws = self.draw(data, state, seed)
         metrics, grads, terms = self.loss_and_grad(state, data, draws)
-        self.apply(state, data, grads, terms)
+        with span("tgtc.step.optimizer"):
+            self.apply(state, data, grads, terms)
         return state, metrics
 
 

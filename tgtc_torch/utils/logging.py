@@ -1,19 +1,27 @@
-"""JSONL metrics and wall-clock segment timers — port of tgtc/utils/logging.py.
+"""JSONL metrics, wall-clock segment timers and profiler spans — port of
+tgtc/utils/logging.py (the spans are the port's own).
 
 One line ``{"step": step, **scalars}`` per log step in ``<log_dir>/<name>.jsonl``
 (the schema ``tgtc/tools/jsonl2tb.py`` reads) and a console line. Scalars
 that are device tensors are fetched in one ``torch.stack(...).cpu()``: one
 device→host copy (and one sync) per log line, not one per metric. Under a
 process group only rank 0 creates the file, writes and prints.
+
+:func:`span` marks a phase of a training step or a stage of a rendered ray
+block on ``torch.profiler``'s clock, so that a trace puts each device idle
+gap down to the phase the host was in. The profiler keeps the spans and
+writes them out (``export_chrome_trace``); with it off a span costs one
+flag read.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 from collections import defaultdict
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, ContextManager, Dict, Mapping, Optional
 
 import torch
 
@@ -84,3 +92,28 @@ class SegmentTimer:
         out = dict(self._acc)
         self._acc.clear()
         return out
+
+
+# Spans of one step or one ray block are siblings: none encloses the others,
+# so each stays a direct child of whatever range encloses the call (a trace
+# that keeps only one level under its own ranges keeps them all).
+SPANS = (
+    "tgtc.step.draw",         # TrainStep / StyleTrainStep drawing their own randoms
+    "tgtc.step.forward",      # the batch's gathers, both passes and the loss
+    "tgtc.step.backward",     # torch.autograd.grad, the wait on autograd's device thread
+    "tgtc.step.optimizer",    # the update: all-reduce, Adam, the schedule and counters
+    "tgtc.render.coarse",     # a block's latents, depths, coarse σ and weights
+    "tgtc.render.resample",   # sample_pdf, the sort, the budget, shared depths
+    "tgtc.render.fine",       # the fine pass and its composite
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str) -> ContextManager:
+    """``torch.profiler.record_function(name)`` while the profiler records,
+    else a shared no-op context (one flag read; where this torch has no
+    flag, every span records)."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return torch.profiler.record_function(name)
+    return _OFF
