@@ -397,6 +397,85 @@ def test_style_launch_counters_count_launches(cuda_device):
             ts.fused_sigma_apply_t.launches - before[1]) == (1, 2)
 
 
+# The engine's encodings (csrc/trunk_sm90.cuh, encode: a thread a row and
+# half of the frequencies) in K1, K2, K4 and K5. Point counts: one point, a
+# consumer's 64 rows and one either side, a tile and one over, 130 tiles
+# (fewer than the SMs), 131 (odd) and 265 (odd, the persistent loop wrapping
+# twice), the last two ragged.
+ENCODE_P = [1, 63, 65, 129, 130 * ENGINE_TILE, 131 * ENGINE_TILE - 7, 265 * ENGINE_TILE - 5]
+ENGINE_KERNELS = ["K1", "K2", "K4", "K5"]
+
+
+def _engine_packs(device):
+    sd = _state_dict(0)
+    return {"nerf": tk.pack_nerf_params(sd, device=device),
+            "style": ts.pack_style_params(sd, *_style_sds(), device=device)}
+
+
+def _engine_inputs(p, device, seed=6):
+    pts, dirs = _points(p, device, seed)
+    lat = torch.from_numpy(np.random.default_rng(seed).normal(size=(p, 32))
+                           .astype(np.float32)).to(device)
+    return pts, dirs, lat
+
+
+def _engine_call(kernel, packs, pts, dirs, lat, spr=1, plain=False):
+    """One of the engine's forward kernels (or its twin) as a tuple of its
+    outputs: (rgb, sigma) for K1 and K4, (sigma,) for K2 and K5."""
+    if kernel == "K1":
+        f = tk.fused_nerf_apply_t_plain if plain else tk.fused_nerf_apply_t
+        return f(packs["nerf"], pts, dirs)
+    if kernel == "K2":
+        f = tk.fused_nerf_sigma_apply_t_plain if plain else tk.fused_nerf_sigma_apply_t
+        return (f(packs["nerf"], pts),)
+    if kernel == "K4":
+        f = ts.fused_style_apply_t_plain if plain else ts.fused_style_apply_t
+        return f(packs["style"], pts, lat, spr)
+    f = ts.fused_sigma_apply_t_plain if plain else ts.fused_sigma_apply_t
+    return (f(packs["style"], pts),)
+
+
+@pytest.mark.parametrize("p", ENCODE_P)
+@pytest.mark.parametrize("kernel", ENGINE_KERNELS)
+def test_cuda_engine_tiles_match_twin_repeat_and_tie(cuda_device, kernel, p):
+    """The twin within the kernels' limits, a second launch bit for bit, and
+    the sigma ties of one trunk function (K2's equals K1's, K5's K4's)."""
+    packs = _engine_packs(cuda_device)
+    pts, dirs, lat = _engine_inputs(p, cuda_device)
+    out = _engine_call(kernel, packs, pts, dirs, lat)
+    again = _engine_call(kernel, packs, pts, dirs, lat)
+    tie = {"K1": "K2", "K2": "K1", "K4": "K5", "K5": "K4"}[kernel]
+    sigma_tie = _engine_call(tie, packs, pts, dirs, lat)[-1]
+    torch.cuda.synchronize()
+    twin = _engine_call(kernel, packs, pts, dirs, lat, plain=True)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert torch.equal(out[-1], sigma_tie)
+    assert out[-1].shape == (1, p)
+    assert (out[-1] - twin[-1]).abs().max() <= TOL_SIGMA
+    if len(out) == 2:
+        assert out[0].shape == (3, p)
+        assert (out[0] - twin[0]).abs().max() <= TOL_RGB
+
+
+@pytest.mark.parametrize("kernel,shift,p,spr", [
+    (k, shift, p, 1) for k in ENGINE_KERNELS for shift, p in [
+        (1, 130 * ENGINE_TILE - 1), (64, 65), (64, 130 * ENGINE_TILE - 1),
+        (64, 265 * ENGINE_TILE - 5)]] + [("K4", 64, 265 * ENGINE_TILE, 64)])
+def test_cuda_engine_row_shift_is_bit_equal(cuda_device, kernel, shift, p, spr):
+    """Points put in front move every point to another row of its tile: by
+    one, to another thread and swizzle phase of the encodings; by 64, to the
+    other consumer. Every output is the same bit for bit. With 64 samples a
+    ray the shift is one latent row."""
+    packs = _engine_packs(cuda_device)
+    pts, dirs, lat = _engine_inputs(p + shift, cuda_device)
+    lat = lat[: (p + shift) // spr]
+    whole = _engine_call(kernel, packs, pts, dirs, lat, spr)
+    rest = _engine_call(kernel, packs, pts[:, shift:].contiguous(), dirs[:, shift:].contiguous(),
+                        lat[shift // spr:].contiguous(), spr)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[:, shift:], b) for a, b in zip(whole, rest))
+
+
 @pytest.mark.parametrize("coarse_rgb", [True, False])
 def test_fused_style_render_on_card_matches_cpu(cuda_device, coarse_rgb):
     settings = RenderSettings(n_samples=16, n_samples_fine=16, sigma_noise_std=0.0)

@@ -105,7 +105,7 @@ nerf_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
     const long long p0 = tile * sm90::ROWS + wg * sm90::WG_ROWS;
     sm90::trunk_tile<DEPTH, SKIP, K1_STAGES, true>(
         acc, act, depth_rt, skip_rt, pts_t, P, p0, ec, h, w, b, L, sigma, ring, sm.full,
-        sm.empty, q, tid, bar, [=] { sm90::encode(dirs_t, P, p0, FD, KD, ed, tid); });
+        sm.empty, q, tid, bar, [=] { sm90::encode<FD, KD>(dirs_t, P, p0, ed, tid); });
 
     sm90::rgb_tail<K1_STAGES>(acc, act, depth, P, p0, h, s_ed, w, b, L, ring, sm.full, sm.empty,
                               q, tid, bar, warp, g, t, s_h,

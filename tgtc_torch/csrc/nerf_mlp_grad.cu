@@ -320,7 +320,7 @@ nerf_bwd_tile_kernel(const __grid_constant__ TileMaps maps, const sm90::Plan pla
     // ---- forward: K1's code, keeping every layer's mask and output
     sm90::trunk_tile<DEPTH, SKIP, STAGES, false>(
         acc, act, depth_rt, skip_rt, pts_t, P, p0, ec, h, w, b, L, sigma, ring, sm.full,
-        sm.empty, q, tid, bar, [=] { sm90::encode(dirs_t, P, p0, FD, KD, ed, tid); }, keep);
+        sm.empty, q, tid, bar, [=] { sm90::encode<FD, KD>(dirs_t, P, p0, ed, tid); }, keep);
     sm90::rgb_tail<STAGES>(acc, act, depth, P, p0, h, smem_u32(ed), w, b, L, ring, sm.full,
                            sm.empty, q, tid, bar, tid / 32, (tid % 32) >> 2, tid & 3,
                            smem_u32(h), Gs{rgb_out, g_rgb, gs, P, p0}, KeepTail{keep});

@@ -38,12 +38,12 @@
 // persistent blocks over 128-point tiles, two consumer warpgroups of 64 rows,
 // wgmma m64n256k16, the weights streamed by TMA through a ring of 32 KB
 // slots, and the engine's one trunk function (sm90::trunk_tile). K4 runs all
-// 21 tensor-core layers (trunk, base_remap, 5 concat, 7 style) through a
-// ring of two slots. Per tile: enc(pts), the bf16 latents and their means
-// into shared memory, the trunk with h in registers, h to shared memory for
-// sigma on CUDA cores, base_remap into its own buffer (kept until style
-// layer 0), the concat and style layers with the previous layer's output in
-// registers and the other inputs as shared-memory segments in the
+// 21 tensor-core layers (trunk, base_remap, 5 concat, 7 style) through a ring
+// of four slots. Per tile: enc(pts), the bf16 latents and their means into
+// shared memory, the trunk with h in registers, h to shared memory for sigma
+// on CUDA cores, base_remap into h's buffer once sigma has read it (kept
+// until style layer 0), the concat and style layers with the previous layer's
+// output in registers and the other inputs as shared-memory segments in the
 // reference's column order (the latent's 32 columns a segment of their own,
 // [base_remap | cf | enc(pts)] at style layer 0), the rank-1 term in the
 // style layers' epilogue, the last style layer to shared memory for rgb_out
@@ -52,10 +52,12 @@
 // indices: K5's sigma equals K4's, and K2's on the same trunk, bit for bit
 // (phase 6 of chip_smoke.py holds it).
 //
-// K4's shared memory (the 1 KB alignment slack on top): ring 2 x 32 KB =
-// 64 KB, h 64 KB, base_remap 64 KB, enc(pts) 16 KB, latents 16 KB (32 of 64
-// columns used), latent means 512 B, barriers 32 B: 230,944 B of the
-// 232,448 a block may have. Two slots is what fits beside base_remap. K5's
+// K4's shared memory (the 1 KB alignment slack on top): ring 4 x 32 KB =
+// 128 KB; one 64 KB buffer for h (the sigma head's input), then base_remap
+// (style layer 0's), then the last style layer's output (rgb_out's);
+// enc(pts) 16 KB, latents 16 KB (32 of 64 columns used), latent means 512 B,
+// barriers 64 B: 230,976 B of the 232,448 a block may have. (With base_remap
+// in a buffer of its own only two slots fitted, and K4 ran 7% slower.) K5's
 // is K2's: ring 4 x 32 KB, h 64 KB, enc(pts) 16 KB, barriers 64 B: 213,056 B
 // (sm90::SIGMA_KERNEL_SMEM).
 
@@ -78,12 +80,11 @@ static_assert(NMATS <= MAX_LAYERS, "Layout holds the style matrices");
 
 constexpr int NMMA = NMATS - 2;  // all but sigma and rgb_out run on the tensor cores
 static_assert(NMMA <= sm90::MAX_MMA, "the engine's maps hold K4's layers");
-constexpr int K4_STAGES = 2;
+constexpr int K4_STAGES = 4;
 
 struct K4Smem {
   uint8_t ring[K4_STAGES][sm90::CHUNK_BYTES];
-  uint8_t h[4][sm90::BLK_BYTES];
-  uint8_t br[4][sm90::BLK_BYTES];
+  uint8_t h[4][sm90::BLK_BYTES];  // h, then base_remap, then the last style layer's output
   uint8_t ec[sm90::BLK_BYTES];
   uint8_t lat[sm90::BLK_BYTES];
   float lmean[sm90::ROWS];
@@ -138,8 +139,7 @@ style_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
   uint8_t* ec = sm.ec + rows;
   uint8_t* ls = sm.lat + rows;
   float* lmean = sm.lmean + wg * sm90::WG_ROWS;
-  const uint32_t s_h = smem_u32(h), s_br = smem_u32(sm.br[0] + rows), s_ec = smem_u32(ec),
-                 s_lat = smem_u32(ls);
+  const uint32_t s_h = smem_u32(h), s_ec = smem_u32(ec), s_lat = smem_u32(ls);
   const uint32_t ring = smem_u32(sm.ring[0]);
   float acc[128];
   uint32_t act[64];  // the layer input's 256 columns as wgmma A fragments
@@ -170,10 +170,11 @@ style_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
         });
     const float lm0 = lmean[warp * 16 + g], lm1 = lmean[warp * 16 + g + 8];
 
-    // base_remap into its own buffer, kept until style layer 0
+    // base_remap into h's buffer, kept until style layer 0
     sm90::mma_layer<W, K4_STAGES, REGS, W>(acc, act, 0, 0, 0, ring, sm.full, sm.empty, q);
     sm90::epilogue<W, false>(acc, act, b + L.b[BR], nullptr, 0.0f, 0.0f, t);
-    sm90::store_act<W>(act, s_br, warp, g, t);
+    bar_sync(bar, 128);  // sigma_head has read h
+    sm90::store_act<W>(act, s_h, warp, g, t);
     fence_proxy_async();
 
     // the concat MLP: [enc(pts) | lat], [cf | lat] ..., [cf | lat | enc(pts)] at the skip
@@ -193,7 +194,7 @@ style_fwd_kernel(const __grid_constant__ sm90::Maps maps, const sm90::Plan plan,
     // the style MLP with the rank-1 latent term: [base_remap | cf | enc(pts)],
     // then [s], with enc(pts) appended at the skip
     bar_sync(bar, 128);  // base_remap is in shared memory
-    sm90::mma_layer<W, K4_STAGES, SMEM, W, REGS, W, SMEM, KC>(acc, act, s_br, 0, s_ec, ring,
+    sm90::mma_layer<W, K4_STAGES, SMEM, W, REGS, W, SMEM, KC>(acc, act, s_h, 0, s_ec, ring,
                                                               sm.full, sm.empty, q);
     sm90::epilogue<W, true>(acc, act, b + L.b[STYLE0], b + S.off[0], lm0, lm1, t);
     for (int s = 1; s < NSTYLE; ++s) {

@@ -49,6 +49,12 @@
 //   concatenate it. With the activations in registers a layer needs no
 //   barrier: a consumer syncs with itself (named barrier 1 + its index) only
 //   where shared memory changes hands, once or twice a tile.
+// * The two consumers run each chunk in step. Putting consumer 1 a chunk or
+//   two behind (turns on named barriers or mbarriers, a one-sided lag, a
+//   start offset), so that one's epilogue would run under the other's
+//   wgmma, was slower in every form on the four-slot rings: the consumer
+//   behind holds each slot a chunk longer, and the producer, which refills a
+//   slot once both consumers freed it, falls behind the consumer ahead.
 // * The epilogue runs in registers: (rank-1 latent term,) bias, ReLU and a
 //   bf16 round, in the order of the reference's layer, straight into the
 //   next layer's A fragments. Only the outputs that CUDA-core heads
@@ -282,25 +288,45 @@ __device__ __forceinline__ int sw(int row, int col) {
 }
 
 // This consumer's 64 rows of bf16([x, sin(2^0 x), cos(2^0 x), ..., 0 pad]),
-// kpad columns, at `blk`; points past P encode 0.
+// KPAD columns, at `blk`; points past P encode 0. Thread tid takes row tid %
+// 64 and half of the frequencies (warps 0-1 the first half, the three
+// coordinates and the pad; warps 2-3 the rest): it loads its point's three
+// coordinates at once (a warp's loads coalesced) and computes its columns
+// from registers, so that a tile waits out one load's latency, not one a
+// column. The frequency loop stays rolled: unrolled, its inlined sinf/cosf
+// made K2 slower.
+template <int NFREQ, int KPAD>
 __device__ __forceinline__ void encode(const float* __restrict__ x_t, long long P,
-                                       long long p0, int nfreq, int kpad, uint8_t* blk,
-                                       int tid) {
-  const int nfeat = 3 + 6 * nfreq;
-  for (int idx = tid; idx < WG_ROWS * kpad; idx += 128) {
-    const int p = idx / kpad, f = idx % kpad;
-    const long long q = p0 + p;
-    float v = 0.0f;
-    if (f < nfeat && q < P) {
-      if (f < 3) {
-        v = x_t[f * P + q];
-      } else {
-        const int gi = f - 3, k = gi / 6, d = gi % 3;
-        const float arg = x_t[d * P + q] * (float)(1 << k);
-        v = ((gi % 6) < 3) ? sinf(arg) : cosf(arg);
-      }
+                                       long long p0, uint8_t* blk, int tid) {
+  constexpr int NFEAT = 3 + 6 * NFREQ;
+  static_assert(NFEAT <= KPAD, "the encoding's columns fit its block");
+  const int p = tid % WG_ROWS, half = tid / WG_ROWS;
+  const long long q = p0 + p;
+  const bool in = q < P;
+  float x[3] = {0.0f, 0.0f, 0.0f};
+  if (in) {
+    x[0] = x_t[q];
+    x[1] = x_t[P + q];
+    x[2] = x_t[2 * P + q];
+  }
+  auto put = [&](int f, float v) {
+    *reinterpret_cast<bf16*>(blk + sw(p, f)) = __float2bfloat16(in ? v : 0.0f);
+  };
+  if (half == 0) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) put(d, x[d]);
+#pragma unroll
+    for (int f = NFEAT; f < KPAD; ++f) put(f, 0.0f);
+  }
+  const int k_end = half == 0 ? NFREQ / 2 : NFREQ;
+#pragma unroll 1
+  for (int k = half * (NFREQ / 2); k < k_end; ++k) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float arg = x[d] * (float)(1 << k);
+      put(3 + 6 * k + d, sinf(arg));
+      put(6 + 6 * k + d, cosf(arg));
     }
-    *reinterpret_cast<bf16*>(blk + sw(p, f)) = __float2bfloat16(v);
   }
 }
 
@@ -387,7 +413,7 @@ __device__ __forceinline__ void trunk_tile(float (&acc)[128], uint32_t (&act)[64
   const int depth = DEPTH > 0 ? DEPTH : depth_rt, skip = DEPTH > 0 ? SKIP : skip_rt;
   const int warp = tid / 32, g = (tid % 32) >> 2, t = tid & 3;
   const uint32_t s_ec = smem_u32(ec);
-  encode(pts_t, P, p0, FC, KC, ec, tid);
+  encode<FC, KC>(pts_t, P, p0, ec, tid);
   extra();
   fence_proxy_async();
   bar_sync(bar, 128);
