@@ -338,13 +338,9 @@ RAGGED = 300
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Per SM and clock on sm_90 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput): ex2 on the SFUs 16, 32-bit integer multiply,
-# shift, logic and compare 64.
-SMS, SFU_PER_CLK, INT32_PER_CLK = 132, 16, 64
-# keep_hash per element of S (csrc/flash_attention.cu): one 3-input xor of
-# the hoisted row and column terms and the salt, three shift-xor pairs, two
-# multiplies, one compare.
-HASH_INT_OPS = 1 + 3 * 2 + 2 + 1
+# instruction throughput): ex2 on the SFUs 16 (K6-K8's floors, with the
+# integer pipes', are benchmark/harness/attention_work.py's).
+SMS, SFU_PER_CLK = 132, 16
 # K3: recompute (K1's 593,408 MACs) + weight gradients (593,408) + input
 # gradients of every layer but the first (7 x 65,536 trunk, 65,536
 # base_remap, 256 sigma, 256 x 128 rgb_0, 3 x 128 rgb_1 = 557,696), x 2
@@ -1526,31 +1522,14 @@ def sm_clock_hz() -> float:
     return float(out.split()[0]) * 1e6
 
 
-FLASH_PRODUCTS = {"K6": 2, "K7": 3, "K8": 4}  # matrix products per tile
-
-
-def flash_io_bytes(kernel: str, bh: int, sq: int, sk: int) -> int:
-    """The bytes ``kernel`` must move, each input read once and each output
-    written once: K6 q, k, v in and o out in bf16, lse out in f32; K7 q, k,
-    v, dO in and dq out in bf16, lse and delta in in f32; K8 as K7 with dk
-    and dv out."""
-    bf16_rows = {"K6": 2 * sq + 2 * sk, "K7": 3 * sq + 2 * sk, "K8": 2 * sq + 4 * sk}[kernel]
-    f32_vals = sq if kernel == "K6" else 2 * sq
-    return bh * (2 * bf16_rows * D_HEAD + 4 * f32_vals)
-
-
 def flash_floors_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):
-    """The four floors of ``kernel`` (K6, K7 or K8) in ms. Tensor cores: 2
-    Sq Sk D FLOP per product / bf16 peak. HBM: flash_io_bytes / HBM rate.
-    SFU: one ex2 per element of S. INT32, under dropout only: the hash's
-    integer operations per element of S (HASH_INT_OPS)."""
-    elems = bh * sq * sk
-    return {
-        "tensor": 1e3 * FLASH_PRODUCTS[kernel] * 2 * elems * D_HEAD / PEAK_BF16_FLOPS,
-        "hbm": 1e3 * flash_io_bytes(kernel, bh, sq, sk) / PEAK_BYTES,
-        "sfu": 1e3 * elems / (SMS * SFU_PER_CLK * clock_hz),
-        "int32": 1e3 * elems * HASH_INT_OPS / (SMS * INT32_PER_CLK * clock_hz) if dropout else 0.0,
-    }
+    """The four floors of ``kernel`` (K6, K7 or K8) in ms at D 64 and
+    ``clock_hz``: tensor cores, HBM, SFU and, under dropout, the hash's
+    integer pipes, as ``benchmark/harness/attention_work.py`` defines them."""
+    from benchmark.harness import attention_work
+
+    floors = attention_work.floors_s(kernel, bh, sq, sk, D_HEAD, dropout, clock_hz)
+    return {name: 1e3 * t for name, t in floors.items()}
 
 
 def flash_bound_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):

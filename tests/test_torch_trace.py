@@ -3,7 +3,8 @@
 * With the profiler off a span enters no ``record_function``: the op that
   opens one is counted while a step and a frame run.
 * Under ``torch.profiler`` the fused Phase-A step (the kernels' plain
-  twins) and the Phase-E step, each inside a ``bench.step`` range, record
+  twins), the Phase-E step and the C1 step (K6-K8's twins, dropout on),
+  each inside a ``bench.step`` range, record
   ``tgtc.step.forward``, ``.backward`` and ``.optimizer`` once each, in that
   order, as direct children of ``bench.step`` (``tgtc.step.draw`` first when
   the step draws for itself). Siblings: a trace that keeps one level under
@@ -24,11 +25,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from tgtc_torch.data.style_dataset import StyleSceneData
 from tgtc_torch.models.nerf import NerfConfig, make_nerf
 from tgtc_torch.models.style_field import StyleFieldConfig, init_latents, make_style_mlps
+from tgtc_torch.models.stytrans import make_stytrans
+from tgtc_torch.models.transformer import TransformerConfig
 from tgtc_torch.render.fast import FusedNerfRenderer
 from tgtc_torch.render.fast_style import FusedStyleRenderer
 from tgtc_torch.render.volume import RenderSettings
 from tgtc_torch.train import nerf_trainer as tt
 from tgtc_torch.train import style3d as ts
+from tgtc_torch.train import transformer2d as t2
 from tgtc_torch.utils.logging import SPANS, span
 
 torch.set_num_threads(1)
@@ -107,9 +111,40 @@ class PhaseE:
                 state.coh_x.clone(), state.coh_y.clone(), state.coh_x_origin.clone())
 
 
-@pytest.fixture(scope="module", params=["phase_a", "phase_e"])
+class PhaseC1:
+    """The C1 step on a d_model 32 StyTrans (2 heads, 1 + 1 layers, FFN 64,
+    dropout 0.1, flash attention's twins), batch 2 of 16x16 uint8 crops.
+    Its draws are a generator seed: without one the step seeds its own."""
+
+    def __init__(self):
+        cfg = TransformerConfig(d_model=32, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+                                dim_feedforward=64, dropout=0.1, attn_impl="flash")
+        self.model = make_stytrans(cfg, torch.Generator().manual_seed(0), device="cpu")
+        self.tc = t2.TransformerTrainConfig(batch_size=2, patch=16)
+        self.step = t2.make_transformer_train_step(self.model, self.tc)
+        g = torch.Generator().manual_seed(1)
+        self.content, self.style = (torch.randint(0, 256, (2, 16, 16, 3), generator=g,
+                                                  dtype=torch.uint8) for _ in range(2))
+
+    def fresh(self):
+        return t2.init_transformer_train(copy.deepcopy(self.model), self.tc)
+
+    def draws(self):
+        return 9
+
+    def __call__(self, state, draws):
+        gen = None if draws is None else torch.Generator().manual_seed(draws)
+        return self.step(state, self.content, self.style, seed=5, generator=gen)
+
+    @staticmethod
+    def snapshot(state):
+        return ([p.detach().clone() for p in state.model.parameters()], state.step,
+                state.scheduler.get_last_lr())
+
+
+@pytest.fixture(scope="module", params=["phase_a", "phase_e", "phase_c1"])
 def trainer(request):
-    return {"phase_a": PhaseA, "phase_e": PhaseE}[request.param]()
+    return {"phase_a": PhaseA, "phase_e": PhaseE, "phase_c1": PhaseC1}[request.param]()
 
 
 def _nerf_frame():

@@ -18,6 +18,11 @@ the update count from 0 (optax's count).
   one would. It replaces the JAX package's ``dropout_key`` (an rbg/threefry
   choice made for the TPU).
 * Metrics are 0-d device tensors, fetched only when logged.
+* A step opens the sibling profiler spans ``tgtc.step.draw`` (seeding its
+  own generator), ``.forward`` (the losses and their weighted sum),
+  ``.backward`` (``torch.autograd.grad``) and ``.optimizer`` (the update
+  and the counter), as the Phase-A and Phase-E steps do
+  (:func:`tgtc_torch.utils.logging.span`).
 * ``group=`` (a :class:`~tgtc_torch.parallel.DataGroup`) steps over several
   processes, as the JAX step shards its batches over the mesh: each rank
   keeps its rows of the global content and style batches, draws the whole
@@ -48,6 +53,7 @@ import torch
 from tgtc_torch.models.stytrans import StyTrans
 from tgtc_torch.parallel import DataGroup
 from tgtc_torch.utils.img import from_uint8, to_uint8
+from tgtc_torch.utils.logging import span
 from tgtc_torch.utils.seeds import step_seed
 
 TRAIN_KEYS = ("transformer", "embedding")
@@ -154,11 +160,14 @@ class TransformerTrainStep:
         group, of this rank's rows of the batches."""
         g, b = self.group, content.shape[0]
         rows = (g.row_offset(b), b) if g.world > 1 or g.active else None
-        out = model.compute_losses(from_uint8(g.rows(content)), from_uint8(g.rows(style)),
-                                   deterministic=False, generator=generator, rows=rows)
-        loss = self.weighted_loss(out)
-        metrics = {k: v.detach() for k, v in out.items() if k != "ics"}
-        return {"loss": loss.detach(), **metrics}, self.grads(model, loss)
+        with span("tgtc.step.forward"):
+            out = model.compute_losses(from_uint8(g.rows(content)), from_uint8(g.rows(style)),
+                                       deterministic=False, generator=generator, rows=rows)
+            loss = self.weighted_loss(out)
+            metrics = {k: v.detach() for k, v in out.items() if k != "ics"}
+        with span("tgtc.step.backward"):
+            grads = self.grads(model, loss)
+        return {"loss": loss.detach(), **metrics}, grads
 
     def weighted_loss(self, out: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The four-term loss of :meth:`StyTrans.compute_losses`' output."""
@@ -184,10 +193,12 @@ class TransformerTrainStep:
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[TransformerTrainState, Dict[str, torch.Tensor]]:
         if generator is None:
-            generator = self.generator(seed, state.step)
+            with span("tgtc.step.draw"):
+                generator = self.generator(seed, state.step)
         metrics, grads = self.loss_and_grad(state.model, content, style, generator)
-        self.apply(state, grads)
-        state.step += 1
+        with span("tgtc.step.optimizer"):
+            self.apply(state, grads)
+            state.step += 1
         return state, metrics
 
 

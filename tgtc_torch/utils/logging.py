@@ -98,8 +98,8 @@ class SegmentTimer:
 # so each stays a direct child of whatever range encloses the call (a trace
 # that keeps only one level under its own ranges keeps them all).
 SPANS = (
-    "tgtc.step.draw",         # TrainStep / StyleTrainStep drawing their own randoms
-    "tgtc.step.forward",      # the batch's gathers, both passes and the loss
+    "tgtc.step.draw",         # a step drawing its own randoms (seeding its generator in C1)
+    "tgtc.step.forward",      # the batch's gathers, the passes and the loss
     "tgtc.step.backward",     # torch.autograd.grad, the wait on autograd's device thread
     "tgtc.step.optimizer",    # the update: all-reduce, Adam, the schedule and counters
     "tgtc.render.coarse",     # a block's latents, depths, coarse σ and weights
