@@ -132,8 +132,10 @@ started together), then:
    5's renders as content and 8 seeded 512x512 style PNGs, batch 8, 256x256
    crops, cuDNN's deterministic algorithms (restored after the phase): 10
    warm-up steps, then 100 counted steps resumed from the warm-up's
-   checkpoint, logged every 10 steps: 36 K7 and 36 K8 launches a step
-   and 36 K6 (plus 12 for each collage), finite losses, the collage PNGs
+   checkpoint, logged every 10 steps: 72 K7 and 72 K8 launches counted
+   (the loop's eager first step and its CUDA graphs' capture; the replays
+   count none) and 72 K6 (plus 12 for each collage), finite losses, the
+   collage PNGs
    and the checkpoint written, C1 steps/s over the counted loop's log
    windows; the fingerprint (sha256, sum) of the trained state the
    witnesses read, and the kernel step taken twice there equal bit for bit;
@@ -284,8 +286,8 @@ started together), then:
    step's loss within 1e-5 relative (the C1 bound of
    tests/test_torch_multiprocess.py), the later losses within phase 11's 1e-2,
    every trained parameter within twice Adam's largest steps (the trained
-   parameters' sum read), 36 K6, K7 and K8 launches a step a rank (+12 K6 for
-   rank 0's collage), rank 0 alone writing the checkpoint and the collage; a worker's failure fails the phase; the phase's wall seconds
+   parameters' sum read), 72 K6, K7 and K8 launches counted a rank (the
+   eager first step and the capture; +12 K6 for rank 0's collage), rank 0 alone writing the checkpoint and the collage; a worker's failure fails the phase; the phase's wall seconds
    and the sharded frames' seconds printed beside the card (two processes on
    one card: no scaling figure);
 19. AdaIN (phase_adain), f32, PyTorch's TF32 defaults (cuDNN's on, the
@@ -365,6 +367,13 @@ C3_VIEWS = 20  # fern's view count, for the bulk stylize_all timing
 C3_SITES = 12  # attention sites of one StyleTransformer call: 3 + 3 encoder, 2 x 3 decoder
 C1_BATCH, C1_TOKENS, C1_RATE = 8, 32 * 32, 0.1  # 256x256 crops, 8x8 patches; dropout
 C1_SITES = 3 * C3_SITES  # a C1 step's transformer calls: Ics, Icc, Iss
+
+
+def c1_loop_launches(steps: int) -> int:
+    """K7's (and K8's) launches counted over a C1 loop of ``steps`` steps on
+    one batch shape: the step's first call runs eagerly, its second captures
+    the CUDA graphs it replays from then on, and a replay counts none."""
+    return C1_SITES * min(steps, 2)
 C1_WARM, C1_STEPS, C1_PRINT, C1_OVERFIT = 10, 100, 10, 30
 TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
 # The C1 step's gradient witnesses: the loss, the cosine of all trained
@@ -2109,11 +2118,13 @@ def _phase_c1(fa, geo_dir: str, root: str):
           f"log window (steps: steps/s) "
           + ", ".join(f"{n}: {r['steps_per_s']:.3f}" for n, r in zip(sizes, counted))
           + f"; launches K6 {launches['K6']} K7 {launches['K7']} K8 {launches['K8']} (expect "
-          f"{C1_SITES * C1_STEPS} + {C3_SITES} x {collages} collages, {C1_SITES * C1_STEPS}, "
-          f"{C1_SITES * C1_STEPS}); loss {records[0]['loss']:.4f} at step {records[0]['step']} "
+          f"{c1_loop_launches(C1_STEPS)} + {C3_SITES} x {collages} collages, "
+          f"{c1_loop_launches(C1_STEPS)}, {c1_loop_launches(C1_STEPS)}: the eager first step "
+          f"and the capture; replays count none); loss {records[0]['loss']:.4f} at step "
+          f"{records[0]['step']} "
           f"-> {records[-1]['loss']:.4f} at step {records[-1]['step']}", flush=True)
-    check(launches == {"K6": C1_SITES * C1_STEPS + C3_SITES * collages,
-                       "K7": C1_SITES * C1_STEPS, "K8": C1_SITES * C1_STEPS},
+    check(launches == {"K6": c1_loop_launches(C1_STEPS) + C3_SITES * collages,
+                       "K7": c1_loop_launches(C1_STEPS), "K8": c1_loop_launches(C1_STEPS)},
           f"C1 launch counts {launches}")
     check(int(sizes.sum()) == C1_STEPS, f"the log windows cover {sizes.sum()} steps")
     check(all(math.isfinite(r[k]) for r in records
@@ -2946,8 +2957,8 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
         "A": {"K1": 2 * PIPE_ORIGIN, "K3": 2 * PIPE_ORIGIN},
         "evaluate": {"K1": blocks16, "K2": blocks16},
         "B": {"K1": PIPE_VIEWS * blocks16, "K2": PIPE_VIEWS * blocks16},
-        "C1": {"K6": C1_SITES * PIPE_C1 + C3_SITES, "K7": C1_SITES * PIPE_C1,
-               "K8": C1_SITES * PIPE_C1},
+        "C1": {"K6": c1_loop_launches(PIPE_C1) + C3_SITES, "K7": c1_loop_launches(PIPE_C1),
+               "K8": c1_loop_launches(PIPE_C1)},
         "C2": {"K6": C1_SITES * PIPE_C2 + C1_SITES},
         "C3": {"K6": C3_SITES * PIPE_STYLES * PIPE_VIEWS},
         "D": {}, "E": {},
@@ -3783,7 +3794,7 @@ def check_sharded(outs, ref_frames, ref_loop, card: str):
                 for a, b in zip(loop["params"], ref_loop["params"]))
     n_params = sum(a.numel() for a in loop["params"])
     tol_dp = 2 * 1.0035 * ref_loop["lr_sum"]
-    want_k6 = [C1_SITES * MP_C1_STEPS + C3_SITES * (r == 0) for r in range(MP_WORLD)]
+    want_k6 = [c1_loop_launches(MP_C1_STEPS) + C3_SITES * (r == 0) for r in range(MP_WORLD)]
     print(f"[multi] (g) train_transformer over two processes, {MP_C1_STEPS} steps of phase 11's "
           f"C1 (global batch {C1_BATCH}, {C1_BATCH // MP_WORLD} a rank): logged steps "
           f"{[g['step'] for g in loop['lines']]}, losses "
@@ -3802,7 +3813,7 @@ def check_sharded(outs, ref_frames, ref_loop, card: str):
           "the grouped C1 loop disagrees with the 1-process loop")
     check([o["loop"]["launches"]["K6"] for o in outs] == want_k6
           and all(o["loop"]["launches"]["K7"] == o["loop"]["launches"]["K8"]
-                  == C1_SITES * MP_C1_STEPS for o in outs),
+                  == c1_loop_launches(MP_C1_STEPS) for o in outs),
           f"grouped C1 loop launches {[o['loop']['launches'] for o in outs]}")
     check(loop["ckpts"] == [f"ckpt_{MP_C1_STEPS:08d}.pt"]
           and loop["collages"] == [f"{MP_C1_STEPS}.png"], "the grouped C1 loop's files")

@@ -48,6 +48,8 @@ its statistics and by repeating bit for bit).
   its moments to 3e-2. The two sides start from the same parameters there,
   so only their rounding differences, through the ties above, move them.
 * uint8 batches give bitwise the losses of their f32 division by 255.
+* On the CPU the step's ``__call__`` never captures a CUDA graph and equals
+  ``generator`` + ``loss_and_grad`` + ``apply`` bit for bit, dropout on.
 * ``lr_schedule`` against JAX's on both sides of 10,000 updates.
 * ``CropBatchPrefetcher`` batches equal JAX's bit for bit.
 * ``tools.train2d.main(["--task", "transformer", ...], device="cpu")`` runs,
@@ -435,6 +437,31 @@ def test_only_transformer_and_embedding_update(params):
         changed = [not torch.equal(after[k], before[k]) for k in keys]
         assert (any(changed) if moves else not any(changed)), prefix
         assert all(p.grad is None for n, p in model.named_parameters() if n.startswith(prefix))
+
+
+def test_cpu_call_never_captures_and_equals_the_eager_blocks(params):
+    """On the CPU ``__call__`` runs eagerly (its CUDA graphs are the card's):
+    both counters stay 0, and two steps with dropout leave every parameter
+    bit for bit where ``generator`` + ``loss_and_grad`` + ``apply`` leave
+    it."""
+    tcfg = t2.TransformerTrainConfig()
+    c8, s8 = (torch.from_numpy(x) for x in _batches(4))
+    runs = []
+    for _ in range(2):
+        model = _port(params, attn_impl="flash", dropout_rate=0.1)
+        runs.append((t2.init_transformer_train(model, tcfg),
+                     t2.make_transformer_train_step(model, tcfg)))
+    (called, step), (built, blocks) = runs
+    for _ in range(2):
+        called, m = step(called, c8, s8, seed=7)
+        m_b, g = blocks.loss_and_grad(built.model, c8, s8, blocks.generator(7, built.step))
+        blocks.apply(built, g)
+        built.step += 1
+        assert all(torch.equal(m[k], m_b[k]) for k in m_b)
+    assert (step.captures, step.replays) == (0, 0)
+    assert called.step == built.step == 2
+    for (name, p), q in zip(called.model.named_parameters(), built.model.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_converted_jax_state_resumes_like_jax(params):

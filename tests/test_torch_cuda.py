@@ -2,7 +2,8 @@
 recompute against K1 bit for bit; K6-K8 with ``bh_offset`` against the
 whole batch bit for bit), their launch counters, the reflection pad's
 repeatable gradient, the fused render, the fused stylized render, one fused
-training step, a narrow C3 stylization, a narrow C1 step, C2's splat, a
+training step, a narrow C3 stylization, a narrow C1 step (and the C1 step
+replayed from its CUDA graphs against the eager step), C2's splat, a
 narrow C2 step, a VAE step and a narrow Phase-E step on the card against the
 same on the CPU
 (where the wrappers run the twins).
@@ -781,6 +782,136 @@ def test_narrow_c1_step_on_card_matches_cpu(cuda_device):
           f"gradient cosine {cos:.6f} (limit 0.99), worst leaf error {leaf:.3e} (limit 0.1)")
     assert cos >= 0.99
     assert leaf <= 0.1
+
+
+NARROW_C1_DROPOUT = TransformerConfig(d_model=128, nhead=2, num_encoder_layers=1,
+                                      num_decoder_layers=1, dim_feedforward=256, dropout=0.1,
+                                      dtype=torch.bfloat16, attn_impl="flash")
+
+
+def _narrow_c1(dev):
+    """A narrow C1 state and its step on ``dev``: d_model 128, 2 heads of 64,
+    1+1 layers, bf16, flash, dropout 0.1; the same weights every call."""
+    from tgtc_torch.train import transformer2d as t2
+
+    model = make_stytrans(NARROW_C1_DROPOUT, torch.Generator().manual_seed(3), device=dev)
+    tcfg = t2.TransformerTrainConfig()
+    return t2.init_transformer_train(model, tcfg), t2.make_transformer_train_step(model, tcfg)
+
+
+def _c1_crops(n, size, dev, seed=10):
+    """``n`` (content, style) pairs of uint8 ``[2, size, size, 3]`` crops."""
+    rng = np.random.default_rng(seed)
+    return [tuple(torch.from_numpy(rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8))
+                  .to(dev) for _ in range(2)) for _ in range(n)]
+
+
+def _eager_c1_steps(dev, batches, seed):
+    """Each batch's step from the eager building blocks (``generator``,
+    ``loss_and_grad``, ``apply``): the metrics of every step and the final
+    parameters."""
+    state, step = _narrow_c1(dev)
+    metrics = []
+    for content, style in batches:
+        m, g = step.loss_and_grad(state.model, content, style, step.generator(seed, state.step))
+        step.apply(state, g)
+        state.step += 1
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return metrics, [p.detach().clone() for p in state.model.parameters()]
+
+
+def _c1_gap(a, b):
+    """The largest elementwise difference over the metrics and parameters of
+    two runs."""
+    (ma, pa), (mb, pb) = a, b
+    gaps = [float((x[k] - y[k]).abs()) for x, y in zip(ma, mb) for k in x]
+    gaps += [float((x.float() - y.float()).abs().max()) for x, y in zip(pa, pb)]
+    return max(gaps)
+
+
+def test_c1_graphed_step_equals_eager_step(cuda_device):
+    """Four C1 steps through ``__call__`` (eager, then captured and replayed
+    from call 2) against the same four through the eager building blocks,
+    same weights, batches and dropout seed: every step's metrics and the
+    final parameters bit for bit. Two eager runs are compared first; were
+    they not bitwise equal, the graphed run would be held to their
+    difference instead."""
+    batches = _c1_crops(4, 32, cuda_device)
+    state, step = _narrow_c1(cuda_device)
+    metrics = []
+    for content, style in batches:
+        state, m = step(state, content, style, seed=7)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    graphed = metrics, [p.detach().clone() for p in state.model.parameters()]
+    eager, again = (_eager_c1_steps(cuda_device, batches, 7) for _ in range(2))
+    eager_gap, gap = _c1_gap(eager, again), _c1_gap(graphed, eager)
+    print(f"parity graphed C1 step vs eager over 4 steps: largest difference {gap:.3e}; "
+          f"eager vs eager {eager_gap:.3e}; losses "
+          + ", ".join(f"{float(m['loss']):.6f}" for m in metrics))
+    assert (step.captures, step.replays) == (1, 3)
+    if eager_gap == 0.0:
+        assert all(torch.equal(x[k], y[k]) for x, y in zip(graphed[0], eager[0]) for k in x)
+        assert all(torch.equal(x, y) for x, y in zip(graphed[1], eager[1]))
+    else:
+        assert gap <= eager_gap
+
+
+def test_c1_graphed_metrics_outlive_later_replays(cuda_device):
+    """The metrics of three consecutive calls (the second and third
+    replayed), stacked after the third, equal those read after each call:
+    no returned tensor lies in the graphs' memory."""
+    state, step = _narrow_c1(cuda_device)
+    kept, read = [], []
+    for content, style in _c1_crops(3, 32, cuda_device):
+        state, m = step(state, content, style, seed=7)
+        kept.append(m)
+        read.append([float(v) for v in m.values()])
+    assert step.replays == 2
+    assert torch.stack([torch.stack(list(m.values())) for m in kept]).tolist() == read
+    assert read[1] != read[2]  # so an overwritten metric would show
+
+
+def test_c1_graph_counters_recapture_and_spans(cuda_device):
+    """Four calls capture once and replay three times; a 48x48 batch is a
+    new key (one eager call, then a capture); a profiled replayed step
+    opens the phase spans, K6 replayed by the graph launched under the
+    forward's and K7/K8 by the one under the backward's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, step = _narrow_c1(cuda_device)
+    for content, style in _c1_crops(4, 32, cuda_device):
+        state, _ = step(state, content, style, seed=7)
+    assert (step.captures, step.replays) == (1, 3)
+    wide = _c1_crops(3, 48, cuda_device, seed=11)
+    state, _ = step(state, *wide[0], seed=7)
+    assert (step.captures, step.replays) == (1, 3)
+    state, _ = step(state, *wide[1], seed=7)
+    assert (step.captures, step.replays) == (2, 4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, *wide[2], seed=7)
+        torch.cuda.synchronize()
+    assert (step.captures, step.replays) == (2, 5)
+    events = prof.events()
+    # a graph's kernels carry the correlation id of the cudaGraphLaunch that
+    # replayed them, and that launch's parent is the span open around it
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def kernels_under(span):
+        ids = {e.id for e in events if e.name == "cudaGraphLaunch"
+               and e.cpu_parent is not None and e.cpu_parent.name == span}
+        return {e.name for e in device if e.id in ids}
+
+    names = {e.name for e in events}
+    assert {f"tgtc.step.{p}" for p in ("draw", "forward", "backward", "optimizer")} <= names
+    fwd, bwd = kernels_under("tgtc.step.forward"), kernels_under("tgtc.step.backward")
+    print(f"profiled replay: {len(fwd)} kernel names under the forward span, {len(bwd)} under "
+          f"the backward's")
+    assert any("flash_fwd_kernel" in k for k in fwd)
+    assert any("flash_bwd_dq_kernel" in k for k in bwd)
+    assert any("flash_bwd_dkv_kernel" in k for k in bwd)
 
 
 def _plane_cloud(n_side, h, w, focal, seed=11):
