@@ -1,154 +1,90 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port (tgtc_torch) on one NVIDIA GPU.
+"""Chip smoke test of the PyTorch/CUDA port (tgtc_torch) on one NVIDIA GPU:
+every phase end to end at full size, checked, not timed.
 
     python3 chip_smoke.py
 
-Builds every CUDA source under tgtc_torch/csrc (one nvcc per source, all
-started together), then:
+The kernels against their plain twins on drawn inputs, at sizes that cut
+their tiles and at the paths' full sizes, are tests/test_torch_cuda.py's
+(``python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q``);
+here phases 2, 4, 7, 9, 11, 12 and 17 hold them to their twins on the
+phases' own inputs. Speed is the benchmark's (``python3 benchmark/run.py --trace 1``). The
+phases keep their numbers; 1, 3, 6, 8 and 10 are those tests' (K1/K2, K3,
+K4/K5, K6, K7/K8). The script builds every CUDA source under tgtc_torch/csrc
+(one nvcc per source, all started together), then:
 
-0. prints the card (name, power limit), the torch/CUDA versions, the
-   kernel build time and ptxas's report of every kernel (registers,
-   barriers, spills, wgmma notes) with the dynamic shared memory of K1, K2,
-   K4 and K5;
-1. kernels: runs K1/K2 (both on the Hopper dense-layer engine of
-   tgtc_torch/csrc/trunk_sm90.cuh and its one trunk function; K2 is the
-   engine's sigma-only kernel) on random full-width weights (He init, numpy
-   seed 0, D8/W256) against their plain PyTorch twins (rgb <= 3e-2, sigma
-   <= 2e-1, K2 sigma == K1 sigma, and second K1 and K2 launches, bit for
-   bit) at P = 2,097,152 + 300 and at P = 1, 127, 129 and 132 x 128 + 17
-   (cutting the engine's 128-point tiles and wrapping its persistent loop
-   over 132 SMs), then at depth 6 with skip 2 (their run-time depth
-   builds: twins, K2 == K1, repeats) at P = 129 and 132 x 128 + 17, and
-   times each at the main path's shapes (K1 P = 16384 rays x 128 samples,
-   K2 P = 16384 x 64) by CUDA events and by the profiler's device time,
-   beside its bound (and the share of it reached), its twin and, for
-   orientation only, the same layer chain as bf16 torch.addmm calls
-   (events and device time);
+0. prints the card (name, power limit), the torch/CUDA versions and
+   ptxas's report of every kernel (registers, barriers, spills, wgmma
+   notes) with the dynamic shared memory of K1, K2, K4 and K5;
 2. main path: renders a fern-shaped 756x1008 NDC frame with
-   FusedNerfRenderer(coarse_rgb=False), 64+64 samples, 16384-ray blocks,
-   three times after a warm-up frame; launch counts are zeroed just before
-   each frame and must be 47 each; the first 16,384 rays are held against the eager
-   f32 render_rays (TF32 off) to 5e-2 in rgb and t_exp, except rays whose
-   last-sample f32 sigma lies within the sigma tolerance of 0 (a sign flip
-   there moves the ray's weight onto the 1e10 last interval), of which at
-   most 0.1% may differ;
-3. K3: the backward (a tile kernel on the Hopper engine that recomputes
-   K1's forward with K1's own trunk_tile and rgb_tail, a weight-gradient
-   kernel on wgmma, an in-order reduce) on the same He weights at P =
-   262,144 + 300 with random cotangents (numpy seed 2) against its plain
-   twin, per packed layer max|err| / max|twin| <= 2e-2 and cosine >= 0.999,
-   a second launch bitwise equal and the recomputed rgb and sigma equal to
-   K1's on the same inputs bit for bit; the tie also at P = 300; the same
-   checks at depth 6 with skip 2 (its run-time depth build, seeded weights);
-   timed at the training step's two shapes (P = 2048 x 64 and 2048 x 128)
-   by CUDA events and by the profiler's device time (each launch apart)
-   beside its bound, the bound counting its workspace (bytes a point
-   printed), its twin and, for orientation only, the same backward as bf16
-   autograd through the torch.addmm chain;
+   FusedNerfRenderer(coarse_rgb=False) on He-normal D8/W256 trunks (numpy
+   seed 0), 64+64 samples, 16384-ray blocks: launch counts are zeroed just
+   before the frame and must be 47 each; the first 16,384 rays are held
+   against the eager f32 render_rays (TF32 off) to 5e-2 in rgb and t_exp,
+   except rays whose last-sample f32 sigma lies within the sigma tolerance
+   of 0 (a sign flip there moves the ray's weight onto the 1e10 last
+   interval), of which at most 0.1% may differ; and against the same block
+   rendered with K1 and K2 swapped for their plain twins on the card (rgb
+   and t_exp within 5e-2 on all but 0.1% of the rays);
 4. train (Phase A): writes a 4-view 756x1008 synthetic LLFF scene and runs
    train_nerf at fern width (D8/W256, L 10/4, viewdirs, batch 2048, 64+64
-   samples, perturb, sigma noise 1.0): 20 warm-up steps, then 300 counted
-   steps resumed from the warm-up's checkpoint, with exactly 2 K1 and 2 K3
+   samples, perturb, sigma noise 1.0): 20 warm-up steps, then 300 steps
+   resumed from the warm-up's checkpoint, with exactly 2 K1 and 2 K3
    launches per step and no K2; the loss must stay finite and the mean of
-   its last 20 steps fall below that of its first 20; prints the counted
-   steps over the loop's time (the log windows' times summed). Then one
-   fused step on the card with one batch and one set of draws: from the
-   initial state against the eager f32 step (TF32 off; losses within 2e-2,
-   every parameter's gradient cosine >= 0.99); from the trained state K3
-   against its twin on the step's own weights and cotangents (the bounds
-   of phase 3) and the step against the same step on the CPU (losses within
-   2e-2, every gradient cosine >= 0.99), with each leaf's error against
-   the eager f32 step beside the eager bf16 step's printed (compare_steps);
-   and a checkpoint round trip (save, restore, render bitwise equal);
+   its last 20 steps fall below that of its first 20. Then one fused step
+   on the card with one batch and one set of draws: from the initial state
+   against the eager f32 step (TF32 off; losses within 2e-2, every
+   parameter's gradient cosine >= 0.99); from the trained state K3 against
+   its twin on the step's own weights and cotangents (per packed layer
+   max|err| / max|twin| <= 2e-2, cosine >= 0.999) and the step against the
+   same step on the CPU (losses within 2e-2, every gradient cosine >=
+   0.99), with each leaf's error against the eager f32 step beside the
+   eager bf16 step's printed (compare_steps); and a checkpoint round trip
+   (save, restore, render bitwise equal);
 5. Phase B from the trained weights: writes a 2-view 756x1008 synthetic
    LLFF scene, loads it and runs dump_geometry; every artifact must exist
    and coor_map be finite;
-6. style kernels: K4/K5 (on the same engine: K4 the trunk and the style
-   layers, K5 the sigma-only kernel on K4's packing) on random fern-width
-   weights (the K1/K2 trunk, He style MLPs, numpy seed 0) with per-point
-   latents against their twins (rgb <= 3e-2, sigma <= 2e-1), with sigmas
-   bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4 launches,
-   two K5 launches), at P = 2,097,152 + 300 and at phase 1's tile-cutting
-   P, and with 128 samples per ray at 128 and 133 x 128 points; then each
-   held against its twin again (same bounds) on the stylized frame's
-   arguments (K4 P = 16384 rays x 128 samples with per-ray latents,
-   distinct random rows, K5 P = 16384 x 64) and timed there as in phase 1;
 7. Phase F from the trained trunks, with seeded style MLPs and a 1-style
-   latent table: stylized 756x1008 NDC frames at the scene's spiral poses
-   through FusedStyleRenderer(coarse_rgb=False), 64+64 samples, 16384-ray
-   blocks, three timed after a warm-up frame, each with exactly 47 K5 and
-   47 K4 launches and no K1/K2; the first 16,384 rays held against the
-   eager f32 make_stylized_render_fn with the same jitter (phase 2's bounds
-   and exemption); then render_stylized_frames_fused over three views with
-   full-size depth PNGs: every PNG at 756x1008, and a second call renders
-   nothing;
-8. K6 (flash-attention forward): bf16 q/k/v (numpy seed 4) against its
-   plain twin at the C3 shape (8 heads, Sq = Sk = 11,970, D 64, scale
-   0.125), at 11,970 x 4,096, at a ragged 300 x 180 with 16 heads and at
-   shapes that cut its 128-row blocks and 128-key tiles (4 heads 200 x 130,
-   2 heads 1,000 x 1,030, 4 heads 300 x 1 and 300 x 65; these at dropout 0
-   and 0.25) (max|o - twin| <= 1e-2 max|twin| and <= 3e-2, lse <= 1e-3),
-   two launches bitwise equal; a mask probe with
-   dropout 0.1, seed 7 (q = 0, Sk = 256, row j of v = 2^(j // 64)
-   e_(j mod 64), so that each output element encodes four keep bits) whose
-   decoded mask equals the twin's hash mask bit for bit over 16 heads and
-   1,000 rows; K6 timed at both large shapes by CUDA events and by the
-   profiler's device time, beside its four-floor bound (as phase 10's), its
-   twin and the library call (scaled_dot_product_attention with scale 1 on
-   the prescaled q, by events and device time; its kernels are printed),
-   with K6 / SDPA by device time;
+   latent table: a stylized 756x1008 NDC frame at the scene's first spiral
+   pose through FusedStyleRenderer(coarse_rgb=False), 64+64 samples,
+   16384-ray blocks, with exactly 47 K5 and 47 K4 launches and no K1/K2;
+   its first 16,384 rays held against the eager f32 make_stylized_render_fn
+   with the same jitter (phase 2's bounds and exemption) and against the
+   same block rendered with K4 and K5 swapped for their plain twins on the
+   card (phase 2's bounds against the twins); then
+   render_stylized_frames_fused over three views with full-size depth PNGs:
+   every PNG at 756x1008, and a second call renders nothing;
 9. Phase C3: a full-width StyTrans (d_model 512, 8 heads, 3+3 layers, FFN
    2048, bf16, attn_impl="flash", torch seed 21) stylizes phase 5's
    rgb_00000.png (756x1008, padded to 760x1008: 11,970 tokens) with a seeded
-   512x512 style resized to the content size: three frames timed after a
-   warm-up, each with exactly 12 K6 launches; the same frame with the
-   attention through the twin on the card (only K6 differs) within 5e-2 of
-   its max, on the image and hs; the f32 eager path (TF32 off) read against
-   it, not held; then stylize_all with one style over 20 views (fern's
-   count: phase 5's views repeated under new names), timed per view:
-   every NNN.jpg at 756x1008, stylized_data.npz complete with finite
-   style_features [1, 1024], 12 K6 launches a view;
-10. K7/K8 (flash-attention backward): bf16 q/k/v/dO (numpy seed 5), lse
-   from K6 on the same inputs, against their plain twins at the C1 shape
-   (8 x 8 heads, Sq = Sk = 1,024, D 64, scale 0.125) at dropout 0 and 0.1,
-   at 11,970 x 4,096, at a ragged 300 x 180 with 16 heads and at 200 x 130
-   and 1,000 x 1,030 (cutting the kernels' 128-row blocks) at dropout 0 and
-   0.25: each of dq, dk, dv within 1e-2 max|twin|, two launches bitwise
-   equal, and at 200 x 130 the [B, S, H, D] inputs seen through a
-   transpose bitwise equal to the contiguous case; K6 at the C1 shape with
-   dropout 0.1 against its twin (phase 8's bounds); K6, K7 and K8 timed at
-   the C1 shape (dropout 0.1, the C1 path's, and 0) and K7/K8 at 11,970 x
-   4,096, by CUDA events and by the profiler's device time, beside their
-   bounds (flash_bound_ms: the largest of the tensor-core, HBM, SFU and,
-   under dropout, INT32 floors at the card's maximum SM clock, each kernel
-   with its own products and I/O), their twins and the
-   library calls: scaled_dot_product_attention's forward and its backward
-   at dropout 0 on the same tensors (torch.autograd.grad of one saved
-   forward, the device time of its kernels and memsets from the profiler;
-   the kernels are printed), with the ratios;
+   512x512 style resized to the content size: one frame with exactly 12 K6
+   launches; the same frame with the attention through the twin on the
+   card (only K6 differs) within 5e-2 of its max, on the image and hs; the
+   f32 eager path (TF32 off) read against it, not held; then stylize_all
+   with one style over phase 5's views: every NNN.jpg at 756x1008,
+   stylized_data.npz complete with finite style_features [1, 1024], 12 K6
+   launches a view;
 11. Phase C1 at full width (d_model 512, 8 heads, 3+3 layers, FFN 2048,
    dropout 0.1, bf16, flash attention, torch seed 21, random VGG and
    decoder): tools/train2d.main(["--task", "transformer", ...]) on phase
    5's renders as content and 8 seeded 512x512 style PNGs, batch 8, 256x256
    crops, cuDNN's deterministic algorithms (restored after the phase): 10
-   warm-up steps, then 100 counted steps resumed from the warm-up's
-   checkpoint, logged every 10 steps: 72 K7 and 72 K8 launches counted
-   (the loop's eager first step and its CUDA graphs' capture; the replays
-   count none) and 72 K6 (plus 12 for each collage), finite losses, the
-   collage PNGs
-   and the checkpoint written, C1 steps/s over the counted loop's log
-   windows; the fingerprint (sha256, sum) of the trained state the
-   witnesses read, and the kernel step taken twice there equal bit for bit;
-   on one fixed batch and generator seed, the step's losses and
-   gradients against the same step with the attention through the twins on
-   the card (36 K6, K7 and K8 launches in the step; loss within 1e-2
-   relative, the cosine of all trained leaves' gradients together >= 0.999,
-   each leaf's error within 0.1 of its gradient norm or of the median
-   leaf's, whichever is larger, and each row block of the attention
-   projections that only dq, dk or dv feeds within 0.5 of its own
-   gradient norm); at dropout 0 the same against the eager f32 "xla" step
-   (TF32 off; cosine 0.99, the worst leaf's error within 1.3x the eager
-   bf16 "xla" step's + 5e-3); 30 steps on one fixed batch lower the loss;
+   warm-up steps, then 100 steps resumed from the warm-up's checkpoint,
+   logged every 10 steps: 72 K7 and 72 K8 launches counted (the loop's
+   eager first step and its CUDA graphs' capture; the replays count none)
+   and 72 K6 (plus 12 for each collage), finite losses, the collage PNGs
+   and the checkpoint written; the fingerprint (sha256, sum) of the trained
+   state the witnesses read, and the kernel step taken twice there equal
+   bit for bit; on one fixed batch and generator seed, the step's losses
+   and gradients against the same step with the attention through the
+   twins on the card (36 K6, K7 and K8 launches in the step; loss within
+   1e-2 relative, the cosine of all trained leaves' gradients together >=
+   0.999, each leaf's error within 0.1 of its gradient norm or of the
+   median leaf's, whichever is larger, and each row block of the attention
+   projections that only dq, dk or dv feeds within 0.5 of its own gradient
+   norm); at dropout 0 the same against the eager f32 "xla" step (TF32 off;
+   cosine 0.99, the worst leaf's error within 1.3x the eager bf16 "xla"
+   step's + 5e-3); 30 steps on one fixed batch lower the loss;
 12. Phase C2 from phase 11's trained state (the same full-width StyTrans,
    dropout 0.1, bf16, flash): train.temporal.run_temporal_finetune at
    TemporalTrainConfig's defaults (batch 4 of 256x256 patches, 100 steps,
@@ -157,8 +93,7 @@ started together), then:
    512x512, logged every 10 steps: 36 K6 launches a step plus 36 for the
    end-of-C2 debug pass, no K7 or K8; only the decoder moves; the five
    losses finite and loss_t > 0; the debug PNGs and style_image.png
-   written; C2 steps/s over steps 11-100 (the log windows' times, the log's
-   fetch the sync). On the first step's batch: the splat of its point cloud
+   written. On the first step's batch: the splat of its point cloud
    (65,536 points into 4 views of 756x1008) on the card against the CPU
    with one w2c (hit masks differ at <= 0.1% of the pixels, warped
    features equal where the winners are, a second card splat bitwise
@@ -171,18 +106,16 @@ started together), then:
    not held: cuDNN's convolution backward does not promise a fixed order);
 13. Phase C3 after C2: stylize_all with phase 12's model over phase 5's two
    views and all 8 styles: every style_XX/NNN.jpg at 756x1008,
-   style_features [8, 1024] finite, 12 K6 launches a view and style,
-   seconds a view and style;
+   style_features [8, 1024] finite, 12 K6 launches a view and style;
 14. Phase D: tools/train2d.main(["--task", "vae", ...]) on phase 11's
    styles at the pipeline's Phase-D settings (VaeConfig 1024 -> 512 x3 ->
    32, lr 1e-3, batch 8, 256x256 crops of the styles resized to 512, 2,000
    steps; TF32 at PyTorch's default), resumed after 20 warm-up steps,
-   logged every step (one fetch a step): the loss finite, the mean of the
-   last 100 steps below the first 100's, the checkpoint written, VAE
-   steps/s over the resumed loop; one VAE step on the card against the same
-   step on the CPU (same features and eps, TF32 off: loss within 1e-5
-   relative, every gradient cosine >= 0.9999); the latent table seeded by
-   train.vae_trainer.seed_latents_from_features from phase 13's
+   logged every step: the loss finite, the mean of the last 100 steps
+   below the first 100's, the checkpoint written; one VAE step on the card
+   against the same step on the CPU (same features and eps, TF32 off: loss
+   within 1e-5 relative, every gradient cosine >= 0.9999); the latent table
+   seeded by train.vae_trainer.seed_latents_from_features from phase 13's
    style_features with one frame per phase 5 view: finite, [8, 2, 32],
    equal to eps exp(logvar / 2) + mu for the eps drawn; a 756x1008 frame of
    style 0 from the table through phase 7's FusedStyleRenderer settings,
@@ -196,20 +129,19 @@ started together), then:
    5's two renders and rays, phase 13's 8 styles x 2 views and
    style_features and phase 14's VAE (the latent seed): 20 warm-up steps
    (the coherence diagnostic at the first, its ratio printed), then 300
-   counted steps resumed from the warm-up's checkpoint, logged every 10:
-   every loss finite, loss_coh 0 at the first step and at each cycle's reset
-   and > 0 elsewhere, the mean loss_rgb of the last 50 steps below the first
-   50's, both trunks bitwise unchanged, no hand-written kernel launched by a
-   step, Phase-E steps/s over the counted loop's log windows (each closed
-   by the log's fetch); one step from the trained state (the coherence term
-   and its gradient in, at fern's gate) on the card against the CPU with the
-   same draws, TF32 off:
-   losses within 1e-3 relative, the gradient cosine of concat, style and
-   latents each >= 0.999; a 756x1008 frame of style 0 from the Phase-E
-   checkpoint through train/style3d.load_style_field and phase 7's
-   FusedStyleRenderer settings (47 K4 and 47 K5 launches, nothing else),
-   its first 16,384 rays held to the eager f32 render as in phase 7; the
-   in-memory field renders the first block bit for bit as the checkpoint's;
+   steps resumed from the warm-up's checkpoint, logged every 10: every loss
+   finite, loss_coh 0 at the first step and at each cycle's reset and > 0
+   elsewhere, the mean loss_rgb of the last 50 steps below the first 50's,
+   both trunks bitwise unchanged, no hand-written kernel launched by a
+   step; one step from the trained state (the coherence term and its
+   gradient in, at fern's gate) on the card against the CPU with the same
+   draws, TF32 off: losses within 1e-3 relative, the gradient cosine of
+   concat, style and latents each >= 0.999; a 756x1008 frame of style 0
+   from the Phase-E checkpoint through train/style3d.load_style_field and
+   phase 7's FusedStyleRenderer settings (47 K4 and 47 K5 launches, nothing
+   else), its first 16,384 rays held to the eager f32 render as in phase 7;
+   the in-memory field renders the first block bit for bit as the
+   checkpoint's;
 16. the pipeline A→F (phase_pipeline): configs/fern.txt through
    tgtc_torch/config.py on a 4-view 756x1008 scene at factor 4 and 2 styles,
    origin_step 300, total_step 500, C1 50 steps, C2 20, the VAE 200;
@@ -219,43 +151,29 @@ started together), then:
    checkpoint steps and kernel launches held (K1-K8 each by its phase, K4/K5
    in F at 32,768-ray blocks), F's first block within phase 7's bounds of the
    eager f32 render, and the re-entry run adding no checkpoint and no
-   training line and launching K1/K2 for evaluate only; each phase's wall
-   seconds and peak allocated memory printed beside the card;
-17. the proposal levers (phase_levers): K2 at D2xW128, K2-W128 (the
-   distilled proposal's trunk, proposal::sigma_kernel<2> of
-   csrc/proposal_sm90.cuh; He weights and bf16 biases of either sign on
-   every layer, numpy seed 17 + depth), against its twin within
-   TOL_SIGMA_W128 at P = 16,384 x 64 (+ 300), 8,192 x 64 and the P that cut
-   its 64-point tiles, its four warpgroups and its persistent loop and the
-   engine's tiles, repeating bit for bit, its run-time-depth build at
-   depths 1, 3 (also at 16,384 x 64 (+ 300)) and 6 (a skip layer), depth 8
-   on the engine (past its depth cut-off, which is held), each bias path
-   (layer 0's and the skip layer's in the encoding's pad column, the
-   epilogue's, sigma's) shown to move the twin's sigma by more than
-   BIAS_MARGIN x the limit, and timed
-   at 16,384 x 64 and at the fast-stack block's 8,192 x 64 by events and
-   device time beside the largest of its tensor, FP32 and SFU floors (at
-   the card's maximum SM clock) and HBM floor; render/distill.distill_proposal from phase 4's
-   fine trunk on its 4 training views (300 steps of 3,000, batch 65,536),
-   and K2-W128 on that proposal's own packing against its twin at
-   8,192 x 64 points, the same way;
-   the fern frame (phase 4's scene, spiral pose 0) through FusedNerfRenderer
-   with the proposal as coarse net, fine_budget 80 and coarse_share 2 (K1
-   and K2-W128 one launch a block, nothing else), beside the exact frame of
-   the same trunks, with a device-time breakdown of one block; the same with
-   a 192^3 density grid (render/grid.build_sigma_grid: K2 at D8xW256 over
-   the lattice x 9 offsets) in place of the proposal (K1 only); a stylized
-   frame through FusedStyleRenderer with the proposal (K4 and K2-W128, no
-   K5); each lever frame's first 16,384 rays held to the same chain with
-   the plain twins on the card (rgb and t_exp within 5e-2 on all but 0.1%
-   of the rays); 300 fused Phase-A steps under train_fine_budget
-   "96@100,80@200" through train_nerf (K1 and K3 at 2048 x 64 every step and
-   at 2048 x 128, 96 and 80 in the three segments), steps/s per segment, and
+   training line and launching K1/K2 for evaluate only; each phase's peak
+   allocated memory printed beside the card;
+17. the proposal levers (phase_levers): render/distill.distill_proposal
+   from phase 4's fine trunk on its 4 training views (300 steps of 3,000,
+   batch 65,536), and K2-W128 (csrc/proposal_sm90.cuh) on that proposal's
+   own packing against its twin at 8,192 x 64 points within TOL_SIGMA_W128,
+   repeating bit for bit; the fern frame (phase 4's scene, spiral pose 0)
+   through FusedNerfRenderer with the proposal as coarse net, fine_budget
+   80 and coarse_share 2 (K1 and K2-W128 one launch a block, nothing else),
+   beside the exact frame of the same trunks (its rgb agreement printed);
+   the same with a 192^3 density grid (render/grid.build_sigma_grid: K2 at
+   D8xW256 over the lattice x 9 offsets) in place of the proposal (K1
+   only); a stylized frame through FusedStyleRenderer with the proposal
+   (K4 and K2-W128, no K5); each lever frame's first 16,384 rays held to
+   the same chain with the plain twins on the card (rgb and t_exp within
+   5e-2 on all but 0.1% of the rays); 300 fused Phase-A steps under
+   train_fine_budget "96@100,80@200" through train_nerf (K1 and K3 at 2048
+   x 64 every step and at 2048 x 128, 96 and 80 in the three segments), and
    a budget-80 step on the card against the CPU (loss within 1e-3 of its
-   size, phase 4's gradient cosine); phase
-   16's pipeline re-entered with --proposal_width 128 --fine_budget 80
-   --coarse_share 2 --proposal_steps 300 for --render_train and
-   --render_train_style (launches held, frames written);
+   size, phase 4's gradient cosine); phase 16's pipeline re-entered with
+   --proposal_width 128 --fine_budget 80 --coarse_share 2 --proposal_steps
+   300 for --render_train and --render_train_style (launches held, frames
+   written);
 18. multi-process (phase_multi): this process joins a NCCL group of one
    (tgtc_torch.parallel.maybe_initialize_distributed with a TGTC_*
    environment) and runs 3 fused Phase-A steps at fern width (batch 2048,
@@ -287,28 +205,25 @@ started together), then:
    tests/test_torch_multiprocess.py), the later losses within phase 11's 1e-2,
    every trained parameter within twice Adam's largest steps (the trained
    parameters' sum read), 72 K6, K7 and K8 launches counted a rank (the
-   eager first step and the capture; +12 K6 for rank 0's collage), rank 0 alone writing the checkpoint and the collage; a worker's failure fails the phase; the phase's wall seconds
-   and the sharded frames' seconds printed beside the card (two processes on
-   one card: no scaling figure);
+   eager first step and the capture; +12 K6 for rank 0's collage), rank 0
+   alone writing the checkpoint and the collage; a worker's failure or a
+   worker outliving MP_TIMEOUT fails the phase;
 19. AdaIN (phase_adain), f32, PyTorch's TF32 defaults (cuDNN's on, the
    matmuls' off; printed): (a) tools/train2d.main(["--task",
    "finetune_decoder", ...]) at the task's defaults (batch 8, patch 256, lr
    1e-4, decay 5e-5, style 2, content 1) on phase 5's renders and phase 11's 8
-   styles with a seeded VGG and decoder: 20 warm-up steps, then 100 counted
-   steps resumed, logged every step, steps/s over the counted windows; the
-   VGG bitwise unchanged, every decoder leaf moved, every loss finite, the
-   last 20 losses' mean below the first 20's, the checkpoint round-trips bit
-   for bit; (b) one finetune step from that checkpoint on one fixed batch on
-   the card against the CPU, TF32 off (loss within 1e-4 relative, decoder
-   gradient cosine >= 0.9999); (c) --task temporal_decoder on phase 5's
-   geometry dir (2 views, 756x1008) at batch 8 of full frames, 10 steps,
-   steps/s, the peak allocated memory, loss_t finite and > 0 at every step,
-   the adain_temporal checkpoint written; (d) one temporal step from it on
-   the card against the CPU at batch 2 (ids [0, 1]), TF32 off, (b)'s bounds,
-   the CPU step's seconds;
-20. prints the kernels line (JSON, K1-K8 and K2-W128; launches_multi for
-   K1, K3, K6, K7 and K8; launches_sharded, a rank, for K1, K2 and K2-W128),
-   then the result line with the whole script's seconds.
+   styles with a seeded VGG and decoder: 20 warm-up steps, then 100 steps
+   resumed, logged every step; the VGG bitwise unchanged, every decoder
+   leaf moved, every loss finite, the last 20 losses' mean below the first
+   20's, the checkpoint round-trips bit for bit; (b) one finetune step from
+   that checkpoint on one fixed batch on the card against the CPU, TF32 off
+   (loss within 1e-4 relative, decoder gradient cosine >= 0.9999); (c)
+   --task temporal_decoder on phase 5's geometry dir (2 views, 756x1008) at
+   batch 8 of full frames, 10 steps, the peak allocated memory, loss_t
+   finite and > 0 at every step, the adain_temporal checkpoint written; (d)
+   one temporal step from it on the card against the CPU at batch 2 (ids
+   [0, 1]), TF32 off, (b)'s bounds;
+20. prints the result line (the card) and the ok line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the rest of the repository beside it.
@@ -330,27 +245,14 @@ import time
 import numpy as np
 import torch
 
-T_START = time.perf_counter()
 H, W, FOCAL = 756, 1008, 815.0  # fern at factor 4 (configs/fern.txt)
 BLOCK = 1 << 14
 NC = NF = 64
-FRAMES = 3  # timed frames of the main path, each with its own launch count
-P_K1, P_K2 = BLOCK * (NC + NF), BLOCK * NC
-RAGGED = 300
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
-# Per SM and clock on sm_90 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput): ex2 on the SFUs 16 (K6-K8's floors, with the
-# integer pipes', are benchmark/harness/attention_work.py's).
-SMS, SFU_PER_CLK = 132, 16
-# K3: recompute (K1's 593,408 MACs) + weight gradients (593,408) + input
-# gradients of every layer but the first (7 x 65,536 trunk, 65,536
-# base_remap, 256 sigma, 256 x 128 rgb_0, 3 x 128 rgb_1 = 557,696), x 2
-# K4: K2's trunk and sigma (982,528) + base_remap 131,072 + concat MLP
-# 670,720 + style MLP 1,113,088 + rgb_out 1,536; K5 is K2
-FLOP_PER_POINT = {"K1": 1_186_816, "K2": 982_528, "K3": 3_489_024, "K4": 2_898_944,
-                  "K5": 982_528}
-TOL_RGB, TOL_SIGMA, TOL_RENDER = 3e-2, 2e-1, 5e-2
+P_K2 = BLOCK * NC
+TOL_SIGMA, TOL_RENDER = 2e-1, 5e-2
+# K3 against its twin on the training step's own passes, per packed layer:
+# max|err| / max|twin| and cosine (tests/test_torch_cuda.py's limits for
+# K3 at Phase A's fine pass)
 TOL_K3_REL, TOL_K3_COS = 2e-2, 0.999
 BATCH = 2048
 P_K3 = {"coarse": BATCH * NC, "fine": BATCH * (NC + NF)}
@@ -360,12 +262,9 @@ TOL_STEP_LOSS, TOL_STEP_COS = 2e-2, 0.99
 # state's loss (~3e-3) sits under TOL_STEP_LOSS, so the limit scales with it
 TOL_STEP_LOSS_REL = 1e-3
 LATENT, LATENT_FRAMES, F_VIEWS, F_SEED = 32, 20, 3, 10  # Phase F: fern's 20 training views
-C3_TOKENS, C3_HEADS, D_HEAD = 95 * 126, 8, 64  # 756x1008 padded to 760x1008, 8x8 patches
-K6_SCALE, TOL_K6_O, TOL_K6_LSE, TOL_C3 = 0.125, 3e-2, 1e-3, 5e-2
-TOL_K6_O_REL = 1e-2  # of max|twin|: a typical |o| at C3 is ~0.012, under TOL_K6_O
-C3_VIEWS = 20  # fern's view count, for the bulk stylize_all timing
+TOL_C3 = 5e-2
 C3_SITES = 12  # attention sites of one StyleTransformer call: 3 + 3 encoder, 2 x 3 decoder
-C1_BATCH, C1_TOKENS, C1_RATE = 8, 32 * 32, 0.1  # 256x256 crops, 8x8 patches; dropout
+C1_BATCH, C1_RATE = 8, 0.1  # 256x256 crops; dropout
 C1_SITES = 3 * C3_SITES  # a C1 step's transformer calls: Ics, Icc, Iss
 
 
@@ -375,7 +274,6 @@ def c1_loop_launches(steps: int) -> int:
     the CUDA graphs it replays from then on, and a replay counts none."""
     return C1_SITES * min(steps, 2)
 C1_WARM, C1_STEPS, C1_PRINT, C1_OVERFIT = 10, 100, 10, 30
-TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
 # The C1 step's gradient witnesses: the loss, the cosine of all trained
 # leaves' gradients together, and each leaf's error relative to its own
 # gradient norm or the median leaf's, whichever is larger. A per-leaf cosine
@@ -392,7 +290,7 @@ TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
 TOL_C1_LOSS, TOL_C1_COS, TOL_C1_LEAF = 1e-2, 0.999, 0.1      # vs the twin-attention step
 TOL_C1_ATTN_LEAF = 0.5
 TOL_C1_F32_COS, TOL_C1_F32_RATIO, TOL_C1_F32_ADD = 0.99, 1.3, 5e-3  # vs the eager f32 step
-C2_SEED, C2_WARM, C2_PRINT = 21, 10, 10  # steps 11-100 counted, over log windows of 10
+C2_SEED, C2_WARM, C2_PRINT = 21, 10, 10  # steps 11-100 logged after the warm-up, every 10
 TOL_SPLAT_MASK, TOL_OWN_VIEW = 1e-3, 0.95  # tests/test_rasterize.py's coverage bound
 D_WARM, D_STEPS = 20, 2000  # the pipeline's vae_iters
 TOL_VAE_LOSS, TOL_VAE_COS = 1e-5, 0.9999
@@ -413,16 +311,9 @@ LEVER_BUDGET, LEVER_SHARE, LEVER_SEED = 80, 2, 7
 PROPOSAL_STEPS, PROPOSAL_BATCH, GRID_RES = 300, 65536, 192
 A_SCHEDULE, A_STEPS, A_PRINT = "96@100,80@200", 300, 50
 A_SEGMENTS = ((0, 100, None), (100, 200, 96), (200, 300, 80))  # (first, end, budget)
-# K2 at D2xW128, a point: the two layers' 2 x (63 x 128 + 128 x 128) FLOP
-# (enc(pts)'s 63 columns, as FLOP_PER_POINT counts K2's; the kernel pads
-# them to 64), the sigma head's 2 x 128, and the encoding's 60 sinf/cosf,
-# each counted as one SFU operation (a floor: the kernel's accurate
-# sinf/cosf take more)
-K2W128_TENSOR_FLOP, K2W128_HEAD_FLOP, ENC_SINCOS = 2 * (63 * 128 + 128 * 128), 2 * 128, 60
-# Per SM and clock on sm_90: dense bf16 on the tensor cores 4,096 FLOP (the
-# data sheet's 989 TFLOP/s is 132 SMs at 1,830 MHz), float32 FMA outside
-# them 256 FLOP (its 67 TFLOP/s is 132 SMs at 1,980 MHz)
-TENSOR_BF16_PER_CLK, FP32_PER_CLK = 4096, 256
+# K2 at width 128 against its twin on the distilled proposal's own packing
+# (tests/test_torch_cuda.py's limit for K2-W128)
+TOL_SIGMA_W128 = 2e-2
 # Phase 18, multi-process on the card: the fused Phase-A step through a
 # DataGroup of one over NCCL in this process (bit for bit the ungrouped
 # step), then two worker processes sharing the card over gloo (NCCL takes
@@ -500,280 +391,6 @@ def he_params(rng: np.random.Generator, depth=8, width=256, fc=10, fd=4, skip=4)
     return {"params": layers}
 
 
-def with_biases(params, rng: np.random.Generator, scale: float = 0.5):
-    """``params`` with every layer's bias drawn anew, of magnitude in
-    [scale / 2, scale] and either sign, rounded to bf16 (the values the
-    packing keeps), so that each bias moves the result."""
-    def bias(shape):
-        mag = scale * rng.uniform(0.5, 1.0, shape) * rng.choice((-1.0, 1.0), shape)
-        return torch.from_numpy(mag.astype(np.float32)).bfloat16().float().numpy()
-
-    return {"params": {name: {"kernel": layer["kernel"], "bias": bias(layer["bias"].shape)}
-                       for name, layer in params["params"].items()}}
-
-
-def w128_state_dict(depth: int, seed: int):
-    """A 128-wide trunk of ``depth`` layers (skip 4), He-normal kernels and
-    bf16 biases (with_biases), from numpy seed ``seed``."""
-    from tgtc_torch.convert import nerf_state_dict_from_flax
-
-    rng = np.random.default_rng(seed)
-    return nerf_state_dict_from_flax(with_biases(he_params(rng, depth=depth, width=128), rng))
-
-
-def bias_groups(packed):
-    """K2-W128's bias paths at ``packed``'s depth, as (name, packed
-    layers): layer 0's and a skip layer's go in the encoding's pad column,
-    the other trunk layers' in the epilogue, sigma's at the store."""
-    d, skip = packed.depth, packed.skip
-    rest = [i for i in range(1, d) if i != skip + 1]
-    return ([("layer 0", [0])] + ([("skip layer", [skip + 1])] if skip + 1 < d else [])
-            + ([("epilogue layers", rest)] if rest else []) + [("sigma", [d + 1])])
-
-
-def without_biases(packed, layers):
-    """``packed`` with the biases of ``layers`` set to 0 (a copy)."""
-    out = dataclasses.replace(packed, b=packed.b.clone())
-    for i in layers:
-        out.bias(i).zero_()
-    return out
-
-
-def he_style_params(rng: np.random.Generator, style_d=8, width=256, latent=LATENT,
-                    embed=63, skip=4):
-    """Random flax-layout style MLPs at fern width (``concat``: 5 layers,
-    ``style``: 7 + rgb_out), He-normal kernels, zero biases."""
-    concat, style = {}, {}
-    for i in range(min(style_d - 1, skip + 1)):
-        nin = (embed if i == 0 else width) + latent + (embed if i == skip else 0)
-        concat[f"layer_{i}"] = he_dense(rng, nin, width)
-    for i in range(style_d - 1):
-        nin = (256 + width + embed if i == 0 else width) + latent + (embed if i == skip else 0)
-        style[f"layer_{i}"] = he_dense(rng, nin, width)
-    style["rgb_out"] = he_dense(rng, width + latent, 3)
-    return {"concat": {"params": concat}, "style": {"params": style}}
-
-
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-# Point counts that cut the Hopper engine's 128-point tiles (K1, K2, K4, K5:
-# csrc/trunk_sm90.cuh) and wrap its persistent loop (133 tiles on 132 SMs).
-ENGINE_TILE = 128
-ENGINE_P = (1, ENGINE_TILE - 1, ENGINE_TILE + 1, 132 * ENGINE_TILE + 17)
-# What each kernel on the engine runs (the kernels line's "design").
-ENGINE_DESIGN = {
-    "K1": "Hopper engine csrc/trunk_sm90.cuh: trunk_tile, then base_remap, rgb_0 and rgb",
-    "K2": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel (trunk_tile and the sigma head)",
-    "K4": "Hopper engine csrc/trunk_sm90.cuh: trunk_tile, then base_remap, concat and style",
-    "K5": "Hopper engine csrc/trunk_sm90.cuh: sigma_kernel on K4's packing",
-    "K3": "transposed weights; a tile kernel on the Hopper engine csrc/trunk_sm90.cuh "
-          "(trunk_tile and rgb_tail, K1's forward, then the input-gradient products); a "
-          "split-K weight-gradient kernel on wgmma; an in-order reduce",
-}
-
-
-# K2 at width 128 (K2-W128, csrc/proposal_sm90.cuh): 64-point tiles, four
-# warpgroups a block, one block per SM; point counts that cut its tiles,
-# leave warpgroups of a block idle and wrap its persistent loop (132 blocks
-# of 256 points, + 17). Its weights stay in shared memory, which takes the
-# trunk up to depth 7; deeper 128-wide trunks run on the engine.
-W128_TILE, W128_WARPGROUPS, W128_MAX_DEPTH, SMEM_PER_BLOCK = 64, 4, 7, 232448
-W128_P = (1, W128_TILE - 1, W128_TILE + 1, 3 * W128_TILE + 1,
-          132 * W128_WARPGROUPS * W128_TILE + 17)
-# K2-W128 against its twin, every bias seeded (with_biases): the largest
-# reading over the sizes and depths below was 1.399e-02 (depth 3, 1,048,576
-# points) on an H100, the shared TOL_SIGMA 14 times it. Each bias path
-# moves sigma by more than BIAS_MARGIN times the limit.
-TOL_SIGMA_W128, BIAS_MARGIN = 2e-2, 10
-W128_DESIGN = ("csrc/proposal_sm90.cuh: proposal::sigma_kernel<2> (weights resident in shared "
-               "memory, four independent consumer warpgroups of 64-point tiles, the encoding as "
-               "30 sincosf a point into layer 0's wgmma A fragments, wgmma m64n128k16 from "
-               "registers, the sigma head as wgmma m64n8k16)")
-
-
-def timed(fn, iters: int):
-    """``fn``'s time by CUDA events and by the profiler's device time (ms)."""
-    ms = cuda_ms(fn, iters)
-    dev, _ = device_ms(fn, max(2, iters // 2))
-    return ms, dev
-
-
-def bound_ms(name: str, p: int, packed, io=None) -> float:
-    """max(operations / bf16 peak, bytes / HBM rate); ``io`` defaults to
-    pts(+dirs) in and sigma(+rgb) out, f32."""
-    flops = FLOP_PER_POINT[name] * p
-    io = (10 if name == "K1" else 4) * 4 * p if io is None else io
-    weights = packed.w.numel() * 2 + packed.b.numel() * 4
-    return 1e3 * max(flops / PEAK_BF16_FLOPS, (io + weights) / PEAK_BYTES)
-
-
-def matmul_chain(packed, e_c, e_d, rgb_head: bool):
-    """The kernel's layer chain as bf16 torch.addmm + relu_ calls (encoding
-    precomputed; heads included). Orientation only."""
-    bf = torch.bfloat16
-    d = packed.depth
-    wt = [packed.weight(i).t() for i in range(len(packed.layers()))]
-    bs = [packed.bias(i).to(bf) for i in range(len(packed.layers()))]
-
-    def run():
-        h = torch.addmm(bs[0], e_c, wt[0]).relu_()
-        for i in range(1, d):
-            inp = torch.cat([e_c, h], 1) if i == packed.skip + 1 else h
-            h = torch.addmm(bs[i], inp, wt[i]).relu_()
-        sigma = torch.addmm(bs[d + 1], h, wt[d + 1])
-        if rgb_head:
-            br = torch.addmm(bs[d], h, wt[d]).relu_()
-            rf = torch.addmm(bs[d + 2], torch.cat([br, e_d], 1), wt[d + 2]).relu_()
-            return torch.addmm(bs[d + 3], rf, wt[d + 3]).sigmoid_(), sigma
-        return sigma
-
-    return run
-
-
-def style_matmul_chain(packed, e_c, lat):
-    """K4's layer chain as bf16 torch.addmm calls, the rank-1 latent term
-    as addcmul_ (encoding and per-point bf16 latents precomputed).
-    Orientation only."""
-    bf = torch.bfloat16
-    n, d, skip = len(packed.layers()), packed.depth, packed.skip
-    wt = [packed.weight(i).t() for i in range(n)]
-    bs = [packed.bias(i).to(bf) for i in range(n)]
-    ls = [packed.lsum(i).to(bf)[None] for i in range(packed.style_d)]
-    lmean = lat.float().mean(-1, keepdim=True).to(bf)
-
-    def run():
-        h = torch.addmm(bs[0], e_c, wt[0]).relu_()
-        for i in range(1, d):
-            inp = torch.cat([e_c, h], 1) if i == skip + 1 else h
-            h = torch.addmm(bs[i], inp, wt[i]).relu_()
-        sigma = torch.addmm(bs[d + 1], h, wt[d + 1])
-        br = torch.addmm(bs[d], h, wt[d]).relu_()
-        cf = e_c
-        for i in range(packed.n_concat):
-            j = packed.concat_index(i)
-            cf = torch.addmm(bs[j], torch.cat([cf, lat] + ([e_c] if i == skip else []), 1),
-                             wt[j]).relu_()
-        s = torch.cat([br, cf, e_c], 1)
-        for i in range(packed.style_d):
-            j = packed.style_index(i)
-            s = torch.addmm(bs[j], torch.cat([s, e_c], 1) if i == skip else s,
-                            wt[j]).addcmul_(lmean, ls[i])
-            s = s.relu_() if i < packed.style_d - 1 else s.sigmoid_()
-        return s, sigma
-
-    return run
-
-
-def phase_kernels(ks, sd_c):
-    """Twin comparison at P = 2^21 + 300 and at the engine's tile-cutting P,
-    timings at the main path's shapes."""
-    packed = ks.pack_nerf_params(sd_c, device="cuda")
-    rng = np.random.default_rng(1)
-    p = P_K1 + RAGGED
-    pts = torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).cuda()
-    dirs = torch.from_numpy(rng.standard_normal((3, p)).astype(np.float32)).cuda()
-    err = {"K1": (0.0, 0.0), "K2": (0.0, 0.0)}
-    for n in ENGINE_P + (p,):
-        pt, dr = pts[:, :n].contiguous(), dirs[:, :n].contiguous()
-        rgb, sigma = ks.fused_nerf_apply_t(packed, pt, dr)
-        rgb2, sigma2 = ks.fused_nerf_apply_t(packed, pt, dr)
-        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed, pt)
-        sigma_k2b = ks.fused_nerf_sigma_apply_t(packed, pt)
-        torch.cuda.synchronize()
-        rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pt, dr)
-        sigma_k2_p = ks.fused_nerf_sigma_apply_t_plain(packed, pt)
-        e1 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
-        e2 = float((sigma_k2 - sigma_k2_p).abs().max())
-        same = {"K1 = K1": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
-                "K2 = K1": torch.equal(sigma, sigma_k2),
-                "K2 = K2": torch.equal(sigma_k2, sigma_k2b)}
-        print(f"[kernels] P={n}: K1 max|rgb err| {e1[0]:.3e} max|sigma err| {e1[1]:.3e}; K2 "
-              f"max|sigma err| {e2:.3e}; |sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
-              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
-        check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
-              "K1 output not finite")
-        check(e1[0] <= TOL_RGB and e1[1] <= TOL_SIGMA, f"K1 disagrees with its twin at P={n}")
-        check(e2 <= TOL_SIGMA, f"K2 disagrees with its twin at P={n}")
-        check(all(same.values()), f"sigma or a repeat not bitwise equal at P={n}: {same}")
-        err = {"K1": tuple(max(a, b) for a, b in zip(err["K1"], e1)),
-               "K2": (0.0, max(err["K2"][1], e2))}
-        del rgb, sigma, rgb2, sigma2, sigma_k2, sigma_k2b, rgb_p, sigma_p, sigma_k2_p
-    phase_runtime_depth(ks, pts, dirs)
-
-    rows = []
-    for name, fn, twin, n in (("K1", ks.fused_nerf_apply_t, ks.fused_nerf_apply_t_plain, P_K1),
-                              ("K2", ks.fused_nerf_sigma_apply_t,
-                               ks.fused_nerf_sigma_apply_t_plain, P_K2)):
-        args = (packed, pts[:, :n].contiguous()) + ((dirs[:, :n].contiguous(),) if name == "K1" else ())
-        ms, dev = timed(lambda: fn(*args), 10)
-        plain_ms = cuda_ms(lambda: twin(*args), 3)
-        e_c = ks._encode_plain(args[1].T, 10, packed.k_coor).to(torch.bfloat16)
-        e_d = (ks._encode_plain(args[2].T, 4, packed.k_dir).to(torch.bfloat16)
-               if name == "K1" else None)
-        chain_ms, chain_dev = timed(matmul_chain(packed, e_c, e_d, name == "K1"), 10)
-        del e_c, e_d
-        b = bound_ms(name, n, packed)
-        print(f"[kernels] {name} P={n}: kernel {ms:.3f} ms ev, {dev:.3f} ms dev, bound {b:.3f} ms "
-              f"(operations), {100 * b / dev:.2f}% of the bound by device time; plain twin "
-              f"{plain_ms:.3f} ms; orientation only: bf16 torch.addmm chain {chain_ms:.3f} ms ev, "
-              f"{chain_dev:.3f} ms dev (kernel / chain {dev / chain_dev:.3f})", flush=True)
-        rows.append({
-            "name": name, "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp.cu",
-            "replaces": ("tgtc/ops/pallas/nerf_mlp.py:359" if name == "K1"
-                         else "tgtc/ops/pallas/nerf_mlp.py:316"),
-            "wrapper": ("tgtc_torch.ops.kernels.nerf_mlp." +
-                        ("fused_nerf_apply_t" if name == "K1" else "fused_nerf_sigma_apply_t")),
-            "design": ENGINE_DESIGN[name],
-            "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
-            "max_abs_err_rgb": err[name][0] if name == "K1" else None,
-            "max_abs_err_sigma": err[name][1],
-            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
-            "bound_by": "operations", "bound_share": b / dev, "library_ms": None,
-            "matmul_chain_ms": chain_ms, "matmul_chain_device_ms": chain_dev,
-        })
-    return rows
-
-
-def phase_runtime_depth(ks, pts, dirs, depth=6, skip=2):
-    """K1 and K2 at a depth and skip other than the configs' (their run-time
-    depth builds, off the main path): each against its twin, K2 = K1 and
-    both repeats bit for bit, at a tile cut and at the persistent wrap."""
-    from tgtc_torch.convert import nerf_state_dict_from_flax
-
-    sd = nerf_state_dict_from_flax(he_params(np.random.default_rng(6), depth=depth, skip=skip))
-    packed = ks.pack_nerf_params(sd, depth=depth, skip=skip, device="cuda")
-    for n in (ENGINE_TILE + 1, 132 * ENGINE_TILE + 17):
-        pt, dr = pts[:, :n].contiguous(), dirs[:, :n].contiguous()
-        rgb, sigma = ks.fused_nerf_apply_t(packed, pt, dr)
-        rgb2, sigma2 = ks.fused_nerf_apply_t(packed, pt, dr)
-        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed, pt)
-        sigma_k2b = ks.fused_nerf_sigma_apply_t(packed, pt)
-        torch.cuda.synchronize()
-        rgb_p, sigma_p = ks.fused_nerf_apply_t_plain(packed, pt, dr)
-        e1 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
-        e2 = float((sigma_k2 - ks.fused_nerf_sigma_apply_t_plain(packed, pt)).abs().max())
-        same = {"K1 = K1": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
-                "K2 = K1": torch.equal(sigma, sigma_k2),
-                "K2 = K2": torch.equal(sigma_k2, sigma_k2b)}
-        print(f"[kernels] depth {depth} skip {skip} P={n}: K1 max|rgb err| {e1[0]:.3e} "
-              f"max|sigma err| {e1[1]:.3e}; K2 max|sigma err| {e2:.3e}; bitwise: "
-              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
-        check(e1[0] <= TOL_RGB and e1[1] <= TOL_SIGMA and e2 <= TOL_SIGMA,
-              f"K1 or K2 at depth {depth} disagrees with its twin at P={n}")
-        check(all(same.values()), f"depth {depth}: sigma or a repeat not bitwise equal at "
-                                  f"P={n}: {same}")
-
-
 def fern_camera():
     intr = np.array([[FOCAL, 0, 0.5 * W], [0, FOCAL, 0.5 * H], [0, 0, 1]], np.float32)
     pose = np.eye(4, dtype=np.float32)[None, :3, :4]
@@ -781,8 +398,10 @@ def fern_camera():
 
 
 def phase_main_path(ks, sd_c, sd_f):
+    """Phase 2 (see the module docstring)."""
     from tgtc_torch.data.rays import rays_for_poses
     from tgtc_torch.models.nerf import NerfConfig, NerfMLP, nerf_apply
+    from tgtc_torch.render import fast as rf
     from tgtc_torch.render.fast import FusedNerfRenderer
     from tgtc_torch.render.volume import RenderSettings, render_rays
 
@@ -794,27 +413,15 @@ def phase_main_path(ks, sd_c, sd_f):
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
     n = ro.shape[0]
 
-    renderer.render_image(ro, rd, block=BLOCK)  # warm-up frame
-    torch.cuda.synchronize()
     blocks = math.ceil(n / BLOCK)
-    times = []
-    for _ in range(FRAMES):
-        ks.fused_nerf_apply_t.launches = 0
-        ks.fused_nerf_sigma_apply_t.launches = 0
-        t0 = time.perf_counter()
-        out = renderer.render_image(ro, rd, block=BLOCK)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        launches = {"K1": ks.fused_nerf_apply_t.launches,
-                    "K2": ks.fused_nerf_sigma_apply_t.launches}
-        check(launches == {"K1": blocks, "K2": blocks},
-              f"launch counts {launches} != {blocks}")
-    dt = float(np.median(times))
-    print(f"[main] frame {H}x{W} ({n} rays, {NC}+{NF} samples, block {BLOCK}), "
-          f"{FRAMES} frames after a warm-up: "
-          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median {dt * 1e3:.1f} ms, "
-          f"{n / dt:.1f} rays/s; launches per frame K1 {launches['K1']} "
-          f"K2 {launches['K2']} (expect {blocks} each)", flush=True)
+    ks.fused_nerf_apply_t.launches = 0
+    ks.fused_nerf_sigma_apply_t.launches = 0
+    out = renderer.render_image(ro, rd, block=BLOCK)
+    torch.cuda.synchronize()
+    launches = {"K1": ks.fused_nerf_apply_t.launches, "K2": ks.fused_nerf_sigma_apply_t.launches}
+    print(f"[main] frame {H}x{W} ({n} rays, {NC}+{NF} samples, block {BLOCK}): launches K1 "
+          f"{launches['K1']} K2 {launches['K2']} (expect {blocks} each)", flush=True)
+    check(launches == {"K1": blocks, "K2": blocks}, f"launch counts {launches} != {blocks}")
     check(out["rgb"].shape == (n, 3) and out["t_exp"].shape == (n,), "frame output shape")
     check(bool(torch.isfinite(out["rgb"]).all() and torch.isfinite(out["t_exp"]).all()),
           "frame output not finite")
@@ -846,7 +453,12 @@ def phase_main_path(ks, sd_c, sd_f):
           f"max|err| over the other {int((~flip).sum())} rays {worst:.3e}", flush=True)
     check(bool((flip | ~bad).all()), "fused frame disagrees with the eager render")
     check(int(bad.sum()) <= BLOCK // 1000, "too many rays differ from the eager render")
-    return renderer, launches, n / dt
+
+    with twins(rf, fused_nerf_apply_t=ks.fused_nerf_apply_t_plain,
+               fused_nerf_sigma_apply_t=ks.fused_nerf_sigma_apply_t_plain):
+        ref = renderer.render(bo, bd)
+    block_vs_twins({"rgb": out["rgb"][:BLOCK], "t_exp": out["t_exp"][:BLOCK]}, ref, "main",
+                   "the fused frame's first block (K1, K2)")
 
 
 def write_scene(root: str, n: int = 2, factor: int = 1) -> str:
@@ -878,34 +490,8 @@ def write_scene(root: str, n: int = 2, factor: int = 1) -> str:
     return root
 
 
-def addmm_backward(packed, e_c, e_d, g_rgb, g_sigma):
-    """The same backward as bf16 autograd through matmul_chain's torch.addmm
-    calls (weights and biases as leaves; encoding precomputed). Returns a
-    closure that runs the backward only. Orientation only."""
-    bf = torch.bfloat16
-    n = len(packed.layers())
-    wt = [packed.weight(i).t().detach().clone().requires_grad_() for i in range(n)]
-    bs = [packed.bias(i).to(bf).detach().clone().requires_grad_() for i in range(n)]
-    d = packed.depth
-    h = torch.addmm(bs[0], e_c, wt[0]).relu()
-    for i in range(1, d):
-        inp = torch.cat([e_c, h], 1) if i == packed.skip + 1 else h
-        h = torch.addmm(bs[i], inp, wt[i]).relu()
-    sigma = torch.addmm(bs[d + 1], h, wt[d + 1])
-    br = torch.addmm(bs[d], h, wt[d]).relu()
-    rf = torch.addmm(bs[d + 2], torch.cat([br, e_d], 1), wt[d + 2]).relu()
-    rgb = torch.addmm(bs[d + 3], rf, wt[d + 3]).sigmoid()
-    outs, cots = (rgb, sigma), (g_rgb.T.to(bf).contiguous(), g_sigma.T.to(bf).contiguous())
-
-    def run():
-        return torch.autograd.grad(outs, wt + bs, cots, retain_graph=True)
-
-    return run
-
-
 def layer_errors(packed, dw, db, tw, tb):
-    """Per packed layer: max|err| / max|twin| and cosine, and the max abs
-    error over every gradient value."""
+    """Per packed layer (then the biases): max|err| / max|twin| and cosine."""
     out = []
     for i, (n, k) in enumerate(packed.layers()):
         a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
@@ -914,118 +500,7 @@ def layer_errors(packed, dw, db, tw, tb):
                     float((a * b).sum() / (a.norm() * b.norm()))))
     out.append((float((db - tb).abs().max() / tb.abs().max()),
                 float((db.double() * tb.double()).sum() / (db.double().norm() * tb.double().norm()))))
-    max_abs = max(float((dw - tw).abs().max()), float((db - tb).abs().max()))
-    return out, max_abs
-
-
-def k3_check(ks, kg, packed, args, what: str, twin: bool = True):
-    """The recompute's rgb and sigma (forward_out) against K1's on the same
-    inputs, bit for bit, and with ``twin``: K3 against its twin (per packed
-    layer, TOL_K3_*) and a second launch bitwise equal. Without the twin at
-    a P too small for its bounds (there one flipped ReLU mask moves a few
-    percent of a layer). Returns (max abs error, worst relative error,
-    lowest cosine), or None without the twin."""
-    p = args[0].shape[1]
-    fwd = torch.empty(4, p, device="cuda")
-    dw, db = kg.fused_nerf_bwd(packed, *args, forward_out=fwd)
-    rgb, sigma = ks.fused_nerf_apply_t(packed, args[0], args[1])
-    torch.cuda.synchronize()
-    tie = bool(torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma))
-    msg = f"recomputed rgb and sigma equal K1's bit for bit: {tie}"
-    if not twin:
-        print(f"[k3] {what} P={p}: {msg}", flush=True)
-        check(tie, f"K3's recompute differs from K1's forward ({what}, P={p})")
-        return None
-    dw2, db2 = kg.fused_nerf_bwd(packed, *args)
-    tw, tb = kg.fused_nerf_bwd_plain(packed, *args)
-    errs, max_abs = layer_errors(packed, dw, db, tw, tb)
-    worst_rel, worst_cos = max(e[0] for e in errs), min(e[1] for e in errs)
-    repeat = bool(torch.equal(dw, dw2) and torch.equal(db, db2))
-    print(f"[k3] {what} P={p}: per packed layer (then biases) max|err|/max|twin| "
-          f"{', '.join(f'{e[0]:.2e}' for e in errs)}; cosine >= {worst_cos:.7f}; "
-          f"max|err| {max_abs:.3e}; second launch bitwise equal: {repeat}; {msg}", flush=True)
-    check(bool(torch.isfinite(dw).all() and torch.isfinite(db).all()), "K3 output not finite")
-    check(worst_rel <= TOL_K3_REL and worst_cos >= TOL_K3_COS,
-          f"K3 disagrees with its twin ({what}, P={p})")
-    check(repeat, f"K3 is not bitwise repeatable ({what}, P={p})")
-    check(tie, f"K3's recompute differs from K1's forward ({what}, P={p})")
-    return max_abs, worst_rel, worst_cos
-
-
-def phase_k3(ks, kg, sd_c):
-    """K3 against its twin at P = 262,144 + 300 (D8 and, on its run-time
-    depth build, D6 with skip 2), a repeat launch bitwise equal, the
-    recompute's rgb and sigma equal to K1's bit for bit there and at P =
-    300, and timings at the training step's two shapes by events and by
-    device time, each launch apart."""
-    from tgtc_torch.convert import nerf_state_dict_from_flax
-
-    packed = ks.pack_nerf_params(sd_c, device="cuda")
-    rng = np.random.default_rng(2)
-    p = P_K3["fine"] + RAGGED
-    arrs = (rng.uniform(-1, 1, (3, p)), rng.standard_normal((3, p)),
-            rng.standard_normal((3, p)), rng.standard_normal((1, p)))
-    pts, dirs, g_rgb, g_sig = (torch.from_numpy(a.astype(np.float32)).cuda() for a in arrs)
-    full = (pts, dirs, g_rgb, g_sig)
-    max_abs, worst_rel, worst_cos = k3_check(ks, kg, packed, full, "D8")
-    k3_check(ks, kg, packed, tuple(t[:, :RAGGED].contiguous() for t in full), "D8", twin=False)
-    sd6 = nerf_state_dict_from_flax(he_params(np.random.default_rng(6), depth=6, skip=2))
-    packed6 = ks.pack_nerf_params(sd6, depth=6, skip=2, device="cuda")
-    k3_check(ks, kg, packed6, full, "D6 skip 2")
-
-    times, devs, per = {}, {}, {}
-    for shape, n in P_K3.items():
-        args = (packed,) + tuple(t[:, :n].contiguous() for t in full)
-        times[shape] = cuda_ms(lambda: kg.fused_nerf_bwd(*args), 10)
-        devs[shape], _, per[shape] = device_ms(lambda: kg.fused_nerf_bwd(*args), 5,
-                                               per_kernel=True)
-    n = P_K3["fine"]
-    plain_ms = cuda_ms(lambda: kg.fused_nerf_bwd_plain(*args), 3)
-    e_c = ks._encode_plain(args[1].T, 10, packed.k_coor).to(torch.bfloat16)
-    e_d = ks._encode_plain(args[2].T, 4, packed.k_dir).to(torch.bfloat16)
-    chain_ms = cuda_ms(addmm_backward(packed, e_c, e_d, args[3], args[4]), 10)
-    del e_c, e_d
-    nwb = packed.w.numel() + packed.b.numel()
-    flops = FLOP_PER_POINT["K3"] * n
-    fn_bytes = 40 * n + packed.w.numel() * 2 + packed.b.numel() * 4 + nwb * 4
-    # this design's workspace (the saved activations and gradients, the
-    # transposed weights, the masks and the per-chunk partials), each byte
-    # written once and read once
-    point_bytes = kg.workspace_point_bytes(packed.depth)
-    ws_bytes = 2 * kg.workspace_bytes(packed, n)
-    b = 1e3 * max(flops / PEAK_BF16_FLOPS, fn_bytes / PEAK_BYTES)
-    b_ws = 1e3 * max(flops / PEAK_BF16_FLOPS, (fn_bytes + ws_bytes) / PEAK_BYTES)
-
-    def launches(shape):
-        return "; ".join(f"{name.replace('void ', '').replace('(anonymous namespace)::', '')} "
-                         f"{ms:.3f}" for name, ms in sorted(per[shape].items(),
-                                                            key=lambda kv: -kv[1]))
-
-    print(f"[k3] kernel {times['coarse']:.3f} ms ev, {devs['coarse']:.3f} ms dev at "
-          f"P={P_K3['coarse']}; {times['fine']:.3f} ms ev, {devs['fine']:.3f} ms dev at P={n}; "
-          f"bound {b:.3f} ms (operations), {100 * b / devs['fine']:.2f}% of it by device time; "
-          f"{b_ws:.3f} ms counting this design's workspace ({point_bytes} bytes a point, "
-          f"{ws_bytes / 2 / n:.1f} with the fixed parts at this P, written and read once); "
-          f"plain twin {plain_ms:.3f} ms; orientation only: bf16 autograd through the "
-          f"torch.addmm chain {chain_ms:.3f} ms ev (kernel / chain {times['fine'] / chain_ms:.3f})",
-          flush=True)
-    for shape in P_K3:
-        print(f"[k3] device time by launch at P={P_K3[shape]} (ms a call): {launches(shape)}",
-              flush=True)
-    return {
-        "name": "K3", "route": "cuda", "source": "tgtc_torch/csrc/nerf_mlp_grad.cu",
-        "replaces": "tgtc/ops/pallas/nerf_mlp_grad.py:268",
-        "wrapper": "tgtc_torch.ops.kernels.nerf_mlp_grad.fused_nerf_bwd",
-        "design": ENGINE_DESIGN["K3"],
-        "P": n, "max_abs_err": max_abs, "max_err": max_abs, "max_rel_err": worst_rel,
-        "min_cos": worst_cos,
-        "ms": times["fine"], "ms_coarse": times["coarse"], "P_coarse": P_K3["coarse"],
-        "dev_ms": devs["fine"], "dev_ms_coarse": devs["coarse"],
-        "dev_ms_by_launch": per["fine"], "dev_ms_by_launch_coarse": per["coarse"],
-        "plain_ms": plain_ms, "bound_ms": b, "bound_by": "operations",
-        "bound_ms_with_workspace": b_ws, "workspace_bytes_per_point": point_bytes,
-        "library_ms": None, "matmul_chain_ms": chain_ms,
-    }
+    return out
 
 
 def grad_cos(a, b) -> float:
@@ -1059,8 +534,8 @@ def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
       2e-2, every parameter's gradient cosine >= 0.99;
     * from the trained state, two held witnesses that the kernels compute
       the fused step's gradient: K3 against its twin on the card with the
-      step's own packed weights and cotangents (per packed layer, the bounds
-      of phase 3), and the step against the same step on the CPU, where the
+      step's own packed weights and cotangents (per packed layer, TOL_K3_*),
+      and the step against the same step on the CPU, where the
       wrappers run the twins (losses within 2e-2, every gradient cosine >=
       0.99); then, read and not held, each leaf's error against the eager
       f32 step beside the eager bf16 step's (the yardstick of
@@ -1104,7 +579,7 @@ def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
         dw, db = kg.fused_nerf_bwd(packed, *args)
         torch.cuda.synchronize()
         tw, tb = kg.fused_nerf_bwd_plain(packed, *args)
-        errs, _ = layer_errors(packed, dw, db, tw, tb)
+        errs = layer_errors(packed, dw, db, tw, tb)
         rel, c = max(e[0] for e in errs), min(e[1] for e in errs)
         print(f"[train] trained state, K3 vs its twin on the step's own {which} pass (P = "
               f"{args[0].shape[1]}): per packed layer (then biases) max|err|/max|twin| "
@@ -1113,17 +588,15 @@ def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
               f"trained state: K3 disagrees with its twin on the {which} pass")
     del calls
 
-    t0 = time.perf_counter()
     cpu = tt.make_fused_train_step(cfg, tc, device="cpu")
     d_cpu = tt.StepDraws(*(None if t is None else t.cpu() for t in (
         draws.idx, draws.perturb_u, draws.noise_coarse, draws.noise_fine)))
     m_c, g_c = cpu.loss_and_grad(*trunks(cfg, trained, "cpu"), ro.cpu(), rd.cpu(), rgb.cpu(),
                                  d_cpu)
-    cpu_s = time.perf_counter() - t0
     cos = {n: grad_cos(a.cpu(), b) for n, a, b in zip(names, g_f, g_c)}
     rel = {n: grad_rel(a.cpu(), b) for n, a, b in zip(names, g_f, g_c)}
     worst, dl = min(cos, key=cos.get), abs(float(m_f["loss"]) - float(m_c["loss"]))
-    print(f"[train] trained state, fused step on the card vs on the CPU (twins, {cpu_s:.1f} s): "
+    print(f"[train] trained state, fused step on the card vs on the CPU (twins): "
           f"loss {float(m_f['loss']):.6f} vs {float(m_c['loss']):.6f} (|diff| {dl:.3e}); "
           f"gradient cosine >= {cos[worst]:.6f} ({worst}); max|err|/max|CPU| <= "
           f"{max(rel.values()):.3e} ({max(rel, key=rel.get)})", flush=True)
@@ -1153,9 +626,8 @@ def compare_steps(kg, tt, cfg, tc, fresh, trained, ro, rd, rgb):
 
 def phase_train(ks, kg):
     """Phase A at fern width through train_nerf, then compare_steps and a
-    checkpoint round trip. Returns the trained renderer, the counted
-    window's launches, its steps/s and the trained trunks' state dicts with
-    the scene's intrinsics and spiral poses."""
+    checkpoint round trip. Returns the trained renderer and the trained
+    trunks' state dicts with the scene's intrinsics and spiral poses."""
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.data.rays import rays_for_poses
     from tgtc_torch.models.nerf import NerfConfig
@@ -1173,31 +645,20 @@ def phase_train(ks, kg):
         scene = load_llff_data(write_scene(os.path.join(tmp, "scene"), n=4), factor=1)
         run = os.path.join(tmp, "run")
         kw = dict(i_print=I_PRINT, device="cuda", print_fn=lambda m: print(m, flush=True))
-        t0 = time.perf_counter()
         state, warm = tt.train_nerf(scene, cfg, tc, WARM_STEPS, run, **kw)
-        warm_s = time.perf_counter() - t0
         for k in (ks.fused_nerf_apply_t, ks.fused_nerf_sigma_apply_t, kg.fused_nerf_bwd):
             k.launches = 0
-        t0 = time.perf_counter()
         state, hist = tt.train_nerf(scene, cfg, tc, WARM_STEPS + TRAIN_STEPS, run, **kw)
         torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
         launches = {"K1": ks.fused_nerf_apply_t.launches, "K2": ks.fused_nerf_sigma_apply_t.launches,
                     "K3": kg.fused_nerf_bwd.launches}
         losses = warm["loss"] + hist["loss"]
-        # every counted step over the loop's time: the log windows' steps
-        # over the sum of their times (set-up and restore excluded)
-        ends = [WARM_STEPS] + [r["step"] for r in hist["records"]]
-        sizes = np.diff(ends)
-        loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, hist["records"])))
-        steps_per_s = float(sizes.sum()) / loop_s
+        sizes = np.diff([WARM_STEPS] + [r["step"] for r in hist["records"]])  # log windows
         first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
         print(f"[train] {len(scene.images)} views {H}x{W}, D8/W256, batch {BATCH}, {NC}+{NF} "
-              f"samples: {WARM_STEPS} warm-up steps in {warm_s:.2f} s, then {TRAIN_STEPS} steps "
-              f"in {train_s:.2f} s (call, set-up and final save included), of which the loop "
-              f"{loop_s:.3f} s: {steps_per_s:.2f} steps/s; per log window (steps: steps/s) "
-              + ", ".join(f"{n}: {r['steps_per_s']:.2f}" for n, r in zip(sizes, hist["records"]))
-              + f"; launches K1 {launches['K1']} K2 {launches['K2']} K3 "
+              f"samples: {WARM_STEPS} warm-up steps, then {TRAIN_STEPS} steps resumed, logged in "
+              f"windows of {', '.join(str(n) for n in sizes)}; launches K1 {launches['K1']} K2 "
+              f"{launches['K2']} K3 "
               f"{launches['K3']} (expect {2 * TRAIN_STEPS}, 0, {2 * TRAIN_STEPS}); mean loss "
               f"of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; psnr_fine "
               f"{warm['records'][-1]['psnr_fine']:.2f} -> {hist['records'][-1]['psnr_fine']:.2f}",
@@ -1240,7 +701,7 @@ def phase_train(ks, kg):
                "poses": scene.poses}
     renderer = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
                                              coarse_rgb=False, device="cuda")
-    return renderer, launches, steps_per_s, trained
+    return renderer, trained
 
 
 def phase_b(ks, renderer, root: str) -> str:
@@ -1253,9 +714,7 @@ def phase_b(ks, renderer, root: str) -> str:
     out_dir = os.path.join(root, "geometry")
     ks.fused_nerf_apply_t.launches = 0
     ks.fused_nerf_sigma_apply_t.launches = 0
-    t0 = time.perf_counter()
     dump_geometry(renderer, scene, out_dir)
-    dt = time.perf_counter() - t0
     n = scene.poses.shape[0]
     names = [f"{kind}_{i:05d}.{ext}" for i in range(n)
              for kind, ext in (("rgb", "png"), ("depth", "png"), ("geometry", "npz"))]
@@ -1264,113 +723,12 @@ def phase_b(ks, renderer, root: str) -> str:
     geo = np.load(os.path.join(out_dir, "geometry.npz"))
     check(geo["coor_maps"].shape == (n, H, W, 3), "coor_maps shape")
     check(bool(np.isfinite(geo["coor_maps"]).all()), "coor_map not finite")
-    print(f"[phase_b] {n} views at {H}x{W}: dump_geometry {dt:.2f} s, "
+    print(f"[phase_b] {n} views at {H}x{W}: dump_geometry wrote "
           f"{len(names) + 1} files, launches K1 {ks.fused_nerf_apply_t.launches} "
           f"K2 {ks.fused_nerf_sigma_apply_t.launches}", flush=True)
     check(ks.fused_nerf_apply_t.launches > 0 and ks.fused_nerf_sigma_apply_t.launches > 0,
           "Phase B did not go through the kernels")
     return out_dir
-
-
-def phase_style_kernels(ks, kst, sd_c, style_sds):
-    """K4/K5 against their twins at P = 2^21 + 300 and at the engine's
-    tile-cutting P (samples per ray 1, and 128 at one and 133 tiles), with
-    sigmas bitwise equal (K5 and K4, K5 and K2 on the same trunk, two K4
-    launches, two K5 launches), and timings at the stylized frame's
-    shapes."""
-    packed = kst.pack_style_params(sd_c, *style_sds, device="cuda")
-    packed_k2 = ks.pack_nerf_params(sd_c, device="cuda")
-    rng = np.random.default_rng(3)
-    p = P_K1 + RAGGED
-    pts = torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).cuda()
-    lat = torch.from_numpy(rng.standard_normal((p, LATENT)).astype(np.float32)).cuda()
-    err = {"K4": (0.0, 0.0), "K5": (0.0, 0.0)}
-    cases = ([(n, 1) for n in ENGINE_P] + [(ENGINE_TILE, 128), (133 * ENGINE_TILE, 128)]
-             + [(p, 1)])
-    for n, spr in cases:
-        pt, lt = pts[:, :n].contiguous(), lat[:n // spr].contiguous()
-        rgb, sigma = kst.fused_style_apply_t(packed, pt, lt, spr)
-        rgb2, sigma2 = kst.fused_style_apply_t(packed, pt, lt, spr)
-        sigma5 = kst.fused_sigma_apply_t(packed, pt)
-        sigma5b = kst.fused_sigma_apply_t(packed, pt)
-        sigma_k2 = ks.fused_nerf_sigma_apply_t(packed_k2, pt)
-        torch.cuda.synchronize()
-        rgb_p, sigma_p = kst.fused_style_apply_t_plain(packed, pt, lt, spr)
-        sigma5_p = kst.fused_sigma_apply_t_plain(packed, pt)
-        e4 = (float((rgb - rgb_p).abs().max()), float((sigma - sigma_p).abs().max()))
-        e5 = float((sigma5 - sigma5_p).abs().max())
-        same = {"K5 = K4": torch.equal(sigma5, sigma), "K5 = K2": torch.equal(sigma5, sigma_k2),
-                "K4 = K4": torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2),
-                "K5 = K5": torch.equal(sigma5, sigma5b)}
-        print(f"[style_kernels] P={n} spr={spr}: K4 max|rgb err| {e4[0]:.3e} max|sigma err| "
-              f"{e4[1]:.3e}; K5 max|sigma err| {e5:.3e}; |rgb| mean {float(rgb_p.mean()):.3f}, "
-              f"|sigma| max {float(sigma_p.abs().max()):.3e}; bitwise: "
-              + ", ".join(f"{k} {v}" for k, v in same.items()), flush=True)
-        check(bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all()),
-              "K4 output not finite")
-        check(e4[0] <= TOL_RGB and e4[1] <= TOL_SIGMA, f"K4 disagrees with its twin at P={n}")
-        check(e5 <= TOL_SIGMA, f"K5 disagrees with its twin at P={n}")
-        check(all(same.values()), f"sigma not bitwise equal where it must be at P={n}: {same}")
-        err = {"K4": tuple(max(a, b) for a, b in zip(err["K4"], e4)),
-               "K5": (0.0, max(err["K5"][1], e5))}
-        del rgb, sigma, rgb2, sigma2, sigma5, sigma5b, sigma_k2, rgb_p, sigma_p, sigma5_p
-
-    rows = []
-    lat_r = lat[:BLOCK].contiguous()  # one fine block's per-ray latents, distinct random rows
-    for name, n in (("K4", P_K1), ("K5", P_K2)):
-        pt = pts[:, :n].contiguous()
-        e_c = ks._encode_plain(pt.T, 10, packed.k_coor).to(torch.bfloat16)
-        if name == "K4":
-            spr = n // BLOCK
-            args = (packed, pt, lat_r, spr)
-            fn, twin = kst.fused_style_apply_t, kst.fused_style_apply_t_plain
-            chain = style_matmul_chain(packed, e_c,
-                                       lat_r.to(torch.bfloat16).repeat_interleave(spr, 0))
-            io = 32 * n + lat_r.numel() * 4  # pts in, rgb and sigma out, latent rows in
-        else:
-            args = (packed, pt)
-            fn, twin = kst.fused_sigma_apply_t, kst.fused_sigma_apply_t_plain
-            chain = matmul_chain(packed, e_c, None, False)
-            io = 16 * n
-        # the kernel against its twin on the main path's arguments (K4: a fine
-        # block's per-ray latents, row p // samples_per_ray)
-        got, want = fn(*args), twin(*args)
-        torch.cuda.synchronize()
-        if name == "K4":
-            err_main = (float((got[0] - want[0]).abs().max()),
-                        float((got[1] - want[1]).abs().max()))
-        else:
-            err_main = (0.0, float((got - want).abs().max()))
-        del got, want
-        print(f"[style_kernels] {name} P={n} on the frame's arguments: max|rgb err| "
-              f"{err_main[0]:.3e} max|sigma err| {err_main[1]:.3e}", flush=True)
-        check(err_main[0] <= TOL_RGB and err_main[1] <= TOL_SIGMA,
-              f"{name} disagrees with its twin on the frame's arguments")
-        err[name] = tuple(max(a, b) for a, b in zip(err[name], err_main))
-        ms, dev = timed(lambda: fn(*args), 10)
-        plain_ms = cuda_ms(lambda: twin(*args), 3)
-        chain_ms, chain_dev = timed(chain, 10)
-        del e_c, chain
-        b = bound_ms(name, n, packed, io)
-        print(f"[style_kernels] {name} P={n}: kernel {ms:.3f} ms ev, {dev:.3f} ms dev, bound "
-              f"{b:.3f} ms (operations), {100 * b / dev:.2f}% of the bound by device time; plain "
-              f"twin {plain_ms:.3f} ms; orientation only: bf16 torch.addmm chain {chain_ms:.3f} "
-              f"ms ev, {chain_dev:.3f} ms dev (kernel / chain {dev / chain_dev:.3f})", flush=True)
-        rows.append({
-            "name": name, "route": "cuda", "source": "tgtc_torch/csrc/style_kernel.cu",
-            "replaces": ("tgtc/ops/pallas/style_kernel.py:432" if name == "K4"
-                         else "tgtc/ops/pallas/style_kernel.py:387"),
-            "wrapper": ("tgtc_torch.ops.kernels.style_kernel." +
-                        ("fused_style_apply_t" if name == "K4" else "fused_sigma_apply_t")),
-            "design": ENGINE_DESIGN[name],
-            "P": n, "max_abs_err": max(err[name]), "max_err": max(err[name]),
-            "max_abs_err_rgb": err[name][0] if name == "K4" else None,
-            "max_abs_err_sigma": err[name][1],
-            "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
-            "bound_by": "operations", "bound_share": b / dev, "library_ms": None,
-            "matmul_chain_ms": chain_ms, "matmul_chain_device_ms": chain_dev,
-        })
-    return rows
 
 
 def style_mlps():
@@ -1439,14 +797,14 @@ def phase_f(ks, kst, trained):
     """Phase F from the trained trunks: seeded style MLPs and a 1-style
     latent table; stylized 756x1008 frames at spiral poses through
     FusedStyleRenderer(coarse_rgb=False) (47 K5 and 47 K4 launches a frame,
-    no K1/K2); the first 16,384 rays against the eager f32 render; then the
-    frame loop over three views. Returns the launches of one frame, the
-    median frame's rays/s and the loop's frames/min."""
+    no K1/K2); the first 16,384 rays against the eager f32 render and
+    against the twins' render; then the frame loop over three views."""
     from PIL import Image
 
     from tgtc_torch.data.rays import rays_for_poses
     from tgtc_torch.models.style_field import init_latents
-    from tgtc_torch.render.fast_style import FusedStyleRenderer
+    from tgtc_torch.render import fast_style as rfs
+    from tgtc_torch.render.fast_style import FusedStyleRenderer, block_generator
     from tgtc_torch.render.volume import RenderSettings
     from tgtc_torch.train.render_style import render_stylized_frames_fused
 
@@ -1464,46 +822,41 @@ def phase_f(ks, kst, trained):
     counters = {"K1": ks.fused_nerf_apply_t, "K2": ks.fused_nerf_sigma_apply_t,
                 "K4": kst.fused_style_apply_t, "K5": kst.fused_sigma_apply_t}
 
-    renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)  # warm-up frame
+    for k in counters.values():
+        k.launches = 0
+    out = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(FRAMES):
-        for k in counters.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        out = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        launches = {name: k.launches for name, k in counters.items()}
-        check(launches == {"K1": 0, "K2": 0, "K4": blocks, "K5": blocks},
-              f"stylized frame launch counts {launches}, expected {blocks} K4 and K5")
-    dt = float(np.median(times))
-    print(f"[phase_f] stylized frame {H}x{W} ({n} rays, {NC}+{NF} samples, block {BLOCK}), "
-          f"{FRAMES} frames after a warm-up: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
-          f"median {dt * 1e3:.1f} ms, {n / dt:.1f} rays/s; launches per frame "
-          + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    launches = {name: k.launches for name, k in counters.items()}
+    print(f"[phase_f] stylized frame {H}x{W} ({n} rays, {NC}+{NF} samples, block {BLOCK}): "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
+    check(launches == {"K1": 0, "K2": 0, "K4": blocks, "K5": blocks},
+          f"stylized frame launch counts {launches}, expected {blocks} K4 and K5")
     check(out["rgb"].shape == (n, 3) and out["t_exp"].shape == (n,), "stylized frame shape")
     check(bool(torch.isfinite(out["rgb"]).all() and torch.isfinite(out["t_exp"]).all()),
           "stylized frame not finite")
 
     stylized_vs_eager(renderer, trained, concat, style, fo, fd, out, "phase_f", "stylized frame")
-    del out
+    sid = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
+    u = torch.rand((BLOCK, NC), generator=block_generator(F_SEED, 0, 0, "cuda"), device="cuda")
+    with twins(rfs, fused_style_apply_t=kst.fused_style_apply_t_plain,
+               fused_sigma_apply_t=kst.fused_sigma_apply_t_plain):
+        ref = renderer.render(fo[:BLOCK], fd[:BLOCK], sid, sid, u=u)
+    block_vs_twins({"rgb": out["rgb"][:BLOCK], "t_exp": out["t_exp"][:BLOCK]}, ref, "phase_f",
+                   "the stylized frame's first block (K4, K5)")
+    del out, ref
 
     with tempfile.TemporaryDirectory() as tmp:
         for k in counters.values():
             k.launches = 0
-        t0 = time.perf_counter()
         rendered = render_stylized_frames_fused(renderer, ro, rd, [0], tmp, seed=F_SEED,
                                                 block=BLOCK, depth_png="full")
-        loop_s = time.perf_counter() - t0
         names = [f"style_00000_fine{kind}_{f:05d}.png" for f in range(F_VIEWS)
                  for kind in ("", "_depth")]
         sizes = {f: Image.open(os.path.join(tmp, f)).size
                  for f in names if os.path.exists(os.path.join(tmp, f))}
         again = render_stylized_frames_fused(renderer, ro, rd, [0], tmp, seed=F_SEED,
                                              block=BLOCK)
-        print(f"[phase_f] frame loop: {rendered} frames in {loop_s:.2f} s with the PNG writes "
-              f"({60 * rendered / loop_s:.2f} frames/min), {len(sizes)} of {len(names)} PNGs "
+        print(f"[phase_f] frame loop: {rendered} frames, {len(sizes)} of {len(names)} PNGs "
               f"at {W}x{H}: {all(s == (W, H) for s in sizes.values())}; launches K4 "
               f"{counters['K4'].launches} K5 {counters['K5'].launches}; a second call "
               f"rendered {again}", flush=True)
@@ -1515,146 +868,6 @@ def phase_f(ks, kst, trained):
         check(len(sizes) == len(names) and all(s == (W, H) for s in sizes.values()),
               "the frame loop's PNGs are missing or of the wrong size")
         check(again == 0, "skip_existing rendered frames again")
-    return launches, n / dt, 60 * rendered / loop_s
-
-
-def k6_inputs(rng: np.random.Generator, heads: int, sq: int, sk: int):
-    """bf16 q [1, heads, sq, 64], k and v [1, heads, sk, 64] on the card."""
-    return tuple(torch.from_numpy(rng.standard_normal((1, heads, n, D_HEAD)).astype(np.float32))
-                 .to("cuda", torch.bfloat16) for n in (sq, sk, sk))
-
-
-def sm_clock_hz() -> float:
-    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout
-    return float(out.split()[0]) * 1e6
-
-
-def flash_floors_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):
-    """The four floors of ``kernel`` (K6, K7 or K8) in ms at D 64 and
-    ``clock_hz``: tensor cores, HBM, SFU and, under dropout, the hash's
-    integer pipes, as ``benchmark/harness/attention_work.py`` defines them."""
-    from benchmark.harness import attention_work
-
-    floors = attention_work.floors_s(kernel, bh, sq, sk, D_HEAD, dropout, clock_hz)
-    return {name: 1e3 * t for name, t in floors.items()}
-
-
-def flash_bound_ms(kernel: str, bh: int, sq: int, sk: int, dropout: bool, clock_hz: float):
-    """(ms, floor): the largest of ``kernel``'s four floors and its name."""
-    floors = flash_floors_ms(kernel, bh, sq, sk, dropout, clock_hz)
-    floor = max(floors, key=floors.get)
-    return floors[floor], floor
-
-
-def phase_k6(fa):
-    """K6 against its twin at the C3, rectangular and ragged shapes and at
-    shapes that cut its 128-row blocks and 128-key tiles (at dropout 0 and
-    0.25), a second launch bitwise equal; the dropout mask probe; timings
-    at both large shapes by CUDA events and by the profiler's device time,
-    beside the four-floor bound, the twin and SDPA."""
-    rng = np.random.default_rng(4)
-    shapes = {"c3": (C3_HEADS, C3_TOKENS, C3_TOKENS), "rect": (C3_HEADS, C3_TOKENS, 4096),
-              "ragged": (16, 300, 180), "cut": (4, 200, 130), "cut2": (2, 1000, 1030),
-              "sk1": (4, 300, 1), "sk65": (4, 300, 65)}
-    cases = [(name, 0.0) for name in shapes]
-    cases += [(name, 0.25) for name in ("cut", "cut2", "sk1", "sk65")]
-    err_o, err_lse, inputs = 0.0, 0.0, {}
-    for name, rate in cases:
-        heads, sq, sk = shapes[name]
-        if name not in inputs:
-            inputs[name] = k6_inputs(rng, heads, sq, sk)
-        q, k, v = inputs[name]
-        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, 11)
-        o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, 11)
-        torch.cuda.synchronize()
-        o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, 11)
-        e_o = float((o.float() - o_p.float()).abs().max())
-        e_l = float((lse - lse_p).abs().max())
-        lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
-        same = torch.equal(o, o2) and torch.equal(lse, lse2)
-        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk} dropout {rate}: max|o - twin| {e_o:.3e} "
-              f"(limit {lim_o:.3e} = min({TOL_K6_O}, {TOL_K6_O_REL} max|twin|)), max|lse - twin| "
-              f"{e_l:.3e} (limit {TOL_K6_LSE}), |o| max {float(o_p.float().abs().max()):.3f}, "
-              f"mean {float(o_p.float().abs().mean()):.4f}; second launch bitwise equal: {same}",
-              flush=True)
-        check(bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all()),
-              f"K6 output not finite at {name}, dropout {rate}")
-        check(e_o <= lim_o and e_l <= TOL_K6_LSE, f"K6 disagrees with its twin at {name}, "
-              f"dropout {rate}")
-        check(same, f"K6 is not bitwise repeatable at {name}, dropout {rate}")
-        err_o, err_lse = max(err_o, e_o), max(err_lse, e_l)
-        del o, lse, o2, lse2, o_p, lse_p
-
-    # mask probe: q = 0 gives p = 1 everywhere (l = Sk), and row j of v is
-    # 2^(j // 64) e_(j mod 64), so o[r, d] * Sk / bf16(1 / keep) is the sum
-    # of 2^b over the kept keys 64 b + d of row r: four keep bits each
-    heads, rows, sk, rate, seed = 16, 1000, 256, 0.1, 7
-    q = torch.zeros((1, heads, rows, D_HEAD), dtype=torch.bfloat16, device="cuda")
-    k = k6_inputs(rng, heads, 1, sk)[1]
-    j = torch.arange(sk, device="cuda")
-    v1 = torch.zeros((sk, D_HEAD), device="cuda")
-    v1[j, j % D_HEAD] = 2.0 ** (j // D_HEAD).float()
-    v = v1.to(torch.bfloat16).expand(1, heads, sk, D_HEAD).contiguous()
-    thr, keep = fa.quantized_keep(rate)
-    o = fa.flash_attention(q, k, v, 1.0, rate, seed)
-    torch.cuda.synchronize()
-    c = float(torch.tensor(1.0 / keep, dtype=torch.bfloat16))
-    n = torch.round(o.float() * sk / c).long()  # [1, heads, rows, 64]
-    decoded = torch.stack([(n >> b) & 1 for b in range(sk // D_HEAD)], dim=-2)
-    decoded = decoded.reshape(heads, rows, sk).bool()
-    want = torch.stack([fa.dropout_keep_mask(seed, bh, torch.arange(rows, device="cuda"), j, thr)
-                        for bh in range(heads)])
-    mismatched = int((decoded != want).sum())
-    print(f"[k6] mask probe (dropout {rate}, seed {seed}, {heads} heads x {rows} rows x {sk} "
-          f"keys): {mismatched} of {decoded.numel()} keep bits differ from the twin's hash; "
-          f"kept share {float(decoded.float().mean()):.4f} (keep {keep:.4f})", flush=True)
-    check(mismatched == 0, "K6's dropout mask differs from the twin's hash mask")
-
-    clock = sm_clock_hz()
-    timing = {}
-    for name in ("c3", "rect"):
-        q, k, v = inputs[name]
-        heads, sq, sk = shapes[name]
-        qs = q * torch.tensor(K6_SCALE, dtype=torch.bfloat16)
-
-        def kernel():
-            return fa.flash_attention_fwd(q, k, v, K6_SCALE)
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(qs, k, v, scale=1.0)
-
-        ms, (dev, _) = cuda_ms(kernel, 20), device_ms(kernel, 20)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE), 2)
-        lib_ms, (lib_dev, backend) = cuda_ms(library, 20), device_ms(library, 20)
-        floors = flash_floors_ms("K6", heads, sq, sk, False, clock)
-        floor = max(floors, key=floors.get)
-        b = floors[floor]
-        flops = 4 * heads * sq * sk * D_HEAD
-        print(f"[k6] {name} heads {heads} Sq {sq} Sk {sk}: kernel {ms:.4f} ms by events, {dev:.4f} "
-              f"ms device time ({flops / dev * 1e-9:.1f} TFLOP/s, {b / dev:.2%} of the bound), "
-              f"bound {b:.4f} ms ({floor}; floors "
-              f"{', '.join(f'{f} {t:.4f}' for f, t in floors.items())}; SM clock "
-              f"{clock * 1e-6:.0f} MHz), plain twin {plain_ms:.3f} ms, library "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms by events, {lib_dev:.4f} ms device "
-              f"time; K6 / SDPA by device time {dev / lib_dev:.3f} [{backend}]", flush=True)
-        timing[name] = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b,
-                        "bound_by": "bytes" if floor == "hbm" else "operations",
-                        "bound_floor": floor, "bound_ms_sfu": floors["sfu"], "library_ms": lib_ms,
-                        "library_device_ms": lib_dev, "library_backend": backend,
-                        "k6_over_library_device": dev / lib_dev}
-    return {
-        "name": "K6", "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
-        "replaces": "tgtc/ops/pallas/flash_attention.py:231",
-        "wrapper": "tgtc_torch.ops.kernels.flash_attention.flash_attention_fwd",
-        "shape": [C3_HEADS, C3_TOKENS, C3_TOKENS, D_HEAD],
-        "max_abs_err": err_o, "max_err": err_o, "max_abs_err_lse": err_lse,
-        "mask_probe_mismatches": mismatched, "sm_clock_mhz": clock * 1e-6,
-        "library": "torch.nn.functional.scaled_dot_product_attention", **timing["c3"],
-        "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD],
-        **{f"{key}_rect": val for key, val in timing["rect"].items()},
-    }
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1663,13 +876,9 @@ def rel_err(a: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def phase_c3(fa, geo_dir: str, root: str):
-    """Phase C3 at full width on phase 5's views: timed frames (12 K6
-    launches each), the frame against the same frame with the twin's
-    attention, the f32 eager path read beside it, then stylize_all over
-    C3_VIEWS views. Returns the launches of one frame, frames/s and seconds
-    per view."""
-    import shutil
-
+    """Phase C3 at full width on phase 5's views: one frame (12 K6
+    launches), the frame against the same frame with the twin's attention,
+    the f32 eager path read beside it, then stylize_all over the views."""
     from PIL import Image
 
     import tgtc_torch.models.transformer as tr
@@ -1687,25 +896,17 @@ def phase_c3(fa, geo_dir: str, root: str):
     check((h, w) == (H, W) and (hp, wp) == (-(-H // 8) * 8, -(-W // 8) * 8),
           f"C3 content {tuple(content.shape)}")
 
-    model.stylize(content, style)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(FRAMES):
-        fa.flash_attention_fwd.launches = 0
-        t0 = time.perf_counter()
-        im, hs = model.stylize(content, style)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        launches = fa.flash_attention_fwd.launches
-        check(launches == C3_SITES, f"C3 frame launched K6 {launches} times, not {C3_SITES}")
+    fa.flash_attention_fwd.launches = 0
+    im, hs = model.stylize(content, style)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention_fwd.launches
     peak = torch.cuda.max_memory_allocated()
-    dt = float(np.median(times))
     print(f"[c3] StyTrans d_model 512, 8 heads, 3+3 layers, bf16, flash: frame {h}x{w} (padded "
-          f"{hp}x{wp}, {hp * wp // 64} tokens), {FRAMES} frames after a "
-          f"warm-up: {', '.join(f'{t * 1e3:.2f}' for t in times)} ms; median {dt * 1e3:.2f} ms, "
-          f"{1 / dt:.3f} frames/s; K6 launches per frame {launches}; peak device memory "
+          f"{hp}x{wp}, {hp * wp // 64} tokens): K6 launches {launches}; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    check(launches == C3_SITES, f"C3 frame launched K6 {launches} times, not {C3_SITES}")
     check(im.shape == (1, hp, wp, 3) and hs.shape == (1, hp // 8, wp // 8, 512),
           "C3 output shapes")
     check(bool(torch.isfinite(im).all() and torch.isfinite(hs).all()), "C3 output not finite")
@@ -1735,27 +936,18 @@ def phase_c3(fa, geo_dir: str, root: str):
           flush=True)
     del eager, im_f, hs_f
 
-    # a bulk pass of fern's size: phase 5's views repeated under new names,
-    # so that the first and last views weigh as little as in a real scene
-    dumped = sorted(f for f in os.listdir(geo_dir) if f.startswith("rgb_"))
-    content_dir, out = os.path.join(root, "c3_views"), os.path.join(root, "stylized")
-    os.makedirs(content_dir)
-    views = [f"rgb_{i:05d}.png" for i in range(C3_VIEWS)]
-    for i, name in enumerate(views):
-        shutil.copyfile(os.path.join(geo_dir, dumped[i % len(dumped)]),
-                        os.path.join(content_dir, name))
+    # stylize_all over phase 5's views
+    views = sorted(f for f in os.listdir(geo_dir) if f.startswith("rgb_"))
+    out = os.path.join(root, "stylized")
     fa.flash_attention_fwd.launches = 0
-    t0 = time.perf_counter()
-    res = st.stylize_all(model, content_dir, [style_img], ["style_00.png"], out, device="cuda")
-    loop_s = time.perf_counter() - t0
+    res = st.stylize_all(model, geo_dir, [style_img], ["style_00.png"], out, device="cuda")
     loop_launches = fa.flash_attention_fwd.launches
     jpgs = [os.path.join(out, f"{i + 1:03d}.jpg") for i in range(len(views))]
     sizes = [Image.open(p).size for p in jpgs if os.path.exists(p)]
     z = np.load(os.path.join(out, "stylized_data.npz"), allow_pickle=True)
     feats = z["style_features"]
-    print(f"[c3] stylize_all over {len(views)} views ({len(dumped)} dumped views repeated): "
-          f"{loop_s:.3f} s, {loop_s / len(views):.3f} s "
-          f"per view with the JPEG writes; {len(sizes)} of {len(jpgs)} JPEGs at {W}x{H}: "
+    print(f"[c3] stylize_all over {len(views)} views: {len(sizes)} of {len(jpgs)} JPEGs at "
+          f"{W}x{H}: "
           f"{all(s == (W, H) for s in sizes)}; npz {sorted(z.files)}, style_features "
           f"{feats.shape} finite {bool(np.isfinite(feats).all())}; K6 launches {loop_launches}",
           flush=True)
@@ -1766,240 +958,6 @@ def phase_c3(fa, geo_dir: str, root: str):
     check(feats.shape == (1, 1024) and bool(np.isfinite(feats).all())
           and np.array_equal(feats, res["style_features"]), "style_features")
     check(loop_launches == C3_SITES * len(views), f"stylize_all launched K6 {loop_launches} times")
-    return launches, 1 / dt, loop_s / len(views)
-
-
-def k78_inputs(rng: np.random.Generator, batch: int, heads: int, sq: int, sk: int):
-    """bf16 q, dO [batch, heads, sq, 64] and k, v [batch, heads, sk, 64] on the card."""
-    return tuple(torch.from_numpy(rng.standard_normal((batch, heads, n, D_HEAD))
-                                  .astype(np.float32)).to("cuda", torch.bfloat16)
-                 for n in (sq, sk, sk, sq))
-
-
-def device_ms(fn, iters: int, per_kernel: bool = False):
-    """``fn``'s device time per call and the names of its kernels (and
-    memsets), from the profiler over ``iters`` calls after one warm-up. Host
-    time between kernels is not counted. A window can lose launches (seen on
-    the card: the last of five calls' kernels in most windows, or two of five
-    of K4's in every window of phase 6), so each window starts and ends with
-    short spin kernels that are left out, and a window counts whole only
-    where every kernel was recorded a multiple of ``iters`` times: then the
-    time is the sum over ``iters``. After three windows that are not whole,
-    the time is each kernel's mean recorded duration times its launches per
-    call (its count over ``iters``, rounded up), and that is printed. A
-    window that recorded nothing at all is a failure. With ``per_kernel``,
-    also each kernel's (or memset's) device time per call, by name."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(4):
-                torch.cuda._sleep(2000)
-            for _ in range(iters):
-                fn()
-            for _ in range(4):
-                torch.cuda._sleep(2000)
-            torch.cuda.synchronize()
-        durations = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.name:
-                durations.setdefault(e.name, []).append(e.time_range.elapsed_us() * 1e-3)
-        names = "; ".join(sorted({n[:80] for n in durations}))
-        if durations and all(len(d) % iters == 0 for d in durations.values()):
-            total = sum(sum(d) for d in durations.values()) / iters
-            if per_kernel:
-                return total, names, {n[:60]: sum(d) / iters for n, d in durations.items()}
-            return total, names
-        print(f"[profiler] window {attempt + 1} recorded "
-              f"{sum(len(d) for d in durations.values())} device kernels of {len(durations)} "
-              f"names over {iters} calls, not a whole number a call", flush=True)
-    check(bool(durations), "the profiler recorded no device kernel")
-    each = {n[:60]: math.ceil(len(d) / iters) * sum(d) / len(d) for n, d in durations.items()}
-    total = sum(each.values())
-    print(f"[profiler] taking each kernel's mean recorded duration times its launches per call: "
-          f"{total:.4f} ms", flush=True)
-    return (total, names, each) if per_kernel else (total, names)
-
-
-def sdpa_bwd(q, k, v, do, iters: int):
-    """The library's attention on the same tensors (scale 1 on the
-    prescaled q, dropout 0), with autograd on: the forward's and the
-    backward's (dq, dk and dv from one saved forward) device times per call
-    from the profiler, and the backward's kernels."""
-    qs = (q * torch.tensor(K6_SCALE, dtype=torch.bfloat16)).detach().requires_grad_()
-    kk, vv = k.detach().requires_grad_(), v.detach().requires_grad_()
-
-    def fwd():
-        return torch.nn.functional.scaled_dot_product_attention(qs, kk, vv, scale=1.0)
-
-    out = fwd()
-    fwd_ms, _ = device_ms(fwd, iters)
-    bwd_ms, backend = device_ms(
-        lambda: torch.autograd.grad(out, (qs, kk, vv), do, retain_graph=True), iters)
-    return fwd_ms, bwd_ms, backend
-
-
-def phase_k78(fa):
-    """K7/K8 against their twins at the C1 shape (dropout 0 and 0.1), the
-    rectangular C3 shape, a ragged one and two that cut the 128-row blocks
-    (dropout 0 and 0.25), a second launch bitwise equal, and the
-    projections' [B, S, H, D] layout seen through a transpose bitwise equal
-    to the contiguous case; K6 at the C1 shape with dropout; timings (CUDA
-    events and the profiler's device time) beside the four-floor bounds, the
-    twins and SDPA. Returns the K7 and K8 rows and K6's C1 readings."""
-    rng = np.random.default_rng(5)
-    seed = torch.tensor([7], dtype=torch.int32, device="cuda")  # drawn on the card in C1
-    cases = (("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), 0.0),
-             ("c1", (C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS), C1_RATE),
-             ("rect", (1, C3_HEADS, C3_TOKENS, 4096), 0.0),
-             ("ragged", (1, 16, 300, 180), 0.0),
-             ("cut", (1, 4, 200, 130), 0.0), ("cut", (1, 4, 200, 130), 0.25),
-             ("cut2", (1, 2, 1000, 1030), 0.0), ("cut2", (1, 2, 1000, 1030), 0.25))
-    err = {"K7": 0.0, "K8": 0.0}
-    inputs = {}
-    for name, (b, heads, sq, sk), rate in cases:
-        if name not in inputs:
-            inputs[name] = k78_inputs(rng, b, heads, sq, sk)
-        q, k, v, do = inputs[name]
-        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed)
-        delta = fa.attention_delta(o, do)
-        args = (q, k, v, do, lse, delta, K6_SCALE, rate, seed)
-        dq, (dk, dv) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
-        dq2, (dk2, dv2) = fa.flash_attention_bwd_dq(*args), fa.flash_attention_bwd_dkv(*args)
-        torch.cuda.synchronize()
-        tq = fa.flash_attention_bwd_dq_plain(*args)
-        tk, tv = fa.flash_attention_bwd_dkv_plain(*args)
-        same = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
-        parts = []
-        for what, got, want in (("dq", dq, tq), ("dk", dk, tk), ("dv", dv, tv)):
-            e = float((got.float() - want.float()).abs().max())
-            lim = TOL_K78_REL * float(want.float().abs().max())
-            parts.append(f"{what} {e:.3e} (limit {lim:.3e})")
-            check(bool(torch.isfinite(got.float()).all()), f"K7/K8 {what} not finite at {name}")
-            check(e <= lim, f"K7/K8 {what} disagrees with its twin at {name}, dropout {rate}")
-            kname = "K7" if what == "dq" else "K8"
-            err[kname] = max(err[kname], e)
-        print(f"[k78] {name} batch {b} heads {heads} Sq {sq} Sk {sk} dropout {rate}: max|kernel - "
-              f"twin| {', '.join(parts)} (limits {TOL_K78_REL} max|twin|); second launches "
-              f"bitwise equal: {same}", flush=True)
-        check(same, f"K7/K8 are not bitwise repeatable at {name}")
-        if name == "cut":  # the projections' layout, as the transformer feeds it
-            views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v, do)]
-            vargs = (*views, lse, delta, K6_SCALE, rate, seed)
-            dq_v, (dk_v, dv_v) = fa.flash_attention_bwd_dq(*vargs), fa.flash_attention_bwd_dkv(*vargs)
-            torch.cuda.synchronize()
-            same_v = torch.equal(dq, dq_v) and torch.equal(dk, dk_v) and torch.equal(dv, dv_v)
-            print(f"[k78] {name} dropout {rate}: [B, S, H, D] inputs seen through a transpose "
-                  f"bitwise equal to the contiguous case: {same_v}", flush=True)
-            check(same_v, f"K7/K8 differ on transposed views at {name}, dropout {rate}")
-        del o, lse, delta, dq, dk, dv, dq2, dk2, dv2, tq, tk, tv
-
-    # K6 at the C1 shape with dropout: no path launched it with dropout before C1
-    q, k, v, do = inputs["c1"]
-    o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, C1_RATE, seed)
-    o2, lse2 = fa.flash_attention_fwd(q, k, v, K6_SCALE, C1_RATE, seed)
-    torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, C1_RATE, seed)
-    e_o, e_l = float((o.float() - o_p.float()).abs().max()), float((lse - lse_p).abs().max())
-    lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
-    same = torch.equal(o, o2) and torch.equal(lse, lse2)
-    print(f"[k78] K6 at the C1 shape, dropout {C1_RATE}: max|o - twin| {e_o:.3e} (limit "
-          f"{lim_o:.3e}), max|lse - twin| {e_l:.3e} (limit {TOL_K6_LSE}); second launch bitwise "
-          f"equal: {same}", flush=True)
-    check(e_o <= lim_o and e_l <= TOL_K6_LSE and same, "K6 with dropout disagrees with its twin")
-    del o2, lse2, o_p, lse_p
-
-    clock = sm_clock_hz()
-    bh = C1_BATCH * C3_HEADS
-    times = {}  # rate -> kernel -> (event ms, device ms, twin ms)
-    for rate in (C1_RATE, 0.0):
-        o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed)
-        delta = fa.attention_delta(o, do)
-        args = (q, k, v, do, lse, delta, K6_SCALE, rate, seed)
-        calls = {"K6": (lambda: fa.flash_attention_fwd(q, k, v, K6_SCALE, rate, seed),
-                        lambda: fa.flash_attention_fwd_plain(q, k, v, K6_SCALE, rate, seed)),
-                 "K7": (lambda: fa.flash_attention_bwd_dq(*args),
-                        lambda: fa.flash_attention_bwd_dq_plain(*args)),
-                 "K8": (lambda: fa.flash_attention_bwd_dkv(*args),
-                        lambda: fa.flash_attention_bwd_dkv_plain(*args))}
-        times[rate] = {name: (cuda_ms(fn, 20), device_ms(fn, 20)[0], cuda_ms(plain, 2))
-                       for name, (fn, plain) in calls.items()}
-    lib_fwd, lib_bwd, backend = sdpa_bwd(q, k, v, do, 20)
-    bounds = {rate: {name: flash_bound_ms(name, bh, C1_TOKENS, C1_TOKENS, rate > 0, clock)
-                     for name in ("K6", "K7", "K8")}
-              for rate in (C1_RATE, 0.0)}
-    for name in ("K6", "K7", "K8"):
-        for rate in (C1_RATE, 0.0):
-            ms, dev, plain = times[rate][name]
-            bnd, floor = bounds[rate][name]
-            print(f"[k78] {name} at the C1 shape, dropout {rate}: kernel {ms:.4f} ms by events, "
-                  f"{dev:.4f} ms device time ({bnd / dev:.2%} of the bound), bound {bnd:.4f} ms "
-                  f"({floor}; SM clock {clock * 1e-6:.0f} MHz), plain twin {plain:.3f} ms",
-                  flush=True)
-    k78_dev = times[0.0]["K7"][1] + times[0.0]["K8"][1]
-    print(f"[k78] library at the C1 shape, dropout 0, autograd on, device time of its kernels "
-          f"(profiler): scaled_dot_product_attention forward {lib_fwd:.4f} ms (K6 / SDPA "
-          f"{times[0.0]['K6'][1] / lib_fwd:.2f}), backward {lib_bwd:.4f} ms (dq, dk and dv; K7 + K8 "
-          f"{k78_dev:.4f} ms device time, (K7 + K8) / SDPA backward {k78_dev / lib_bwd:.2f}) "
-          f"[backward: {backend}]", flush=True)
-
-    q, k, v, do = inputs["rect"]
-    o, lse = fa.flash_attention_fwd(q, k, v, K6_SCALE)
-    delta = fa.attention_delta(o, do)
-    args = (q, k, v, do, lse, delta, K6_SCALE)
-    rect = {"K7": fa.flash_attention_bwd_dq, "K8": fa.flash_attention_bwd_dkv}
-    rect = {name: (cuda_ms(lambda: fn(*args), 10), device_ms(lambda: fn(*args), 10)[0])
-            for name, fn in rect.items()}
-    plain_rect = {"K7": cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args), 1),
-                  "K8": cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args), 1)}
-    _, lib_rect, _ = sdpa_bwd(q, k, v, do, 10)
-    b_rect = {name: flash_bound_ms(name, C3_HEADS, C3_TOKENS, 4096, False, clock)
-              for name in ("K7", "K8")}
-    rect_dev = rect["K7"][1] + rect["K8"][1]
-    print(f"[k78] at {C3_HEADS} heads x {C3_TOKENS} x 4096: K7 {rect['K7'][0]:.3f} ms by events, "
-          f"{rect['K7'][1]:.3f} ms device time (bound {b_rect['K7'][0]:.3f}, {b_rect['K7'][1]}; "
-          f"twin {plain_rect['K7']:.3f}), K8 {rect['K8'][0]:.3f} ms, {rect['K8'][1]:.3f} ms "
-          f"(bound {b_rect['K8'][0]:.3f}, {b_rect['K8'][1]}; twin {plain_rect['K8']:.3f}); SDPA "
-          f"backward {lib_rect:.3f} ms device time, (K7 + K8) / SDPA {rect_dev / lib_rect:.2f}",
-          flush=True)
-    rows = []
-    for name, call_line in (("K7", 261), ("K8", 281)):
-        ms, dev, plain = times[C1_RATE][name]
-        bnd, floor = bounds[C1_RATE][name]
-        bnd0, floor0 = bounds[0.0][name]
-        rows.append({
-            "name": name, "route": "cuda", "source": "tgtc_torch/csrc/flash_attention.cu",
-            "replaces": f"tgtc/ops/pallas/flash_attention.py:{call_line}",
-            "wrapper": ("tgtc_torch.ops.kernels.flash_attention." +
-                        ("flash_attention_bwd_dq" if name == "K7" else "flash_attention_bwd_dkv")),
-            "shape": [C1_BATCH, C3_HEADS, C1_TOKENS, C1_TOKENS, D_HEAD], "dropout": C1_RATE,
-            "max_abs_err": err[name], "max_err": err[name],
-            "ms": ms, "device_ms": dev, "ms_no_dropout": times[0.0][name][0],
-            "device_ms_no_dropout": times[0.0][name][1], "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": "bytes" if floor == "hbm" else "operations",
-            "bound_floor": floor,
-            "bound_ms_no_dropout": bnd0, "bound_floor_no_dropout": floor0,
-            "sm_clock_mhz": clock * 1e-6,
-            "library_ms": lib_bwd,
-            "library": "scaled_dot_product_attention backward (dq, dk, dv), device time "
-                       "from the profiler",
-            "library_backend": backend, "k7_k8_over_library_no_dropout": k78_dev / lib_bwd,
-            "shape_rect": [C3_HEADS, C3_TOKENS, 4096, D_HEAD], "ms_rect": rect[name][0],
-            "device_ms_rect": rect[name][1], "plain_ms_rect": plain_rect[name],
-            "bound_ms_rect": b_rect[name][0], "bound_floor_rect": b_rect[name][1],
-            "library_ms_rect": lib_rect, "k7_k8_over_library_rect": rect_dev / lib_rect,
-        })
-    k6_c1 = {"ms_c1": times[C1_RATE]["K6"][0], "device_ms_c1": times[C1_RATE]["K6"][1],
-             "ms_c1_no_dropout": times[0.0]["K6"][0],
-             "device_ms_c1_no_dropout": times[0.0]["K6"][1],
-             "plain_ms_c1": times[C1_RATE]["K6"][2], "bound_ms_c1": bounds[C1_RATE]["K6"][0],
-             "bound_floor_c1": bounds[C1_RATE]["K6"][1],
-             "bound_ms_c1_no_dropout": bounds[0.0]["K6"][0],
-             "bound_floor_c1_no_dropout": bounds[0.0]["K6"][1],
-             "max_abs_err_c1_dropout": e_o, "library_ms_c1": lib_fwd}
-    return rows, k6_c1
 
 
 def write_styles(root: str, n: int = 8) -> str:
@@ -2054,8 +1012,7 @@ def phase_c1(fa, geo_dir: str, root: str):
     then the fixed-batch witnesses, all with cuDNN's deterministic
     algorithms (``cudnn.deterministic`` on, ``benchmark`` off; both restored
     after), so that the trained state the witnesses read repeats from run
-    to run. Returns the counted run's launches, its steps/s and the collages
-    it wrote."""
+    to run. Returns the C1 checkpoint and the styles' directory."""
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
@@ -2086,37 +1043,25 @@ def _phase_c1(fa, geo_dir: str, root: str):
             "--n_threads", "8"]
     counters = {"K6": fa.flash_attention_fwd, "K7": fa.flash_attention_bwd_dq,
                 "K8": fa.flash_attention_bwd_dkv}
-    t0 = time.perf_counter()
     check(train2d.main(argv + ["--max_iter", str(C1_WARM)], device="cuda") == 0, "C1 warm-up")
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     total = C1_WARM + C1_STEPS
     check(train2d.main(argv + ["--max_iter", str(total)], device="cuda") == 0, "C1 counted run")
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
     collages = len([s for s in range(C1_WARM + 1, total + 1) if s % 100 == 0 or s == total])
     with open(os.path.join(log, "transformer.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
     counted = [r for r in records if r["step"] > C1_WARM]
-    ends = [C1_WARM] + [r["step"] for r in counted]
-    sizes = np.diff(ends)
-    loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, counted)))
-    steps_per_s = float(sizes.sum()) / loop_s
+    sizes = np.diff([C1_WARM] + [r["step"] for r in counted])  # log windows
     ckpt = os.path.join(save, "transformer", f"ckpt_{total:08d}.pt")
     pngs = [os.path.join(log, f"{s}.png") for s in (C1_WARM, 100, total)]
     print(f"[c1] StyTrans d_model 512, 8 heads, 3+3 layers, FFN 2048, dropout {C1_RATE}, bf16, "
           f"flash, random VGG and decoder, cudnn.deterministic True and benchmark False; batch "
           f"{C1_BATCH} of 256x256 crops from "
-          f"{len(os.listdir(content))} renders and 8 styles: {C1_WARM} warm-up steps in "
-          f"{warm_s:.2f} s (call, build and set-up included), then {C1_STEPS} steps in "
-          f"{run_s:.2f} s (call, restore and the final save included), of which the loop "
-          f"{loop_s:.3f} s: {steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.2f} ms a step); per "
-          f"log window (steps: steps/s) "
-          + ", ".join(f"{n}: {r['steps_per_s']:.3f}" for n, r in zip(sizes, counted))
+          f"{len(os.listdir(content))} renders and 8 styles: {C1_WARM} warm-up steps, then "
+          f"{C1_STEPS} steps resumed, logged in windows of {', '.join(str(n) for n in sizes)}"
           + f"; launches K6 {launches['K6']} K7 {launches['K7']} K8 {launches['K8']} (expect "
           f"{c1_loop_launches(C1_STEPS)} + {C3_SITES} x {collages} collages, "
           f"{c1_loop_launches(C1_STEPS)}, {c1_loop_launches(C1_STEPS)}: the eager first step "
@@ -2162,10 +1107,8 @@ def _phase_c1(fa, geo_dir: str, root: str):
     kernel = tr.flash_attention
     tr.flash_attention = fa.flash_attention_plain
     try:
-        t0 = time.perf_counter()
         m_t, g_t = step.loss_and_grad(model, *batch, step.generator(5, 0))
         torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t0
     finally:
         tr.flash_attention = kernel
     dl = abs(float(m_k["loss"]) - float(m_t["loss"])) / abs(float(m_t["loss"]))
@@ -2173,7 +1116,7 @@ def _phase_c1(fa, geo_dir: str, root: str):
     attn = attn_leaf_errors(names, g_k, g_t)
     print(f"[c1] step {state.step}, one fixed batch and generator: launches in the step K6 "
           f"{step_launches['K6']} K7 {step_launches['K7']} K8 {step_launches['K8']}; vs the same "
-          f"step with the twins' attention on the card ({twin_s:.2f} s): loss "
+          f"step with the twins' attention on the card: loss "
           f"{float(m_k['loss']):.6f} vs {float(m_t['loss']):.6f} (relative {dl:.3e}, limit "
           f"{TOL_C1_LOSS}); over {len(names)} trained leaves: cosine of the whole gradient "
           f"{cos_all:.7f} (limit {TOL_C1_COS}), worst leaf |err| / max(|g|, median leaf |g|) "
@@ -2245,7 +1188,7 @@ def _phase_c1(fa, geo_dir: str, root: str):
     print(f"[c1] {C1_OVERFIT} steps on one fixed batch: mean loss of the first 5 {first:.5f}, of "
           f"the last 5 {last:.5f}", flush=True)
     check(all(math.isfinite(x) for x in losses) and last < first, "C1 overfit loss did not fall")
-    return launches, steps_per_s, collages, ckpt, styles
+    return ckpt, styles
 
 
 def load_rgb(path: str, size=None) -> np.ndarray:
@@ -2265,8 +1208,7 @@ def grad_cosines(got, ref):
 def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
     """Phase C2 at full width through train.temporal.run_temporal_finetune
     from phase 11's trained state, then the splat and step witnesses.
-    Returns the finetuned model, the loop's K6/K7/K8 launches and its
-    steps/s."""
+    Returns the finetuned model."""
     import tgtc_torch.models.transformer as tr
     from tgtc_torch.models.stytrans import make_stytrans
     from tgtc_torch.ops import rasterize as rz
@@ -2288,18 +1230,14 @@ def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     tp.run_temporal_finetune(model, renders, coor_maps, cps, styles, (H, W, FOCAL), ccfg,
                              seed=C2_SEED, is_ndc=True, out_dir=out, device="cuda",
                              log_every=C2_PRINT)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
     with open(os.path.join(out, "logs", "temporal.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
     counted = [r for r in records if r["step"] > C2_WARM]
-    loop_s = float(sum(C2_PRINT / r["steps_per_s"] for r in counted))
-    steps_per_s = C2_PRINT * len(counted) / loop_s
     moved = sorted({k.split(".")[0] for k, v in model.state_dict().items()
                     if not torch.equal(v, before[k])})
     pngs = [f"{n}_{b:03d}.png" for n in tp.DEBUG_IMAGES for b in range(ccfg.batch_size)]
@@ -2308,10 +1246,9 @@ def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
           f"flash, from phase 11's state: {ccfg.max_iter} steps of batch {ccfg.batch_size} x "
           f"{ccfg.patch}x{ccfg.patch} patches of {renders.shape[0]} {H}x{W} renders, "
           f"{len(style_files)} 512x512 styles, temporal weight {ccfg.temporal_weight}, splat "
-          f"radius {ccfg.splat_radius}, threshold {ccfg.space_dist_threshold}: {run_s:.2f} s "
-          f"(call, set-up and the debug dumps included); steps {C2_WARM + 1}-{ccfg.max_iter} "
-          f"in {loop_s:.3f} s over the log windows: {steps_per_s:.3f} steps/s "
-          f"({1e3 / steps_per_s:.2f} ms a step); launches K6 {launches['K6']} K7 "
+          f"radius {ccfg.splat_radius}, threshold {ccfg.space_dist_threshold}: steps "
+          f"{C2_WARM + 1}-{ccfg.max_iter} in {len(counted)} log windows; launches K6 "
+          f"{launches['K6']} K7 "
           f"{launches['K7']} K8 {launches['K8']} (expect {C1_SITES} x ({ccfg.max_iter} steps + "
           f"1 debug pass), 0, 0); loss {records[0]['loss']:.4f} at step {records[0]['step']} "
           f"-> {records[-1]['loss']:.4f}, loss_t {records[0]['loss_t']:.5f} -> "
@@ -2338,11 +1275,7 @@ def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
     feats = torch.cat([content[0].reshape(-1, 3), pcl], dim=-1)
     proj = torch.from_numpy(rz.llff_projection_matrix(H, W, FOCAL))
     w2c = torch.linalg.inv(cps_b.cpu())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     win = rz.splat_winners(pcl, w2c.cuda(), proj.cuda(), H, W, ccfg.splat_radius)
-    torch.cuda.synchronize()
-    splat_ms = (time.perf_counter() - t0) * 1e3
     win2 = rz.splat_winners(pcl, w2c.cuda(), proj.cuda(), H, W, ccfg.splat_radius)
     win_cpu = rz.splat_winners(pcl.cpu(), w2c, proj, H, W, ccfg.splat_radius)
     n = pcl.shape[0]
@@ -2362,8 +1295,8 @@ def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
     (y0, x0), p = batch.origin, ccfg.patch
     coverage = float((own[y0: y0 + p, x0: x0 + p] < n).float().mean())
     print(f"[c2] splat of the first step's cloud ({n} points, {ccfg.batch_size} views of "
-          f"{H}x{W}, radius {ccfg.splat_radius}, one w2c): {splat_ms:.2f} ms on the card "
-          f"(first call); card vs CPU: hit masks differ at {mask_share:.3e} of the pixels "
+          f"{H}x{W}, radius {ccfg.splat_radius}, one w2c), card vs CPU: hit masks differ at "
+          f"{mask_share:.3e} of the pixels "
           f"(limit {TOL_SPLAT_MASK}), winners equal at {float(same.float().mean()):.6f}, warped "
           f"features equal where the winners are: {feats_equal}; a second card splat bitwise "
           f"equal: {torch.equal(win, win2)}; rasterize_warp with each device's own pose "
@@ -2413,12 +1346,12 @@ def phase_c2(fa, geo_dir: str, c1_ckpt: str, styles_dir: str, root: str):
     check(dl <= TOL_C1_LOSS and cos >= TOL_C1_COS,
           "C2 step disagrees with the twin-attention step")
     del g_k, g_t, g_r, dev_arrays
-    return model, launches, steps_per_s
+    return model
 
 
 def phase_c3c2(fa, model, geo_dir: str, styles_dir: str, root: str):
     """Phase C3 with phase 12's decoder over phase 5's views and all eight
-    styles. Returns the launches, seconds per view and the style features."""
+    styles. Returns the style features."""
     from PIL import Image
 
     from tgtc_torch.train import stylize as st
@@ -2428,18 +1361,15 @@ def phase_c3c2(fa, model, geo_dir: str, styles_dir: str, root: str):
     views = sorted(f for f in os.listdir(geo_dir) if f.startswith("rgb_"))
     out = os.path.join(root, "stylized_c2")
     fa.flash_attention_fwd.launches = 0
-    t0 = time.perf_counter()
     res = st.stylize_all(model, geo_dir, style_imgs, style_files, out, device="cuda")
-    loop_s = time.perf_counter() - t0
     launches = fa.flash_attention_fwd.launches
     jpgs = [os.path.join(out, f"style_{s:02d}", f"{i + 1:03d}.jpg")
             for s in range(len(style_files)) for i in range(len(views))]
     sizes = [Image.open(p).size for p in jpgs if os.path.exists(p)]
     feats = res["style_features"]
-    per_view = loop_s / len(jpgs)
     print(f"[c3c2] stylize_all with phase 12's decoder: {len(views)} views x "
-          f"{len(style_files)} styles in {loop_s:.3f} s, {per_view:.4f} s per view and style with "
-          f"the JPEG writes; {len(sizes)} of {len(jpgs)} JPEGs at {W}x{H}; style_features "
+          f"{len(style_files)} styles: {len(sizes)} of {len(jpgs)} JPEGs at {W}x{H}; "
+          f"style_features "
           f"{feats.shape} finite {bool(np.isfinite(feats).all())}; K6 launches {launches} "
           f"(expect {C3_SITES} x {len(jpgs)})", flush=True)
     check(len(sizes) == len(jpgs) and all(sz == (W, H) for sz in sizes),
@@ -2447,14 +1377,14 @@ def phase_c3c2(fa, model, geo_dir: str, styles_dir: str, root: str):
     check(feats.shape == (len(style_files), 1024) and bool(np.isfinite(feats).all()),
           "C3 after C2: style_features")
     check(launches == C3_SITES * len(jpgs), f"C3 after C2 launched K6 {launches} times")
-    return launches, per_view, feats
+    return feats
 
 
 def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, root: str):
     """Phase D: the VAE through tools/train2d's vae task at the pipeline's
     settings, the card step against the CPU step, the latent table seeded
     from phase 13's features, and a stylized frame rendered from it.
-    Returns the VAE's steps/s and the frame's K4/K5 launches."""
+    Returns the VAE checkpoint."""
     import contextlib
 
     from tgtc_torch.data.prefetch import load_crop
@@ -2473,31 +1403,20 @@ def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, 
             "21", "--n_threads", "8"]
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as a user's run has it
     quiet = open(os.path.join(root, "d_stdout.txt"), "w")
-    t0 = time.perf_counter()
     with quiet, contextlib.redirect_stdout(quiet):  # one log line a step
         check(train2d.main(argv + ["--max_iter", str(D_WARM)], device="cuda") == 0,
               "VAE warm-up")
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         check(train2d.main(argv + ["--max_iter", str(D_STEPS)], device="cuda") == 0,
-              "VAE counted run")
-        torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+              "VAE resumed run")
     with open(os.path.join(log, "vae.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
-    counted = [r for r in records if r["step"] > D_WARM]
-    loop_s = float(sum(1 / r["steps_per_s"] for r in counted))
-    steps_per_s = len(counted) / loop_s
     losses = [r["loss"] for r in records]
     first, last = float(np.mean(losses[:100])), float(np.mean(losses[-100:]))
     ckpt = os.path.join(save, "vae", f"ckpt_{D_STEPS:08d}.pt")
     print(f"[d] VAE 1024 -> 512 x3 -> 32 (kl 0.1, lr 1e-3, batch 8) on VGG relu4_1 features "
           f"of 256x256 crops of {len(os.listdir(styles_dir))} styles resized to 512: {D_WARM} "
-          f"warm-up steps in {warm_s:.2f} s, then {D_STEPS - D_WARM} steps in {run_s:.2f} s "
-          f"(call, restore and the final save included), of which the loop {loop_s:.3f} s: "
-          f"{steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.3f} ms a step, one log fetch a "
-          f"step); mean loss of the first 100 steps {first:.4f}, of the last 100 {last:.4f}",
+          f"warm-up steps, then {D_STEPS - D_WARM} steps resumed; mean loss of the first 100 "
+          f"steps {first:.4f}, of the last 100 {last:.4f}",
           flush=True)
     check(len(records) == D_STEPS and [r["step"] for r in records] == list(range(1, D_STEPS + 1)),
           "the VAE log does not hold every step")
@@ -2564,20 +1483,17 @@ def phase_d(ks, kst, trained, styles_dir: str, feats: np.ndarray, n_views: int, 
                 "K4": kst.fused_style_apply_t, "K5": kst.fused_sigma_apply_t}
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     frame = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
     torch.cuda.synchronize()
-    frame_s = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
-    print(f"[d] stylized {H}x{W} frame of style 0 from the seeded table: {frame_s * 1e3:.1f} ms "
-          f"(first frame of this renderer), launches "
+    print(f"[d] stylized {H}x{W} frame of style 0 from the seeded table: launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
     check(launches == {"K1": 0, "K2": 0, "K4": blocks, "K5": blocks},
           f"seeded-latent frame launch counts {launches}")
     check(bool(torch.isfinite(frame["rgb"]).all()), "seeded-latent frame not finite")
     stylized_vs_eager(renderer, trained, concat, style, fo, fd, frame, "d",
                       "seeded-latent frame")
-    return steps_per_s, launches, ckpt
+    return ckpt
 
 
 class W128Launches:
@@ -2616,7 +1532,7 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     steps, then 300 counted steps resumed from the warm-up's checkpoint; the
     card step against the CPU step; a 756x1008 frame of style 0 from the
     trained field through phase 7's renderer settings; a checkpoint round
-    trip. Returns Phase-E steps/s, the frame's launches and its rays/s."""
+    trip."""
     from tgtc_torch.config import load_config
     from tgtc_torch.data.llff import load_llff_data
     from tgtc_torch.data.rays import rays_for_poses
@@ -2632,7 +1548,7 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     origin = cfg.origin_step
     # the coherence gate after the warm-up (fern's is origin + 1999): at
     # λ_coh 1e2 the coherence gradient owns the update while it is on (the
-    # diagnostic reads it), and the counted loop times the plain regime that
+    # diagnostic reads it), and the counted loop runs the plain regime that
     # holds 6,000 of the reference's 8,000 Phase-E steps
     cfg = dataclasses.replace(cfg, coh_until_step=origin + E_WARM - 1)
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default: full f32 matmuls
@@ -2662,28 +1578,20 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     out = os.path.join(root, "e_run")
     counters = all_counters(ks, kg, kst, fa)
     lines = []
-    t0 = time.perf_counter()
     state, warm = s3.run_style3d(dataclasses.replace(cfg, total_step=origin + E_WARM), scene,
                                  geo_dir, styles_dir, *nerf, vae, out, device="cuda",
                                  print_fn=lines.append)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     state, hist = s3.run_style3d(dataclasses.replace(cfg, total_step=origin + E_WARM + E_STEPS),
                                  scene, geo_dir, styles_dir, *nerf, vae, out, device="cuda",
                                  print_fn=lines.append)
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
     step_launches = {n: c.launches for n, c in counters.items()}
     with open(os.path.join(out, "logs", "style.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
     diag = records[0]
-    ends = [origin + E_WARM] + [r["step"] for r in hist["records"]]
-    sizes = np.diff(ends)
-    loop_s = float(sum(n / r["steps_per_s"] for n, r in zip(sizes, hist["records"])))
-    steps_per_s = float(sizes.sum()) / loop_s
+    sizes = np.diff([origin + E_WARM] + [r["step"] for r in hist["records"]])  # log windows
     losses = {k: warm[k] + hist[k] for k in s3.LOSSES}
     first, last = (float(np.mean(losses["loss_rgb"][sl])) for sl in (slice(0, 50),
                                                                      slice(-50, None)))
@@ -2695,18 +1603,13 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
         cnt = 1 if cnt == len(scene.images) else cnt + 1
     unchanged = all(torch.equal(v, b[k]) for m, b in zip(nerf, before)
                     for k, v in m.state_dict().items())
-    windows = lambda recs, ns: ", ".join(f"{n}: {r['steps_per_s']:.2f}" for n, r in zip(ns, recs))
     coh_min = min(x for x, on in zip(losses["loss_coh"], active) if on)
     print(f"[e] {scene.images.shape[0]} views x {state.latents.shape[0]} styles of {H}x{W}: "
           f"coherence diagnostic at step {diag['step']}: ratio {diag.get('coh_grad_ratio')} "
           f"(|grad coh| {diag.get('grad_norm_coh')}, |grad rgb| {diag.get('grad_norm_rgb')}, "
-          f"warning above {s3.COH_RATIO_WARN}); {E_WARM} warm-up steps in {warm_s:.2f} s "
-          f"(set-up and the diagnostic included; the coherence term on; steps/s per log "
-          f"window, by its last step: "
-          f"{windows(warm['records'], [r['step'] for r in warm['records']])}), then {E_STEPS} "
-          f"steps in {run_s:.2f} s (call, restore and the final save included), of which the "
-          f"loop {loop_s:.3f} s: {steps_per_s:.3f} steps/s ({1e3 / steps_per_s:.3f} ms a step); "
-          f"per log window (steps: steps/s) {windows(hist['records'], sizes)}; loss_coh "
+          f"warning above {s3.COH_RATIO_WARN}); {E_WARM} warm-up steps (the coherence term "
+          f"on), then {E_STEPS} steps resumed, logged in windows of "
+          f"{', '.join(str(n) for n in sizes)}; loss_coh "
           f"{losses['loss_coh'][0]} at the first step, 0 at "
           f"{sum(x == 0.0 for x in losses['loss_coh'])} of {len(active)} steps (expect "
           f"{active.count(False)}), min over the active steps {coh_min:.5f}; mean loss_rgb of "
@@ -2774,13 +1677,11 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     blocks = math.ceil(fo.shape[0] / BLOCK)
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     frame = renderer.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED)
     torch.cuda.synchronize()
-    frame_s = time.perf_counter() - t0
     launches = {n: c.launches for n, c in counters.items()}
     print(f"[e] stylized {H}x{W} frame of style 0 from the trained field (checkpoint at step "
-          f"{state.step}): {frame_s * 1e3:.1f} ms (first frame of this renderer), launches "
+          f"{state.step}): launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items()), flush=True)
     check(launches == {**{k: 0 for k in counters}, "K4": blocks, "K5": blocks},
           f"trained-field frame launch counts {launches}")
@@ -2798,7 +1699,6 @@ def phase_e(ks, kg, kst, fa, trained, root: str, styles_dir: str, vae_ckpt: str)
     print(f"[e] checkpoint round trip at step {state.step}: render of {BLOCK} rays bitwise "
           f"equal: {same}", flush=True)
     check(same, "the Phase-E checkpoint renders differently from the trained state")
-    return steps_per_s, launches, fo.shape[0] / frame_s
 
 
 def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
@@ -2814,14 +1714,14 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
     Runs: Pipeline.train_nerf() and _run_after_nerf() (A, evaluate, B, C1,
     C2, C3, D, E); cli.main([... "--render_train_style"]) (F);
     cli.main([... "--render_train"]) (plain renders); cli.main([...]) again
-    (the re-entry run). Each phase method is wrapped here to time it (a
-    device sync at each end), read its peak allocated bytes and its kernel
-    launches; each run's launch counts are zeroed just before it and read
+    (the re-entry run). Each phase method is wrapped here to read its peak
+    allocated bytes and its kernel launches (a device sync at each end);
+    each run's launch counts are zeroed just before it and read
     just after, and must equal the sum of its phases'. Checks every phase's
     artifacts, checkpoint steps and launches, F's first 32,768-ray block
     against the eager f32 stylized render (phase 7's bounds), and that the
     re-entry run adds no checkpoint and no training log line. Returns the
-    launches of the four runs summed per kernel and the printed numbers."""
+    run's argv and experiment directory."""
     import functools
     import json as _json
 
@@ -2852,20 +1752,20 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
     phases, runs, run = {}, {}, ["A-E"]
     first_block, turntables, streamed = {}, [], []
 
-    def timed(name, fn):
+    def watched(name, fn):
         @functools.wraps(fn)
         def wrapper(*a, **kw):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            held, before, t0 = torch.cuda.memory_allocated(), read(), time.perf_counter()
+            held, before = torch.cuda.memory_allocated(), read()
             try:
                 return fn(*a, **kw)
             finally:
                 torch.cuda.synchronize()
                 after = read()
                 phases[(run[0], name)] = dict(
-                    seconds=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(),
-                    held=held, launches={k: after[k] - before[k] for k in after})
+                    peak=torch.cuda.max_memory_allocated(), held=held,
+                    launches={k: after[k] - before[k] for k in after})
         return wrapper
 
     def turntable(fn):
@@ -2899,10 +1799,9 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
         for c in counters.values():
             c.launches = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        runs[name] = dict(seconds=time.perf_counter() - t0, launches=read())
+        runs[name] = dict(launches=read())
         summed = dict(zero)
         for (r, _), rec in phases.items():
             if r == name:
@@ -2931,7 +1830,7 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
                                   (video.StreamingGifWriter, "add")]}
     try:
         for (obj, name), phase in wrapped.items():
-            setattr(obj, name, timed(phase, originals[(obj, name)]))
+            setattr(obj, name, watched(phase, originals[(obj, name)]))
         P.Pipeline._write_turntable = turntable(originals[(P.Pipeline, "_write_turntable")])
         video.StreamingGifWriter.add = counting(originals[(video.StreamingGifWriter, "add")])
         drive("A-E", run_a_to_e)
@@ -3051,37 +1950,15 @@ def phase_pipeline(ks, kg, kst, fa, root: str, card: str):
                            b["fid"], b["u"], b["rgb"], b["t_exp"], "pipeline",
                            "the pipeline's first Phase-F block")
 
-    # ---- the numbers
     rec = lambda p: phases[(run_of.get(p, "A-E"), p)]
     gb = lambda n: n / 2 ** 30
-    total = runs["A-E"]["seconds"]
-    f_per_frame = rec("F")["seconds"] / (PIPE_STYLES * PIPE_VIEWS)
-    print(f"[pipeline] {card}: wall seconds " + ", ".join(
-        f"{p} {rec(p)['seconds']:.3f}" for p in PIPE_PHASES) + f"; the A→E run {total:.3f} s "
-        f"(with the scene load and set-up; the re-entry run {runs['reentry']['seconds']:.3f} "
-        f"s); F {f_per_frame:.3f} s a frame ({PIPE_STYLES * PIPE_VIEWS} frames, with the "
-        f"PNG writes and the streamed GIF)", flush=True)
     print(f"[pipeline] {card}: peak allocated GiB (held at the phase's start) " + ", ".join(
         f"{p} {gb(rec(p)['peak']):.2f} ({gb(rec(p)['held']):.2f})" for p in PIPE_PHASES),
         flush=True)
-    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in counters}
-    return launches, {"a_to_e_s": total, "f_s_per_frame": f_per_frame, "argv": argv,
-                      "exp": exp}
+    return {"argv": argv, "exp": exp}
 
 
-def k2w128_floors_ms(p: int, packed, clock_hz: float):
-    """K2 at D2xW128's floors in ms: tensor cores, the sigma head on FP32
-    units, the encoding's sinf/cosf on the SFUs, each at the SM clock
-    ``clock_hz``; HBM (points in, sigma out, f32, and the packed weights
-    once)."""
-    weights = packed.w.numel() * 2 + packed.b.numel() * 4
-    return {"tensor": 1e3 * K2W128_TENSOR_FLOP * p / (SMS * TENSOR_BF16_PER_CLK * clock_hz),
-            "fp32": 1e3 * K2W128_HEAD_FLOP * p / (SMS * FP32_PER_CLK * clock_hz),
-            "sfu": 1e3 * ENC_SINCOS * p / (SMS * SFU_PER_CLK * clock_hz),
-            "hbm": 1e3 * (16 * p + weights) / PEAK_BYTES}
-
-
-def w128_case(ks, packed, pts, tag: str) -> float:
+def w128_case(ks, packed, pts, tag: str) -> None:
     """K2 on a 128-wide packing against its twin on the card at ``pts``,
     launched twice: max|sigma err| within TOL_SIGMA_W128, the second launch
     bit for bit the first."""
@@ -3094,44 +1971,6 @@ def w128_case(ks, packed, pts, tag: str) -> float:
     check(bool(torch.isfinite(s1).all()) and e <= TOL_SIGMA_W128,
           f"K2-W128 {tag} disagrees with its twin at P={pts.shape[1]}")
     check(torch.equal(s1, s2), f"K2-W128 {tag} repeat not bitwise equal at P={pts.shape[1]}")
-    return e
-
-
-def w128_vs_twin(ks, pts):
-    """Phase 17's K2-W128 checks: the depth cut-off, then K2-W128 against
-    its twin at the sizes that cut its tiles, warpgroups and loop (and the
-    engine's) and the frames' sizes, at depth 2 (compiled in), 1, 3 and 6
-    (run time; 6's layer 5 is the skip layer) and 8 (the engine, past the
-    cut-off), every trunk and sigma bias seeded; at each depth's largest
-    size, the twin with each of its bias paths set to 0 moves sigma by more
-    than BIAS_MARGIN x TOL_SIGMA_W128, so no bias can be lost unseen.
-    Returns the depth-2 packing and its largest error."""
-    smem = {d: ks.w128_smem_bytes(d, 4) for d in range(1, 10)}
-    print(f"[levers] K2-W128 shared memory a block by depth (skip 4): {smem}; the kernel takes "
-          f"depths up to {W128_MAX_DEPTH}, the engine's sigma-only kernel the rest", flush=True)
-    check(all((b <= SMEM_PER_BLOCK) == (d <= W128_MAX_DEPTH) for d, b in smem.items()),
-          "K2-W128's depth cut-off moved")
-    sizes = tuple(sorted(set(ENGINE_P + W128_P)))
-    frames = (P_K2 // LEVER_SHARE, P_K2, P_K2 + RAGGED)
-    packs, err = {}, 0.0
-    for depth, ps in ((2, sizes + frames), (1, W128_P), (3, sizes + frames[1:]),
-                      (6, (W128_TILE + 1, W128_P[-1])),
-                      (W128_MAX_DEPTH + 1, (ENGINE_TILE + 1, ENGINE_P[-1]))):
-        pk = packs[depth] = ks.pack_nerf_params(w128_state_dict(depth, 17 + depth), depth=depth,
-                                                width=128, device="cuda")
-        for n in ps:
-            e = w128_case(ks, pk, pts[:, :n].contiguous(), f"depth {depth}")
-            err = max(err, e) if depth == 2 else err
-        pt = pts[:, :ps[-1]].contiguous()
-        ref = ks.fused_nerf_sigma_apply_t_plain(pk, pt)
-        for name, layers in bias_groups(pk):
-            moved = float((ks.fused_nerf_sigma_apply_t_plain(without_biases(pk, layers), pt)
-                           - ref).abs().max())
-            print(f"[levers] K2-W128 depth {depth}: the twin without the {name}'s biases moves "
-                  f"sigma by {moved:.3e}", flush=True)
-            check(moved > BIAS_MARGIN * TOL_SIGMA_W128,
-                  f"K2-W128 depth {depth}: the {name}'s biases would go unseen")
-    return packs[2], err
 
 
 @contextlib.contextmanager
@@ -3149,7 +1988,7 @@ def twins(module, **plain):
 
 
 def block_vs_twins(got, ref, tag: str, what: str) -> None:
-    """A lever render's block against the same chain on the plain twins:
+    """A fused render's block against the same chain on the plain twins:
     rgb and t_exp within TOL_RENDER on all but 0.1% of the rays (the
     sample selection may tie-break apart where the kernel's σ and the
     twin's differ in their last bits)."""
@@ -3168,10 +2007,9 @@ def agreement_db(a: torch.Tensor, b: torch.Tensor) -> float:
     return -10.0 * math.log10(max(mse, 1e-12))
 
 
-def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: float,
-                 pipe: dict, root: str, card: str):
-    """Phase 17 (see the module docstring). Returns the K2-W128 row of the
-    kernels line and the numbers of the result line."""
+def phase_levers(ks, kg, kst, trained, pipe: dict, root: str):
+    """Phase 17 (see the module docstring). Returns the distilled
+    proposal's state dict."""
     from PIL import Image
 
     from tgtc_torch import cli
@@ -3199,55 +2037,17 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
         for c in counters.values():
             c.launches = 0
 
-    # ---- 1. K2 at D2xW128 (K2-W128) against its twin, timed beside its floors
-    rng = np.random.default_rng(18)
-    pts = torch.from_numpy(rng.uniform(-1, 1, (3, P_K2 + RAGGED)).astype(np.float32)).cuda()
-    packed, err = w128_vs_twin(ks, pts)
-    clock = sm_clock_hz()
-    times = {}
-    for n in (P_K2, P_K2 // LEVER_SHARE):  # 16,384 x 64 points; the fast-stack block's
-        pt = pts[:, :n].contiguous()
-        ms, dev = timed(lambda: ks.fused_nerf_sigma_apply_t(packed, pt), 20)
-        plain_ms = cuda_ms(lambda: ks.fused_nerf_sigma_apply_t_plain(packed, pt), 3)
-        floors = k2w128_floors_ms(n, packed, clock)
-        floor = max(floors, key=floors.get)
-        times[n] = (ms, dev, plain_ms, floors, floor)
-        print(f"[levers] K2-W128 P={n}: kernel {ms:.4f} ms ev, {dev:.4f} ms dev; floors "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in floors.items())
-              + f" (SM clock {clock * 1e-6:.0f} MHz): bound {floors[floor]:.4f} ms ({floor}), "
-              f"{100 * floors[floor] / dev:.2f}% of it by device time; plain twin "
-              f"{plain_ms:.3f} ms; {card}", flush=True)
-    ms, dev, plain_ms, floors, floor = times[P_K2]
-    bound = floors[floor]
-    block = times[P_K2 // LEVER_SHARE]
-    row = {"name": "K2-W128", "route": "cuda", "source": "tgtc_torch/csrc/proposal_sm90.cuh",
-           "replaces": "tgtc/ops/pallas/nerf_mlp.py:316",
-           "wrapper": "tgtc_torch.ops.kernels.nerf_mlp.fused_nerf_sigma_apply_t",
-           "design": W128_DESIGN,
-           "P": P_K2, "max_abs_err": err, "max_err": err, "max_abs_err_sigma": err,
-           "ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": "bytes" if floor == "hbm" else "operations", "bound_floor": floor,
-           "floors_ms": floors, "sm_clock_mhz": clock * 1e-6, "bound_share": bound / dev,
-           "library_ms": None, "P_block": P_K2 // LEVER_SHARE, "ms_block": block[0],
-           "device_ms_block": block[1], "plain_ms_block": block[2],
-           "bound_ms_block": block[3][block[4]], "floors_ms_block": block[3]}
-    del pts
-
-    # ---- 2. the distilled proposal from phase 4's fine trunk
+    # ---- 1. the distilled proposal from phase 4's fine trunk
     fine = NerfMLP(NerfConfig())
     fine.load_state_dict(trained["fine"])
     fine.cuda()
     ro_t, rd_t = rays_for_poses(H, W, trained["intrinsics"], trained["poses"], use_ndc=True,
                                 device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     prop_sd, stats = distill_proposal(LEVER_SEED, fine, ro_t.reshape(-1, 3), rd_t.reshape(-1, 3),
                                       0.0, 1.0, steps=PROPOSAL_STEPS, batch=PROPOSAL_BATCH)
-    torch.cuda.synchronize()
-    distill_s = time.perf_counter() - t0
     print(f"[levers] distilled D2xW128 proposal from phase 4's fine trunk on {ro_t.shape[0]} "
-          f"views: {PROPOSAL_STEPS} steps (of the package's 3,000) at batch {PROPOSAL_BATCH} in "
-          f"{distill_s:.2f} s; loss {stats['loss']:.5f}, relu-sigma bias "
+          f"views: {PROPOSAL_STEPS} steps (of the package's 3,000) at batch {PROPOSAL_BATCH}; "
+          f"loss {stats['loss']:.5f}, relu-sigma bias "
           f"{stats['relu_sigma_bias']:+.4f}", flush=True)
     check(math.isfinite(stats["loss"]) and math.isfinite(stats["relu_sigma_bias"]),
           "the distilled proposal's loss is not finite")
@@ -3255,12 +2055,11 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     # its own packing (trained biases) against its twin, at a fast-stack block's points
     pt = torch.from_numpy(np.random.default_rng(19).uniform(
         -1, 1, (3, P_K2 // LEVER_SHARE)).astype(np.float32)).cuda()
-    row["max_abs_err_distilled"] = w128_case(
-        ks, ks.pack_nerf_params(prop_sd, depth=2, width=128, device="cuda"), pt,
-        "distilled proposal")
+    w128_case(ks, ks.pack_nerf_params(prop_sd, depth=2, width=128, device="cuda"), pt,
+              "distilled proposal")
     del pt
 
-    # ---- 3. the fast-stack frame, beside the exact frame of the same trunks
+    # ---- 2. the fast-stack frame, beside the exact frame of the same trunks
     settings = RenderSettings(n_samples=NC, n_samples_fine=NF, sigma_noise_std=0.0)
     ro, rd = rays_for_poses(H, W, trained["intrinsics"], trained["render_poses"][:1],
                             use_ndc=True, device="cuda")
@@ -3270,45 +2069,30 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     levers = dict(coarse_rgb=False, fine_budget=LEVER_BUDGET, coarse_share=LEVER_SHARE,
                   device="cuda")
 
-    def frames(render, want, tag):
-        render()  # warm-up frame
+    def frame(render, want, tag):
+        reset()
+        out = render()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(FRAMES):
-            reset()
-            t0 = time.perf_counter()
-            out = render()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            got = read()
-            check(got == {**zero, **want}, f"{tag} frame launch counts {got}, expected {want}")
-        dt = float(np.median(times))
+        got = read()
+        print(f"[levers] {tag} frame {H}x{W} ({n} rays, block {BLOCK}): launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v), flush=True)
+        check(got == {**zero, **want}, f"{tag} frame launch counts {got}, expected {want}")
         check(out["rgb"].shape == (n, 3) and bool(torch.isfinite(out["rgb"]).all()),
               f"{tag} frame shape or values")
-        print(f"[levers] {tag} frame {H}x{W} ({n} rays, block {BLOCK}): "
-              f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median {dt * 1e3:.1f} ms, "
-              f"{n / dt:.1f} rays/s; launches a frame "
-              + ", ".join(f"{k} {v}" for k, v in want.items()) + f"; {card}", flush=True)
-        return out, dt
+        return out
 
     exact = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
                                           coarse_rgb=False, device="cuda")
-    out_exact, dt_exact = frames(lambda: exact.render_image(fo, fd, block=BLOCK),
-                                 {"K1": blocks, "K2": blocks}, "exact (same trunks and pose)")
+    out_exact = frame(lambda: exact.render_image(fo, fd, block=BLOCK),
+                      {"K1": blocks, "K2": blocks}, "exact (same trunks and pose)")
     del exact
     fast = FusedNerfRenderer.from_params(prop_sd, trained["fine"], settings, depth=2, width=128,
                                          depth_fine=8, width_fine=256, **levers)
     want_fast = {"K1": blocks, "K2-W128": blocks}
-    out_fast, dt_fast = frames(lambda: fast.render_image(fo, fd, block=BLOCK), want_fast,
-                               "fast-stack (proposal, budget 80, share 2)")
-    agree_fast = agreement_db(out_fast["rgb"], out_exact["rgb"])
-    print(f"[levers] fast-stack frame: {dt_exact / dt_fast:.3f}x the exact frame's rays/s on "
-          f"the same rays (phase 2's exact frame {exact_rays_per_s:.1f} rays/s); rgb agreement "
-          f"with the exact frame {agree_fast:.2f} dB PSNR", flush=True)
-    block_dev, _, per = device_ms(lambda: fast.render(bo, bd), 5, per_kernel=True)
-    top = sorted(per.items(), key=lambda kv: -kv[1])
-    print(f"[levers] fast-stack block of {BLOCK} rays, device time by kernel ({block_dev:.3f} "
-          f"ms a block): " + "; ".join(f"{k} {v:.3f}" for k, v in top[:12]), flush=True)
+    out_fast = frame(lambda: fast.render_image(fo, fd, block=BLOCK), want_fast,
+                     "fast-stack (proposal, budget 80, share 2)")
+    print(f"[levers] fast-stack frame: rgb agreement with the exact frame "
+          f"{agreement_db(out_fast['rgb'], out_exact['rgb']):.2f} dB PSNR", flush=True)
     got = fast.render(bo, bd)
     with twins(rf, fused_nerf_apply_t=ks.fused_nerf_apply_t_plain,
                fused_nerf_sigma_apply_t=ks.fused_nerf_sigma_apply_t_plain):
@@ -3316,7 +2100,7 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     block_vs_twins(got, ref, "levers", "the fast-stack frame")
     del got, ref, out_fast
 
-    # ---- 4. the same frame with a 192^3 density grid in place of the proposal
+    # ---- 3. the same frame with a 192^3 density grid in place of the proposal
     poses = np.concatenate([trained["poses"], trained["render_poses"]], 0)
     ro_all, rd_all = rays_for_poses(H, W, trained["intrinsics"], poses, use_ndc=True,
                                     device="cuda")
@@ -3324,34 +2108,30 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     del ro_all, rd_all
     packed_f = ks.pack_nerf_params(trained["fine"], device="cuda")
     reset()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     values = build_sigma_grid(packed_f, spec, (GRID_RES,) * 3)
     torch.cuda.synchronize()
-    grid_s = time.perf_counter() - t0
     grid_launches = read()
     lattice = GRID_RES ** 3
-    print(f"[levers] {GRID_RES}^3 grid over {len(poses)} poses' bounds {spec.lo} .. {spec.hi}: "
-          f"built in {grid_s:.3f} s (K2 at D8xW256 over {lattice} lattice points x 9 offsets, "
-          f"{grid_launches['K2']} launches); sigma max {float(values.max()):.2f}, "
-          f"{100 * float((values > 0).float().mean()):.2f}% of voxels > 0; {card}", flush=True)
+    print(f"[levers] {GRID_RES}^3 grid over {len(poses)} poses' bounds {spec.lo} .. {spec.hi} "
+          f"(K2 at D8xW256 over {lattice} lattice points x 9 offsets, "
+          f"{grid_launches['K2']} launches): sigma max {float(values.max()):.2f}, "
+          f"{100 * float((values > 0).float().mean()):.2f}% of voxels > 0", flush=True)
     check(bool(torch.isfinite(values).all()), "the grid is not finite")
     check(grid_launches == {**zero, "K2": 9 * math.ceil(lattice / (1 << 21))},
           f"grid build launch counts {grid_launches}")
     gridr = FusedNerfRenderer.from_params(trained["coarse"], trained["fine"], settings,
                                           sigma_grid=(values, spec), **levers)
-    out_grid, dt_grid = frames(lambda: gridr.render_image(fo, fd, block=BLOCK),
-                               {"K1": blocks}, "grid (192^3, budget 80, share 2)")
-    print(f"[levers] grid frame: {dt_exact / dt_grid:.3f}x the exact frame's rays/s; rgb "
-          f"agreement with the exact frame {agreement_db(out_grid['rgb'], out_exact['rgb']):.2f} "
-          f"dB PSNR", flush=True)
+    out_grid = frame(lambda: gridr.render_image(fo, fd, block=BLOCK),
+                     {"K1": blocks}, "grid (192^3, budget 80, share 2)")
+    print(f"[levers] grid frame: rgb agreement with the exact frame "
+          f"{agreement_db(out_grid['rgb'], out_exact['rgb']):.2f} dB PSNR", flush=True)
     got = gridr.render(bo, bd)
     with twins(rf, fused_nerf_apply_t=ks.fused_nerf_apply_t_plain):
         ref = gridr.render(bo, bd)
     block_vs_twins(got, ref, "levers", "the grid frame")
     del got, ref, out_grid, gridr, values
 
-    # ---- 5. a stylized frame with the proposal
+    # ---- 4. a stylized frame with the proposal
     concat, style = style_mlps()
     lat = init_latents(torch.Generator().manual_seed(12), 1, LATENT_FRAMES, LATENT,
                        device="cuda")
@@ -3359,10 +2139,8 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
                                         style.state_dict(), lat, settings,
                                         proposal=(prop_sd, 2, 128, 4), **levers)
     want_style = {"K4": blocks, "K2-W128": blocks}
-    _, dt_style = frames(lambda: sr.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED),
-                         want_style, "stylized fast-stack (proposal, budget 80, share 2)")
-    print(f"[levers] stylized fast-stack frame {n / dt_style:.1f} rays/s beside phase 7's "
-          f"exact stylized frame {f_rays_per_s:.1f} rays/s", flush=True)
+    frame(lambda: sr.render_image(fo, fd, 0, 0, block=BLOCK, seed=F_SEED), want_style,
+          "stylized fast-stack (proposal, budget 80, share 2)")
     sid = torch.zeros(BLOCK, dtype=torch.long, device="cuda")
     u = torch.rand((BLOCK // LEVER_SHARE, NC), generator=block_generator(F_SEED, 0, 0, "cuda"),
                    device="cuda")
@@ -3374,7 +2152,7 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     block_vs_twins(got, ref, "levers", "the stylized fast-stack frame")
     del got, ref, sr, concat, style
 
-    # ---- 6. Phase A under the budget schedule
+    # ---- 5. Phase A under the budget schedule
     cfg = NerfConfig()
     tc = tt.NerfTrainConfig(batch_size=BATCH, n_samples=NC, n_samples_fine=NF,
                             sigma_noise_std=1.0)
@@ -3393,13 +2171,11 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     reset()
     kg.fused_nerf_apply_t, kg.FusedNerfApply.backward = k1_rec, staticmethod(k3_rec)
     try:
-        t0 = time.perf_counter()
         state, hist = tt.train_nerf(scene, cfg, tc, A_STEPS, os.path.join(root, "levers_a"),
                                     i_print=A_PRINT, device="cuda",
                                     print_fn=lambda m: print(m, flush=True),
                                     budget_schedule=A_SCHEDULE)
         torch.cuda.synchronize()
-        a_s = time.perf_counter() - t0
     finally:
         kg.fused_nerf_apply_t, kg.FusedNerfApply.backward = k1, staticmethod(backward)
     a_launches = read()
@@ -3414,17 +2190,10 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     losses = hist["loss"]
     check(len(losses) == A_STEPS and all(math.isfinite(x) for x in losses),
           "budgeted Phase-A loss not finite")
-    per_seg = {}
-    for first, end, budget in A_SEGMENTS:
-        recs = [r for r in hist["records"] if first < r["step"] <= end]
-        per_seg[budget] = (end - first) / sum(A_PRINT / r["steps_per_s"] for r in recs)
-    print(f"[levers] Phase A under train_fine_budget {A_SCHEDULE!r}: {A_STEPS} steps in "
-          f"{a_s:.2f} s (call, set-up and saves included); steps/s by segment (log windows, "
-          f"the first with the warm-up) " + ", ".join(
-              f"{'exact' if b is None else b} {v:.2f}" for b, v in per_seg.items())
-          + f"; K1 and K3 points a launch {dict(sorted(points['K1'].items()))}; mean loss of "
-          f"the first 20 steps {np.mean(losses[:20]):.5f}, of the last 20 "
-          f"{np.mean(losses[-20:]):.5f}; {card}", flush=True)
+    print(f"[levers] Phase A under train_fine_budget {A_SCHEDULE!r}: {A_STEPS} steps; K1 and "
+          f"K3 points a launch {dict(sorted(points['K1'].items()))}; mean loss of the first 20 "
+          f"steps {np.mean(losses[:20]):.5f}, of the last 20 {np.mean(losses[-20:]):.5f}",
+          flush=True)
 
     # the budget-80 step on the card against the same step on the CPU
     h, w, _ = scene.hwf
@@ -3438,17 +2207,15 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
     m_f, g_f = fused.loss_and_grad(state.coarse, state.fine, ro_a, rd_a, rgb_a, draws)
     names = ([f"coarse.{nm}" for nm, _ in state.coarse.named_parameters()]
              + [f"fine.{nm}" for nm, _ in state.fine.named_parameters()])
-    t0 = time.perf_counter()
     cpu = tt.make_fused_train_step(cfg, tc80, device="cpu")
     d_cpu = tt.StepDraws(*(None if t is None else t.cpu() for t in (
         draws.idx, draws.perturb_u, draws.noise_coarse, draws.noise_fine)))
     m_c, g_c = cpu.loss_and_grad(*trunks(cfg, state, "cpu"), ro_a.cpu(), rd_a.cpu(),
                                  rgb_a.cpu(), d_cpu)
-    cpu_s = time.perf_counter() - t0
     cos = {nm: grad_cos(a.cpu(), b) for nm, a, b in zip(names, g_f, g_c)}
     worst, dl = min(cos, key=cos.get), abs(float(m_f["loss"]) - float(m_c["loss"]))
     print(f"[levers] trained state, the budget-{LEVER_BUDGET} fused step on the card vs on the "
-          f"CPU (twins, {cpu_s:.1f} s): loss {float(m_f['loss']):.6f} vs "
+          f"CPU (twins): loss {float(m_f['loss']):.6f} vs "
           f"{float(m_c['loss']):.6f} (|diff| {dl:.3e}, {dl / abs(float(m_c['loss'])):.3e} of "
           f"it, limit {TOL_STEP_LOSS_REL:g}); gradient cosine >= {cos[worst]:.6f} "
           f"({worst})", flush=True)
@@ -3458,7 +2225,7 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
           "the CPU")
     del g_f, g_c, state
 
-    # ---- 7. phase 16's pipeline re-entered with the fast stack
+    # ---- 6. phase 16's pipeline re-entered with the fast stack
     exp = pipe["exp"]
     for d in ("render_train", "render_train_style"):  # keep the exact renders beside
         os.rename(os.path.join(exp, d), os.path.join(exp, d + "_exact"))
@@ -3467,21 +2234,16 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
                            str(PROPOSAL_STEPS)]
     blocks16 = math.ceil(H * W / BLOCK)
     blocks_f = math.ceil(H * W / (1 << 15))
-    pipe_launches, pipe_s = {}, {}
     for flag, want in (("--render_train", {"K1": PIPE_VIEWS * blocks16,
                                            "K2-W128": PIPE_VIEWS * blocks16}),
                        ("--render_train_style", {"K4": PIPE_STYLES * PIPE_VIEWS * blocks_f,
                                                  "K2-W128": PIPE_STYLES * PIPE_VIEWS * blocks_f})):
         reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         check(cli.main(argv + [flag]) == 0, f"cli {flag} with the fast stack")
         torch.cuda.synchronize()
-        pipe_s[flag] = time.perf_counter() - t0
-        pipe_launches[flag] = read()
-        check(pipe_launches[flag] == {**zero, **want},
-              f"pipeline {flag} with the fast stack: launch counts {pipe_launches[flag]}, "
-              f"expected {want}")
+        got = read()
+        check(got == {**zero, **want},
+              f"pipeline {flag} with the fast stack: launch counts {got}, expected {want}")
     load = lambda p: torch.from_numpy(np.asarray(Image.open(p), np.float32) / 255.0)
     plain = [agreement_db(load(os.path.join(exp, "render_train", f"rgb_{i:05d}.png")),
                           load(os.path.join(exp, "render_train_exact", f"rgb_{i:05d}.png")))
@@ -3490,18 +2252,10 @@ def phase_levers(ks, kg, kst, trained, exact_rays_per_s: float, f_rays_per_s: fl
               for s in range(PIPE_STYLES) for f in range(PIPE_VIEWS)]
     check(all(os.path.exists(p) for p in styled), "the fast-stack stylized frames")
     print(f"[levers] pipeline re-entered with the fast stack (proposal distilled per run, "
-          f"{PROPOSAL_STEPS} steps): --render_train {pipe_s['--render_train']:.2f} s "
-          f"({PIPE_VIEWS} frames), --render_train_style {pipe_s['--render_train_style']:.2f} s "
-          f"({len(styled)} frames), each with its set-up; plain frames' agreement with phase "
+          f"{PROPOSAL_STEPS} steps): --render_train ({PIPE_VIEWS} frames) and "
+          f"--render_train_style ({len(styled)} frames); plain frames' agreement with phase "
           f"16's exact renders " + ", ".join(f"{v:.2f}" for v in plain) + " dB PSNR", flush=True)
-
-    row["launches"] = want_fast["K2-W128"]
-    row["launches_stylized"] = want_style["K2-W128"]
-    row["launches_pipeline"] = sum(v["K2-W128"] for v in pipe_launches.values())
-    return row, {"proposal": {k: v.detach().cpu() for k, v in prop_sd.items()},
-                 "fast_rays_per_s": n / dt_fast, "grid_rays_per_s": n / dt_grid,
-                 "grid_build_s": grid_s, "style_rays_per_s": n / dt_style,
-                 "distill_s": distill_s, "a_steps_per_s": per_seg}
+    return {k: v.detach().cpu() for k, v in prop_sd.items()}
 
 
 def mp_rays(views):
@@ -3608,8 +2362,8 @@ def mp_e(group, job):
 def mp_frames(group, job):
     """Phase 18(e)-(f) over ``group``: phase 2's 756x1008 frame through
     ``make_sharded_fused_render_fn`` with phase 4's trunks (exact, then with
-    phase 17's fast stack), a warm-up frame and a counted one each, with the
-    K1, K2 and K2-W128 launches of the counted frame; then the first
+    phase 17's fast stack), one frame each with its K1, K2 and K2-W128
+    launches; then the first
     MP_EAGER_BLOCKS blocks through ``make_render_fn(group=)`` (phase 4's
     trunks) and ``make_stylized_render_fn(group=)`` (phase 15's field, style 0,
     frame 0, jitter from a seeded generator on the card)."""
@@ -3640,14 +2394,10 @@ def mp_frames(group, job):
     out = {}
     for name, (r, kw) in stacks.items():
         fn = make_sharded_fused_render_fn(settings, group, BLOCK, **kw)
-        fn(r.packed_coarse, r.packed_fine, ro, rd)  # warm-up frame
-        torch.cuda.synchronize()
         ks.fused_nerf_apply_t.launches = k2.launches = k2.launches_w128 = 0
-        t0 = time.perf_counter()
         frame = fn(r.packed_coarse, r.packed_fine, ro, rd)
         torch.cuda.synchronize()
         out[name] = {"frame": {k: v.cpu() for k, v in frame.items()},
-                     "s": time.perf_counter() - t0,
                      "launches": {"K1": ks.fused_nerf_apply_t.launches, "K2": k2.launches,
                                   "K2-W128": k2.launches_w128}}
     del stacks
@@ -3693,7 +2443,6 @@ def mp_c1_loop(group, job, name: str):
                 "K8": fa.flash_attention_bwd_dkv}
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     try:
         t2.train_transformer(state, tcfg, job["c1_content"], job["c1_styles"], ckpt,
                              log_dir=os.path.join(root, "log"),
@@ -3712,8 +2461,7 @@ def mp_c1_loop(group, job, name: str):
             "launches": {k: c.launches for k, c in counters.items()},
             "ckpts": sorted(os.listdir(os.path.join(root, "ckpt"))),
             "collages": sorted(os.listdir(os.path.join(root, "collage")))
-            if os.path.isdir(os.path.join(root, "collage")) else [],
-            "s": time.perf_counter() - t0}
+            if os.path.isdir(os.path.join(root, "collage")) else []}
 
 
 def tensors_sha(tree) -> str:
@@ -3744,8 +2492,7 @@ def mp_sharded(group, job):
 
 def check_sharded(outs, ref_frames, ref_loop, card: str):
     """Phase 18(e)-(g)'s checks of both workers' outputs ``outs`` against the
-    1-process references. Returns the sharded frames' K1, K2 and K2-W128
-    launches a rank and rank 0's counted frames' seconds."""
+    1-process references."""
     got = outs[0]
     # (e) the sharded frames, (f) the grouped eager renders
     n_blocks = math.ceil(H * W / BLOCK)
@@ -3762,10 +2509,7 @@ def check_sharded(outs, ref_frames, ref_loop, card: str):
               f"through make_sharded_fused_render_fn over two processes sharing the card: "
               f"{n_blocks} blocks of {BLOCK}, launches rank 0 {launches[0]}, rank 1 "
               f"{launches[1]} (expected {want}); bit for bit the 1-process frame: {equal} "
-              f"(keys {sorted(ref_frames[name]['frame'])}); seconds of the counted frame rank 0 "
-              f"{frames[name]['s']:.3f}, rank 1 {outs[1]['frames'][name]['s']:.3f}, 1-process "
-              f"{ref_frames[name]['s']:.3f} (two processes on one card: no scaling figure)",
-              flush=True)
+              f"(keys {sorted(ref_frames[name]['frame'])})", flush=True)
         check(equal, f"the sharded {name} frame differs from the 1-process frame")
         check(launches == want, f"sharded {name} frame launches {launches}, expected {want}")
     for name in ("render_fn", "stylized_fn"):
@@ -3806,8 +2550,7 @@ def check_sharded(outs, ref_frames, ref_loop, card: str):
           f"{tol_dp:.3e}), {moved} of {n_params} elements apart by more than 1e-6; "
           f"trained-parameter sums relative {', '.join(f'{x:.3e}' for x in fp)} (read); launches "
           f"rank 0 {outs[0]['loop']['launches']}, rank 1 {outs[1]['loop']['launches']}; "
-          f"checkpoints {loop['ckpts']}, collages {loop['collages']}; "
-          f"{loop['s']:.2f} s (1-process {ref_loop['s']:.2f} s)", flush=True)
+          f"checkpoints {loop['ckpts']}, collages {loop['collages']}", flush=True)
     check([g["step"] for g in loop["lines"]] == list(range(1, MP_C1_STEPS + 1))
           and first <= TOL_MP_C1_FIRST and rel <= TOL_C1_LOSS and dp <= tol_dp,
           "the grouped C1 loop disagrees with the 1-process loop")
@@ -3817,9 +2560,6 @@ def check_sharded(outs, ref_frames, ref_loop, card: str):
           f"grouped C1 loop launches {[o['loop']['launches'] for o in outs]}")
     check(loop["ckpts"] == [f"ckpt_{MP_C1_STEPS:08d}.pt"]
           and loop["collages"] == [f"{MP_C1_STEPS}.png"], "the grouped C1 loop's files")
-    sharded = {k: [o["frames"][name]["launches"][k] for o in outs]
-               for name, k in (("exact", "K1"), ("exact", "K2"), ("fast", "K2-W128"))}
-    return sharded, {"exact_s": frames["exact"]["s"], "fast_s": frames["fast"]["s"]}
 
 
 def multi_worker(job_path: str, out_path: str) -> None:
@@ -3844,20 +2584,14 @@ def multi_worker(job_path: str, out_path: str) -> None:
     counters = {"K1": ks.fused_nerf_apply_t, "K3": kg.fused_nerf_bwd}
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
     a = mp_phase_a(group, *mp_rays(job["views"]))
     torch.cuda.synchronize()
-    out = {"a": a, "a_s": time.perf_counter() - t0,
-           "launches": {k: c.launches for k, c in counters.items()},
+    out = {"a": a, "launches": {k: c.launches for k, c in counters.items()},
            "params_sha": hashlib.sha256(b"".join(p.numpy().tobytes() for p in a["params"]))
            .hexdigest()}
-    t0 = time.perf_counter()
     out["c1"] = mp_c1(group)
-    out["c1_s"] = time.perf_counter() - t0
     out["launches"].update(out["c1"]["launches"])
-    t0 = time.perf_counter()
     out["e"] = mp_e(group, job)
-    out["e_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     writes, original = [], ck.CheckpointManager._write
@@ -3867,13 +2601,12 @@ def multi_worker(job_path: str, out_path: str) -> None:
         return original(self, step, state, ready)
 
     ck.CheckpointManager._write = counted
-    t0 = time.perf_counter()
     try:
         check(cli.main(job["pipe_argv"]) == 0, "cli under the two-process launch")
     finally:
         ck.CheckpointManager._write = original
     torch.cuda.synchronize()
-    out.update(pipe_s=time.perf_counter() - t0, writes=writes)
+    out.update(writes=writes)
     out.update(mp_sharded(group, job))
     if group.rank:  # rank 0's copy of what both ranks hold, and rank 1's own gradient
         out = {**{k: v for k, v in out.items() if k not in ("a", "c1", "e")},
@@ -3885,7 +2618,7 @@ def multi_worker(job_path: str, out_path: str) -> None:
     dist.destroy_process_group()
 
 
-def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, card: str):
+def phase_multi(ks, kg, trained, pipe, proposal, c1_styles: str, root: str, card: str):
     """Phase 18. (a) this process as a NCCL group of one: the fused Phase-A
     step through ``group=`` equals the ungrouped step bit for bit (losses,
     gradients, parameters), K1 and K3 launched 2 a step. (b) two worker
@@ -3904,10 +2637,7 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
     the 47; (f) ``make_render_fn(group=)`` and ``make_stylized_render_fn(group=)``
     on the frame's first two blocks, bit for bit; (g) ``train_transformer``
     over both ranks, 3 steps of phase 11's C1 on its content and
-    ``c1_styles``, held to the 1-process loop. Returns each kernel's
-    launches in the workers' counted runs (both ranks), K1's, K2's and
-    K2-W128's launches a rank in the sharded frames, and the phase's wall
-    seconds."""
+    ``c1_styles``, held to the 1-process loop."""
     import torch.distributed as dist
 
     from tgtc_torch.parallel import DataGroup, maybe_initialize_distributed
@@ -3915,7 +2645,6 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
     from tgtc_torch.config import load_config
     from tgtc_torch.models.nerf import NerfConfig, NerfMLP
 
-    t_phase = time.perf_counter()
     ro, rd, rgb = mp_rays(trained)
     # ---- (a) a NCCL group of one in this process
     env = {"TGTC_COORDINATOR": f"127.0.0.1:{free_port()}", "TGTC_NUM_PROCESSES": "1",
@@ -3972,7 +2701,7 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
     torch.cuda.empty_cache()
     job_path, out_path = os.path.join(root, "multi_job.pt"), os.path.join(root, "multi_%d.pt")
     torch.save(job, job_path)
-    logs, workers_s = run_workers(job_path, out_path)
+    logs = run_workers(job_path, out_path)
     outs = [torch.load(out_path % r, weights_only=False) for r in range(MP_WORLD)]
     got = outs[0]
 
@@ -4003,7 +2732,7 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
           f"{leaf_limit:.3e} of its leaf's max|g|); after {MP_A_STEPS} steps max|dp| "
           f"{dp:.3e} (limit {TOL_MP_A_PARAM:.3e}), {moved} of {n_params} elements apart by "
           f"more than 1e-6; both ranks' parameters equal: "
-          f"{outs[0]['params_sha'] == outs[1]['params_sha']}; {got['a_s']:.2f} s", flush=True)
+          f"{outs[0]['params_sha'] == outs[1]['params_sha']}", flush=True)
     check(dl[0] <= TOL_MP_A_LOSS and over <= 1.0 and dp <= TOL_MP_A_PARAM,
           "the 2-process Phase-A step disagrees with the 1-process")
     check(outs[0]["params_sha"] == outs[1]["params_sha"], "the ranks' parameters differ")
@@ -4017,8 +2746,8 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
           f"{c1['loss']:.6f} vs {ref_c1['loss']:.6f} (relative {dl:.3e}, limit {TOL_C1_LOSS}); "
           f"cosine of the whole averaged gradient {cos_all:.7f} (limit {TOL_C1_COS}), worst "
           f"leaf {leaf[0]:.3e} ({leaf[1]}, limit {TOL_C1_LEAF}); lowest leaf cosines {lows}; "
-          f"launches a rank " + "; ".join(f"rank {r} {o['launches']}" for r, o in enumerate(outs))
-          + f"; {got['c1_s']:.2f} s", flush=True)
+          f"launches a rank " + "; ".join(f"rank {r} {o['launches']}" for r, o in enumerate(outs)),
+          flush=True)
     check(dl <= TOL_C1_LOSS and cos_all >= TOL_C1_COS and leaf[0] <= TOL_C1_LEAF,
           "the 2-process C1 step disagrees with the 1-process")
     want_all = {"K1": 2 * MP_A_STEPS, "K3": 2 * MP_A_STEPS, "K6": C1_SITES, "K7": C1_SITES,
@@ -4034,7 +2763,7 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
           f"coherence term on: " + ", ".join(f"{k} {e['loss'][k]:.6f} vs {ref_e['loss'][k]:.6f} "
                                               f"({rel[k]:.2e})" for k in ref_e["loss"])
           + f"; gradient cosine concat {cos[0]:.7f}, style {cos[1]:.7f}, latents {cos[2]:.7f} "
-          f"(limits {TOL_E_LOSS}, {TOL_E_COS}); {got['e_s']:.2f} s", flush=True)
+          f"(limits {TOL_E_LOSS}, {TOL_E_COS})", flush=True)
     check(max(rel.values()) <= TOL_E_LOSS and min(cos) >= TOL_E_COS,
           "the 2-process Phase-E step disagrees with the 1-process")
 
@@ -4051,22 +2780,16 @@ def phase_multi(ks, kg, fa, trained, pipe, proposal, c1_styles: str, root: str, 
                  [lat["latents"], *concat.parameters(), *style.parameters()])
     print(f"[multi] (b) cli.main under the two-process launch on phase 16's run: checkpoint "
           f"writes rank 0 {outs[0]['writes']}, rank 1 {outs[1]['writes']}; new style log lines "
-          f"{[(r['step'], round(r.get('steps_per_s', 0.0), 3)) for r in new]} (steps/s of two "
-          f"processes sharing one card: no scaling figure); ckpt_style {ckpts}; "
-          f"load_style_field: latents {tuple(lat['latents'].shape)} finite {finite}; "
-          f"{got['pipe_s']:.2f} s", flush=True)
+          f"at steps {[r['step'] for r in new]}; ckpt_style {ckpts}; "
+          f"load_style_field: latents {tuple(lat['latents'].shape)} finite {finite}",
+          flush=True)
     check(outs[0]["writes"] == [f"ckpt_style/{total}"] and outs[1]["writes"] == [],
           "the multi-process schedule's checkpoint writes")
     check(bool(new) and new[-1]["step"] == total and f"ckpt_{total:08d}.pt" in ckpts and finite,
           "the multi-process Phase E did not reach its total step")
     check("[ORIGIN TRAIN]" not in logs[0] + logs[1], "Phase A ran again under the launch")
 
-    sharded, frame_s = check_sharded(outs, ref_frames, ref_loop, card)
-    seconds = time.perf_counter() - t_phase
-    print(f"[multi] {card}: phase 18 wall {seconds:.2f} s, of which the workers "
-          f"{workers_s:.2f} s (start, kernel loads, (b)'s four parts)", flush=True)
-    return ({k: sum(o["launches"][k] for o in outs) for k in want_all}, sharded, frame_s,
-            seconds)
+    check_sharded(outs, ref_frames, ref_loop, card)
 
 
 def adain_frames(geo_dir: str, styles_dir: str):
@@ -4105,15 +2828,12 @@ def adain_step_on(dev: str, ckpt: str, batch, temporal=None):
         h, w, focal = temporal
         proj = torch.from_numpy(llff_projection_matrix(h, w, focal)).to(dev)
         step = ta.make_adain_temporal_step(model, cfg, proj, h, w, focal=focal)
-    t0 = time.perf_counter()
     m, g = step.loss_and_grad(model, *(torch.as_tensor(x).to(dev) for x in batch))
-    g = [x.cpu() for x in g]
-    return {k: float(v) for k, v in m.items()}, g, time.perf_counter() - t0
+    return {k: float(v) for k, v in m.items()}, [x.cpu() for x in g]
 
 
 def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
-    """Phase 19 (see the module docstring). Returns the finetune's and the
-    temporal loop's steps/s and the temporal loop's peak allocated GiB."""
+    """Phase 19 (see the module docstring)."""
     import contextlib
 
     from tgtc_torch.data.prefetch import load_crop
@@ -4135,23 +2855,14 @@ def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
 
     # (a) the finetune loop
     quiet = open(os.path.join(root, "adain_stdout.txt"), "w")
+    total = ADAIN_WARM + ADAIN_STEPS
     with quiet, contextlib.redirect_stdout(quiet):  # one log line a step
-        t0 = time.perf_counter()
         check(train2d.main(argv + ["--max_iter", str(ADAIN_WARM)], device="cuda") == 0,
               "AdaIN finetune warm-up")
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        total = ADAIN_WARM + ADAIN_STEPS
         check(train2d.main(argv + ["--max_iter", str(total)], device="cuda") == 0,
-              "AdaIN finetune counted run")
-        torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+              "AdaIN finetune resumed run")
     with open(os.path.join(log, "finetune_decoder.jsonl")) as fh:
         records = [json.loads(line) for line in fh]
-    counted = [r for r in records if r["step"] > ADAIN_WARM]
-    loop_s = float(sum(1 / r["steps_per_s"] for r in counted))
-    ft_steps_per_s = len(counted) / loop_s
     losses = [r["loss"] for r in records]
     first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
     ckpt = os.path.join(save, "adain_decoder", f"ckpt_{total:08d}.pt")
@@ -4176,10 +2887,8 @@ def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
     print(f"[adain] {card}: finetune_decoder at the task's defaults (VGG to relu4_1 and the "
           f"full decoder, f32; TF32 matmul {tf32[0]}, cuDNN TF32 {tf32[1]}), batch 8 of "
           f"256x256 crops of phase 5's renders and phase 11's 8 styles: {ADAIN_WARM} warm-up "
-          f"steps in {warm_s:.2f} s, then {ADAIN_STEPS} steps in {run_s:.2f} s (call, restore "
-          f"and the final save included), of which the loop {loop_s:.3f} s: "
-          f"{ft_steps_per_s:.3f} steps/s ({1e3 / ft_steps_per_s:.2f} ms a step, one log fetch "
-          f"a step); mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
+          f"steps, then {ADAIN_STEPS} steps resumed; mean loss of the first 20 steps "
+          f"{first:.5f}, of the last 20 {last:.5f}; "
           f"VGG bitwise unchanged {vgg_same}, decoder leaves moved {len(moved)} of {n_decode}; "
           f"checkpoint round trip bitwise {same}", flush=True)
     check(len(records) == total and all(math.isfinite(x) for x in losses),
@@ -4196,15 +2905,13 @@ def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
     s_paths = sorted(os.path.join(styles_dir, f) for f in os.listdir(styles_dir))
     batch = [np.stack([load_crop(paths[i % len(paths)], rng, 256, 512) for i in range(8)])
              for paths in (c_paths, s_paths)]
-    (m_card, g_card, _), (m_cpu, g_cpu, cpu_s) = (adain_step_on(d, ckpt, batch)
-                                                  for d in ("cuda", "cpu"))
+    (m_card, g_card), (m_cpu, g_cpu) = (adain_step_on(d, ckpt, batch) for d in ("cuda", "cpu"))
     dl = abs(m_card["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
     cos = grad_cos(*(torch.cat([g.flatten() for g in gs]) for gs in (g_card, g_cpu)))
     print(f"[adain] one finetune step, card vs CPU (same state and batch, TF32 off): loss "
           f"{m_card['loss']:.7f} vs {m_cpu['loss']:.7f} (relative {dl:.3e}, limit "
           f"{TOL_ADAIN_LOSS}); decoder gradient cosine {cos:.7f} (limit {TOL_ADAIN_COS}), "
-          f"lowest leaf {min(grad_cosines(g_card, g_cpu)):.7f}; the CPU step {cpu_s:.2f} s",
-          flush=True)
+          f"lowest leaf {min(grad_cosines(g_card, g_cpu)):.7f}", flush=True)
     check(dl <= TOL_ADAIN_LOSS and cos >= TOL_ADAIN_COS,
           "the AdaIN finetune step on the card disagrees with the CPU's")
 
@@ -4217,24 +2924,18 @@ def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
              styles_dir, "--save_dir", tsave, "--log_dir", tlog, "--max_iter",
              str(ADAIN_T_STEPS), "--print_interval", "1", "--save_model_interval", "1000",
              "--vgg", "", "--decoder", "", "--seed", str(ADAIN_SEED)]
-    t0 = time.perf_counter()
     quiet = open(os.path.join(root, "adain_t_stdout.txt"), "w")
     with quiet, contextlib.redirect_stdout(quiet):
         check(train2d.main(targv, device="cuda") == 0, "AdaIN temporal run")
     torch.cuda.synchronize()
-    t_run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with open(os.path.join(tlog, "temporal_decoder.jsonl")) as fh:
         trec = [json.loads(line) for line in fh]
-    later = trec[1:]  # the first window holds cuDNN's first calls at these shapes
-    t_steps_per_s = len(later) / float(sum(1 / r["steps_per_s"] for r in later))
     tckpt = os.path.join(tsave, "adain_temporal", f"ckpt_{ADAIN_T_STEPS:08d}.pt")
     renders, coor, cps, focal, styles = adain_frames(geo_dir, styles_dir)
     h, w = renders.shape[1:3]
     print(f"[adain] {card}: temporal_decoder on phase 5's {len(renders)} views ({h}x{w}, "
-          f"geometry.npz), batch 8 of full frames, {ADAIN_T_STEPS} steps in {t_run_s:.2f} s "
-          f"(call and set-up included); steps 2-{ADAIN_T_STEPS} {t_steps_per_s:.3f} steps/s "
-          f"(first window {trec[0]['steps_per_s']:.3f}); loss_t "
+          f"geometry.npz), batch 8 of full frames, {ADAIN_T_STEPS} steps; loss_t "
           + ", ".join(f"{r['loss_t']:.4g}" for r in trec)
           + f"; peak allocated {peak:.2f} GiB (cuDNN TF32 {tf32[1]})", flush=True)
     check(len(trec) == ADAIN_T_STEPS and all(math.isfinite(r["loss_t"]) and r["loss_t"] > 0
@@ -4247,18 +2948,17 @@ def phase_adain(root: str, geo_dir: str, styles_dir: str, card: str):
     torch.cuda.empty_cache()
     ids = np.array([0, 1])
     batch = (renders[ids], coor[ids], cps[ids], np.broadcast_to(styles[0], (2, h, w, 3)).copy())
-    (m_card, g_card, _), (m_cpu, g_cpu, cpu_s) = (adain_step_on(d, tckpt, batch, (h, w, focal))
-                                                  for d in ("cuda", "cpu"))
+    (m_card, g_card), (m_cpu, g_cpu) = (adain_step_on(d, tckpt, batch, (h, w, focal))
+                                        for d in ("cuda", "cpu"))
     rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
     cos = grad_cos(*(torch.cat([g.flatten() for g in gs]) for gs in (g_card, g_cpu)))
     print(f"[adain] one temporal step, card vs CPU (batch 2, ids [0, 1], style 0, TF32 off): "
           + ", ".join(f"{k} {m_card[k]:.6g} vs {m_cpu[k]:.6g} ({rel[k]:.2e})" for k in m_cpu)
           + f" (limit {TOL_ADAIN_LOSS} on loss); decoder gradient cosine {cos:.7f} (limit "
-          f"{TOL_ADAIN_COS}); the CPU step {cpu_s:.2f} s", flush=True)
+          f"{TOL_ADAIN_COS})", flush=True)
     check(rel["loss"] <= TOL_ADAIN_LOSS and cos >= TOL_ADAIN_COS and m_cpu["loss_t"] > 0,
           "the AdaIN temporal step on the card disagrees with the CPU's")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    return {"ft_steps_per_s": ft_steps_per_s, "t_steps_per_s": t_steps_per_s, "peak_gib": peak}
 
 
 def free_port() -> int:
@@ -4271,9 +2971,8 @@ def free_port() -> int:
 
 
 def run_workers(job_path: str, out_path: str):
-    """Both ranks of ``multi_worker``; their outputs and the seconds they took.
-    A rank that fails or outlives MP_TIMEOUT fails the phase, and both are
-    stopped."""
+    """Both ranks of ``multi_worker``; their logs. A rank that fails or
+    outlives MP_TIMEOUT fails the phase, and both are stopped."""
     port = free_port()
     repo = os.path.dirname(os.path.abspath(__file__))
     code = (f"import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
@@ -4302,7 +3001,7 @@ def run_workers(job_path: str, out_path: str):
               flush=True)
     check(all(p.returncode == 0 for p in procs),
           f"a worker failed: exit codes {[p.returncode for p in procs]}")
-    return logs, time.perf_counter() - t0
+    return logs
 
 
 def main() -> int:
@@ -4310,7 +3009,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tgtc_torch.convert import nerf_state_dict_from_flax, style_state_dicts_from_flax
+    from tgtc_torch.convert import nerf_state_dict_from_flax
     from tgtc_torch.ops.kernels import _build
     from tgtc_torch.ops.kernels import flash_attention as fa
     from tgtc_torch.ops.kernels import nerf_mlp as ks
@@ -4321,11 +3020,10 @@ def main() -> int:
                            "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.SRC_DIR.glob("*.cu"))
     libs = _build.build_all(sources)
     print(f"[build] torch {torch.__version__} CUDA {torch.version.cuda}; built "
-          f"{', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s", flush=True)
+          f"{', '.join(p.name for p in libs)}", flush=True)
     for lib in libs:  # ptxas: registers, shared memory and spills per kernel
         for line in lib.with_suffix(".log").read_text().splitlines():
             if any(w in line.lower() for w in ("registers", "spill", "entry function", "warning",
@@ -4340,86 +3038,25 @@ def main() -> int:
     rng = np.random.default_rng(0)
     sd_c = nerf_state_dict_from_flax(he_params(rng))
     sd_f = nerf_state_dict_from_flax(he_params(rng))
-    style_sds = style_state_dicts_from_flax(he_style_params(rng))
-
-    rows = phase_kernels(ks, sd_c)
-    renderer, launches, rays_per_s = phase_main_path(ks, sd_c, sd_f)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    rows.append(phase_k3(ks, kg, sd_c))
-    trained_renderer, train_launches, steps_per_s, trained = phase_train(ks, kg)
-    for row in rows:
-        row["launches_train"] = train_launches[row["name"]]
-        row["launches_per_step"] = train_launches[row["name"]] // TRAIN_STEPS
-    rows[-1]["launches"] = train_launches["K3"]
+    phase_main_path(ks, sd_c, sd_f)
+    trained_renderer, trained = phase_train(ks, kg)
     with tempfile.TemporaryDirectory() as tmp:
         geo_dir = phase_b(ks, trained_renderer, tmp)
-        style_rows = phase_style_kernels(ks, kst, sd_c, style_sds)
-        f_launches, f_rays_per_s, f_frames_per_min = phase_f(ks, kst, trained)
-        for row in style_rows:  # on no training step: no launches_per_step
-            row["launches"] = f_launches[row["name"]]
-        rows += style_rows
-        k6_row = phase_k6(fa)
-        c3_launches, c3_frames_per_s, c3_s_per_view = phase_c3(fa, geo_dir, tmp)
-        k78_rows, k6_c1 = phase_k78(fa)
-        c1_launches, c1_steps_per_s, collages, c1_ckpt, styles = phase_c1(fa, geo_dir, tmp)
-        model, c2_launches, c2_steps_per_s = phase_c2(fa, geo_dir, c1_ckpt, styles, tmp)
-        c3c2_launches, c3c2_s_per_view, feats = phase_c3c2(fa, model, geo_dir, styles, tmp)
+        phase_f(ks, kst, trained)
+        phase_c3(fa, geo_dir, tmp)
+        c1_ckpt, styles = phase_c1(fa, geo_dir, tmp)
+        model = phase_c2(fa, geo_dir, c1_ckpt, styles, tmp)
+        feats = phase_c3c2(fa, model, geo_dir, styles, tmp)
         del model
         n_views = len([f for f in os.listdir(geo_dir) if f.startswith("rgb_")])
-        vae_steps_per_s, d_launches, vae_ckpt = phase_d(ks, kst, trained, styles, feats,
-                                                        n_views, tmp)
-        e_steps_per_s, e_launches, e_rays_per_s = phase_e(
-            ks, kg, kst, fa, trained, tmp, os.path.join(tmp, "stylized_c2"), vae_ckpt)
-        pipe_launches, pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
-        w128_row, lev = phase_levers(ks, kg, kst, trained, rays_per_s, f_rays_per_s, pipe, tmp,
-                                     card)
-        multi_launches, sharded, mp_frame_s, multi_s = phase_multi(
-            ks, kg, fa, trained, pipe, lev["proposal"], styles, tmp, card)
-        adain = phase_adain(tmp, geo_dir, styles, card)
-    # per C1 step of the counted run; K6 also ran once per site for each collage
-    k6_row.update(k6_c1, launches=c3_launches, launches_c1=c1_launches["K6"],
-                  launches_per_step=(c1_launches["K6"] - C3_SITES * collages) // C1_STEPS,
-                  launches_c2=c2_launches["K6"], launches_c3c2=c3c2_launches)
-    rows.append(k6_row)
-    for row in k78_rows:
-        row["launches"] = c1_launches[row["name"]]
-        row["launches_per_step"] = c1_launches[row["name"]] // C1_STEPS
-        row["launches_c2"] = c2_launches[row["name"]]
-    rows += k78_rows
-    for row in rows:  # the stylized frames from the seeded latents and the trained field
-        if row["name"] in ("K4", "K5"):
-            row["launches_d"] = d_launches[row["name"]]
-            row["launches_e"] = e_launches[row["name"]]
-    for row in rows:  # phase 16's four pipeline runs
-        row["launches_pipeline"] = pipe_launches[row["name"]]
-    rows.append(w128_row)  # phase 17's (its pipeline runs are phase 17's re-entry)
-    for row in rows:  # phase 18's two workers' counted runs, both ranks
-        if row["name"] in multi_launches:
-            row["launches_multi"] = multi_launches[row["name"]]
-        if row["name"] in sharded:  # phase 18(e)'s sharded frames, a rank
-            row["launches_sharded"] = sharded[row["name"]]
+        vae_ckpt = phase_d(ks, kst, trained, styles, feats, n_views, tmp)
+        phase_e(ks, kg, kst, fa, trained, tmp, os.path.join(tmp, "stylized_c2"), vae_ckpt)
+        pipe = phase_pipeline(ks, kg, kst, fa, tmp, card)
+        proposal = phase_levers(ks, kg, kst, trained, pipe, tmp)
+        phase_multi(ks, kg, trained, pipe, proposal, styles, tmp, card)
+        phase_adain(tmp, geo_dir, styles, card)
 
-    print(f"[result] card {card}; frame {rays_per_s:.1f} rays/s; Phase A "
-          f"{steps_per_s:.2f} steps/s; stylized frame {f_rays_per_s:.1f} rays/s; Phase F "
-          f"{f_frames_per_min:.2f} frames/min; C3 {c3_frames_per_s:.3f} frames/s, "
-          f"{c3_s_per_view:.3f} s per view with the JPEG writes ({C3_VIEWS} views); C1 "
-          f"{c1_steps_per_s:.3f} steps/s; C2 {c2_steps_per_s:.3f} steps/s; C3 after C2 "
-          f"{c3c2_s_per_view:.4f} s per view and style; VAE {vae_steps_per_s:.3f} steps/s; "
-          f"Phase E {e_steps_per_s:.3f} steps/s; trained-field frame {e_rays_per_s:.1f} rays/s; "
-          f"pipeline A→E {pipe['a_to_e_s']:.3f} s, F {pipe['f_s_per_frame']:.3f} s a frame; "
-          f"fast-stack frame {lev['fast_rays_per_s']:.1f} rays/s, grid frame "
-          f"{lev['grid_rays_per_s']:.1f} rays/s (built in {lev['grid_build_s']:.3f} s), "
-          f"stylized fast-stack frame {lev['style_rays_per_s']:.1f} rays/s, proposal "
-          f"distilled in {lev['distill_s']:.2f} s; budgeted Phase A steps/s "
-          + ", ".join(f"{'exact' if b is None else b} {v:.2f}"
-                      for b, v in lev["a_steps_per_s"].items())
-          + f"; multi-process phase {multi_s:.2f} s (sharded frame over two processes on one "
-          f"card {mp_frame_s['exact_s']:.3f} s exact, {mp_frame_s['fast_s']:.3f} s fast stack: "
-          f"no scaling figure); AdaIN finetune {adain['ft_steps_per_s']:.3f} steps/s, temporal "
-          f"{adain['t_steps_per_s']:.3f} steps/s at {adain['peak_gib']:.2f} GiB peak; whole "
-          f"script {time.perf_counter() - T_START:.1f} s", flush=True)
-    print(json.dumps({"kernels": rows}))
+    print(f"[result] card {card}; every phase's checks held", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

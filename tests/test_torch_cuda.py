@@ -1,4 +1,5 @@
-"""The CUDA kernels on a card: K1-K8 against their plain twins (K3's
+"""The CUDA kernels on a card: K1-K8 against their plain twins at sizes that
+cut their tiles and at the full sizes of the paths that launch them (K3's
 recompute against K1 bit for bit; K6-K8 with ``bh_offset`` against the
 whole batch bit for bit), their launch counters, the reflection pad's
 repeatable gradient, the fused render, the fused stylized render, one fused
@@ -38,11 +39,20 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 TOL_RGB, TOL_SIGMA, TOL_RENDER = 3e-2, 2e-1, 5e-2
-# K3 vs its twin, per packed layer: max|err| / max|twin| and cosine. The
-# kernel's forward is K1's, which rounds its bf16 activations apart from the
-# twin's at the odd f32 tie, flipping a ReLU mask; at P = 300 one flip moves
-# a few percent of a layer's max (4.2e-2 measured on the card).
-TOL_K3_REL, TOL_K3_COS = 5e-2, 0.999
+# K3 vs its twin, per packed layer: max|err| / max|twin| within the case's
+# limit and cosine >= TOL_K3_COS. The kernel's forward is K1's, which rounds
+# its bf16 activations apart from the twin's at the odd f32 tie, flipping a
+# ReLU mask; at P = 300 one flip moves a few percent of a layer's max
+# (4.2e-2 measured on the card), so the small cases' limit is 5e-2. At
+# Phase A's fine pass (2048 rays x 128 samples, 300 points over) on a
+# He-normal trunk no one flip moves a layer's max by percents: there the
+# limit is 2e-2.
+TOL_K3_COS = 0.999
+K3_STEP_P = 2048 * 128 + 300
+# (p, He-normal trunk, relative limit) of the K3 cases.
+K3_CASES = [pytest.param(300, False, 5e-2, id="300"),
+            pytest.param(64 * 1000 + 17, False, 5e-2, id="64017"),
+            pytest.param(K3_STEP_P, True, 2e-2, id=f"{K3_STEP_P}-he")]
 
 
 @pytest.fixture
@@ -60,6 +70,15 @@ def _points(p, device, seed=1):
     rng = np.random.default_rng(seed)
     return (torch.from_numpy(rng.uniform(-1, 1, (3, p)).astype(np.float32)).to(device),
             torch.from_numpy(rng.normal(size=(3, p)).astype(np.float32)).to(device))
+
+
+def _he(sd):
+    """``sd`` with He-normal kernels: the LeCun-normal draws of ``make_nerf``
+    and ``make_style_mlps`` scaled by sqrt(2). Activations then keep their
+    size through the ReLU layers: a D8/W256 trunk's σ reaches ~2 and its rgb
+    spreads ~0.13, where LeCun-normal leaves ~0.3 and ~0.03, under the
+    limits' own scale."""
+    return {k: v * 2 ** 0.5 if k.endswith(".weight") else v for k, v in sd.items()}
 
 
 @pytest.mark.parametrize("p", [300, 64 * 1000 + 17])
@@ -81,11 +100,15 @@ def test_cuda_kernels_match_twins(cuda_device, p):
 # 132 SMs).
 ENGINE_TILE = 128
 ENGINE_P = [1, ENGINE_TILE - 1, ENGINE_TILE + 1, 132 * ENGINE_TILE + 17]
+# The main path's blocks: 16,384 rays x 128 samples (the fine pass) and x 64
+# (the coarse pass); the fine block and 300 points over.
+FINE_BLOCK_P, COARSE_BLOCK_P = 16384 * 128, 16384 * 64
+FULL_P = FINE_BLOCK_P + 300
 
 
-@pytest.mark.parametrize("p", ENGINE_P)
+@pytest.mark.parametrize("p", ENGINE_P + [FULL_P])
 def test_cuda_k1_engine_tiles_match_twin_and_repeat(cuda_device, p):
-    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    packed = tk.pack_nerf_params(_he(_state_dict(0)), device=cuda_device)
     pts, dirs = _points(p, cuda_device)
     rgb, sigma = tk.fused_nerf_apply_t(packed, pts, dirs)
     rgb2, sigma2 = tk.fused_nerf_apply_t(packed, pts, dirs)
@@ -93,17 +116,18 @@ def test_cuda_k1_engine_tiles_match_twin_and_repeat(cuda_device, p):
     torch.cuda.synchronize()
     rgb_p, sigma_p = tk.fused_nerf_apply_t_plain(packed, pts, dirs)
     assert rgb.shape == (3, p) and sigma.shape == (1, p)
+    assert bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all())
     assert (rgb - rgb_p).abs().max() <= TOL_RGB
     assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
     assert torch.equal(sigma, sigma_k2)
 
 
-@pytest.mark.parametrize("p", ENGINE_P)
+@pytest.mark.parametrize("p", ENGINE_P + [FULL_P])
 def test_cuda_k2_engine_tiles_match_twin_and_repeat(cuda_device, p):
     """K2 on the engine's sigma-only kernel: its twin, a second launch bit
     for bit, and K1's sigma bit for bit (one trunk function)."""
-    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    packed = tk.pack_nerf_params(_he(_state_dict(0)), device=cuda_device)
     pts, dirs = _points(p, cuda_device)
     sigma = tk.fused_nerf_sigma_apply_t(packed, pts)
     sigma2 = tk.fused_nerf_sigma_apply_t(packed, pts)
@@ -120,9 +144,23 @@ def test_cuda_k2_engine_tiles_match_twin_and_repeat(cuda_device, p):
 # (132 blocks of 4 x 64 points).
 W128_TILE = 64
 W128_P = [W128_TILE - 1, W128_TILE + 1, 3 * W128_TILE + 1, 132 * 4 * W128_TILE + 17]
-# K2 at width 128 against its twin, with every bias seeded (_with_biases):
-# chip_smoke.py phase 17's limit.
-TOL_SIGMA_W128 = 2e-2
+# The fast stack's coarse blocks: 8,192 rays x 64 samples (coarse_share 2)
+# and 16,384 x 64, and 300 points over.
+W128_FRAME_P = [COARSE_BLOCK_P // 2, COARSE_BLOCK_P, COARSE_BLOCK_P + 300]
+# K2 at width 128 against its twin, He-normal kernels and every bias seeded
+# (_w128_state_dict), set from K2-W128's largest reading over such trunks,
+# 1.399e-02 (depth 3, 1,048,576 points, on an H100), the shared TOL_SIGMA
+# 14 times it. Each bias path moves σ by more than BIAS_MARGIN times the
+# limit.
+TOL_SIGMA_W128, BIAS_MARGIN = 2e-2, 10
+# (p, depth, limit): every depth at the tile-cutting sizes within
+# TOL_SIGMA_W128, and every depth at the block sizes, where depth 8 runs on
+# the engine's sigma-only kernel and is held to the engine's TOL_SIGMA (its
+# bf16 σ reads 2.03-2.41e-02 from the twin there, on an H100).
+W128_CASES = ([pytest.param(p, d, TOL_SIGMA_W128, id=f"{p}-{d}")
+               for d in (1, 2, 3, 6, 8) for p in ENGINE_P + W128_P]
+              + [pytest.param(p, d, TOL_SIGMA if d == 8 else TOL_SIGMA_W128, id=f"{p}-{d}")
+                 for d in (1, 2, 3, 6, 8) for p in W128_FRAME_P])
 
 
 def _with_biases(sd, seed):
@@ -140,17 +178,24 @@ def _with_biases(sd, seed):
     return out
 
 
-@pytest.mark.parametrize("depth", [1, 2, 3, 6, 8])
-@pytest.mark.parametrize("p", ENGINE_P + W128_P)
-def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth):
+def _w128_state_dict(depth):
+    """A 128-wide trunk of ``depth`` layers (skip 4): He-normal kernels and
+    every bias seeded."""
+    sd = make_nerf(NerfConfig(depth=depth, width=128), torch.Generator().manual_seed(4),
+                   device="cpu").state_dict()
+    return _with_biases(_he(sd), 5)
+
+
+@pytest.mark.parametrize("p,depth,tol", W128_CASES)
+def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth, tol):
     """K2 on the distilled proposal's 128-wide trunk: K2-W128 (depth 2
     compiled in; 1, 3 and 6, whose layer 5 is the skip layer, at run time)
     and, past its depth cut-off, the engine's sigma-only kernel (depth 8):
-    its twin with every bias seeded, a second launch bit for bit, and the
-    launches counted in ``launches_w128`` alone."""
-    sd = _with_biases(make_nerf(NerfConfig(depth=depth, width=128),
-                                torch.Generator().manual_seed(4), device="cpu").state_dict(), 5)
-    packed = tk.pack_nerf_params(sd, depth=depth, width=128, device=cuda_device)
+    its twin within the case's limit with every bias seeded, a second
+    launch bit for bit, and the launches counted in ``launches_w128``
+    alone."""
+    packed = tk.pack_nerf_params(_w128_state_dict(depth), depth=depth, width=128,
+                                 device=cuda_device)
     pts, _ = _points(p, cuda_device)
     k2 = tk.fused_nerf_sigma_apply_t
     before = (k2.launches, k2.launches_w128)
@@ -158,7 +203,45 @@ def test_cuda_k2_proposal_width_matches_twin_and_repeats(cuda_device, p, depth):
     torch.cuda.synchronize()
     assert (k2.launches, k2.launches_w128) == (before[0], before[1] + 2)
     assert sigma.shape == (1, p) and torch.equal(sigma, sigma2)
-    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA_W128
+    assert bool(torch.isfinite(sigma).all())
+    assert (sigma - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= tol
+
+
+def _bias_groups(packed):
+    """K2-W128's bias paths at ``packed``'s depth, as (name, packed layers):
+    layer 0's and a skip layer's go in the encoding's pad column, the other
+    trunk layers' in the epilogue, σ's at the store."""
+    d, skip = packed.depth, packed.skip
+    rest = [i for i in range(1, d) if i != skip + 1]
+    return ([("layer 0", [0])] + ([("skip layer", [skip + 1])] if skip + 1 < d else [])
+            + ([("epilogue layers", rest)] if rest else []) + [("sigma", [d + 1])])
+
+
+def _without_biases(packed, layers):
+    """``packed`` with the biases of ``layers`` set to 0 (a copy)."""
+    out = dataclasses.replace(packed, b=packed.b.clone())
+    for i in layers:
+        out.bias(i).zero_()
+    return out
+
+
+@pytest.mark.parametrize("depth,p", [(1, W128_P[-1]), (2, W128_FRAME_P[-1]),
+                                     (3, W128_FRAME_P[-1]), (6, W128_P[-1]), (8, ENGINE_P[-1])])
+def test_cuda_k2_proposal_width_bias_paths_move_sigma(cuda_device, depth, p):
+    """Every bias path of K2 at width 128 shows in its twin test: on the
+    same trunk at a size of that test, the twin without each path's biases
+    moves σ by more than BIAS_MARGIN times TOL_SIGMA_W128, so no kernel
+    that lost or misplaced a bias could pass."""
+    packed = tk.pack_nerf_params(_w128_state_dict(depth), depth=depth, width=128,
+                                 device=cuda_device)
+    pts, _ = _points(p, cuda_device)
+    ref = tk.fused_nerf_sigma_apply_t_plain(packed, pts)
+    for name, layers in _bias_groups(packed):
+        moved = float((tk.fused_nerf_sigma_apply_t_plain(_without_biases(packed, layers), pts)
+                       - ref).abs().max())
+        print(f"K2 at width 128, depth {depth}: the twin without the {name}'s biases moves sigma "
+              f"by {moved:.3e}")
+        assert moved > BIAS_MARGIN * TOL_SIGMA_W128, name
 
 
 def test_cuda_k2_proposal_width_depth_cut_off(cuda_device):
@@ -175,7 +258,7 @@ def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
     """K1 at a depth and skip other than the configs' 8 and 4 (the kernel
     fixes those at compile time and takes any other at run time)."""
     cfg = NerfConfig(depth=6, skips=(2,))
-    sd = make_nerf(cfg, torch.Generator().manual_seed(3), device="cpu").state_dict()
+    sd = _he(make_nerf(cfg, torch.Generator().manual_seed(3), device="cpu").state_dict())
     packed = tk.pack_nerf_params(sd, depth=6, skip=2, device=cuda_device)
     pts, dirs = _points(p, cuda_device)
     rgb, sigma = tk.fused_nerf_apply_t(packed, pts, dirs)
@@ -186,6 +269,7 @@ def test_cuda_k1_runtime_depth_matches_twin(cuda_device, p):
     rgb_p, sigma_p = tk.fused_nerf_apply_t_plain(packed, pts, dirs)
     assert (rgb - rgb_p).abs().max() <= TOL_RGB
     assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
+    assert (sigma_k2 - tk.fused_nerf_sigma_apply_t_plain(packed, pts)).abs().max() <= TOL_SIGMA
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
     assert torch.equal(sigma, sigma_k2) and torch.equal(sigma_k2, sigma_k2b)
 
@@ -229,28 +313,37 @@ def _cotangents(p, device, seed=2):
             torch.from_numpy(rng.normal(size=(1, p)).astype(np.float32)).to(device))
 
 
-@pytest.mark.parametrize("p", [300, 64 * 1000 + 17])
-def test_cuda_k3_matches_twin_and_repeats(cuda_device, p):
-    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+def _assert_k3_matches_twin(packed, dw, db, tw, tb, tol):
+    """Per packed layer (then the biases): max|err| <= ``tol`` max|twin|
+    and cosine >= TOL_K3_COS."""
+    assert bool(torch.isfinite(dw).all() and torch.isfinite(db).all())
+    for i, (n, k) in enumerate(packed.layers()):
+        a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        b = tw[packed.offsets[i]: packed.offsets[i] + n * k].double()
+        assert (a - b).abs().max() <= tol * b.abs().max(), i
+        assert (a * b).sum() >= TOL_K3_COS * a.norm() * b.norm(), i
+    assert (db - tb).abs().max() <= tol * tb.abs().max()
+
+
+@pytest.mark.parametrize("p,he,tol", K3_CASES)
+def test_cuda_k3_matches_twin_and_repeats(cuda_device, p, he, tol):
+    sd = _state_dict(0)
+    packed = tk.pack_nerf_params(_he(sd) if he else sd, device=cuda_device)
     args = _points(p, cuda_device) + _cotangents(p, cuda_device)
     dw, db = tg.fused_nerf_bwd(packed, *args)
     dw2, db2 = tg.fused_nerf_bwd(packed, *args)
     torch.cuda.synchronize()
     assert torch.equal(dw, dw2) and torch.equal(db, db2)  # deterministic
     tw, tb = tg.fused_nerf_bwd_plain(packed, *args)
-    for i, (n, k) in enumerate(packed.layers()):
-        a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
-        b = tw[packed.offsets[i]: packed.offsets[i] + n * k].double()
-        assert (a - b).abs().max() <= TOL_K3_REL * b.abs().max(), i
-        assert (a * b).sum() >= TOL_K3_COS * a.norm() * b.norm(), i
-    assert (db - tb).abs().max() <= TOL_K3_REL * tb.abs().max()
+    _assert_k3_matches_twin(packed, dw, db, tw, tb, tol)
 
 
-@pytest.mark.parametrize("p", [300, 64 * 1000 + 17])
-def test_cuda_k3_recompute_ties_k1(cuda_device, p):
+@pytest.mark.parametrize("p,he", [pytest.param(*c.values[:2], id=c.id) for c in K3_CASES])
+def test_cuda_k3_recompute_ties_k1(cuda_device, p, he):
     """K3 recomputes the forward with K1's own device code (trunk_tile and
     rgb_tail): its rgb and sigma equal K1's on the same inputs bit for bit."""
-    packed = tk.pack_nerf_params(_state_dict(0), device=cuda_device)
+    sd = _state_dict(0)
+    packed = tk.pack_nerf_params(_he(sd) if he else sd, device=cuda_device)
     args = _points(p, cuda_device) + _cotangents(p, cuda_device)
     fwd = torch.empty(4, p, device=cuda_device)
     tg.fused_nerf_bwd(packed, *args, forward_out=fwd)
@@ -259,13 +352,13 @@ def test_cuda_k3_recompute_ties_k1(cuda_device, p):
     assert torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma)
 
 
-def test_cuda_k3_runtime_depth_matches_twin(cuda_device):
+@pytest.mark.parametrize("p,he,tol", K3_CASES[1:])
+def test_cuda_k3_runtime_depth_matches_twin(cuda_device, p, he, tol):
     """K3 at depth 6 with skip 2 (its run-time depth build): the twin per
     packed layer, a second launch and K1's forward bit for bit."""
     cfg = NerfConfig(depth=6, skips=(2,))
     sd = make_nerf(cfg, torch.Generator().manual_seed(3), device="cpu").state_dict()
-    packed = tk.pack_nerf_params(sd, depth=6, skip=2, device=cuda_device)
-    p = 64 * 1000 + 17
+    packed = tk.pack_nerf_params(_he(sd) if he else sd, depth=6, skip=2, device=cuda_device)
     args = _points(p, cuda_device) + _cotangents(p, cuda_device)
     fwd = torch.empty(4, p, device=cuda_device)
     dw, db = tg.fused_nerf_bwd(packed, *args, forward_out=fwd)
@@ -275,12 +368,7 @@ def test_cuda_k3_runtime_depth_matches_twin(cuda_device):
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
     assert torch.equal(fwd[:3], rgb) and torch.equal(fwd[3:], sigma)
     tw, tb = tg.fused_nerf_bwd_plain(packed, *args)
-    for i, (n, k) in enumerate(packed.layers()):
-        a = dw[packed.offsets[i]: packed.offsets[i] + n * k].double()
-        b = tw[packed.offsets[i]: packed.offsets[i] + n * k].double()
-        assert (a - b).abs().max() <= TOL_K3_REL * b.abs().max(), i
-        assert (a * b).sum() >= TOL_K3_COS * a.norm() * b.norm(), i
-    assert (db - tb).abs().max() <= TOL_K3_REL * tb.abs().max()
+    _assert_k3_matches_twin(packed, dw, db, tw, tb, tol)
 
 
 def test_k3_launch_counter_counts_launches(cuda_device):
@@ -322,9 +410,10 @@ def test_fused_train_step_on_card_matches_cpu(cuda_device):
         assert float((a * b).sum()) >= 0.99 * float(a.norm() * b.norm())
 
 
-def _style_sds(seed=1):
-    return tuple(m.state_dict() for m in make_style_mlps(
+def _style_sds(seed=1, he=False):
+    sds = tuple(m.state_dict() for m in make_style_mlps(
         StyleFieldConfig(), torch.Generator().manual_seed(seed), device="cpu"))
+    return tuple(_he(sd) for sd in sds) if he else sds
 
 
 @pytest.mark.parametrize("p,spr", [(300, 1), (64 * 1000 + 17, 1), (512 * 128, 128)])
@@ -346,10 +435,12 @@ def test_cuda_style_kernels_match_twins_and_repeat(cuda_device, p, spr):
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
 
 
+# With 128 samples a ray, the fine block takes one latent row a ray: 16,384
+# distinct rows, as a stylized frame's block does.
 @pytest.mark.parametrize("p,spr", [(p, 1) for p in ENGINE_P] + [
-    (ENGINE_TILE, 128), (133 * ENGINE_TILE, 128)])
+    (ENGINE_TILE, 128), (133 * ENGINE_TILE, 128), (FULL_P, 1), (FINE_BLOCK_P, 128)])
 def test_cuda_k4_engine_tiles_match_twin_and_repeat(cuda_device, p, spr):
-    packed = ts.pack_style_params(_state_dict(0), *_style_sds(), device=cuda_device)
+    packed = ts.pack_style_params(_he(_state_dict(0)), *_style_sds(he=True), device=cuda_device)
     pts, _ = _points(p, cuda_device)
     lat = torch.from_numpy(np.random.default_rng(5).normal(size=(p // spr, 32))
                            .astype(np.float32)).to(cuda_device)
@@ -359,19 +450,20 @@ def test_cuda_k4_engine_tiles_match_twin_and_repeat(cuda_device, p, spr):
     torch.cuda.synchronize()
     rgb_p, sigma_p = ts.fused_style_apply_t_plain(packed, pts, lat, spr)
     assert rgb.shape == (3, p) and sigma.shape == (1, p)
+    assert bool(torch.isfinite(rgb).all() and torch.isfinite(sigma).all())
     assert (rgb - rgb_p).abs().max() <= TOL_RGB
     assert (sigma - sigma_p).abs().max() <= TOL_SIGMA
     assert torch.equal(rgb, rgb2) and torch.equal(sigma, sigma2)
     assert torch.equal(sigma, sigma5)
 
 
-@pytest.mark.parametrize("p", ENGINE_P)
+@pytest.mark.parametrize("p", ENGINE_P + [ENGINE_TILE, 133 * ENGINE_TILE, COARSE_BLOCK_P, FULL_P])
 def test_cuda_k5_engine_tiles_match_twin_and_repeat(cuda_device, p):
     """K5 on the engine's sigma-only kernel: its twin, a second launch bit
     for bit, and K2's sigma bit for bit on the same trunk (K4's packing
     holds the trunk and sigma matrices at K2's indices)."""
-    sd = _state_dict(0)
-    packed = ts.pack_style_params(sd, *_style_sds(), device=cuda_device)
+    sd = _he(_state_dict(0))
+    packed = ts.pack_style_params(sd, *_style_sds(he=True), device=cuda_device)
     packed_k2 = tk.pack_nerf_params(sd, device=cuda_device)
     pts, _ = _points(p, cuda_device)
     sigma = ts.fused_sigma_apply_t(packed, pts)
@@ -501,6 +593,8 @@ def test_fused_style_render_on_card_matches_cpu(cuda_device, coarse_rgb):
 
 TOL_K6_O, TOL_K6_LSE, TOL_C3 = 3e-2, 1e-3, 5e-2
 TOL_K6_O_REL = 1e-2  # of max|twin|, which sits far below TOL_K6_O at long key rows
+# C3's tokens: a 756x1008 frame padded to 760x1008, in 8x8 patches.
+C3_TOKENS = 95 * 126
 
 
 def _qkv(heads, sq, sk, device, seed=7):
@@ -514,10 +608,15 @@ def _k6_case(heads, sq, sk, rate, scale=0.125, q_view=False):
     return pytest.param(heads, sq, sk, rate, scale, q_view, id=name + ("-qview" if q_view else ""))
 
 
-# The last cases cut K6's 128-row blocks and 128-key tiles: rows past Sq in
-# a block's second warpgroup or second TMA box, one key, one key past a
-# box; then a scale that is not a power of two, and q alone as a view.
+# C3's attention (8 heads over its tokens, against themselves and against
+# 4,096 keys) and C1's (8 images x 8 heads of 1,024 tokens as one batch,
+# its dropout); then cases that cut K6's 128-row blocks and 128-key tiles:
+# rows past Sq in a block's second warpgroup or second TMA box, one key,
+# one key past a box; then a scale that is not a power of two, and q alone
+# as a view.
 @pytest.mark.parametrize("heads,sq,sk,rate,scale,q_view", [
+    _k6_case(8, C3_TOKENS, C3_TOKENS, 0.0), _k6_case(8, C3_TOKENS, 4096, 0.0),
+    _k6_case(64, 1024, 1024, 0.1),
     _k6_case(16, 300, 180, 0.0), _k6_case(2, 2000, 700, 0.0), _k6_case(2, 64, 4096, 0.0),
     _k6_case(4, 257, 129, 0.25),
     _k6_case(4, 200, 130, 0.0), _k6_case(4, 200, 130, 0.25), _k6_case(2, 1000, 1030, 0.0),
@@ -534,6 +633,7 @@ def test_cuda_k6_matches_twin_and_repeats(cuda_device, heads, sq, sk, rate, scal
     torch.cuda.synchronize()
     o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, rate, 11)
     assert o.shape == q.shape and o.dtype == torch.bfloat16 and lse.shape == (1, heads, sq)
+    assert bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
     e_o = float((o.float() - o_p.float()).abs().max())
     e_l = float((lse - lse_p).abs().max())
     lim_o = min(TOL_K6_O, TOL_K6_O_REL * float(o_p.float().abs().max()))
@@ -564,10 +664,11 @@ def test_k6_launch_counter_counts_launches(cuda_device):
     assert fa.flash_attention_fwd.launches - before == 2
 
 
-def test_k6_dropout_mask_probe(cuda_device):
+@pytest.mark.parametrize("heads,rows", [(4, 200), (16, 1000)])
+def test_k6_dropout_mask_probe(cuda_device, heads, rows):
     """q = 0 and row j of v = 2^(j // 64) e_(j mod 64): each output element
     encodes four keep bits, which must be the twin's hash mask."""
-    heads, rows, sk, rate, seed = 4, 200, 256, 0.1, 7
+    sk, rate, seed = 256, 0.1, 7
     q = torch.zeros((1, heads, rows, 64), dtype=torch.bfloat16, device=cuda_device)
     k = _qkv(heads, 1, sk, cuda_device)[1]
     j = torch.arange(sk, device=cuda_device)
@@ -611,7 +712,7 @@ def test_narrow_stylize_on_card_matches_cpu(cuda_device):
         assert (card - cpu).abs().max() <= TOL_C3 * cpu.abs().max()
 
 
-TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv (chip_smoke.py phase 10)
+TOL_K78_REL = 1e-2  # of max|twin|, for each of dq, dk, dv
 
 
 def _qkvdo(batch, heads, sq, sk, device, seed=9):
@@ -622,12 +723,16 @@ def _qkvdo(batch, heads, sq, sk, device, seed=9):
 
 @pytest.mark.parametrize("batch,heads,sq,sk,rate", [(1, 16, 300, 180, 0.0), (1, 16, 300, 180, 0.25),
                                                     (8, 8, 1024, 1024, 0.0),
+                                                    (8, 8, 1024, 1024, 0.1),
                                                     (8, 8, 1024, 1024, 0.25),
+                                                    (1, 8, C3_TOKENS, 4096, 0.0),
                                                     (1, 4, 200, 130, 0.0), (1, 4, 200, 130, 0.25),
                                                     (1, 2, 1000, 1030, 0.0),
                                                     (1, 2, 1000, 1030, 0.25)])
 def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate):
-    """Shapes that fill and cut the kernels' 128-row blocks and 64-row tiles."""
+    """C1's shape at its dropout and at others, C3's tokens against 4,096
+    keys, and shapes that fill and cut the kernels' 128-row blocks and
+    64-row tiles."""
     q, k, v, do = _qkvdo(batch, heads, sq, sk, cuda_device)
     o, lse = fa.flash_attention_fwd(q, k, v, 0.125, rate, 13)
     delta = fa.attention_delta(o, do)
@@ -638,6 +743,7 @@ def test_cuda_k78_match_twins_and_repeat(cuda_device, batch, heads, sq, sk, rate
     want = (fa.flash_attention_bwd_dq_plain(*args),) + fa.flash_attention_bwd_dkv_plain(*args)
     for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all()), name
         e = float((got.float() - ref.float()).abs().max())
         lim = TOL_K78_REL * float(ref.float().abs().max())
         print(f"parity {name} vs twin, {batch}x{heads} heads, Sq {sq}, Sk {sk}, dropout {rate}: "
