@@ -1020,6 +1020,195 @@ def test_c1_graph_counters_recapture_and_spans(cuda_device):
     assert any("flash_bwd_dkv_kernel" in k for k in bwd)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_transmittance_captures_and_equals_cumprods(cuda_device, dtype):
+    """On the card the capturable product (``_CumprodNonzero``) and its
+    gradient equal ``torch.cumprod``'s under autograd bit for bit (opaque
+    samples included), and the transmittance's backward, captured in a CUDA
+    graph, replays the eager gradient."""
+    from tgtc_torch.ops.composite import _CumprodNonzero, _exclusive_trans
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    alpha = torch.rand((2048, 128), generator=gen, device=cuda_device).to(dtype)
+    alpha[0, 5] = alpha[3, 0] = 1.0
+    g = torch.randn((2048, 128), generator=gen, device=cuda_device).to(dtype)
+    x1, x2 = ((1.0 - alpha + 1e-10).requires_grad_(True) for _ in range(2))
+    got, want = _CumprodNonzero.apply(x1), torch.cumprod(x2, dim=-1)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.autograd.grad(got, x1, g)[0], torch.autograd.grad(want, x2, g)[0])
+    static = alpha.clone().requires_grad_(True)
+    eager = torch.autograd.grad(_exclusive_trans(static), static, g)[0]
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = torch.autograd.grad(_exclusive_trans(static), static, g)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+A_RAYS = 16384  # the rays the Phase-A graph tests draw their batches from
+
+
+def _phase_a(dev, **tc_kw):
+    """A fused Phase-A step at ``nerf-fern.train``'s shapes (batch 2048,
+    64+64 samples, σ noise 1.0) and a state of seeded He-normal D8/W256
+    trunks."""
+    cfg = NerfConfig()
+    tc = tt.NerfTrainConfig(batch_size=2048, n_samples=64, n_samples_fine=64,
+                            sigma_noise_std=1.0, **tc_kw)
+    state = tt.init_state(torch.Generator().manual_seed(0), cfg, tc, device=dev)
+    for m in (state.coarse, state.fine):
+        m.load_state_dict(_he(m.state_dict()))
+    return state, tt.make_fused_train_step(cfg, tc, device=dev)
+
+
+def _a_rays(dev, seed=5):
+    """``A_RAYS`` rays into the -z half space and their colours."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(A_RAYS, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (rng.uniform(-0.3, 0.3, (A_RAYS, 3)), d, rng.uniform(0, 1, (A_RAYS, 3)))]
+
+
+def _a_snapshot(state, metrics, grads):
+    return metrics, [g.clone() for g in grads], [p.detach().clone() for p in state.parameters()]
+
+
+@pytest.mark.parametrize("tc_kw", [{}, {"steps_per_opt": 2}, {"train_fine_budget": 80}],
+                         ids=["default", "steps_per_opt2", "budget80"])
+def test_phase_a_graphed_step_equals_eager_step(cuda_device, tc_kw):
+    """Five fused Phase-A steps through ``__call__`` (eager, then captured
+    and replayed from call 2) against the same five through ``draw`` +
+    ``loss_and_grad`` + ``apply``, same trunks, rays and generator seeds:
+    after every step the metrics, the gradients handed to ``apply`` and the
+    parameters bit for bit."""
+    rays, gen = _a_rays(cuda_device), torch.Generator(device=cuda_device)
+    state, step = _phase_a(cuda_device, **tc_kw)
+    apply, graphed, eager = step.apply, [], []
+    step.apply = lambda st, grads: (graphed.append(_a_snapshot(st, {}, grads)),
+                                    apply(st, grads))[-1]
+    for s in range(5):
+        state, m = step(state, *rays, generator=gen.manual_seed(s))
+        graphed[-1] = _a_snapshot(state, m, graphed[-1][1])
+    assert (step.captures, step.replays) == (1, 4)
+    state, blocks = _phase_a(cuda_device, **tc_kw)
+    for s in range(5):
+        draws = blocks.draw(A_RAYS, gen.manual_seed(s))
+        m, g = blocks.loss_and_grad(state.coarse, state.fine, *rays, draws)
+        g = [x.clone() for x in g]
+        blocks.apply(state, g)
+        state.step += 1
+        eager.append(_a_snapshot(state, m, g))
+    torch.cuda.synchronize()
+    print(f"parity graphed Phase-A step ({tc_kw or 'default'}) vs eager over 5 steps: losses "
+          + ", ".join(f"{float(m['loss']):.6f}" for m, _, _ in graphed))
+    assert (blocks.captures, blocks.replays) == (0, 0)
+    for s, ((mg, gg, pg), (me, ge, pe)) in enumerate(zip(graphed, eager)):
+        assert mg.keys() == me.keys() and all(torch.equal(mg[k], me[k]) for k in me), s
+        assert all(torch.equal(a, b) for a, b in zip(gg, ge)), s
+        assert all(torch.equal(a, b) for a, b in zip(pg, pe)), s
+
+
+def test_phase_a_graphed_metrics_outlive_later_replays(cuda_device):
+    """The metrics of four consecutive calls (the last three replayed),
+    stacked after the fourth, equal those read after each call: no returned
+    tensor lies in the graphs' memory."""
+    rays, gen = _a_rays(cuda_device), torch.Generator(device=cuda_device)
+    state, step = _phase_a(cuda_device)
+    kept, read = [], []
+    for s in range(4):
+        state, m = step(state, *rays, generator=gen.manual_seed(s))
+        kept.append(m)
+        read.append([float(v) for v in m.values()])
+    assert (step.captures, step.replays) == (1, 3)
+    assert torch.stack([torch.stack(list(m.values())) for m in kept]).tolist() == read
+    assert read[2] != read[3]  # so an overwritten metric would show
+
+
+def test_phase_a_graph_recaptures_on_a_new_key_and_spans(cuda_device):
+    """A batch of another size (the caller's draws), new ``rays_o`` and a
+    return to the first key each drop the graphs: one eager call, then a
+    capture. A step of another fine budget captures its own. A profiled
+    replayed step opens the phase spans, K1 replayed by the graph launched
+    under the forward's and K3 by the one under the backward's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rays, gen = _a_rays(cuda_device), torch.Generator(device=cuda_device)
+    state, step = _phase_a(cuda_device)
+    counts = []
+    for s in range(3):
+        state, _ = step(state, *rays, generator=gen.manual_seed(s))
+    counts.append((step.captures, step.replays))
+    half = tt.StepDraws(*(t[:1024] for t in dataclasses.astuple(
+        step.draw(A_RAYS, gen.manual_seed(3)))))
+    for _ in range(3):
+        state, _ = step(state, *rays, draws=half)
+    counts.append((step.captures, step.replays))
+    other_o = rays[0].clone()
+    for s in range(2):
+        state, _ = step(state, other_o, *rays[1:], generator=gen.manual_seed(s))
+    counts.append((step.captures, step.replays))
+    for s in range(2):
+        state, _ = step(state, *rays, generator=gen.manual_seed(s))
+    counts.append((step.captures, step.replays))
+    _, budget = _phase_a(cuda_device, train_fine_budget=80)
+    for s in range(3):
+        state, _ = budget(state, *rays, generator=gen.manual_seed(s))
+    counts.append((budget.captures, budget.replays, step.captures, step.replays))
+    assert counts == [(1, 2), (2, 4), (3, 5), (4, 6), (1, 2, 4, 6)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, *rays, generator=gen.manual_seed(7))
+        torch.cuda.synchronize()
+    assert (step.captures, step.replays) == (4, 7)
+    events = prof.events()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def kernels_under(span):
+        ids = {e.id for e in events if e.name == "cudaGraphLaunch"
+               and e.cpu_parent is not None and e.cpu_parent.name == span}
+        return {e.name for e in device if e.id in ids}
+
+    names = {e.name for e in events}
+    assert {f"tgtc.step.{p}" for p in ("draw", "forward", "backward", "optimizer")} <= names
+    fwd, bwd = kernels_under("tgtc.step.forward"), kernels_under("tgtc.step.backward")
+    print(f"profiled Phase-A replay: {len(fwd)} kernel names under the forward span, "
+          f"{len(bwd)} under the backward's")
+    assert any("nerf_fwd_kernel" in k for k in fwd)
+    assert any("nerf_bwd_tile_kernel" in k for k in bwd)
+    assert not any("nerf_bwd" in k for k in fwd)
+
+
+def test_train_nerf_replays_its_step_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """``train_nerf`` on the card, 5 fused steps on a 2-view 32x40 scene,
+    logged every 2 steps and traced (``profile_dir``): its step captures once
+    and replays the last four, the losses stay finite and the trace is
+    written."""
+    from tgtc_torch.data.llff import LlffScene
+
+    made = []
+    build = tt.make_fused_train_step
+    monkeypatch.setattr(tt, "make_fused_train_step",
+                        lambda *a, **k: made.append(build(*a, **k)) or made[-1])
+    rng = np.random.default_rng(3)
+    poses = np.zeros((2, 3, 5), np.float32)
+    poses[:, :, :3] = np.eye(3)
+    poses[:, :, 3] = [[0.0, 0.0, 4.0], [0.05, 0.0, 4.1]]
+    poses[:, :, 4] = [32, 40, 50.0]
+    scene = LlffScene(rng.uniform(0, 1, (2, 32, 40, 3)).astype(np.float32), poses,
+                      np.array([[2.0, 8.0]] * 2, np.float32), poses, 1)
+    tc = tt.NerfTrainConfig(batch_size=512, n_samples=32, n_samples_fine=32)
+    state, hist = tt.train_nerf(scene, NerfConfig(), tc, 5, str(tmp_path / "run"), i_print=2,
+                                device=cuda_device, print_fn=None,
+                                profile_dir=str(tmp_path / "trace"))
+    assert len(made) == 1 and (made[0].captures, made[0].replays) == (1, 4)
+    assert state.step == 5 and len(hist["loss"]) == 5 and all(np.isfinite(hist["loss"]))
+    assert (tmp_path / "trace" / "phase_a.json").is_file()
+
+
 def _plane_cloud(n_side, h, w, focal, seed=11):
     """A tilted plane of ``n_side²`` points spread over an ``h x w`` frame
     in front of the identity camera, and two more camera-to-world poses

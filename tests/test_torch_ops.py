@@ -112,6 +112,29 @@ class TestAlphaComposite:
         close(out.rgb, [[1, 0, 0]] * 3)
         close(out.t_exp, [0.5] * 3)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+    def test_capturable_cumprod_is_cumprods_bit_for_bit(self, dtype):
+        """The transmittance's product without autograd's check for zeros (a
+        sync, which a CUDA graph's capture refuses) and its gradient equal
+        ``torch.cumprod``'s under autograd bit for bit, an opaque sample
+        (alpha 1: a factor of 1e-10) included; so does the exclusive
+        transmittance built on it."""
+        from tgtc_torch.ops.composite import _CumprodNonzero, _exclusive_trans
+
+        alpha = torch.rand((16, 64), generator=torch.Generator().manual_seed(4)).to(dtype)
+        alpha[0, 5] = alpha[3, 0] = 1.0
+        x1, x2 = ((1.0 - alpha + 1e-10).requires_grad_(True) for _ in range(2))
+        got, want = _CumprodNonzero.apply(x1), torch.cumprod(x2, dim=-1)
+        g = torch.randn(got.shape, generator=torch.Generator().manual_seed(5)).to(dtype)
+        assert torch.equal(got, want)
+        assert torch.equal(torch.autograd.grad(got, x1, g)[0], torch.autograd.grad(want, x2, g)[0])
+        a1, a2 = (alpha.clone().requires_grad_(True) for _ in range(2))
+        trans = torch.cumprod(1.0 - a2 + 1e-10, dim=-1)
+        got, want = _exclusive_trans(a1), torch.cat([torch.ones_like(trans[:, :1]),
+                                                     trans[:, :-1]], dim=-1)
+        assert torch.equal(got, want)
+        assert torch.equal(torch.autograd.grad(got, a1, g)[0], torch.autograd.grad(want, a2, g)[0])
+
     def test_white_background_transparent(self):
         t = torch.linspace(0, 1, 4).expand(2, 4)
         out = tops.alpha_composite(torch.zeros(2, 4, 3), torch.full((2, 4), -10.0), t,

@@ -323,6 +323,32 @@ def test_fused_step_supported_and_builders_refuse():
             build(tt.NerfTrainConfig(train_fine_budget=129))
 
 
+@pytest.mark.parametrize("steps_per_opt", [1, 2])
+def test_fused_cpu_call_never_captures_and_equals_the_eager_blocks(steps_per_opt):
+    """On the CPU the fused step's ``__call__`` runs eagerly (its CUDA graphs
+    are the card's): both counters stay 0, and three steps leave the metrics
+    and every parameter bit for bit where ``draw`` + ``loss_and_grad`` +
+    ``apply`` leave them."""
+    cfg = NerfConfig()
+    tc = tt.NerfTrainConfig(steps_per_opt=steps_per_opt, **{**TCFG, "batch_size": 8})
+    ro, rd, rgb = (torch.from_numpy(a) for a in _toy_rays(n=64, seed=4))
+    called, built = (tt.init_state(torch.Generator().manual_seed(0), cfg, tc, device="cpu")
+                     for _ in range(2))
+    step = tt.make_fused_train_step(cfg, tc, device="cpu")
+    blocks = tt.make_fused_train_step(cfg, tc, device="cpu")
+    for s in range(3):
+        called, m = step(called, ro, rd, rgb, generator=torch.Generator().manual_seed(s))
+        draws = blocks.draw(ro.shape[0], torch.Generator().manual_seed(s))
+        m_b, g = blocks.loss_and_grad(built.coarse, built.fine, ro, rd, rgb, draws)
+        blocks.apply(built, g)
+        built.step += 1
+        assert m.keys() == m_b.keys() and all(torch.equal(m[k], m_b[k]) for k in m_b)
+    assert (step.captures, step.replays) == (0, 0)
+    assert called.step == built.step == 3 and called.mini_step == built.mini_step
+    for p, q in zip(called.parameters(), built.parameters()):
+        assert torch.equal(p, q)
+
+
 def test_learning_rate_schedule_counts_updates():
     tc = tt.NerfTrainConfig(lrate=1e-2, lrate_decay=4, steps_per_opt=2, batch_size=4,
                             n_samples=4, n_samples_fine=4)

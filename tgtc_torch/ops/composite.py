@@ -69,9 +69,31 @@ def alpha_composite(
     return CompositeOutput(rgb=rgb_exp, t_exp=t_exp, weights=weights, acc=acc)
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """``torch.cumprod`` along the last dim of a tensor without zeros, with
+    the backward autograd takes for such a tensor (``reversed cumsum of out
+    · grad, over x``) minus its check for zeros, which reads a flag back to
+    the host: so the backward syncs nothing and can be captured in a CUDA
+    graph. Both passes are ``torch.cumprod``'s bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return (out * grad).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def _exclusive_trans(alpha: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumulative transmittance: T_i = prod_{j<i} (1 - alpha_j + 1e-10)."""
-    trans = torch.cumprod(1.0 - alpha + 1e-10, dim=-1)
+    """Exclusive cumulative transmittance: T_i = prod_{j<i} (1 - alpha_j + 1e-10).
+    The factors are never 0 where 1e-10 survives the addition (float32,
+    bfloat16; not float16, which the port does not composite in), so the
+    product is :class:`_CumprodNonzero`'s."""
+    trans = _CumprodNonzero.apply(1.0 - alpha + 1e-10)
     return torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
 
 

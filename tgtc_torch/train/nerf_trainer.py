@@ -12,6 +12,18 @@ the Phase-A loop of ``Pipeline.train_nerf`` (tgtc/train/pipeline.py:263-385).
   fused trunk with K1 forward and K3 backward
   (``ops.kernels.nerf_mlp_grad``), taken exactly when
   :func:`fused_train_supported` holds on the card.
+* On the card the fused step's ``__call__`` replays
+  :meth:`TrainStep.loss_and_grad`'s work (gathers, both passes, the loss,
+  K3's backward) from two CUDA graphs
+  (:class:`~tgtc_torch.train.graphs.StepGraphs`; a batch key's first call
+  runs eagerly, its second captures). The key holds the trunks and the
+  rays' identity and layout: the forward graph gathers from them where
+  they lie. The draws stay outside: they are made (or taken from the
+  caller) as before and copied into the forward graph's static buffers;
+  the loss draws nothing else, so no generator is registered with the
+  graphs. The update (:meth:`TrainStep.apply`) stays eager. ``captures``
+  and ``replays`` count the two events. The eager builder's step, CPU
+  tensors and :meth:`TrainStep.loss_and_grad` called directly run eagerly.
 * Adam(0.9, 0.999, eps 1e-8) at ``lrate * 0.1 ** (n / lrate_decay)`` for
   update ``n`` counted from 0 (optax's count); ``steps_per_opt > 1``
   averages the micro-steps' gradients (Welford, as ``optax.MultiSteps``)
@@ -58,6 +70,7 @@ from tgtc_torch.parallel import DataGroup, is_main_process
 from tgtc_torch.render.fast import _points_t, render_in_blocks
 from tgtc_torch.render.volume import RenderSettings, render_rays
 from tgtc_torch.train.checkpoint import CheckpointManager
+from tgtc_torch.train.graphs import Forward, Grads, StepGraphs, loss_and_grad
 from tgtc_torch.utils.logging import MetricsLogger, SegmentTimer, span
 from tgtc_torch.utils.seeds import step_seed
 
@@ -178,6 +191,10 @@ LossFn = Callable[[NerfMLP, NerfMLP, torch.Tensor, torch.Tensor, torch.Tensor, S
                   Tuple[torch.Tensor, torch.Tensor]]
 
 
+def _draw_tensors(draws: StepDraws) -> List[Optional[torch.Tensor]]:
+    return [getattr(draws, f.name) for f in dataclasses.fields(draws)]
+
+
 class TrainStep:
     """``step(state, rays_o, rays_d, rgb_gt, generator=None, draws=None) ->
     (state, metrics)``: gathers the batch, renders, backpropagates and
@@ -187,13 +204,27 @@ class TrainStep:
     Under ``group`` the draws are the global batch's (``batch_size`` rays);
     :meth:`loss_and_grad` runs on this rank's rows of them and its metrics
     and gradients are this rank's, and :meth:`apply` averages the gradients
-    over the ranks before the update."""
+    over the ranks before the update.
+
+    ``graphs``, which :func:`make_fused_train_step` gives its step, replays
+    a call's :meth:`loss_and_grad` work on the card from CUDA graphs (the
+    module's docstring); ``captures`` and ``replays`` count how often it
+    captured and replayed them."""
 
     def __init__(self, loss_fn: LossFn, cfg: NerfTrainConfig, device: DeviceLike = None,
                  group: DataGroup = DataGroup()):
         self.loss_fn, self.cfg, self.group = loss_fn, cfg, group
         self.device = resolve_device(device)
         group.local_size(cfg.batch_size)  # refuses a batch the group does not split
+        self.graphs: Optional[StepGraphs] = None
+
+    @property
+    def captures(self) -> int:
+        return 0 if self.graphs is None else self.graphs.captures
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graphs is None else self.graphs.replays
 
     def draw(self, n_rays: int, generator: Optional[torch.Generator] = None) -> StepDraws:
         c = self.cfg
@@ -211,20 +242,32 @@ class TrainStep:
         """Loss, metrics and the gradients of both trunks' parameters
         (coarse then fine, in ``parameters()`` order), before any update;
         under a group, of this rank's rows of ``draws``."""
-        with span("tgtc.step.forward"):
-            draws = StepDraws(*(self.group.rows(getattr(draws, f.name))
-                                for f in dataclasses.fields(draws)))
-            idx = draws.idx
-            loss_c, loss_f = self.loss_fn(coarse, fine, rays_o[idx], rays_d[idx], rgb_gt[idx],
-                                          draws)
-            loss = loss_c + loss_f
-            loss_c, loss_f = loss_c.detach(), loss_f.detach()
-            metrics = {"loss": loss.detach(), "loss_coarse": loss_c, "loss_fine": loss_f,
-                       "psnr": mse2psnr(loss_c), "psnr_fine": mse2psnr(loss_f)}
-        with span("tgtc.step.backward"):
-            grads = torch.autograd.grad(loss, list(coarse.parameters())
-                                        + list(fine.parameters()))
-        return metrics, list(grads)
+        return loss_and_grad(*self._phases(coarse, fine, rays_o, rays_d, rgb_gt),
+                             _draw_tensors(draws))
+
+    def _phases(self, coarse: NerfMLP, fine: NerfMLP, rays_o: torch.Tensor,
+                rays_d: torch.Tensor, rgb_gt: torch.Tensor) -> Tuple[Forward, Grads]:
+        """The step's forward of the draws' fields and its gradients."""
+        return (lambda *d: self._forward(coarse, fine, rays_o, rays_d, rgb_gt, StepDraws(*d)),
+                lambda loss: self._grads(coarse, fine, loss))
+
+    def _forward(self, coarse: NerfMLP, fine: NerfMLP, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor, rgb_gt: torch.Tensor, draws: StepDraws
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss and the detached metrics of this rank's rows."""
+        draws = StepDraws(*(self.group.rows(t) for t in _draw_tensors(draws)))
+        idx = draws.idx
+        loss_c, loss_f = self.loss_fn(coarse, fine, rays_o[idx], rays_d[idx], rgb_gt[idx],
+                                      draws)
+        loss = loss_c + loss_f
+        loss_c, loss_f = loss_c.detach(), loss_f.detach()
+        return loss, {"loss": loss.detach(), "loss_coarse": loss_c, "loss_fine": loss_f,
+                      "psnr": mse2psnr(loss_c), "psnr_fine": mse2psnr(loss_f)}
+
+    @staticmethod
+    def _grads(coarse: NerfMLP, fine: NerfMLP, loss: torch.Tensor) -> List[torch.Tensor]:
+        return list(torch.autograd.grad(loss, list(coarse.parameters())
+                                        + list(fine.parameters())))
 
     def apply(self, state: NerfTrainState, grads: List[torch.Tensor]) -> None:
         """One optimizer update, or one micro-step of ``steps_per_opt``; the
@@ -255,8 +298,17 @@ class TrainStep:
         if draws is None:
             with span("tgtc.step.draw"):
                 draws = self.draw(rays_o.shape[0], generator)
-        metrics, grads = self.loss_and_grad(state.coarse, state.fine, rays_o, rays_d,
-                                            rgb_gt, draws)
+        if self.graphs is not None and rays_o.is_cuda:
+            key = (state.coarse, state.fine,
+                   *((id(t), t.data_ptr(), t.shape, t.stride(), t.dtype, t.device)
+                     for t in (rays_o, rays_d, rgb_gt)),
+                   (self.group.rank, self.group.world))
+            metrics, grads = self.graphs(key, _draw_tensors(draws),
+                                         *self._phases(state.coarse, state.fine, rays_o,
+                                                       rays_d, rgb_gt))
+        else:
+            metrics, grads = self.loss_and_grad(state.coarse, state.fine, rays_o, rays_d,
+                                                rgb_gt, draws)
         with span("tgtc.step.optimizer"):
             self.apply(state, grads)
             state.step += 1
@@ -267,7 +319,11 @@ def make_train_step(train_cfg: NerfTrainConfig, device: DeviceLike = None,
                     group: DataGroup = DataGroup()) -> TrainStep:
     """The eager Phase-A step on ``device`` (default the card): autograd
     through ``render_rays`` in each trunk's ``compute_dtype``; over
-    ``group``'s processes (see :class:`TrainStep`)."""
+    ``group``'s processes (see :class:`TrainStep`). It stays eager on the
+    card too, without :class:`~tgtc_torch.train.graphs.StepGraphs`: it
+    serves every trunk and render setting, whose capture no test holds to
+    the eager step, and it is the eager step the fused one is checked
+    against on the card."""
     train_cfg.n_fine_eval  # checks the budget
     settings = train_cfg.render_settings(perturb=True)
 
@@ -303,8 +359,8 @@ def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
                           group: DataGroup = DataGroup()) -> TrainStep:
     """The Phase-A step on the fused trunk, on ``device`` (default the
     card): both passes run K1 forward under autograd and K3 backward (their
-    plain twins for CPU tensors); over ``group``'s processes (see
-    :class:`TrainStep`)."""
+    plain twins for CPU tensors), replayed from CUDA graphs on the card;
+    over ``group``'s processes (see :class:`TrainStep`)."""
     if not fused_train_supported(nerf_cfg, fine_cfg):
         raise ValueError(
             "make_fused_train_step preconditions not met (relu trunk, use_viewdir, "
@@ -341,7 +397,9 @@ def make_fused_train_step(nerf_cfg: NerfConfig, train_cfg: NerfTrainConfig,
         comp_f, _ = run_pass(fine, b_o, b_d, ts_f, dr.noise_fine, deltas_f)
         return img2mse(comp_c.rgb, b_rgb), img2mse(comp_f.rgb, b_rgb)
 
-    return TrainStep(loss_fn, train_cfg, device, group)
+    step = TrainStep(loss_fn, train_cfg, device, group)
+    step.graphs = StepGraphs()
+    return step
 
 
 # ---------------------------------------------------------------- rendering
@@ -486,7 +544,9 @@ def train_nerf(
     ``train_cfg.train_fine_budget`` must be None.
 
     The step is fused (K1 + K3) exactly when ``fused`` is set, the device is
-    a card and :func:`fused_train_supported` holds, else eager. The host
+    a card and :func:`fused_train_supported` holds, else eager; the fused
+    step replays from CUDA graphs that each budget segment captures anew
+    (:class:`TrainStep`). The host
     syncs with the device only at log steps (every ``i_print`` steps and the
     last; one fetch of the window's losses and the metrics) and checkpoint
     steps (every :data:`CKPT_EVERY` steps and the last, saved asynchronously;
@@ -540,6 +600,9 @@ def train_nerf(
 
     def step_for(budget: Optional[int]) -> TrainStep:
         if budget not in step_fns:
+            # a schedule only tightens, so a segment left is not met again: drop its
+            # step, whose graphs hold device memory
+            step_fns.clear()
             tc = dataclasses.replace(train_cfg, train_fine_budget=budget)
             step_fns[budget] = (make_fused_train_step(nerf_cfg, tc, fine_cfg, dev, group)
                                 if use_fused else make_train_step(tc, dev, group))

@@ -19,13 +19,12 @@ the update count from 0 (optax's count).
   choice made for the TPU).
 * Metrics are 0-d device tensors, fetched only when logged.
 * On the card, :meth:`TransformerTrainStep.__call__` replays the step's
-  forward and backward from two CUDA graphs on one memory pool
-  (:class:`StepGraphs`): a batch key's first call runs eagerly (the
-  warm-up: library handles, lazy kernel loads), its second captures the
-  graphs and replays them, every later one replays. The draws are the
-  eager step's: the step's generator is registered with both graphs and
-  re-seeded before each replay. The update stays eager, outside the
-  graphs. ``captures`` and ``replays`` count the two events.
+  forward and backward from two CUDA graphs
+  (:class:`~tgtc_torch.train.graphs.StepGraphs`; a batch key's first call
+  runs eagerly, its second captures). The draws are the eager step's: the
+  step's generator is registered with both graphs and re-seeded before
+  each replay. The update stays eager, outside the graphs. ``captures``
+  and ``replays`` count the two events.
 * A step opens the sibling profiler spans ``tgtc.step.draw`` (seeding its
   own generator), ``.forward`` (the losses and their weighted sum),
   ``.backward`` (``torch.autograd.grad``) and ``.optimizer`` (the update
@@ -60,6 +59,7 @@ import torch
 
 from tgtc_torch.models.stytrans import StyTrans
 from tgtc_torch.parallel import DataGroup
+from tgtc_torch.train.graphs import Forward, Grads, StepGraphs, loss_and_grad
 from tgtc_torch.utils.img import from_uint8, to_uint8
 from tgtc_torch.utils.logging import span
 from tgtc_torch.utils.seeds import step_seed
@@ -117,22 +117,6 @@ class TransformerTrainState:
         self.scheduler.load_state_dict(sd["scheduler"])
 
 
-@dataclasses.dataclass
-class StepGraphs:
-    """One batch key's step on the card: ``forward`` reads the static inputs
-    ``content``/``style`` and writes the metrics ``names``, stacked in
-    ``metrics``; ``backward`` writes the trained parameters' gradients
-    ``grads``. Replayed in that order, which is the order of capture."""
-
-    forward: torch.cuda.CUDAGraph
-    backward: torch.cuda.CUDAGraph
-    content: torch.Tensor
-    style: torch.Tensor
-    names: Tuple[str, ...]
-    metrics: torch.Tensor
-    grads: List[torch.Tensor]
-
-
 def trained_parameters(model: StyTrans, train_keys: Sequence[str] = TRAIN_KEYS
                        ) -> List[Tuple[str, torch.nn.Parameter]]:
     """``(name, parameter)`` of every parameter of the top-level submodules
@@ -170,9 +154,15 @@ class TransformerTrainStep:
                  train_keys: Sequence[str] = TRAIN_KEYS, group: DataGroup = DataGroup()):
         self.model, self.cfg, self.train_keys, self.group = model, cfg, train_keys, group
         self._generator: Optional[torch.Generator] = None
-        self.captures = self.replays = 0
-        self._key: Optional[tuple] = None  # the last card call's batch key
-        self._graphs: Optional[StepGraphs] = None
+        self.graphs = StepGraphs()
+
+    @property
+    def captures(self) -> int:
+        return self.graphs.captures
+
+    @property
+    def replays(self) -> int:
+        return self.graphs.replays
 
     def generator(self, seed: int, step: int) -> torch.Generator:
         """The step's generator on the model's device, seeded from (seed, step)."""
@@ -187,11 +177,13 @@ class TransformerTrainStep:
         """The metrics and the gradients of ``model``'s trained parameters
         (in :func:`trained_parameters` order), before any update; under a
         group, of this rank's rows of the batches."""
-        with span("tgtc.step.forward"):
-            loss, metrics = self._forward(model, content, style, generator)
-        with span("tgtc.step.backward"):
-            grads = self.grads(model, loss)
-        return metrics, grads
+        return loss_and_grad(*self._phases(model, generator), (content, style))
+
+    def _phases(self, model: StyTrans, generator: Optional[torch.Generator]
+                ) -> Tuple[Forward, Grads]:
+        """The step's forward of ``(content, style)`` and its gradients."""
+        return (lambda c, s: self._forward(model, c, s, generator),
+                lambda loss: self.grads(model, loss))
 
     def _rows(self, b: int):
         g = self.group
@@ -236,61 +228,15 @@ class TransformerTrainStep:
             with span("tgtc.step.draw"):
                 generator = self.generator(seed, state.step)
         if content.is_cuda:
-            metrics, grads = self._graphed(state.model, content, style, generator)
+            key = (state.model, self._rows(content.shape[0]))
+            metrics, grads = self.graphs(key, (content, style),
+                                         *self._phases(state.model, generator), generator)
         else:
             metrics, grads = self.loss_and_grad(state.model, content, style, generator)
         with span("tgtc.step.optimizer"):
             self.apply(state, grads)
             state.step += 1
         return state, metrics
-
-    def _graphed(self, model: StyTrans, content: torch.Tensor, style: torch.Tensor,
-                 generator: torch.Generator
-                 ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
-        """:meth:`loss_and_grad` on the card: eager on a batch key's first
-        call, from the key's graphs after (captured on its second call).
-        A new key drops the graphs held. The metrics are copied out of the
-        graphs' memory; the gradients stay there, overwritten by the next
-        replay."""
-        key = (model, generator, content.device, content.shape, content.dtype, style.shape,
-               style.dtype, self._rows(content.shape[0]),
-               torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
-        if key != self._key:
-            self._key, self._graphs = key, None
-            return self.loss_and_grad(model, content, style, generator)
-        if self._graphs is None:
-            self._graphs = self._capture(model, content, style, generator)
-            self.captures += 1
-        gr = self._graphs
-        with span("tgtc.step.forward"):
-            gr.content.copy_(content)
-            gr.style.copy_(style)
-            gr.forward.replay()
-            metrics = gr.metrics.clone()
-        with span("tgtc.step.backward"):
-            gr.backward.replay()
-        self.replays += 1
-        return dict(zip(gr.names, metrics.unbind())), gr.grads
-
-    def _capture(self, model: StyTrans, content: torch.Tensor,
-                 style: torch.Tensor, generator: torch.Generator) -> StepGraphs:
-        """Capture the forward and the backward of ``content``/``style``'s
-        key. Nothing runs: the parameters, the optimizer and the generator's
-        seed and offset are as they were (a replay reads the generator's
-        seed and offset then, and moves the offset as the eager step
-        would). ``thread_local``: the loop's prefetchers and checkpoint
-        copies run in other threads meanwhile."""
-        fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        for graph in (fwd, bwd):
-            graph.register_generator_state(generator)
-        static_c, static_s = torch.empty_like(content), torch.empty_like(style)
-        pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.graph(fwd, pool=pool, capture_error_mode="thread_local"):
-            loss, metrics = self._forward(model, static_c, static_s, generator)
-            stacked = torch.stack(list(metrics.values()))
-        with torch.cuda.graph(bwd, pool=pool, capture_error_mode="thread_local"):
-            grads = self.grads(model, loss)
-        return StepGraphs(fwd, bwd, static_c, static_s, tuple(metrics), stacked, grads)
 
 
 def make_transformer_train_step(model: StyTrans, cfg: TransformerTrainConfig,
